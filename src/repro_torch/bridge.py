@@ -1,0 +1,33 @@
+"""Load the JAX package's parameters into the port.
+
+``params_from_numpy`` takes the JAX params as nested dicts of numpy
+arrays (the ``repro.models.transformer.init_params`` pytree, converted
+leaf by leaf with ``np.asarray(leaf, np.float32)``: numpy has no bf16)
+and returns the port's params on ``device`` in the config's dtype. The
+f32 round trip of bf16 values is exact.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, dtype_of, resolve_device
+from repro_torch.configs.base import ArchConfig
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype != np.float32:
+            raise TypeError(f"expected float32 leaves, got {arr.dtype}")
+        return torch.tensor(arr, dtype=dtype, device=dev)
+
+    return convert(tree)

@@ -1,0 +1,191 @@
+"""Ternary quantization primitives (PyTorch counterpart of
+``repro/core/ternary.py``).
+
+  * threshold ternarization (TWN, factor 0.7) with a per-tensor or
+    per-axis scale,
+  * the differential (M1, M2) bitplane encoding of the SiTe CiM cell
+    (W=+1 -> M1=1,M2=0; W=-1 -> M1=0,M2=1; W=0 -> M1=M2=0),
+  * 8-way bit packing of each plane into uint8 along K (bit j of byte r
+    is row 8r+j), the two plane layouts and :class:`PackedPlanes`.
+
+The STE wrappers of the JAX module belong to training and are not
+ported in this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+TWN_THRESHOLD_FACTOR = 0.7
+
+Axis = Union[None, int, Sequence[int]]
+
+
+def _axes(x: torch.Tensor, axis: Axis) -> Optional[Tuple[int, ...]]:
+    if axis is None:
+        return None
+    if isinstance(axis, int):
+        axis = (axis,)
+    return tuple(a % x.ndim for a in axis)
+
+
+def ternary_threshold(x: torch.Tensor, axis: Axis = None,
+                      factor: float = TWN_THRESHOLD_FACTOR) -> torch.Tensor:
+    """delta = factor * mean(|x|) (optionally per-channel along ``axis``).
+    The factor is rounded to x's dtype first, as the reference's weakly
+    typed scalar is (this matters in bf16)."""
+    absx = x.abs()
+    axes = _axes(x, axis)
+    factor = torch.tensor(factor, dtype=x.dtype, device=x.device)
+    if axes is None:
+        return factor * absx.mean()
+    return factor * absx.mean(dim=axes, keepdim=True)
+
+
+def ternarize(x: torch.Tensor, axis: Axis = None,
+              factor: float = TWN_THRESHOLD_FACTOR
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``x`` to {-1, 0, +1} * scale. Returns ``(t, scale)`` with
+    ``t`` in the dtype of x and ``scale = E[|x| : |x| > delta]``."""
+    delta = ternary_threshold(x, axis=axis, factor=factor)
+    mask = (x.abs() > delta).to(x.dtype)
+    t = torch.sign(x) * mask
+    axes = _axes(x, axis)
+    if axes is None:
+        num = (x.abs() * mask).sum()
+        den = torch.clamp(mask.sum(), min=1.0)
+    else:
+        num = (x.abs() * mask).sum(dim=axes, keepdim=True)
+        den = torch.clamp(mask.sum(dim=axes, keepdim=True), min=1.0)
+    return t, (num / den).to(x.dtype)
+
+
+def to_bitplanes(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ternary {-1,0,1} -> (M1, M2) uint8 bitplanes."""
+    return (t > 0).to(torch.uint8), (t < 0).to(torch.uint8)
+
+
+def from_bitplanes(m1: torch.Tensor, m2: torch.Tensor,
+                   dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """(M1, M2) -> ternary; the illegal (1,1) state decodes as 0."""
+    return (m1.to(torch.int32) - m2.to(torch.int32)).to(dtype)
+
+
+def _pack_plane(plane: torch.Tensor, axis: int) -> torch.Tensor:
+    k = plane.shape[axis]
+    moved = plane.movedim(axis, 0).to(torch.int32)
+    grouped = moved.reshape((k // 8, 8) + tuple(moved.shape[1:]))
+    shift = torch.arange(8, dtype=torch.int32, device=plane.device)
+    shift = shift.reshape((1, 8) + (1,) * (grouped.ndim - 2))
+    packed = (grouped << shift).sum(dim=1).to(torch.uint8)
+    return packed.movedim(0, axis).contiguous()
+
+
+def pack_ternary(t: torch.Tensor, axis: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack ternary values along ``axis`` (length divisible by 8) into two
+    uint8 bitplane arrays of 1/8 the length."""
+    axis = axis % t.ndim
+    k = t.shape[axis]
+    if k % 8 != 0:
+        raise ValueError(f"pack axis length {k} not divisible by 8")
+    m1, m2 = to_bitplanes(t)
+    return _pack_plane(m1, axis), _pack_plane(m2, axis)
+
+
+def _unpack_plane(packed: torch.Tensor, axis: int) -> torch.Tensor:
+    moved = packed.movedim(axis, 0).to(torch.int32)
+    shift = torch.arange(8, dtype=torch.int32, device=packed.device)
+    shift = shift.reshape((1, 8) + (1,) * (moved.ndim - 1))
+    bits = (moved[:, None] >> shift) & 1
+    flat = bits.reshape((moved.shape[0] * 8,) + tuple(moved.shape[1:]))
+    return flat.movedim(0, axis)
+
+
+def unpack_ternary(p1: torch.Tensor, p2: torch.Tensor, axis: int = 0,
+                   dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Inverse of :func:`pack_ternary`."""
+    axis = axis % p1.ndim
+    return from_bitplanes(_unpack_plane(p1, axis), _unpack_plane(p2, axis),
+                          dtype=dtype)
+
+
+# Plane storage layouts (PackedPlanes.layout_version):
+#   0 — legacy: pos/neg are two separate (..., K/8, N) byte planes.
+#   1 — K-major plane-interleaved: ``pos`` holds one (..., K/4, N) array
+#       whose byte-rows alternate pos/neg; ``neg`` is an empty
+#       (..., 0, N) placeholder.
+PLANE_LAYOUT_LEGACY = 0
+PLANE_LAYOUT_STREAM = 1
+
+
+def interleave_planes(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """(..., K/8, N) pos/neg byte planes -> one (..., K/4, N) array with
+    alternating pos/neg byte-rows (layout version 1)."""
+    if pos.shape != neg.shape:
+        raise ValueError(f"plane shape mismatch: {tuple(pos.shape)} vs "
+                         f"{tuple(neg.shape)}")
+    stacked = torch.stack([pos, neg], dim=-2)  # (..., K/8, 2, N)
+    return stacked.reshape(tuple(pos.shape[:-2])
+                           + (2 * pos.shape[-2], pos.shape[-1]))
+
+
+def deinterleave_planes(w_int: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`interleave_planes`: (..., K/4, N) -> two
+    (..., K/8, N) byte planes (strided views)."""
+    rows = w_int.shape[-2]
+    if rows % 2 != 0:
+        raise ValueError(f"interleaved plane rows {rows} not even")
+    split = w_int.reshape(tuple(w_int.shape[:-2])
+                          + (rows // 2, 2, w_int.shape[-1]))
+    return split[..., 0, :], split[..., 1, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPlanes:
+    """Stored 2-bit bitplanes in the canonical kernel layout.
+
+    ``pos``/``neg`` are the packed (M1, M2) uint8 planes, padded along
+    their last two dims to the packed kernels' tile granularity;
+    ``scale`` is the per-output-channel weight scale over the logical
+    channels; ``k``/``n`` are the logical contraction/output dims.
+    ``layout_version`` selects the storage ordering (``PLANE_LAYOUT_*``).
+    Iterating yields ``(pos, neg, scale)`` in the legacy view. Stacked
+    (L, K/8, N) planes are sliced per layer with :meth:`layer`.
+    """
+
+    pos: torch.Tensor
+    neg: torch.Tensor
+    scale: torch.Tensor
+    k: int
+    n: int
+    layout_version: int = PLANE_LAYOUT_LEGACY
+
+    def __iter__(self):
+        return iter(self.planes() + (self.scale,))
+
+    def planes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The two separate (..., K/8, N) byte planes (legacy view)."""
+        if self.layout_version == PLANE_LAYOUT_STREAM:
+            return deinterleave_planes(self.pos)
+        return self.pos, self.neg
+
+    def interleaved(self) -> torch.Tensor:
+        """The (..., K/4, N) plane-interleaved array (layout version 1)."""
+        if self.layout_version == PLANE_LAYOUT_STREAM:
+            return self.pos
+        return interleave_planes(self.pos, self.neg)
+
+    def layer(self, i: int) -> "PackedPlanes":
+        """One layer's (K/8, N) planes from a stacked (L, K/8, N) entry."""
+        if self.pos.ndim < 3:
+            raise ValueError(
+                f"layer() needs stacked (L, K/8, N) planes, got "
+                f"{tuple(self.pos.shape)}")
+        return PackedPlanes(
+            pos=self.pos[i], neg=self.neg[i], scale=self.scale[i],
+            k=self.k, n=self.n, layout_version=self.layout_version,
+        )

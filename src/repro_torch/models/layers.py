@@ -1,0 +1,183 @@
+"""Shared building blocks (PyTorch counterpart of
+``repro/models/layers.py``).
+
+Every weight-bearing matmul flows through :func:`dense`, whose
+``QuantConfig`` mode switches the paper's technique on:
+
+  * mode="off"     — plain matmul (fp baseline),
+  * mode="ternary" — ternarized weights and activations, exact matmul,
+  * mode="cim"     — ternarized weights and activations through the SiTe
+                     CiM array semantics (16-row block ADC clamp) via
+                     ``core.execution.execute``; on CUDA tensors that is
+                     the hand-written kernel of ``csrc/ternary_mac.cu``.
+
+Scales fold after the ternary MAC: output = (x_t @ w_t) * sx * sw, with
+a per-tensor (default) or per-row activation scale and a per-output-
+channel weight scale. The port is inference-only in this slice: no STE.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import ternary as tern
+from repro_torch.core.execution import CiMExecSpec, execute as exec_mac
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Paper-technique mode switch.
+
+    mode: off | ternary | cim | cim_fused (see the module docstring;
+      cim_fused is the fused two-dot formulation, numerically exact).
+    act_scale: "per_tensor" couples every row of a batched MAC through
+      one amax; "per_row" scales each (..., K) row independently, so
+      fused-batch rows are numerically independent.
+    exec_spec: explicit execution spec, overriding the mode-derived one.
+    pre_quantized: weights were ternarized offline (quant.prepare) with
+      the per-channel scale folded in; dense() recovers the codes with
+      one max-reduce instead of the threshold quantizer.
+    """
+    mode: str = "off"
+    block: int = 16
+    adc_max: int = 8
+    quantize_activations: bool = True
+    act_scale: str = "per_tensor"
+    corrected: bool = False
+    threshold_factor: float = tern.TWN_THRESHOLD_FACTOR
+    exec_spec: Optional[CiMExecSpec] = None
+    pre_quantized: bool = False
+
+    def __post_init__(self):
+        if self.mode not in ("off", "ternary", "cim", "cim_fused"):
+            raise ValueError(self.mode)
+        if self.act_scale not in ("per_tensor", "per_row"):
+            raise ValueError(
+                f"unknown act_scale {self.act_scale!r} (per_tensor | per_row)")
+        if self.mode == "off" and self.exec_spec is not None:
+            raise ValueError(
+                "exec_spec has no effect with mode='off'; pick a quantized "
+                "mode (serve.engine.apply_exec_spec upgrades the mode)")
+
+    def resolved_spec(self) -> CiMExecSpec:
+        """The CiMExecSpec this config executes ternary MACs under."""
+        if self.exec_spec is not None:
+            return self.exec_spec
+        if self.mode == "off":
+            raise ValueError("mode='off' has no CiM execution spec")
+        if self.mode == "ternary":
+            return CiMExecSpec(formulation="exact", backend="torch",
+                               block=self.block, adc_max=self.adc_max)
+        if self.mode == "cim_fused":
+            return CiMExecSpec(formulation="fused", backend="torch",
+                               block=self.block, adc_max=self.adc_max)
+        formulation = "corrected" if self.corrected else "blocked"
+        backend = "torch" if self.corrected else "auto"
+        return CiMExecSpec(formulation=formulation, backend=backend,
+                           block=self.block, adc_max=self.adc_max)
+
+
+def _weight_codes(w: torch.Tensor, qc: QuantConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes in {-1,0,1} in w's dtype, per-output-channel scale (.., 1, N))."""
+    axes = tuple(range(w.ndim - 1))
+    if qc.pre_quantized:
+        # folded offline to {-s_n, 0, +s_n}: one max-reduce recovers (t, s)
+        sw = w.abs().amax(dim=axes, keepdim=True)
+        return w / torch.clamp(sw, min=1e-12), sw
+    return tern.ternarize(w, axis=axes, factor=qc.threshold_factor)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
+          bias: Optional[torch.Tensor] = None,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The mode-switched linear layer. x: (..., K), w: (K, N).
+
+    Clamping specs receive the weight as int8 codes made straight from
+    the stored weight (one byte per weight into the kernel) and the
+    activation codes in f32, as the reference passes them."""
+    if qc.mode == "off":
+        out = x @ w.to(x.dtype)
+    else:
+        w_t, sw = _weight_codes(w, qc)
+        if qc.quantize_activations:
+            axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None
+            x_t, sx = tern.ternarize(x, axis=axis, factor=qc.threshold_factor)
+        else:
+            x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
+        spec = qc.resolved_spec()
+        if spec.resolve(x.device).clamps:
+            out = exec_mac(spec, x_t.to(torch.float32), w_t.to(torch.int8),
+                           generator=generator)
+        else:
+            out = exec_mac(spec, x_t.to(x.dtype), w_t.to(x.dtype),
+                           generator=generator)
+        # fold scales in the activation dtype, as the reference does
+        out = out.to(x.dtype) * (sx * sw).to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    # silu as x * 1/(1 + exp(-x)), each step rounded in the input dtype:
+    # bit-identical to the reference's bf16 silu on the CPU
+    return x_gate * (1 / (1 + torch.exp(-x_gate))) * x_up
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, Dh), positions: (B, S) int."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_dense_weight(generator: torch.Generator, shape, dtype,
+                      device) -> torch.Tensor:
+    """N(0, 1/fan_in) weights, fan_in = shape[-2] (the contraction dim)."""
+    w = torch.randn(shape, generator=generator, device=device) * shape[-2] ** -0.5
+    return w.to(dtype)
+
+
+def mlp(params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
+    g = dense(x, params["w_gate"], qc)
+    u = dense(x, params["w_up"], qc)
+    return dense(swiglu(g, u), params["w_down"], qc)
