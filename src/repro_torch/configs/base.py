@@ -23,7 +23,6 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None        # defaults to d_model // n_heads
     rope_theta: float = 10000.0
-    norm: str = "rmsnorm"
     tie_embeddings: bool = False
     quant: QuantConfig = QuantConfig(mode="off")
     quantize_unembed: bool = False

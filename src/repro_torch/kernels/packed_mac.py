@@ -64,19 +64,22 @@ def packed_matmul_plain(x: torch.Tensor, w_pos: torch.Tensor,
     return out[:, :n_out]
 
 
-def _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode):
+def _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode) -> bool:
+    """Launch the kernel into ``out``; False when the output is empty and
+    nothing was launched."""
     if w_pos.stride(1) != 1 or w_neg.stride(1) != 1 or not x.is_contiguous():
         raise ValueError("the CUDA kernel needs contiguous x and unit "
                          "column stride planes")
     m, kx = x.shape
     if m == 0 or n_out == 0:
-        return
+        return False
     with torch.cuda.device(x.device):
         _build.launch(
             "packed_cim_mac", x.data_ptr(), w_pos.data_ptr(),
             w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
             w_pos.stride(0), w_neg.stride(0), n_out, int(adc_max), int(cim),
             int(decode), _build.stream_ptr(x.device))
+    return True
 
 
 def _cuda_ok(x, block):
@@ -102,8 +105,8 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
                                    adc_max=adc_max, cim=cim).to(torch.int32)
     _cuda_ok(x, block)
     out = torch.empty((x.shape[0], n_out), dtype=torch.int32, device=x.device)
-    _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=True)
-    packed_cim_matmul_decode.launches += 1
+    if _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=True):
+        packed_cim_matmul_decode.launches += 1
     return out
 
 
@@ -119,8 +122,8 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
                                    adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
     out = torch.empty((x.shape[0], n_out), dtype=torch.float32, device=x.device)
-    _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=False)
-    packed_cim_matmul.launches += 1
+    if _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=False):
+        packed_cim_matmul.launches += 1
     return out
 
 

@@ -1,0 +1,116 @@
+"""The port's hand-written CUDA kernels on the card.
+
+Every test here is marked ``cuda`` and skips without a GPU. The module
+imports neither JAX nor the JAX package, so it also runs on a machine
+that has only PyTorch; there, skip the JAX-importing ``conftest.py``:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.core.ternary import deinterleave_planes, interleave_planes, pack_ternary
+from repro_torch.kernels import packed_mac as pm
+from repro_torch.kernels import ternary_mac as tm
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_config
+from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels build there)")
+    return torch.device("cuda")
+
+
+def _launches():
+    return (tm.ternary_cim_matmul.launches, pm.packed_cim_matmul_decode.launches,
+            pm.packed_cim_matmul.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(576, 576), (576, 1536), (1536, 576), (40, 33)])
+def test_cuda_kernels_bit_exact(cuda_device, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    for m in (1, 3, 8, 64, 200):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        torch.testing.assert_close(tm.ternary_cim_matmul(x, w),
+                                   tm.ternary_cim_matmul_plain(x, w), rtol=0, atol=0)
+        wz = torch.zeros((-(-k // 256) * 256, n + 5), dtype=torch.int8,
+                         device=cuda_device)
+        wz[:k, :n] = w
+        p1, p2 = pack_ternary(wz, axis=0)
+        # plane layout 1: the de-interleaved planes are strided views
+        v1, v2 = deinterleave_planes(interleave_planes(p1, p2))
+        for cim in (True, False):
+            plain = pm.packed_matmul_plain(x, p1, p2, n_out=n, cim=cim)
+            for a, b in ((p1, p2), (v1, v2)):
+                if m <= 8:
+                    got = pm.packed_cim_matmul_decode(x, a, b, n_out=n, cim=cim)
+                    torch.testing.assert_close(got, plain.to(torch.int32),
+                                               rtol=0, atol=0)
+                got = pm.packed_cim_matmul(x, a, b, n_out=n, cim=cim)
+                torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_launches_only(cuda_device):
+    w = torch.ones((32, 8), dtype=torch.int8, device=cuda_device)
+    planes = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
+    before = _launches()
+    empty = torch.zeros((0, 32), dtype=torch.int8, device=cuda_device)
+    assert tm.ternary_cim_matmul(empty, w).shape == (0, 8)
+    assert pm.packed_cim_matmul_decode(empty, planes, planes).shape == (0, 8)
+    assert pm.packed_cim_matmul(empty, planes, planes).shape == (0, 8)
+    assert _launches() == before            # nothing was launched
+    x = torch.ones((2, 32), dtype=torch.int8, device=cuda_device)
+    assert torch.equal(tm.ternary_cim_matmul(x, w),
+                       torch.full((2, 8), 16.0, device=cuda_device))
+    pm.packed_cim_matmul_decode(x, planes, planes)
+    pm.packed_cim_matmul(x, planes, planes)
+    torch.cuda.synchronize()
+    assert _launches() == tuple(c + 1 for c in before)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
+    x = torch.ones((2, 32), dtype=torch.int8, device=cuda_device)
+    w = torch.ones((8, 32), dtype=torch.int8, device=cuda_device).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        tm.ternary_cim_matmul(x, w)
+    with pytest.raises(ValueError, match="block=16"):
+        tm.ternary_cim_matmul(x, w.contiguous(), block=8)
+    with pytest.raises(ValueError, match="different devices"):
+        pm.packed_cim_matmul(x, torch.zeros((4, 8), dtype=torch.uint8),
+                             torch.zeros((4, 8), dtype=torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_serving_matches_generate(cuda_device):
+    """Smoke-size serving on the card: every quantized dense layer is one
+    launch of kernel #1, and fused tokens == generate() under per_row."""
+    cfg = get_config("smollm-135m", smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, device=cuda_device)
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(5)]
+    for r in reqs:
+        batcher.submit(r)
+    before = tm.ternary_cim_matmul.launches
+    batcher.run()
+    st = batcher.stats()
+    steps = st["decode_steps"] + st["prefill_batches"]
+    assert st["host_syncs"] == steps
+    assert tm.ternary_cim_matmul.launches - before == 7 * cfg.n_layers * steps
+    for r in reqs:
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert r.done and r.generated == want, r.rid

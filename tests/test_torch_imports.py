@@ -8,7 +8,10 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the card-only tests run where JAX is not installed, so they are held to
+# the same rule
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

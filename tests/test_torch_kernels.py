@@ -3,9 +3,9 @@
 On the CPU each wrapper runs its kernel's plain PyTorch version; here it
 is held bit-exact against the Pallas kernel in interpret mode at
 one-tile shapes (kernels #1 ternary_cim_matmul, #2
-packed_cim_matmul_decode, #4 packed_cim_matmul). The tests marked
-``cuda`` hold the hand-written CUDA kernels against those plain versions
-on the card and skip without one.
+packed_cim_matmul_decode, #4 packed_cim_matmul). The CUDA kernels are
+held against those plain versions on the card by
+``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,40 +108,3 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         pm.packed_cim_matmul_decode(torch.zeros((9, 32), dtype=torch.int8),
                                     planes, planes)
-
-
-# ---------------------------------------------------------------------------
-# On the card: the CUDA kernels against their plain versions
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels build there)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,n", [(576, 576), (576, 1536), (1536, 576), (40, 33)])
-def test_cuda_kernels_bit_exact(cuda_device, k, n):
-    g = torch.Generator(device=cuda_device).manual_seed(k + n)
-    for m in (1, 3, 8, 64, 200):
-        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device,
-                          dtype=torch.int8)
-        w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device,
-                          dtype=torch.int8)
-        torch.testing.assert_close(tm.ternary_cim_matmul(x, w),
-                                   tm.ternary_cim_matmul_plain(x, w), rtol=0, atol=0)
-        wz = torch.zeros((-(-k // 256) * 256, n + 5), dtype=torch.int8,
-                         device=cuda_device)
-        wz[:k, :n] = w
-        p1, p2 = pack_ternary(wz, axis=0)
-        for cim in (True, False):
-            plain = pm.packed_matmul_plain(x, p1, p2, n_out=n, cim=cim)
-            if m <= 8:
-                got = pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim)
-                torch.testing.assert_close(got, plain.to(torch.int32), rtol=0, atol=0)
-            got = pm.packed_cim_matmul(x, p1, p2, n_out=n, cim=cim)
-            torch.testing.assert_close(got, plain, rtol=0, atol=0)
-    torch.cuda.synchronize()
