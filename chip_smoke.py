@@ -7,10 +7,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. card and build: the card's name and power limit, torch/CUDA
      versions, and the build of every kernel from ``src/repro_torch/csrc``;
   2. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, bit-exact, at the smollm-135m layer shapes; the device
-     time per call (CUDA-graph replay, weights rotated through more
-     memory than the L2 cache holds), the plain version's time and the
-     bound;
+     on the card, bit-exact, at the smollm-135m layer shapes and every M
+     the later phases give it, and on the very inputs it is timed on; the
+     device time per call (CUDA-graph replay, weights rotated through
+     more memory than the L2 cache holds), the plain version's time and
+     the bound;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
      (seeded random weights, 4 slots, s_max 256, 8 requests), with
      kernel #1's launch count = 210 x (decode steps + prefill batches);
@@ -42,6 +43,10 @@ LAYER_SHAPES = (("q", 576, 576), ("k", 576, 192), ("v", 576, 192),
                 ("o", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
                 ("down", 1536, 576))
 CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576))
+# M of the kernel checks: every M the serving phases launch (decode 4
+# slots; prefill 4 x pow2 bucket <= 64; generate() of one prompt of 1-16
+# tokens; the stored-plane phase's 4 and 128), plus a ragged 200
+CHECK_M = tuple(range(1, 17)) + (32, 64, 128, 200)
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
 
 
@@ -97,6 +102,13 @@ def graph_ms(torch, calls, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def plane_bytes(k: int, n: int) -> int:
+    """Bytes of the (M1, M2) planes that a (K, N) weight needs: 2 planes
+    of 2 bytes per 16-deep K block per column (the canonical K and N pads
+    are never read)."""
+    return 2 * 2 * -(-k // 16) * n
+
+
 def bound_parts(in_bytes: int, out_bytes: int, m: int, k: int, n: int):
     """(bytes ms, operations ms) of one call: its bytes (each input read
     once, the output written once) over HBM bandwidth, and the ternary
@@ -123,7 +135,7 @@ def reset_counts(tm, pm):
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, tm, pm, pack_ternary, dev):
+def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
     g = torch.Generator(device=dev).manual_seed(1234)
 
     def tern(shape):
@@ -149,14 +161,14 @@ def kernel_phase(torch, tm, pm, pack_ternary, dev):
     for k, n in CHECK_SHAPES:
         w = tern((k, n))
         p1, p2 = canonical_planes(w)
-        for m in (1, 3, 8, 64, 200):
+        for m in CHECK_M:
             x = tern((m, k))
             what = f"M={m} K={k} N={n}"
             check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
                   tm.ternary_cim_matmul_plain(x, w), what)
             for cim in (True, False):
                 plain = pm.packed_matmul_plain(x, p1, p2, n_out=n, cim=cim)
-                if m <= 8:
+                if m <= decode_m_max:
                     check("packed_cim_matmul_decode",
                           pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim),
                           plain.to(torch.int32), f"{what} cim={cim}")
@@ -166,8 +178,8 @@ def kernel_phase(torch, tm, pm, pack_ternary, dev):
                           plain, f"{what} cim={cim}")
         torch.cuda.synchronize()
     log("kernels: #1, #2 and #4 bit-exact against their plain versions at "
-        "(K,N) in " + str(list(CHECK_SHAPES)) + ", M in {1,3,8} (decode) / "
-        "{64,200} (prefill), cim on and off (tolerance 0)")
+        f"(K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 at M <= "
+        f"{decode_m_max}, #4 above), cim on and off (tolerance 0)")
 
     # timing: one decoder layer's 7 calls, each at its own (K, N)
     per_kernel = {}
@@ -184,6 +196,7 @@ def kernel_phase(torch, tm, pm, pack_ternary, dev):
                                    dtype=torch.int8)
                 calls = [lambda c=c: tm.ternary_cim_matmul(x, ws[c]) for c in range(copies)]
                 plain = [lambda: tm.ternary_cim_matmul_plain(x, ws[0])] * 10
+                want = plain[0]()
                 tb, to = bound_parts(m * k + k * n, 4 * m * n, m, k, n)
             else:
                 rows, cols = -(-k // 256) * 32, -(-n // 128) * 128
@@ -193,11 +206,14 @@ def kernel_phase(torch, tm, pm, pack_ternary, dev):
                                     device=dev, dtype=torch.uint8)
                 neg = torch.randint(0, 256, (copies, rows, cols), generator=g,
                                     device=dev, dtype=torch.uint8) & ~pos
-                fn = pm.packed_cim_matmul_decode if m <= 8 else pm.packed_cim_matmul
+                decode = m <= decode_m_max
+                fn = pm.packed_cim_matmul_decode if decode else pm.packed_cim_matmul
                 calls = [lambda c=c: fn(x, pos[c], neg[c], n_out=n)
                          for c in range(copies)]
                 plain = [lambda: pm.packed_matmul_plain(x, pos[0], neg[0], n_out=n)] * 10
-                tb, to = bound_parts(m * k + per, 4 * m * n, m, k, n)
+                want = plain[0]().to(torch.int32 if decode else torch.float32)
+                tb, to = bound_parts(m * k + plane_bytes(k, n), 4 * m * n, m, k, n)
+            check(name, calls[0](), want, f"the timed inputs {label} M={m}")
             t_k = graph_ms(torch, calls)
             t_p = graph_ms(torch, plain)
             log(f"{name} {label} M={m} K={k} N={n}: {t_k * 1e3:.2f} us/call "
@@ -396,7 +412,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.core.ternary import pack_ternary
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import DECODE_M_MAX, _build
     from repro_torch.kernels import packed_mac as pm
     from repro_torch.kernels import ternary_mac as tm
 
@@ -411,7 +427,8 @@ def main(argv=None) -> int:
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
 
-    per_kernel, errs = kernel_phase(torch, tm, pm, pack_ternary, torch.device("cuda"))
+    per_kernel, errs = kernel_phase(torch, tm, pm, pack_ternary, DECODE_M_MAX,
+                                    torch.device("cuda"))
     main_counts, plane_counts = serving_phases(torch, tm, pm, card)
 
     sources = {

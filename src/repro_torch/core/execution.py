@@ -16,13 +16,15 @@ Backends: ``torch`` is the plain formulation on any device (the
 counterpart of JAX's ``jnp``); ``cuda`` is the hand-written kernel of
 ``repro_torch/csrc`` (for a CPU tensor its wrapper runs the kernel's
 plain version); ``auto`` resolves from the operands' device: ``cuda``
-for CUDA tensors when the key is registered, else ``torch``.
+for CUDA tensors, ``torch`` otherwise. As JAX's ``auto`` always takes
+the kernel on the accelerator, a formulation without a CUDA kernel
+raises on CUDA operands rather than running its plain version there.
 
-The tile tables of the JAX package are kept: they define the shape
-class of a call (decode: M <= :data:`DECODE_M_MAX`) and the canonical
-stored-plane layout (:func:`canonical_plane_layout`), so prepared planes
-are byte-identical to the JAX ones. The CUDA kernels keep their K loop
-inside one block and choose their own M tile by shape class.
+The tile tables of the JAX package are kept for
+:func:`tiles_for` and the canonical stored-plane layout
+(:func:`canonical_plane_layout`), so prepared planes are byte-identical
+to the JAX ones. The CUDA kernels keep their K loop inside one block and
+choose their own M tile by :func:`shape_class`.
 
 Not ported in this slice: the STE backward, ``execute_tp`` /
 ``execute_packed_tp``, autotune, the profiler sink and the streaming
@@ -38,7 +40,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.core import ternary as tern
-from repro_torch.kernels import ref
+from repro_torch.kernels import DECODE_M_MAX, ref
 from repro_torch.kernels.packed_mac import (
     packed_cim_matmul,
     packed_cim_matmul_decode,
@@ -104,14 +106,11 @@ class CiMExecSpec:
 
     def resolve(self, device=None) -> "CiMExecSpec":
         """Fix "auto" to a concrete backend for ``device`` (the operands'
-        device; None = ``cuda`` when available): ``cuda`` when that key
-        is registered for a CUDA device, else ``torch``."""
+        device; None = ``cuda`` when available): ``cuda`` on a CUDA
+        device, whether or not that key is registered, else ``torch``."""
         if self.backend != "auto":
             return self
-        backend = "torch"
-        if _device_type(device) == "cuda" and \
-                (self.formulation, "cuda", self.packing) in _REGISTRY:
-            backend = "cuda"
+        backend = "cuda" if _device_type(device) == "cuda" else "torch"
         return dataclasses.replace(self, backend=backend)
 
     @property
@@ -137,9 +136,10 @@ class CiMExecSpec:
 
 @dataclasses.dataclass(frozen=True)
 class BackendEntry:
-    """One registered MAC kernel: ``fn(x2d, w, spec[, tiles])``, whether
-    the formulation clamps, and the (m, k, n) -> (bm, bk, bn) tile table
-    of tiled (kernel) backends."""
+    """One registered MAC kernel: ``fn(x2d, w, spec)``, whether the
+    formulation clamps, and the (m, k, n) -> (bm, bk, bn) tile table of
+    kernel backends (read by :func:`tiles_for` and
+    :func:`canonical_plane_layout`; the kernels pick their own tiles)."""
 
     fn: Callable
     clamps: bool
@@ -160,9 +160,8 @@ def _parse_key(name) -> Tuple[str, str, str]:
 def register_backend(name, fn: Callable, *, clamps: bool = True,
                      tiles: Optional[Callable] = None) -> None:
     """Register a MAC kernel under ``"formulation/backend/packing"``.
-    ``fn(x2d, w_t, spec)`` (or ``fn(x2d, w_t, spec, tiles)`` when a tile
-    table is given) receives (M, K) inputs with K padded to the block /
-    packing granularity and returns the (M, N) product."""
+    ``fn(x2d, w_t, spec)`` receives (M, K) inputs with K padded to the
+    block / packing granularity and returns the (M, N) product."""
     key = _parse_key(name)
     if key[1] == "auto":
         raise ValueError("register concrete backends, not 'auto'")
@@ -189,9 +188,6 @@ def registered_specs() -> Iterator[CiMExecSpec]:
 # ---------------------------------------------------------------------------
 # Shape classes and tile tables
 # ---------------------------------------------------------------------------
-
-# decode regime boundary: at M <= 8 the MAC is weight-streaming-bound
-DECODE_M_MAX = 8
 
 SHAPE_CLASSES = ("decode", "prefill")
 
@@ -240,11 +236,7 @@ def _forward(spec: CiMExecSpec, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     x2 = x.reshape(-1, k)
     mult = spec.block if spec.packing == "none" else math.lcm(spec.block, 8)
     xp, wp = ref.pad_axis(x2, mult, 1), ref.pad_axis(w, mult, 0)
-    if entry.tiles is None:
-        out = entry.fn(xp, wp, spec)
-    else:
-        out = entry.fn(xp, wp, spec, entry.tiles(x2.shape[0], k, n))
-    return out.reshape(lead + (n,)).to(x.dtype)
+    return entry.fn(xp, wp, spec).reshape(lead + (n,)).to(x.dtype)
 
 
 def _apply_sense_channel(spec: CiMExecSpec, out: torch.Tensor, k_dim: int,
@@ -409,7 +401,7 @@ def _fused_torch(x2, w, spec):
 # ---- cuda (hand-written kernels) ------------------------------------------
 
 # the JAX package's tile tables: decode class (M <= DECODE_M_MAX) and
-# prefill class; they fix the shape class and the canonical plane layout
+# prefill class; they fix the canonical plane layout
 
 
 def _blocked_tiles(m, k, n):
@@ -425,13 +417,12 @@ def _codes(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int8).contiguous()
 
 
-def _blocked_cuda(x2, w, spec, tiles):
+def _blocked_cuda(x2, w, spec):
     return ternary_cim_matmul(_codes(x2), _codes(w), block=spec.block,
                               adc_max=spec.adc_max)
 
 
-def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int,
-                       tiles=None):
+def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int):
     """The MAC from (rows, N) planes. torch backends pad x and the planes
     to whole blocks and run the oracle; cuda backends hand the logical
     extents to the decode kernel (M tile <= DECODE_M_MAX, int32) or the
@@ -446,18 +437,17 @@ def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int,
             ref.pad_axis(w_neg, k_target // 8, 0),
             block=spec.block, adc_max=spec.adc_max, cim=cim)
         return out[:, :n_out]
-    bm = (tiles or _packed_tiles(m, x2.shape[1], n_out))[0]
     kw = dict(n_out=n_out, block=spec.block, adc_max=spec.adc_max, cim=cim)
-    if bm <= DECODE_M_MAX:
+    if shape_class(m) == "decode":
         return packed_cim_matmul_decode(_codes(x2), w_pos, w_neg, **kw).to(torch.float32)
     return packed_cim_matmul(_codes(x2), w_pos, w_neg, **kw)
 
 
-def _packed(x2, w, spec, tiles=None, *, cim: bool):
+def _packed(x2, w, spec, *, cim: bool):
     """Functional packed path (dense ternary w in hand): pack once at the
     logical K extent, then run the planes MAC."""
     w_pos, w_neg = tern.pack_ternary(w.to(torch.int8), axis=0)
-    return _packed_planes_mac(x2, w_pos, w_neg, spec, cim, w.shape[1], tiles)
+    return _packed_planes_mac(x2, w_pos, w_neg, spec, cim, w.shape[1])
 
 
 register_backend("exact/torch/none", _exact_torch, clamps=False)

@@ -29,8 +29,9 @@
 // popcounts with int32 accumulators. The K loop lives inside the block.
 // Plane row strides are arguments, so the de-interleaved views of plane
 // layout 1 are read in place; x columns beyond its logical K read as
-// zero, so the canonical K pad of the planes needs no per-call pad of x;
-// only the logical N columns are stored.
+// zero and the K loop ends at x's last 16-block, so the canonical K pad
+// of the planes is neither read nor padded onto x per call; only the
+// logical N columns are read and stored.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -54,7 +55,9 @@ packed_mac_kernel(const int8_t* __restrict__ x,
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * kCols + lane;
   const int m0 = blockIdx.y * MT;
-  const int kb_total = (rows + 1) / 2;
+  // x is zero past kx, so later K blocks add nothing: stop at x's last
+  // block and leave the canonical K pad rows of the planes unread
+  const int kb_total = min((rows + 1) / 2, (kx + 15) / 16);
 
   int acc[MT];
 #pragma unroll

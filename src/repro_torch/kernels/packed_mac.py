@@ -20,12 +20,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import DECODE_M_MAX, _build
 from repro_torch.kernels.ref import pad_axis, ref_packed_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
-DECODE_M_MAX = 8
 
 
 def _check(x, w_pos, w_neg, n_out):

@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import DECODE_M_MAX, _build
 from repro_torch.kernels.ref import pad_axis, ref_cim_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
-# decode class (M <= 8) takes 8-row M tiles, prefill 32-row tiles
-DECODE_ROWS, PREFILL_ROWS = 8, 32
+# the decode class (M <= DECODE_M_MAX) takes DECODE_M_MAX-row M tiles,
+# the prefill class 32-row tiles
+PREFILL_ROWS = 32
 
 
 def ternary_cim_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -54,7 +55,7 @@ def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    rows = DECODE_ROWS if m <= DECODE_ROWS else PREFILL_ROWS
+    rows = DECODE_M_MAX if m <= DECODE_M_MAX else PREFILL_ROWS
     with torch.cuda.device(x.device):
         _build.launch("ternary_cim_mac", x.data_ptr(), w.data_ptr(),
                       out.data_ptr(), m, k, n, int(adc_max), rows,

@@ -149,7 +149,8 @@ class ContinuousBatcher:
     a bitplane-packed spec the canonical 2-bit planes are kept on
     ``self.packed`` for ``execute_packed`` consumers while the in-model
     spec drops to ``packing="none"`` (as in the reference, the model
-    itself never reads the planes).
+    itself never reads the planes); it raises ``KeyError`` when no dense
+    kernel is registered for that spec.
 
     Fused serving is token-identical to :func:`generate` under
     ``QuantConfig(act_scale="per_row")``; the per-tensor scale couples
@@ -176,13 +177,11 @@ class ContinuousBatcher:
             prepared = prepare_for_spec(params, exec_spec)
             if exec_spec.packing == "bitplane_u8":
                 params, self.packed = prepared
-                # the in-model dense path serves the folded ternary weights
-                dense_spec = dataclasses.replace(exec_spec, packing="none")
-                try:
-                    get_backend(dense_spec, dev)
-                except KeyError:
-                    dense_spec = dataclasses.replace(dense_spec, backend="auto")
-                exec_spec = dense_spec
+                # the in-model dense path serves the folded ternary weights;
+                # a spec with no dense kernel (exact/cuda until the exact
+                # kernel is ported) raises here instead of serving plain
+                exec_spec = dataclasses.replace(exec_spec, packing="none")
+                get_backend(exec_spec, dev)
             else:
                 params = prepared
             cfg = cfg.replace(

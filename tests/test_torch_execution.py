@@ -130,8 +130,13 @@ def test_spec_validation_and_resolution():
     auto = api.CiMExecSpec("blocked", "auto")
     assert auto.resolve("cpu").backend == "torch"
     assert auto.resolve("cuda").backend == "cuda"
-    # no CUDA entry for corrected: auto stays on the plain formulation
-    assert api.CiMExecSpec("corrected", "auto").resolve("cuda").backend == "torch"
+    # auto takes the kernel on the card whether or not one is registered
+    # (as JAX's auto takes pallas on the TPU): no silent plain fallback
+    assert api.CiMExecSpec("corrected", "auto").resolve("cuda").backend == "cuda"
+    for formulation in ("exact", "corrected", "fused"):
+        assert api.get_backend(api.CiMExecSpec(formulation, "auto"), "cpu")
+        with pytest.raises(KeyError, match=f"{formulation}/cuda/none"):
+            api.get_backend(api.CiMExecSpec(formulation, "auto"), "cuda")
     assert api.CiMExecSpec("exact").clamps is False
     assert api.CiMExecSpec("bitplane").clamps is True
     with pytest.raises(KeyError):

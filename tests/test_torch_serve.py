@@ -160,6 +160,24 @@ def test_prepared_batcher_planes_equal_execute(port_model):
                 assert torch.equal(got, want), (path, layer, m)
 
 
+@pytest.mark.parametrize("backend", ["cuda", "auto"])
+def test_prepared_batcher_without_dense_kernel_raises(port_model, backend):
+    # exact has stored-plane kernels but no dense CUDA kernel yet: the
+    # prepared batcher must refuse the spec, not serve plain PyTorch
+    cfg, params = port_model
+    spec = api.CiMExecSpec("exact", backend, "bitplane_u8")
+    if backend == "cuda":
+        with pytest.raises(KeyError, match="exact/cuda/none"):
+            ContinuousBatcher(params, cfg, n_slots=2, s_max=32, exec_spec=spec,
+                              prepare_weights=True, device="cpu")
+    else:   # auto on CPU operands is the plain formulation, by design
+        batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32,
+                                    exec_spec=spec, prepare_weights=True,
+                                    device="cpu")
+        assert batcher.cfg.quant.exec_spec.name == "exact/auto/none"
+        assert batcher.packed
+
+
 def test_dense_pre_quantized_codes_exact():
     w = torch.randn((32, 8), generator=torch.Generator().manual_seed(0))
     t, s = tL.tern.ternarize(w, axis=(0,))
