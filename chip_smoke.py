@@ -5,13 +5,18 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. card and build: the card's name and power limit, torch/CUDA
-     versions, and the build of every kernel from ``src/repro_torch/csrc``;
+     versions, the build of every kernel from ``src/repro_torch/csrc``,
+     and a structural check of the stream kernel's overlap: its SASS
+     (``cuobjdump -sass``) must hold asynchronous global->shared copies
+     and a wait on them;
   2. kernels: each hand-written kernel against its plain PyTorch version
      on the card, bit-exact, at the smollm-135m layer shapes and every M
-     the later phases give it, and on the very inputs it is timed on; the
-     device time per call (CUDA-graph replay, weights rotated through
-     more memory than the L2 cache holds), the plain version's time and
-     the bound;
+     the later phases give it (#3 also against #2, at nbuf 2 and 3), and
+     on the very inputs it is timed on; the device time per call
+     (CUDA-graph replay, weights rotated through more memory than the L2
+     cache holds), the plain version's time, the bound, #3's time
+     against #2's on the same planes, and for #5 the time of one PyTorch
+     matmul computing the same function;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
      (seeded random weights, 4 slots, s_max 256, 8 requests), with
      kernel #1's launch count = 210 x (decode steps + prefill batches);
@@ -20,7 +25,17 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. stored planes: a prepare_weights=True batcher under
      blocked/cuda/bitplane_u8, then execute_packed on its planes for every
      quantized weight of 2 layers at M=4 and M=128 == execute on the
-     folded ternary weights, through the packed kernels.
+     folded ternary weights, through the packed kernels;
+  6. the near-memory baseline: the batcher under exact/cuda on phase 3's
+     requests, kernel #5's launch count = 210 x (decode steps + prefill
+     batches) with #1 not launched, and fused == generate() under
+     act_scale="per_row";
+  7. streaming stored planes: a prepare_weights=True batcher under
+     blocked/cuda_stream/bitplane_u8 (planes stored in layout 1), then
+     execute_packed under the blocked and exact stream specs for every
+     quantized weight of layers 0 and 29 at M in {1, 4, 8, 128} == the
+     */cuda/bitplane_u8 specs == execute on the folded weights (#1/#5),
+     with kernel #3 (and #4 at M=128) launched.
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -38,6 +53,19 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core peak
+# the five kernels: wrapper name -> (source, the Pallas kernel it replaces)
+KERNELS = {
+    "ternary_cim_matmul": ("src/repro_torch/csrc/ternary_mac.cu",
+                           "src/repro/kernels/ternary_mac.py:72"),
+    "packed_cim_matmul_decode": ("src/repro_torch/csrc/packed_mac.cu",
+                                 "src/repro/kernels/packed_mac.py:176"),
+    "packed_cim_matmul_decode_stream": ("src/repro_torch/csrc/packed_stream.cu",
+                                        "src/repro/kernels/packed_mac.py:307"),
+    "packed_cim_matmul": ("src/repro_torch/csrc/packed_mac.cu",
+                          "src/repro/kernels/packed_mac.py:94"),
+    "ternary_exact_matmul": ("src/repro_torch/csrc/ternary_exact.cu",
+                             "src/repro/kernels/ternary_mac.py:134"),
+}
 # one smollm-135m decoder layer's quantized dense layers: (name, K, N)
 LAYER_SHAPES = (("q", 576, 576), ("k", 576, 192), ("v", 576, 192),
                 ("o", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
@@ -109,25 +137,59 @@ def plane_bytes(k: int, n: int) -> int:
     return 2 * 2 * -(-k // 16) * n
 
 
-def bound_parts(in_bytes: int, out_bytes: int, m: int, k: int, n: int):
+def bound_parts(in_bytes: int, out_bytes: int, m: int, k: int, n: int,
+                dots: int = 2):
     """(bytes ms, operations ms) of one call: its bytes (each input read
     once, the output written once) over HBM bandwidth, and the ternary
-    matmul's operations (a signed and a magnitude dot, 2 ops per MAC
-    each) over the int8 tensor-core peak. The bound is the larger."""
+    matmul's operations (``dots`` full dots of 2 ops per MAC: a signed
+    and a magnitude dot for the CiM MAC, one for the exact dot) over the
+    int8 tensor-core peak. The bound is the larger."""
     return ((in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
-            4 * m * k * n / INT8_OPS_PER_S * 1e3)
+            2 * dots * m * k * n / INT8_OPS_PER_S * 1e3)
+
+
+def wrappers(tm, pm):
+    return {name: getattr(tm if name.startswith("ternary") else pm, name)
+            for name in KERNELS}
 
 
 def counts(tm, pm):
-    return {"ternary_cim_matmul": tm.ternary_cim_matmul.launches,
-            "packed_cim_matmul_decode": pm.packed_cim_matmul_decode.launches,
-            "packed_cim_matmul": pm.packed_cim_matmul.launches}
+    return {name: fn.launches for name, fn in wrappers(tm, pm).items()}
 
 
 def reset_counts(tm, pm):
-    tm.ternary_cim_matmul.launches = 0
-    pm.packed_cim_matmul_decode.launches = 0
-    pm.packed_cim_matmul.launches = 0
+    for fn in wrappers(tm, pm).values():
+        fn.launches = 0
+
+
+def check_stream_sass(nvcc: str, library: str) -> dict:
+    """The counterpart of the Pallas stream kernel's pin of 2 dma_start
+    and 1 dma_wait: every compiled instance of the stream kernel holds
+    asynchronous global->shared copies (LDGSTS for cp.async, UBLKCP or
+    UTMALDG for TMA) and a wait on them (LDGDEPBAR/DEPBAR, or SYNCS for
+    an mbarrier). Returns the opcode counts per instance."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        fail(f"cuobjdump not found beside {nvcc}")
+    res = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                         text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
+    found = {}
+    for part in res.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "packed_stream_kernel" not in name:
+            continue
+        ops = {op: part.count(op) for op in
+               ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS")}
+        if not (ops["LDGSTS"] or ops["UBLKCP"] or ops["UTMALDG"]):
+            fail(f"stream kernel {name}: no asynchronous global->shared copy")
+        if not (ops["LDGDEPBAR"] or ops["DEPBAR"] or ops["SYNCS"]):
+            fail(f"stream kernel {name}: no wait on its asynchronous copies")
+        found[name] = ops
+    if not found:
+        fail(f"no packed_stream_kernel in the SASS of {library}")
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +197,7 @@ def reset_counts(tm, pm):
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
+def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
     g = torch.Generator(device=dev).manual_seed(1234)
 
     def tern(shape):
@@ -146,10 +208,9 @@ def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
         wz = torch.zeros((-(-k // 256) * 256, -(-n // 128) * 128),
                          dtype=torch.int8, device=dev)
         wz[:k, :n] = w
-        return pack_ternary(wz, axis=0)
+        return tern_mod.pack_ternary(wz, axis=0)
 
-    errs = {"ternary_cim_matmul": 0.0, "packed_cim_matmul_decode": 0.0,
-            "packed_cim_matmul": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
 
     def check(name, got, want, what):
         err = (got.to(torch.float64) - want.to(torch.float64)).abs().max().item() \
@@ -161,43 +222,88 @@ def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
     for k, n in CHECK_SHAPES:
         w = tern((k, n))
         p1, p2 = canonical_planes(w)
+        wi = tern_mod.interleave_planes(p1, p2)   # plane layout 1
         for m in CHECK_M:
             x = tern((m, k))
             what = f"M={m} K={k} N={n}"
             check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
                   tm.ternary_cim_matmul_plain(x, w), what)
+            check("ternary_exact_matmul", tm.ternary_exact_matmul(x, w),
+                  tm.exact_matmul_plain(x, w), what)
             for cim in (True, False):
                 plain = pm.packed_matmul_plain(x, p1, p2, n_out=n, cim=cim)
                 if m <= decode_m_max:
-                    check("packed_cim_matmul_decode",
-                          pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim),
+                    decode = pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim)
+                    check("packed_cim_matmul_decode", decode,
                           plain.to(torch.int32), f"{what} cim={cim}")
+                    want = pm.stream_matmul_plain(x, wi, n_out=n, cim=cim)
+                    for nbuf in (2, 3):
+                        got = pm.packed_cim_matmul_decode_stream(
+                            x, wi, n_out=n, cim=cim, nbuf=nbuf)
+                        tag = f"{what} cim={cim} nbuf={nbuf}"
+                        check("packed_cim_matmul_decode_stream", got,
+                              want.to(torch.int32), tag)
+                        if not torch.equal(got, decode):
+                            fail(f"stream kernel != decode kernel at {tag}")
                 else:
                     check("packed_cim_matmul",
                           pm.packed_cim_matmul(x, p1, p2, n_out=n, cim=cim),
                           plain, f"{what} cim={cim}")
         torch.cuda.synchronize()
-    log("kernels: #1, #2 and #4 bit-exact against their plain versions at "
-        f"(K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 at M <= "
-        f"{decode_m_max}, #4 above), cim on and off (tolerance 0)")
+    log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
+        f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
+        f"M <= {decode_m_max}, #3 at nbuf 2 and 3 and == #2, #4 above), cim on "
+        "and off (tolerance 0)")
+
+    # the library yardstick of #5: one PyTorch matmul of the same values
+    # (bf16 in, f32 out where this torch has it on CUDA, else f32 with
+    # TF32 off), exact as the kernel is since every sum is a small integer
+    mm_dtype = torch._C._dispatch_has_kernel_for_dispatch_key("aten::mm.dtype", "CUDA")
+    if mm_dtype:
+        lib_name = "torch.mm(bf16, bf16, out_dtype=float32)"
+        lib_dt = torch.bfloat16
+
+        def library(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        lib_name = "torch.matmul(float32, float32), TF32 off"
+        lib_dt = torch.float32
+        library = torch.matmul
 
     # timing: one decoder layer's 7 calls, each at its own (K, N)
     per_kernel = {}
-    for name, m in (("ternary_cim_matmul", 4), ("packed_cim_matmul_decode", 4),
+    stream_vs_decode = None
+    for name, m in (("ternary_cim_matmul", 4), ("ternary_exact_matmul", 4),
+                    ("packed_cim_matmul_decode", 4),
+                    ("packed_cim_matmul_decode_stream", 4),
                     ("packed_cim_matmul", 128)):
-        tot = {"ms": 0.0, "plain_ms": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in LAYER_SHAPES:
             x = tern((m, k))
-            if name == "ternary_cim_matmul":
+            extra = ""
+            if name.startswith("ternary"):
                 per = k * n
                 copies = max(1, min(2048, L2_BUDGET // per))
                 ws = torch.randint(-1, 2, (copies, k, n), generator=g, device=dev,
                                    dtype=torch.int8)
-                calls = [lambda c=c: tm.ternary_cim_matmul(x, ws[c]) for c in range(copies)]
-                plain = [lambda: tm.ternary_cim_matmul_plain(x, ws[0])] * 10
+                fn = getattr(tm, name)
+                ref = tm.ternary_cim_matmul_plain if name == "ternary_cim_matmul" \
+                    else tm.exact_matmul_plain
+                calls = [lambda c=c: fn(x, ws[c]) for c in range(copies)]
+                plain = [lambda: ref(x, ws[0])] * 10
                 want = plain[0]()
-                tb, to = bound_parts(m * k + k * n, 4 * m * n, m, k, n)
+                dots = 2 if name == "ternary_cim_matmul" else 1
+                tb, to = bound_parts(m * k + k * n, 4 * m * n, m, k, n, dots)
+                if name == "ternary_exact_matmul":
+                    xl, wl = x.to(lib_dt), ws.to(lib_dt)
+                    if not torch.equal(library(xl, wl[0]), want):
+                        fail(f"{lib_name} != the exact kernel's function at {label}")
+                    t_l = graph_ms(torch, [lambda c=c: library(xl, wl[c])
+                                           for c in range(copies)])
+                    tot["library_ms"] = (tot["library_ms"] or 0.0) + t_l
+                    extra = f", {lib_name} {t_l * 1e3:.2f} us"
+                    del xl, wl
             else:
                 rows, cols = -(-k // 256) * 32, -(-n // 128) * 128
                 per = 2 * rows * cols
@@ -206,19 +312,38 @@ def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
                                     device=dev, dtype=torch.uint8)
                 neg = torch.randint(0, 256, (copies, rows, cols), generator=g,
                                     device=dev, dtype=torch.uint8) & ~pos
-                decode = m <= decode_m_max
-                fn = pm.packed_cim_matmul_decode if decode else pm.packed_cim_matmul
-                calls = [lambda c=c: fn(x, pos[c], neg[c], n_out=n)
-                         for c in range(copies)]
-                plain = [lambda: pm.packed_matmul_plain(x, pos[0], neg[0], n_out=n)] * 10
-                want = plain[0]().to(torch.int32 if decode else torch.float32)
                 tb, to = bound_parts(m * k + plane_bytes(k, n), 4 * m * n, m, k, n)
+                if name == "packed_cim_matmul_decode_stream":
+                    # the canonical layout-1 planes, and #2 on the same bytes
+                    wi = tern_mod.interleave_planes(pos, neg)
+                    views = [tern_mod.deinterleave_planes(wi[c]) for c in range(copies)]
+                    del pos, neg
+                    calls = [lambda c=c: pm.packed_cim_matmul_decode_stream(
+                        x, wi[c], n_out=n) for c in range(copies)]
+                    twins = [lambda c=c: pm.packed_cim_matmul_decode(
+                        x, *views[c], n_out=n) for c in range(copies)]
+                    plain = [lambda: pm.stream_matmul_plain(x, wi[0], n_out=n)] * 10
+                    want = plain[0]().to(torch.int32)
+                    if not torch.equal(twins[0](), want):
+                        fail(f"#2 on the de-interleaved timed planes at {label}")
+                    t_d = graph_ms(torch, twins)
+                    tot["decode_ms"] = (tot["decode_ms"] or 0.0) + t_d
+                    del twins, views
+                else:
+                    decode = m <= decode_m_max
+                    fn = pm.packed_cim_matmul_decode if decode else pm.packed_cim_matmul
+                    calls = [lambda c=c: fn(x, pos[c], neg[c], n_out=n)
+                             for c in range(copies)]
+                    plain = [lambda: pm.packed_matmul_plain(x, pos[0], neg[0], n_out=n)] * 10
+                    want = plain[0]().to(torch.int32 if decode else torch.float32)
             check(name, calls[0](), want, f"the timed inputs {label} M={m}")
             t_k = graph_ms(torch, calls)
             t_p = graph_ms(torch, plain)
+            if name == "packed_cim_matmul_decode_stream":
+                extra = f", #2 on the same planes {t_d * 1e3:.2f} us"
             log(f"{name} {label} M={m} K={k} N={n}: {t_k * 1e3:.2f} us/call "
-                f"(plain {t_p * 1e3:.2f} us, bound {max(tb, to) * 1e3:.3f} us, "
-                f"{copies} weight copies rotated)")
+                f"(plain {t_p * 1e3:.2f} us, bound {max(tb, to) * 1e3:.3f} us"
+                f"{extra}, {copies} weight copies rotated)")
             tot["ms"] += t_k
             tot["plain_ms"] += t_p
             t_bytes += tb
@@ -227,11 +352,19 @@ def kernel_phase(torch, tm, pm, pack_ternary, decode_m_max, dev):
         pk = per_kernel[name] = dict(
             tot, bound_ms=max(t_bytes, t_ops), m=m,
             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        extra = ""
+        if pk["library_ms"] is not None:
+            extra = f", {lib_name} {pk['library_ms']:.4f} ms"
+        if pk["decode_ms"] is not None:
+            stream_vs_decode = pk["decode_ms"] / pk["ms"]
+            extra = (f", #2 on the same planes {pk['decode_ms']:.4f} ms: "
+                     f"stream_vs_decode {stream_vs_decode:.3f}")
         log(f"{name}: one layer's 7 calls at M={m}: {pk['ms']:.4f} ms "
             f"(plain {pk['plain_ms']:.4f} ms, bound {pk['bound_ms']:.5f} ms "
-            f"by {pk['bound_by']})")
+            f"by {pk['bound_by']}{extra})")
     torch.cuda.empty_cache()
-    return per_kernel, errs
+    return per_kernel, errs, {"library_call": lib_name,
+                              "stream_vs_decode": stream_vs_decode}
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +421,56 @@ def profile_decode_step(torch, batcher):
     return wall, sum(r[0] for r in rows), rows[:6]
 
 
-def serving_phases(torch, tm, pm, card):
+def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
+    """Drive ``batcher`` over ``reqs`` with every launch count at 0 just
+    before; fail unless every request finished with tokens in range, one
+    host sync per step, ``kernel`` launched 210 x (decode steps + prefill
+    batches) (one launch per quantized dense layer of the 30) and no
+    other kernel launched. Returns (counts, stats, seconds, step ms)."""
+    reset_counts(tm, pm)
+    secs, step_ms = drive(torch, batcher, reqs)
+    got = counts(tm, pm)
+    st = batcher.stats()
+    if not all(r.done for r in reqs):
+        fail(f"{label}: not every request finished")
+    if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
+        fail(f"{label}: host_syncs {st}")
+    steps = st["decode_steps"] + st["prefill_batches"]
+    if got[kernel] != 210 * steps:
+        fail(f"{label}: {kernel} launched {got[kernel]} times, expected "
+             f"210 x {steps}")
+    others = {k: v for k, v in got.items() if k != kernel and v}
+    if others:
+        fail(f"{label}: other kernels launched {others}")
+    for r in reqs:
+        if not r.generated or not all(0 <= t < vocab for t in r.generated):
+            fail(f"{label}: request {r.rid} tokens {r.generated}")
+    return got, st, secs, step_ms
+
+
+def serving_line(reqs, st, secs, step_ms) -> str:
+    toks = sum(len(r.generated) for r in reqs)
+    return (f"{len(reqs)} requests, {toks} tokens in {secs:.3f} s = "
+            f"{toks / secs:.1f} tok/s; {st['decode_steps']} decode steps at "
+            f"{statistics.median(step_ms):.2f} ms median (mean "
+            f"{statistics.fmean(step_ms):.2f}), {st['prefill_batches']} prefill "
+            f"batches, {st['host_syncs']} host syncs")
+
+
+def token_identity(torch, batcher, reqs, params, cfg, generate, spec, label):
+    drive(torch, batcher, reqs)
+    for r in reqs:
+        solo = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=256,
+                        exec_spec=spec, device=batcher.device)[0].tolist()
+        if solo != r.generated:
+            fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
+                 f"fused {r.generated} != generate {solo}")
+    log(f"{label}: fused batcher == generate() for {len(reqs)} requests "
+        f"({sum(len(r.generated) for r in reqs)} tokens, prompt lengths "
+        f"{[len(r.prompt) for r in reqs]}), act_scale=per_row")
+
+
+def serving_phases(torch, tm, pm, card, dev):
     from repro_torch import api
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
@@ -297,34 +479,16 @@ def serving_phases(torch, tm, pm, card):
     cfg = get_config("smollm-135m")
     if (cfg.n_layers, cfg.d_model, cfg.vocab) != (30, 576, 49152):
         fail(f"not the full-size smollm-135m config: {cfg}")
-    dev = torch.device("cuda")
     params = T.init_params(cfg, seed=0, device=dev)
 
     # phase 3: the main path
-    reset_counts(tm, pm)
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev)
     reqs = make_requests(Request, cfg.vocab, seed=0)
-    secs, step_ms = drive(torch, batcher, reqs)
-    main_counts = counts(tm, pm)
-    st = batcher.stats()
-    if not all(r.done for r in reqs):
-        fail("serving: not every request finished")
-    if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
-        fail(f"serving: host_syncs {st}")
-    want = 210 * (st["decode_steps"] + st["prefill_batches"])
-    if main_counts["ternary_cim_matmul"] != want:
-        fail(f"serving: kernel #1 launched {main_counts['ternary_cim_matmul']} "
-             f"times, expected 210 x {st['decode_steps'] + st['prefill_batches']}")
-    for r in reqs:
-        if not r.generated or not all(0 <= t < cfg.vocab for t in r.generated):
-            fail(f"serving: request {r.rid} tokens {r.generated}")
-    toks = sum(len(r.generated) for r in reqs)
+    main_counts, st, secs, step_ms = serve_counted(
+        torch, tm, pm, batcher, reqs, cfg.vocab, "ternary_cim_matmul", "serving")
+    cim_line = serving_line(reqs, st, secs, step_ms)
     log(f"serving smollm-135m (30 layers, d 576, vocab 49152, bf16, mode cim) "
-        f"on {card}: {len(reqs)} requests, {toks} tokens in {secs:.3f} s = "
-        f"{toks / secs:.1f} tok/s; {st['decode_steps']} decode steps at "
-        f"{statistics.median(step_ms):.2f} ms median (mean "
-        f"{statistics.fmean(step_ms):.2f}), {st['prefill_batches']} prefill "
-        f"batches, {st['host_syncs']} host syncs; kernel #1 launches "
+        f"on {card}: {cim_line}; kernel #1 launches "
         f"{main_counts['ternary_cim_matmul']} = 210 x "
         f"{st['decode_steps'] + st['prefill_batches']}")
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev)
@@ -346,17 +510,8 @@ def serving_phases(torch, tm, pm, card):
     # phase 4: token identity under per-row activation scales
     row_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
     batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256, device=dev)
-    reqs = make_requests(Request, cfg.vocab, seed=1, n=6)
-    drive(torch, batcher, reqs)
-    for r in reqs:
-        solo = generate(params, [r.prompt], row_cfg, max_new=r.max_new, s_max=256,
-                        device=dev)[0].tolist()
-        if solo != r.generated:
-            fail(f"token identity: request {r.rid} (prompt {len(r.prompt)}) "
-                 f"fused {r.generated} != generate {solo}")
-    log(f"token identity: fused batcher == generate() for {len(reqs)} requests "
-        f"({sum(len(r.generated) for r in reqs)} tokens, prompt lengths "
-        f"{[len(r.prompt) for r in reqs]}), act_scale=per_row")
+    token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=1, n=6),
+                   params, row_cfg, generate, None, "token identity")
 
     # phase 5: the stored-plane path
     spec = api.CiMExecSpec("blocked", "cuda", "bitplane_u8")
@@ -391,7 +546,75 @@ def serving_phases(torch, tm, pm, card):
         fail(f"stored planes: packed kernels not launched {plane_counts}")
     log(f"stored planes: execute_packed == execute bit for bit on {checked} "
         f"(weight, layer, M) cases; launches {plane_counts}")
-    return main_counts, plane_counts
+
+    # phase 6: the near-memory baseline, every dense layer through #5
+    nm = api.CiMExecSpec("exact", "cuda")
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=nm,
+                                seed=0, device=dev)
+    reqs = make_requests(Request, cfg.vocab, seed=0)
+    nm_counts, st, secs, step_ms = serve_counted(
+        torch, tm, pm, batcher, reqs, cfg.vocab, "ternary_exact_matmul",
+        "NM serving")
+    log(f"NM baseline serving (exact/cuda, the same 8 requests) on {card}: "
+        f"{serving_line(reqs, st, secs, step_ms)}; kernel #5 launches "
+        f"{nm_counts['ternary_exact_matmul']} = 210 x "
+        f"{st['decode_steps'] + st['prefill_batches']}, #1 none. Phase 3 "
+        f"(blocked, kernel #1): {cim_line}")
+    batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256,
+                                exec_spec=nm, device=dev)
+    token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=4, n=4),
+                   params, row_cfg, generate, nm, "NM token identity")
+
+    # phase 7: stored planes in layout 1 through the stream kernel
+    stream = api.CiMExecSpec("blocked", "cuda_stream", "bitplane_u8")
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=stream,
+                                prepare_weights=True, device=dev)
+    if batcher.cfg.quant.exec_spec.name != "blocked/auto/none":
+        fail(f"stream planes: in-model spec {batcher.cfg.quant.exec_spec.name}")
+    reqs = make_requests(Request, cfg.vocab, seed=2, n=4)
+    serve_counted(torch, tm, pm, batcher, reqs, cfg.vocab, "ternary_cim_matmul",
+                  "stream-spec serving")
+    bad = sorted(p for p, pl in batcher.packed.items() if pl.layout_version != 1)
+    if bad or not batcher.packed:
+        fail(f"stream planes: not stored in layout 1: {bad}")
+    folded = dict(tree_paths(batcher.params))
+    cases = []
+    for path, planes in sorted(batcher.packed.items()):
+        for layer in (0, cfg.n_layers - 1):
+            one = planes.layer(layer)
+            w = folded[path][layer]
+            codes = (w / torch.clamp(w.abs().amax(dim=0, keepdim=True), min=1e-12))
+            for m in (1, 4, 8, 128):
+                x = torch.randint(-1, 2, (m, one.k), generator=g, device=dev).float()
+                cases.append((path, layer, m, one, codes.float(), x))
+    reset_counts(tm, pm)
+    got = {}
+    for path, layer, m, one, _, x in cases:
+        for f in ("blocked", "exact"):
+            got[path, layer, m, f] = api.execute_packed(
+                api.CiMExecSpec(f, "cuda_stream", "bitplane_u8"), x, one)
+    stream_counts = counts(tm, pm)
+    if (stream_counts["packed_cim_matmul_decode_stream"] <= 0
+            or stream_counts["packed_cim_matmul"] <= 0):
+        fail(f"stream planes: kernels #3/#4 not launched {stream_counts}")
+    for path, layer, m, one, codes, x in cases:
+        for f in ("blocked", "exact"):
+            twin = api.execute_packed(api.CiMExecSpec(f, "cuda", "bitplane_u8"), x, one)
+            ref = api.execute(api.CiMExecSpec(f, "cuda"), x, codes)
+            out = got[path, layer, m, f]
+            if not (torch.equal(out, twin) and torch.equal(out, ref)):
+                fail(f"stream planes: {f}/cuda_stream != {f}/cuda planes or dense "
+                     f"for {path} layer {layer} M={m}")
+    log(f"stream planes: {len(batcher.packed)} weights stored in layout 1; "
+        f"execute_packed under blocked|exact/cuda_stream == */cuda/bitplane_u8 == "
+        f"execute (#1/#5) bit for bit on {2 * len(cases)} (weight, layer, M, "
+        f"formulation) cases; launches {stream_counts}")
+    return {"ternary_cim_matmul": main_counts["ternary_cim_matmul"],
+            "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
+            "packed_cim_matmul_decode_stream":
+                stream_counts["packed_cim_matmul_decode_stream"],
+            "packed_cim_matmul": plane_counts["packed_cim_matmul"],
+            "ternary_exact_matmul": nm_counts["ternary_exact_matmul"]}
 
 
 def main(argv=None) -> int:
@@ -411,7 +634,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core.ternary import pack_ternary
+    from repro_torch.core import ternary as tern_mod
     from repro_torch.kernels import DECODE_M_MAX, _build
     from repro_torch.kernels import packed_mac as pm
     from repro_torch.kernels import ternary_mac as tm
@@ -426,37 +649,30 @@ def main(argv=None) -> int:
     for line in str(_build.last_build.get("log", "")).splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
+    sass = check_stream_sass(_build.nvcc_path(), str(libs["packed_stream"]))
+    log("stream kernel overlap (SASS): " + "; ".join(
+        f"{name[-40:]}: {ops}" for name, ops in sorted(sass.items())))
 
-    per_kernel, errs = kernel_phase(torch, tm, pm, pack_ternary, DECODE_M_MAX,
-                                    torch.device("cuda"))
-    main_counts, plane_counts = serving_phases(torch, tm, pm, card)
+    per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
+                                           torch.device("cuda"))
+    launches = serving_phases(torch, tm, pm, card, torch.device("cuda"))
 
-    sources = {
-        "ternary_cim_matmul": ("src/repro_torch/csrc/ternary_mac.cu",
-                               "src/repro/kernels/ternary_mac.py:72"),
-        "packed_cim_matmul_decode": ("src/repro_torch/csrc/packed_mac.cu",
-                                     "src/repro/kernels/packed_mac.py:176"),
-        "packed_cim_matmul": ("src/repro_torch/csrc/packed_mac.cu",
-                              "src/repro/kernels/packed_mac.py:94"),
-    }
-    launches = {"ternary_cim_matmul": main_counts["ternary_cim_matmul"],
-                "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
-                "packed_cim_matmul": plane_counts["packed_cim_matmul"]}
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in KERNELS.items():
         pk = per_kernel[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": pk["ms"], "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
-            "bound_by": pk["bound_by"], "library_ms": None,
+            "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
         })
     result = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(result, card=card, timed_at_m={
-                k: v["m"] for k, v in per_kernel.items()}), f, indent=1)
+                k: v["m"] for k, v in per_kernel.items()}, stream_sass=sass,
+                **extra), f, indent=1)
     print(card, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,13 @@ the output dtype.
 Backends: ``torch`` is the plain formulation on any device (the
 counterpart of JAX's ``jnp``); ``cuda`` is the hand-written kernel of
 ``repro_torch/csrc`` (for a CPU tensor its wrapper runs the kernel's
-plain version); ``auto`` resolves from the operands' device: ``cuda``
-for CUDA tensors, ``torch`` otherwise. As JAX's ``auto`` always takes
-the kernel on the accelerator, a formulation without a CUDA kernel
-raises on CUDA operands rather than running its plain version there.
+plain version), the counterpart of ``pallas``; ``cuda_stream`` (JAX's
+``pallas_stream``) serves stored planes in layout 1 through the
+streaming decode kernel at decode M and the prefill packed kernel
+above; ``auto`` resolves from the operands' device: ``cuda`` for CUDA
+tensors, ``torch`` otherwise. As JAX's ``auto`` always takes the kernel
+on the accelerator, a formulation without a CUDA kernel raises on CUDA
+operands rather than running its plain version there.
 
 The tile tables of the JAX package are kept for
 :func:`tiles_for` and the canonical stored-plane layout
@@ -26,9 +29,9 @@ The tile tables of the JAX package are kept for
 to the JAX ones. The CUDA kernels keep their K loop inside one block and
 choose their own M tile by :func:`shape_class`.
 
-Not ported in this slice: the STE backward, ``execute_tp`` /
-``execute_packed_tp``, autotune, the profiler sink and the streaming
-backend.
+Not ported yet: the STE backward, ``execute_tp`` /
+``execute_packed_tp``, autotune (``nbuf`` of the stream tiles stays the
+table's 2) and the profiler sink.
 """
 from __future__ import annotations
 
@@ -42,13 +45,15 @@ import torch
 from repro_torch.core import ternary as tern
 from repro_torch.kernels import DECODE_M_MAX, ref
 from repro_torch.kernels.packed_mac import (
+    STREAM_ALIGN,
     packed_cim_matmul,
     packed_cim_matmul_decode,
+    packed_cim_matmul_decode_stream,
 )
-from repro_torch.kernels.ternary_mac import ternary_cim_matmul
+from repro_torch.kernels.ternary_mac import ternary_cim_matmul, ternary_exact_matmul
 
 FORMULATIONS = ("exact", "blocked", "corrected", "bitplane", "fused")
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "cuda_stream", "torch")
 PACKINGS = ("none", "bitplane_u8")
 FLAVORS = ("I", "II")
 
@@ -64,7 +69,7 @@ class CiMExecSpec:
     """Declarative description of one ternary-MAC execution.
 
     formulation: exact | blocked | corrected | bitplane | fused.
-    backend:     auto | cuda | torch.
+    backend:     auto | cuda | cuda_stream | torch.
     packing:     none | bitplane_u8 (2-bit differential weight storage).
     flavor:      "I" | "II" — identical MAC math.
     block:       rows asserted per array cycle (paper N_A = 16).
@@ -200,7 +205,8 @@ def shape_class(m: int) -> str:
 def tiles_for(spec: CiMExecSpec, m: int, k: int, n: int,
               device=None) -> Optional[Tuple[int, ...]]:
     """The (bm, bk, bn) tiles of the registry entry's table for an
-    (M, K) x (K, N) call; None for untiled (torch) backends."""
+    (M, K) x (K, N) call — (bm, bk, bn, nbuf) for ``cuda_stream``; None
+    for untiled (torch) backends."""
     entry = _REGISTRY.get(spec.resolve(device).registry_key)
     if entry is None or entry.tiles is None:
         return None
@@ -285,11 +291,16 @@ def execute(spec: CiMExecSpec, x_t: torch.Tensor, w_t: torch.Tensor, *,
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
 
 
-def _packed_forward(spec: CiMExecSpec, x: torch.Tensor, w_pos: torch.Tensor,
-                    w_neg: torch.Tensor, n_out: int) -> torch.Tensor:
+def _packed_forward(spec: CiMExecSpec, x: torch.Tensor, planes,
+                    n_out: int) -> torch.Tensor:
+    """``planes`` is the (K/4, N) interleaved array for ``cuda_stream``,
+    else the (pos, neg) pair."""
     lead, k = tuple(x.shape[:-1]), x.shape[-1]
     x2 = x.reshape(-1, k)
-    out = _packed_planes_mac(x2, w_pos, w_neg, spec, spec.clamps, n_out)
+    if spec.backend == "cuda_stream":
+        out = _packed_stream_mac(x2, planes, spec, spec.clamps, n_out)
+    else:
+        out = _packed_planes_mac(x2, *planes, spec, spec.clamps, n_out)
     return out.reshape(lead + (n_out,)).to(x.dtype)
 
 
@@ -302,8 +313,11 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
     The weight side is either ``w_pos``/``w_neg`` (K/8, N) uint8 planes
     (``pack_ternary`` layout along K), or one
     :class:`~repro_torch.core.ternary.PackedPlanes` (canonical padded
-    layout, either layout version; pass it as ``w_pos``). Results slice
-    back to the logical N. ``x_t`` must hold exact ternary values.
+    layout, either layout version; pass it as ``w_pos``). A
+    ``cuda_stream`` spec reads the planes interleaved (free on layout-1
+    storage), every other spec as two planes (free on layout 0; strided
+    views of layout 1). Results slice back to the logical N. ``x_t`` must
+    hold exact ternary values.
     """
     spec = spec.resolve(x_t.device)
     if spec.packing != "bitplane_u8":
@@ -311,6 +325,7 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
     if spec.formulation not in ("exact", "blocked"):
         raise ValueError(
             f"packed kernels implement exact|blocked, not {spec.formulation!r}")
+    stream = spec.backend == "cuda_stream"
     if isinstance(w_pos, tern.PackedPlanes):
         planes = w_pos
         if w_neg is not None:
@@ -324,7 +339,7 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
                 f"plane/input shape mismatch: x K={x_t.shape[-1]}, logical "
                 f"plane K={planes.k}")
         n_out = planes.n
-        w_pos, w_neg = planes.planes()
+        w = planes.interleaved() if stream else planes.planes()
     else:
         if w_neg is None:
             raise ValueError("raw planes need both w_pos and w_neg")
@@ -333,8 +348,9 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
                 f"plane/input shape mismatch: x K={x_t.shape[-1]}, planes "
                 f"{tuple(w_pos.shape)} / {tuple(w_neg.shape)}")
         n_out = w_pos.shape[-1]
+        w = tern.interleave_planes(w_pos, w_neg) if stream else (w_pos, w_neg)
     clean = dataclasses.replace(spec, error_prob=0.0)
-    out = _packed_forward(clean, x_t, w_pos, w_neg, n_out)
+    out = _packed_forward(clean, x_t, w, n_out)
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
 
 
@@ -408,8 +424,18 @@ def _blocked_tiles(m, k, n):
     return (8, 128, 128) if m <= DECODE_M_MAX else (128, 128, 128)
 
 
+def _exact_tiles(m, k, n):
+    return (8, 512, 128) if m <= DECODE_M_MAX else (128, 512, 128)
+
+
 def _packed_tiles(m, k, n):
     return (8, 256, 128) if m <= DECODE_M_MAX else (128, 256, 128)
+
+
+def _packed_stream_tiles(m, k, n):
+    # 4th element: the stream kernel's ring depth (nbuf); prefill-class
+    # M delegates to the prefill packed kernel, which ignores it
+    return (8, 256, 128, 2) if m <= DECODE_M_MAX else (128, 256, 128, 2)
 
 
 def _codes(t: torch.Tensor) -> torch.Tensor:
@@ -422,13 +448,17 @@ def _blocked_cuda(x2, w, spec):
                               adc_max=spec.adc_max)
 
 
+def _exact_cuda(x2, w, spec):
+    return ternary_exact_matmul(_codes(x2), _codes(w))
+
+
 def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int):
     """The MAC from (rows, N) planes. torch backends pad x and the planes
-    to whole blocks and run the oracle; cuda backends hand the logical
+    to whole blocks and run the oracle; kernel backends hand the logical
     extents to the decode kernel (M tile <= DECODE_M_MAX, int32) or the
     prefill kernel (f32), which zero-extend K themselves."""
     m = x2.shape[0]
-    if spec.backend != "cuda":
+    if spec.backend == "torch":
         mult = math.lcm(spec.block, 8)
         k_target = max(w_pos.shape[-2] * 8, -(-x2.shape[1] // mult) * mult)
         out = ref.ref_packed_matmul(
@@ -443,11 +473,35 @@ def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int):
     return packed_cim_matmul(_codes(x2), w_pos, w_neg, **kw)
 
 
+def _packed_stream_mac(x2, w_int, spec, cim: bool, n_out: int):
+    """The MAC from ONE (K/4, N) plane-interleaved array (layout 1).
+    Decode-class M takes the streaming kernel (columns padded to its
+    16-byte copies, a no-op on canonical planes), with the ring depth of
+    the tile table; prefill-class M de-interleaves (strided views, no
+    pad) and takes the prefill packed kernel, as the reference does."""
+    m = x2.shape[0]
+    if shape_class(m) == "prefill":
+        return _packed_planes_mac(x2, *tern.deinterleave_planes(w_int), spec,
+                                  cim, n_out)
+    nbuf = _packed_stream_tiles(m, x2.shape[1], w_int.shape[1])[3]
+    out = packed_cim_matmul_decode_stream(
+        _codes(x2), ref.pad_axis(w_int, STREAM_ALIGN, 1), n_out=n_out,
+        block=spec.block, adc_max=spec.adc_max, cim=cim, nbuf=nbuf)
+    return out.to(torch.float32)
+
+
 def _packed(x2, w, spec, *, cim: bool):
     """Functional packed path (dense ternary w in hand): pack once at the
     logical K extent, then run the planes MAC."""
     w_pos, w_neg = tern.pack_ternary(w.to(torch.int8), axis=0)
     return _packed_planes_mac(x2, w_pos, w_neg, spec, cim, w.shape[1])
+
+
+def _packed_stream(x2, w, spec, *, cim: bool):
+    """Functional stream path: pack once, interleave (layout 1), stream."""
+    w_pos, w_neg = tern.pack_ternary(w.to(torch.int8), axis=0)
+    return _packed_stream_mac(x2, tern.interleave_planes(w_pos, w_neg), spec,
+                              cim, w.shape[1])
 
 
 register_backend("exact/torch/none", _exact_torch, clamps=False)
@@ -461,9 +515,17 @@ register_backend("blocked/torch/bitplane_u8",
                  functools.partial(_packed, cim=True), clamps=True)
 register_backend("blocked/cuda/none", _blocked_cuda, clamps=True,
                  tiles=_blocked_tiles)
+register_backend("exact/cuda/none", _exact_cuda, clamps=False,
+                 tiles=_exact_tiles)
 register_backend("exact/cuda/bitplane_u8",
                  functools.partial(_packed, cim=False), clamps=False,
                  tiles=_packed_tiles)
 register_backend("blocked/cuda/bitplane_u8",
                  functools.partial(_packed, cim=True), clamps=True,
                  tiles=_packed_tiles)
+register_backend("exact/cuda_stream/bitplane_u8",
+                 functools.partial(_packed_stream, cim=False), clamps=False,
+                 tiles=_packed_stream_tiles)
+register_backend("blocked/cuda_stream/bitplane_u8",
+                 functools.partial(_packed_stream, cim=True), clamps=True,
+                 tiles=_packed_stream_tiles)

@@ -34,6 +34,9 @@ SIGNATURES = {
     "ternary_cim_mac": ("ternary_mac", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "packed_cim_mac": (
         "packed_mac", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "packed_stream_mac": (
+        "packed_stream", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "ternary_exact_mac": ("ternary_exact", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

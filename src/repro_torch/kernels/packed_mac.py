@@ -1,18 +1,24 @@
-"""Bitplane-packed CiM matmul: wrappers of the CUDA kernel
-``csrc/packed_mac.cu`` and their plain PyTorch versions.
+"""Bitplane-packed CiM matmul: wrappers of the CUDA kernels
+``csrc/packed_mac.cu`` and ``csrc/packed_stream.cu`` and their plain
+PyTorch versions.
 
   * :func:`packed_cim_matmul_decode` ports the Pallas TPU kernel
     ``repro/kernels/packed_mac.py::packed_cim_matmul_decode`` — M <= 8,
     int32 output;
   * :func:`packed_cim_matmul` ports ``packed_cim_matmul`` — prefill-class
-    M, f32 output.
+    M, f32 output;
+  * :func:`packed_cim_matmul_decode_stream` ports
+    ``packed_cim_matmul_decode_stream`` — M <= 8 from ONE plane-interleaved
+    (layout 1) array streamed through a ring of ``nbuf`` stages, int32
+    output, bit-identical to the decode kernel.
 
 Weights are the (rows, N) uint8 (M1, M2) planes with bit j of byte r =
-K row 8r+j; x is (M, K) int8 codes with K <= 8*rows (missing columns are
-zero, which is inert). ``n_out`` keeps only the first logical columns
-of canonically padded planes. For a CUDA tensor each wrapper launches
-the kernel (or raises); for a CPU tensor it runs the plain version.
-Each wrapper's ``launches`` attribute counts its kernel launches.
+K row 8r+j (layout 1: byte-row 2r pos, 2r+1 neg); x is (M, K) int8 codes
+with K <= 8*rows (missing columns are zero, which is inert). ``n_out``
+keeps only the first logical columns of canonically padded planes. For a
+CUDA tensor each wrapper launches its kernel (or raises); for a CPU
+tensor it runs the plain version. Each wrapper's ``launches`` attribute
+counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -20,11 +26,17 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.ternary import deinterleave_planes
 from repro_torch.kernels import DECODE_M_MAX, _build
 from repro_torch.kernels.ref import pad_axis, ref_packed_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
+# the stream kernel's ring depths (as the Pallas kernel asserts), its
+# 16-byte copies' alignment and the x extent its shared memory holds
+STREAM_NBUF = (2, 3)
+STREAM_ALIGN = 16
+STREAM_K_MAX = 16384
 
 
 def _check(x, w_pos, w_neg, n_out):
@@ -126,5 +138,63 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
     return out
 
 
+def stream_matmul_plain(x: torch.Tensor, w_int: torch.Tensor, *,
+                        n_out: Optional[int] = None, block: int = DEFAULT_BLOCK,
+                        adc_max: int = DEFAULT_ADC_MAX,
+                        cim: bool = True) -> torch.Tensor:
+    """The stream kernel's function in plain PyTorch: de-interleave the
+    layout-1 array and run :func:`packed_matmul_plain`; f32 (M, n_out)."""
+    w_pos, w_neg = deinterleave_planes(w_int)
+    return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
+                               adc_max=adc_max, cim=cim)
+
+
+def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
+                                    n_out: Optional[int] = None,
+                                    block: int = DEFAULT_BLOCK,
+                                    adc_max: int = DEFAULT_ADC_MAX,
+                                    cim: bool = True,
+                                    nbuf: int = 2) -> torch.Tensor:
+    """Streaming decode-class packed MAC: x (M <= 8, K) int8 and ONE
+    (K/4, N) uint8 plane-interleaved array -> int32 (M, n_out)."""
+    if nbuf not in STREAM_NBUF:
+        raise ValueError(f"buffer depth {nbuf} not in {{2, 3}}")
+    if block != DEFAULT_BLOCK:
+        raise ValueError(f"the stream kernel implements block=16, got {block}")
+    if w_int.dim() != 2 or w_int.shape[0] % 2 != 0:
+        raise ValueError(f"need a (K/4, N) interleaved plane array with an "
+                         f"even row count, got {tuple(w_int.shape)}")
+    w_pos, w_neg = deinterleave_planes(w_int)
+    n_out = _check(x, w_pos, w_neg, n_out)
+    if x.shape[0] > DECODE_M_MAX:
+        raise ValueError(f"stream decode kernel takes M <= {DECODE_M_MAX}, "
+                         f"got {x.shape[0]}")
+    if x.device.type == "cpu":
+        return stream_matmul_plain(x, w_int, n_out=n_out, block=block,
+                                   adc_max=adc_max, cim=cim).to(torch.int32)
+    _cuda_ok(x, block)
+    if (w_int.stride(1) != 1 or w_int.stride(0) % STREAM_ALIGN
+            or w_int.shape[1] % STREAM_ALIGN or w_int.data_ptr() % STREAM_ALIGN
+            or not x.is_contiguous()):
+        raise ValueError("the stream kernel needs contiguous x and an "
+                         "interleaved array with unit column stride whose "
+                         "pointer, row stride and width are multiples of 16")
+    if x.shape[1] > STREAM_K_MAX:
+        raise ValueError(f"the stream kernel stages at most K={STREAM_K_MAX} "
+                         f"of x, got {x.shape[1]}")
+    m, kx = x.shape
+    out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
+    if m == 0 or n_out == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "packed_stream_mac", x.data_ptr(), w_int.data_ptr(),
+            out.data_ptr(), m, kx, w_int.shape[0], w_int.stride(0), n_out,
+            int(adc_max), int(cim), int(nbuf), _build.stream_ptr(x.device))
+    packed_cim_matmul_decode_stream.launches += 1
+    return out
+
+
 packed_cim_matmul_decode.launches = 0
 packed_cim_matmul.launches = 0
+packed_cim_matmul_decode_stream.launches = 0

@@ -1,18 +1,24 @@
-"""Signed-ternary CiM matmul on dense codes: the wrapper of the CUDA
-kernel ``csrc/ternary_mac.cu`` (the port of the Pallas TPU kernel
-``repro/kernels/ternary_mac.py::ternary_cim_matmul``) and its plain
-PyTorch version.
+"""Signed-ternary matmuls on dense codes: wrappers of the CUDA kernels
+and their plain PyTorch versions.
 
-For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
-tensor it runs the plain version. ``ternary_cim_matmul.launches`` counts
-kernel launches and nothing else.
+  * :func:`ternary_cim_matmul` (``csrc/ternary_mac.cu``) ports the Pallas
+    TPU kernel ``repro/kernels/ternary_mac.py::ternary_cim_matmul`` — the
+    clamped CiM MAC;
+  * :func:`ternary_exact_matmul` (``csrc/ternary_exact.cu``) ports
+    ``ternary_exact_matmul`` — the exact dot of the near-memory baseline.
+
+For a CUDA tensor each wrapper launches its kernel (or raises); for a CPU
+tensor it runs the plain version. Each wrapper's ``launches`` attribute
+counts its kernel launches and nothing else.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import DECODE_M_MAX, _build
-from repro_torch.kernels.ref import pad_axis, ref_cim_matmul
+from repro_torch.kernels.ref import pad_axis, ref_cim_matmul, ref_exact_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
@@ -30,11 +36,14 @@ def ternary_cim_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                           block=block, adc_max=adc_max)
 
 
-def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
-                       block: int = DEFAULT_BLOCK,
-                       adc_max: int = DEFAULT_ADC_MAX) -> torch.Tensor:
-    """Clamped CiM MAC. x (M, K) and w (K, N) int8 codes in {-1, 0, 1},
-    contiguous, on one device; any M, K, N. Returns f32 (M, N)."""
+def exact_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact kernel's function in plain PyTorch: x (M, K), w (K, N)
+    ternary codes of any dtype -> f32 (M, N). Exact in f32: every
+    partial sum is an integer of magnitude <= K."""
+    return ref_exact_matmul(x, w)
+
+
+def _check_codes(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"need x (M, K) and w (K, N), got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
@@ -42,26 +51,56 @@ def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
         raise TypeError(f"need int8 codes, got {x.dtype} and {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    if x.device.type == "cpu":
-        return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
+
+
+def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor,
+                  *extra: int) -> Tuple[torch.Tensor, bool]:
+    """Launch the dense-code kernel ``fn`` on CUDA operands into a new f32
+    (M, N) output; returns (out, whether a kernel was launched)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if block != DEFAULT_BLOCK:
-        raise ValueError(f"the CUDA kernel implements block=16, got {block}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA kernel needs contiguous operands")
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
-        return out
+        return out, False
     rows = DECODE_M_MAX if m <= DECODE_M_MAX else PREFILL_ROWS
     with torch.cuda.device(x.device):
-        _build.launch("ternary_cim_mac", x.data_ptr(), w.data_ptr(),
-                      out.data_ptr(), m, k, n, int(adc_max), rows,
-                      _build.stream_ptr(x.device))
-    ternary_cim_matmul.launches += 1
+        _build.launch(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                      *extra, rows, _build.stream_ptr(x.device))
+    return out, True
+
+
+def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                       block: int = DEFAULT_BLOCK,
+                       adc_max: int = DEFAULT_ADC_MAX) -> torch.Tensor:
+    """Clamped CiM MAC. x (M, K) and w (K, N) int8 codes in {-1, 0, 1},
+    contiguous, on one device; any M, K, N. Returns f32 (M, N)."""
+    _check_codes(x, w)
+    if x.device.type == "cpu":
+        return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
+    if block != DEFAULT_BLOCK:
+        raise ValueError(f"the CUDA kernel implements block=16, got {block}")
+    out, launched = _launch_codes("ternary_cim_mac", x, w, int(adc_max))
+    if launched:
+        ternary_cim_matmul.launches += 1
+    return out
+
+
+def ternary_exact_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact ternary dot (no clamp). x (M, K) and w (K, N) int8 codes in
+    {-1, 0, 1}, contiguous, on one device; any M, K, N. Returns f32
+    (M, N)."""
+    _check_codes(x, w)
+    if x.device.type == "cpu":
+        return exact_matmul_plain(x, w)
+    out, launched = _launch_codes("ternary_exact_mac", x, w)
+    if launched:
+        ternary_exact_matmul.launches += 1
     return out
 
 
 ternary_cim_matmul.launches = 0
+ternary_exact_matmul.launches = 0

@@ -6,9 +6,12 @@
 Runs on ``cuda`` by default and exits with an error without CUDA unless
 ``--device cpu`` is given (use it with ``--smoke`` on a CPU host). The
 serving CiM execution spec is selected with ``--exec-spec`` as
-``formulation[/backend[/packing[/flavor]]]``, e.g. ``blocked/cuda`` or
-``blocked/cuda/bitplane_u8``; with ``--prepare-weights`` the
-quantization is folded offline once (quant.prepare.prepare_for_spec).
+``formulation[/backend[/packing[/flavor]]]``, e.g. ``blocked/cuda``,
+``exact/cuda`` (the near-memory baseline) or ``blocked/cuda/bitplane_u8``;
+with ``--prepare-weights`` the quantization is folded offline once
+(quant.prepare.prepare_for_spec), and a packed spec keeps the stored
+planes beside the model (``blocked/cuda_stream/bitplane_u8`` stores
+them in the stream kernel's layout 1).
 Not ported yet: ``--tp``, ``--serve-http`` and ``--profile``.
 """
 from __future__ import annotations

@@ -9,7 +9,9 @@ Every weight-bearing matmul flows through :func:`dense`, whose
   * mode="cim"     — ternarized weights and activations through the SiTe
                      CiM array semantics (16-row block ADC clamp) via
                      ``core.execution.execute``; on CUDA tensors that is
-                     the hand-written kernel of ``csrc/ternary_mac.cu``.
+                     the hand-written kernel of ``csrc/ternary_mac.cu``
+                     (``csrc/ternary_exact.cu`` under an ``exact/cuda``
+                     spec, the near-memory baseline).
 
 Scales fold after the ternary MAC: output = (x_t @ w_t) * sx * sw, with
 a per-tensor (default) or per-row activation scale and a per-output-
@@ -95,9 +97,12 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The mode-switched linear layer. x: (..., K), w: (K, N).
 
-    Clamping specs receive the weight as int8 codes made straight from
-    the stored weight (one byte per weight into the kernel) and the
-    activation codes in f32, as the reference passes them."""
+    Clamping specs and every CUDA-kernel backend receive the weight as
+    int8 codes made straight from the stored weight (one byte per weight
+    into the kernel) and the activation codes in f32, as the reference
+    passes clamping specs theirs. Other exact specs (``exact/torch``,
+    ``mode="ternary"``) take the operand-dtype dot of the reference's
+    ``exact/jnp``."""
     if qc.mode == "off":
         out = x @ w.to(x.dtype)
     else:
@@ -108,7 +113,8 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
         else:
             x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
         spec = qc.resolved_spec()
-        if spec.resolve(x.device).clamps:
+        resolved = spec.resolve(x.device)
+        if resolved.clamps or resolved.backend in ("cuda", "cuda_stream"):
             out = exec_mac(spec, x_t.to(torch.float32), w_t.to(torch.int8),
                            generator=generator)
         else:

@@ -97,15 +97,25 @@ def _canonicalize_packed(packed: Dict[str, Tuple], spec: CiMExecSpec,
     """Pad each (p1, p2, scale) entry to the canonical kernel layout for
     ``spec``: plane rows to the tile K granularity, columns to the tile N
     granularity. Pad cells are (0, 0) pairs — weight 0, inert — and the
-    logical (K, N) ride on the :class:`PackedPlanes`."""
+    logical (K, N) ride on the :class:`PackedPlanes`. Specs resolving to
+    ``cuda_stream`` store the planes interleaved (layout 1: one
+    (..., K/4, N) array, the ordering the stream kernel copies a K tile
+    from in one run), as the reference does under ``pallas_stream``."""
     k_mult, n_mult = canonical_plane_layout(spec, device)
+    stream = spec.resolve(device).backend == "cuda_stream"
     rows = k_mult // 8
     out: Dict[str, tern.PackedPlanes] = {}
     for path, (p1, p2, scale) in packed.items():
         k, n = p1.shape[-2] * 8, p1.shape[-1]
         p1 = pad_axis(pad_axis(p1, rows, -2), n_mult, -1).contiguous()
         p2 = pad_axis(pad_axis(p2, rows, -2), n_mult, -1).contiguous()
-        out[path] = tern.PackedPlanes(pos=p1, neg=p2, scale=scale, k=k, n=n)
+        if stream:
+            wi = tern.interleave_planes(p1, p2)
+            out[path] = tern.PackedPlanes(
+                pos=wi, neg=wi[..., :0, :], scale=scale, k=k, n=n,
+                layout_version=tern.PLANE_LAYOUT_STREAM)
+        else:
+            out[path] = tern.PackedPlanes(pos=p1, neg=p2, scale=scale, k=k, n=n)
     return out
 
 
@@ -117,7 +127,8 @@ def prepare_for_spec(params: PyTree, spec: CiMExecSpec,
     packing="bitplane_u8" -> also emit packed planes; returns
                              ``(params, packed)`` with each
                              ``packed[path]`` a canonical
-                             :class:`PackedPlanes`.
+                             :class:`PackedPlanes` (layout 1 for
+                             ``cuda_stream`` specs, else layout 0).
     The canonical layout is resolved on the params' device.
     """
     if spec.packing == "bitplane_u8":

@@ -147,10 +147,14 @@ class ContinuousBatcher:
     ``prepare_weights=True`` runs ``quant.prepare.prepare_for_spec`` once:
     the model serves folded ternary weights (``pre_quantized``), and for
     a bitplane-packed spec the canonical 2-bit planes are kept on
-    ``self.packed`` for ``execute_packed`` consumers while the in-model
-    spec drops to ``packing="none"`` (as in the reference, the model
-    itself never reads the planes); it raises ``KeyError`` when no dense
-    kernel is registered for that spec.
+    ``self.packed`` for ``execute_packed`` consumers (layout 1 for a
+    ``cuda_stream`` spec) while the in-model spec drops to
+    ``packing="none"`` (as in the reference, the model itself never reads
+    the planes). A backend with no dense kernel for the formulation
+    (``cuda_stream`` exists to stream stored planes) serves the dense
+    path under ``auto``, as the reference does: on the card that is the
+    ``cuda`` kernel. A formulation with no dense kernel at all raises
+    ``KeyError`` here.
 
     Fused serving is token-identical to :func:`generate` under
     ``QuantConfig(act_scale="per_row")``; the per-tensor scale couples
@@ -178,10 +182,15 @@ class ContinuousBatcher:
             if exec_spec.packing == "bitplane_u8":
                 params, self.packed = prepared
                 # the in-model dense path serves the folded ternary weights;
-                # a spec with no dense kernel (exact/cuda until the exact
-                # kernel is ported) raises here instead of serving plain
+                # a packed-only backend (cuda_stream) serves it under auto,
+                # i.e. the dense kernel on the card, and a formulation
+                # with no kernel on this device raises here
                 exec_spec = dataclasses.replace(exec_spec, packing="none")
-                get_backend(exec_spec, dev)
+                try:
+                    get_backend(exec_spec, dev)
+                except KeyError:
+                    exec_spec = dataclasses.replace(exec_spec, backend="auto")
+                    get_backend(exec_spec, dev)
             else:
                 params = prepared
             cfg = cfg.replace(

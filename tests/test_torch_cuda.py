@@ -11,6 +11,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.core.execution import CiMExecSpec
 from repro_torch.core.ternary import deinterleave_planes, interleave_planes, pack_ternary
 from repro_torch.kernels import packed_mac as pm
 from repro_torch.kernels import ternary_mac as tm
@@ -28,7 +29,8 @@ def cuda_device():
 
 def _launches():
     return (tm.ternary_cim_matmul.launches, pm.packed_cim_matmul_decode.launches,
-            pm.packed_cim_matmul.launches)
+            pm.packed_cim_matmul.launches, tm.ternary_exact_matmul.launches,
+            pm.packed_cim_matmul_decode_stream.launches)
 
 
 @pytest.mark.cuda
@@ -65,16 +67,22 @@ def test_cuda_wrappers_count_launches_only(cuda_device):
     w = torch.ones((32, 8), dtype=torch.int8, device=cuda_device)
     planes = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
     before = _launches()
+    wide = torch.zeros((8, 16), dtype=torch.uint8, device=cuda_device)  # layout 1
     empty = torch.zeros((0, 32), dtype=torch.int8, device=cuda_device)
     assert tm.ternary_cim_matmul(empty, w).shape == (0, 8)
+    assert tm.ternary_exact_matmul(empty, w).shape == (0, 8)
     assert pm.packed_cim_matmul_decode(empty, planes, planes).shape == (0, 8)
     assert pm.packed_cim_matmul(empty, planes, planes).shape == (0, 8)
+    assert pm.packed_cim_matmul_decode_stream(empty, wide).shape == (0, 16)
     assert _launches() == before            # nothing was launched
     x = torch.ones((2, 32), dtype=torch.int8, device=cuda_device)
     assert torch.equal(tm.ternary_cim_matmul(x, w),
                        torch.full((2, 8), 16.0, device=cuda_device))
+    assert torch.equal(tm.ternary_exact_matmul(x, w),
+                       torch.full((2, 8), 32.0, device=cuda_device))
     pm.packed_cim_matmul_decode(x, planes, planes)
     pm.packed_cim_matmul(x, planes, planes)
+    pm.packed_cim_matmul_decode_stream(x, wide)
     torch.cuda.synchronize()
     assert _launches() == tuple(c + 1 for c in before)
 
@@ -90,6 +98,87 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         pm.packed_cim_matmul(x, torch.zeros((4, 8), dtype=torch.uint8),
                              torch.zeros((4, 8), dtype=torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(576, 576), (576, 192), (1536, 576), (40, 33)])
+def test_cuda_exact_and_stream_kernels_bit_exact(cuda_device, k, n):
+    """#5 against its plain version at decode and prefill M; #3 against
+    its plain version and #2 on canonical layout-1 planes, nbuf 2 and 3,
+    cim on and off."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * k + n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    wz = torch.zeros((-(-k // 256) * 256, -(-n // 128) * 128), dtype=torch.int8,
+                     device=cuda_device)
+    wz[:k, :n] = w
+    p1, p2 = pack_ternary(wz, axis=0)
+    wi = interleave_planes(p1, p2)
+    for m in (1, 3, 5, 8, 64, 200):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        torch.testing.assert_close(tm.ternary_exact_matmul(x, w),
+                                   tm.exact_matmul_plain(x, w), rtol=0, atol=0)
+        if m > 8:
+            continue
+        for cim in (True, False):
+            want = pm.stream_matmul_plain(x, wi, n_out=n, cim=cim).to(torch.int32)
+            decode = pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim)
+            for nbuf in (2, 3):
+                got = pm.packed_cim_matmul_decode_stream(x, wi, n_out=n, cim=cim,
+                                                         nbuf=nbuf)
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                torch.testing.assert_close(got, decode, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_exact_and_stream_wrappers_raise(cuda_device):
+    x = torch.ones((2, 256), dtype=torch.int8, device=cuda_device)
+    wi = torch.zeros((64, 128), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="buffer depth"):
+        pm.packed_cim_matmul_decode_stream(x, wi, nbuf=4)
+    with pytest.raises(ValueError, match="block=16"):
+        pm.packed_cim_matmul_decode_stream(x, wi, block=8)
+    with pytest.raises(TypeError, match="int8"):
+        pm.packed_cim_matmul_decode_stream(x.float(), wi)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pm.packed_cim_matmul_decode_stream(x, wi[:, :120])   # 16-byte copies
+    with pytest.raises(ValueError, match="different devices"):
+        pm.packed_cim_matmul_decode_stream(x, wi.cpu())
+    w = torch.ones((256, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        tm.ternary_exact_matmul(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tm.ternary_exact_matmul(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="operands on"):
+        tm.ternary_exact_matmul(x, w.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_nm_serving_matches_generate(cuda_device):
+    """Smoke-size serving under exact/cuda: every quantized dense layer
+    is one launch of kernel #5, none of #1, and fused == generate()."""
+    cfg = get_config("smollm-135m", smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    spec = CiMExecSpec("exact", "cuda")
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, exec_spec=spec,
+                                device=cuda_device)
+    reqs = [Request(i, [1 + (i * 5 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(5)]
+    for r in reqs:
+        batcher.submit(r)
+    before = _launches()
+    batcher.run()
+    after = _launches()
+    steps = batcher.stats()["decode_steps"] + batcher.stats()["prefill_batches"]
+    assert after[3] - before[3] == 7 * cfg.n_layers * steps
+    assert after[0] == before[0]
+    for r in reqs:
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        exec_spec=spec, device=cuda_device)[0].tolist()
+        assert r.done and r.generated == want, r.rid
 
 
 @pytest.mark.cuda

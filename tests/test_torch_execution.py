@@ -17,13 +17,14 @@ from repro_torch.core import ternary as tt
 # port backend -> the JAX backend computing the same function (the cuda
 # entries run their kernels' plain versions on CPU tensors and are held
 # against the Pallas kernels in interpret mode)
-JAX_BACKEND = {"torch": "jnp", "cuda": "pallas"}
+JAX_BACKEND = {"torch": "jnp", "cuda": "pallas", "cuda_stream": "pallas_stream"}
 
 EXPECTED_KEYS = {
     "exact/torch/none", "blocked/torch/none", "corrected/torch/none",
     "bitplane/torch/none", "fused/torch/none", "exact/torch/bitplane_u8",
     "blocked/torch/bitplane_u8", "blocked/cuda/none",
-    "blocked/cuda/bitplane_u8", "exact/cuda/bitplane_u8",
+    "blocked/cuda/bitplane_u8", "exact/cuda/bitplane_u8", "exact/cuda/none",
+    "exact/cuda_stream/bitplane_u8", "blocked/cuda_stream/bitplane_u8",
 }
 
 
@@ -135,6 +136,9 @@ def test_spec_validation_and_resolution():
     assert api.CiMExecSpec("corrected", "auto").resolve("cuda").backend == "cuda"
     for formulation in ("exact", "corrected", "fused"):
         assert api.get_backend(api.CiMExecSpec(formulation, "auto"), "cpu")
+    # exact has its CUDA kernel (#5); the others raise on the card
+    assert api.get_backend(api.CiMExecSpec("exact", "auto"), "cuda").clamps is False
+    for formulation in ("corrected", "fused"):
         with pytest.raises(KeyError, match=f"{formulation}/cuda/none"):
             api.get_backend(api.CiMExecSpec(formulation, "auto"), "cuda")
     assert api.CiMExecSpec("exact").clamps is False

@@ -18,6 +18,7 @@ from repro.quant.prepare import prepare_for_spec as jprepare
 from repro.serve.engine import generate as jgenerate
 from repro_torch import api
 from repro_torch.bridge import params_from_numpy
+from repro_torch.core import execution
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
@@ -161,21 +162,26 @@ def test_prepared_batcher_planes_equal_execute(port_model):
 
 
 @pytest.mark.parametrize("backend", ["cuda", "auto"])
-def test_prepared_batcher_without_dense_kernel_raises(port_model, backend):
-    # exact has stored-plane kernels but no dense CUDA kernel yet: the
-    # prepared batcher must refuse the spec, not serve plain PyTorch
+def test_prepared_batcher_without_dense_kernel_raises(port_model, backend,
+                                                       monkeypatch):
+    # exact/cuda/none is registered (kernel #5), so the exact spec's dense
+    # path is served through it (auto on CPU operands is the plain
+    # formulation, by design)
     cfg, params = port_model
     spec = api.CiMExecSpec("exact", backend, "bitplane_u8")
-    if backend == "cuda":
-        with pytest.raises(KeyError, match="exact/cuda/none"):
-            ContinuousBatcher(params, cfg, n_slots=2, s_max=32, exec_spec=spec,
-                              prepare_weights=True, device="cpu")
-    else:   # auto on CPU operands is the plain formulation, by design
-        batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32,
-                                    exec_spec=spec, prepare_weights=True,
-                                    device="cpu")
-        assert batcher.cfg.quant.exec_spec.name == "exact/auto/none"
-        assert batcher.packed
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32,
+                                exec_spec=spec, prepare_weights=True,
+                                device="cpu")
+    assert batcher.cfg.quant.exec_spec.name == f"exact/{backend}/none"
+    assert batcher.packed
+    # with no dense kernel for the formulation on this device, neither
+    # under the spec's backend nor under auto, the batcher refuses the
+    # spec instead of serving something else
+    for key in (("exact", "cuda", "none"), ("exact", "torch", "none")):
+        monkeypatch.delitem(execution._REGISTRY, key)
+    with pytest.raises(KeyError, match="exact/torch/none"):
+        ContinuousBatcher(params, cfg, n_slots=2, s_max=32, exec_spec=spec,
+                          prepare_weights=True, device="cpu")
 
 
 def test_dense_pre_quantized_codes_exact():
