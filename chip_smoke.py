@@ -6,20 +6,23 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. card and build: the card's name and power limit, torch/CUDA
      versions, the build of every kernel from ``src/repro_torch/csrc``,
-     and a structural check of the stream kernel's overlap: its SASS
-     (``cuobjdump -sass``) must hold asynchronous global->shared copies
-     and a wait on them;
+     and a structural check of the SASS (``cuobjdump -sass``) of #3, #1
+     and #5: asynchronous global->shared copies and a wait on them, and
+     in #1 and #5 int8 tensor-core MMAs (IMMA);
   2. kernels: each hand-written kernel against its plain PyTorch version
      on the card, bit-exact, at the smollm-135m layer shapes and every M
      the later phases give it (#3 also against #2, at nbuf 2 and 3), and
-     on the very inputs it is timed on; the device time per call
-     (CUDA-graph replay, weights rotated through more memory than the L2
-     cache holds), the plain version's time, the bound, #3's time
+     on the very inputs it is timed on, and #1 and #5 also at ragged
+     shapes that cut across their K split and column tiles; the device
+     time per call (CUDA-graph replay, weights rotated through more
+     memory than the L2 cache holds) at decode M=4 and, for #1 and #5,
+     prefill M=64, the plain version's time, the bound, #3's time
      against #2's on the same planes, and for #5 the time of one PyTorch
      matmul computing the same function;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
      (seeded random weights, 4 slots, s_max 256, 8 requests), with
-     kernel #1's launch count = 210 x (decode steps + prefill batches);
+     kernel #1's launch count = 210 x (decode steps + prefill batches),
+     and one decode step under torch.profiler (device-busy time, #1's);
   4. token identity: the fused batcher against the port's generate(),
      greedy, under act_scale="per_row";
   5. stored planes: a prepare_weights=True batcher under
@@ -28,8 +31,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      folded ternary weights, through the packed kernels;
   6. the near-memory baseline: the batcher under exact/cuda on phase 3's
      requests, kernel #5's launch count = 210 x (decode steps + prefill
-     batches) with #1 not launched, and fused == generate() under
-     act_scale="per_row";
+     batches) with #1 not launched, one profiled decode step (#5's device
+     time), and fused == generate() under act_scale="per_row";
   7. streaming stored planes: a prepare_weights=True batcher under
      blocked/cuda_stream/bitplane_u8 (planes stored in layout 1), then
      execute_packed under the blocked and exact stream specs for every
@@ -46,6 +49,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,11 +74,18 @@ KERNELS = {
 LAYER_SHAPES = (("q", 576, 576), ("k", 576, 192), ("v", 576, 192),
                 ("o", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
                 ("down", 1536, 576))
-CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576))
+# the layer shapes, then ragged ones that cut across #1's and #5's K split
+# and column tiles: K=16 (one block), N=8 (half a tile), 37 blocks of 16
+# (prime: no split divides it) by N=200 (12.5 tiles)
+CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576),
+                (16, 8), (40, 33), (592, 200))
 # M of the kernel checks: every M the serving phases launch (decode 4
 # slots; prefill 4 x pow2 bucket <= 64; generate() of one prompt of 1-16
 # tokens; the stored-plane phase's 4 and 128), plus a ragged 200
 CHECK_M = tuple(range(1, 17)) + (32, 64, 128, 200)
+# the prefill M at which #1 and #5 are also timed: the largest that
+# phase 3's prefill gives them (4 slots x a 16-token bucket)
+TIMED_PREFILL_M = 64
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
 
 
@@ -162,33 +173,59 @@ def reset_counts(tm, pm):
         fn.launches = 0
 
 
-def check_stream_sass(nvcc: str, library: str) -> dict:
-    """The counterpart of the Pallas stream kernel's pin of 2 dma_start
-    and 1 dma_wait: every compiled instance of the stream kernel holds
-    asynchronous global->shared copies (LDGSTS for cp.async, UBLKCP or
-    UTMALDG for TMA) and a wait on them (LDGDEPBAR/DEPBAR, or SYNCS for
-    an mbarrier). Returns the opcode counts per instance."""
+# the SASS check: kernel -> (library stem, function name, must hold IMMA)
+SASS_CHECKS = {
+    "packed_cim_matmul_decode_stream": ("packed_stream", "packed_stream_kernel", False),
+    "ternary_cim_matmul": ("ternary_mac", "tile_kernel", True),
+    "ternary_exact_matmul": ("ternary_exact", "tile_kernel", True),
+}
+SASS_OPS = ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS", "IMMA")
+
+
+def copy_width(name: str) -> int:
+    """The copy width CW of a tile_kernel<Mac, MT, CW> instance, from its
+    mangled name (...ELi<MT>ELi<CW>EE...)."""
+    found = re.search(r"ELi(\d+)ELi(\d+)EE", name)
+    if not found:
+        fail(f"cannot read the copy width of {name}")
+    return int(found.group(2))
+
+
+def check_sass(nvcc: str, libs: dict) -> dict:
+    """What each checked kernel's SASS (``cuobjdump -sass``) must hold, in
+    every compiled instance: asynchronous global->shared copies (LDGSTS
+    for cp.async, UBLKCP or UTMALDG for TMA) and a wait on them
+    (LDGDEPBAR/DEPBAR, or SYNCS for an mbarrier) -- the counterpart of
+    the Pallas stream kernel's pin of 2 dma_start and 1 dma_wait -- except
+    in the byte-copy instances of #1 and #5 (copy width 1, taken only
+    where N or K is not a multiple of 16); and for #1 and #5 int8
+    tensor-core MMAs (IMMA). Returns the opcode counts per kernel and
+    instance."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
         fail(f"cuobjdump not found beside {nvcc}")
-    res = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
-                         text=True, timeout=120)
-    if res.returncode != 0:
-        fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
     found = {}
-    for part in res.stdout.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        if "packed_stream_kernel" not in name:
-            continue
-        ops = {op: part.count(op) for op in
-               ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS")}
-        if not (ops["LDGSTS"] or ops["UBLKCP"] or ops["UTMALDG"]):
-            fail(f"stream kernel {name}: no asynchronous global->shared copy")
-        if not (ops["LDGDEPBAR"] or ops["DEPBAR"] or ops["SYNCS"]):
-            fail(f"stream kernel {name}: no wait on its asynchronous copies")
-        found[name] = ops
-    if not found:
-        fail(f"no packed_stream_kernel in the SASS of {library}")
+    for kernel, (stem, fn, imma) in SASS_CHECKS.items():
+        res = subprocess.run([cuobjdump, "-sass", str(libs[stem])],
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
+        found[kernel] = {}
+        for part in res.stdout.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if fn not in name:
+                continue
+            ops = {op: part.count(op) for op in SASS_OPS}
+            if fn != "tile_kernel" or copy_width(name) > 1:
+                if not (ops["LDGSTS"] or ops["UBLKCP"] or ops["UTMALDG"]):
+                    fail(f"{kernel} {name}: no asynchronous global->shared copy")
+                if not (ops["LDGDEPBAR"] or ops["DEPBAR"] or ops["SYNCS"]):
+                    fail(f"{kernel} {name}: no wait on its asynchronous copies")
+            if imma and not ops["IMMA"]:
+                fail(f"{kernel} {name}: no int8 tensor-core MMA (IMMA)")
+            found[kernel][name] = ops
+        if not found[kernel]:
+            fail(f"no {fn} in the SASS of {libs[stem]}")
     return found
 
 
@@ -270,13 +307,17 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         lib_dt = torch.float32
         library = torch.matmul
 
-    # timing: one decoder layer's 7 calls, each at its own (K, N)
+    # timing: one decoder layer's 7 calls, each at its own (K, N); #1 and
+    # #5 also at prefill M (TIMED_PREFILL_M), as "prefill_ms"
     per_kernel = {}
     stream_vs_decode = None
     for name, m in (("ternary_cim_matmul", 4), ("ternary_exact_matmul", 4),
+                    ("ternary_cim_matmul", TIMED_PREFILL_M),
+                    ("ternary_exact_matmul", TIMED_PREFILL_M),
                     ("packed_cim_matmul_decode", 4),
                     ("packed_cim_matmul_decode_stream", 4),
                     ("packed_cim_matmul", 128)):
+        prefill = name in per_kernel
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in LAYER_SHAPES:
@@ -349,9 +390,14 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             t_bytes += tb
             t_ops += to
             del calls, plain
-        pk = per_kernel[name] = dict(
-            tot, bound_ms=max(t_bytes, t_ops), m=m,
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        pk = dict(tot, bound_ms=max(t_bytes, t_ops), m=m,
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if prefill:
+            per_kernel[name].update(
+                prefill_ms=pk["ms"], prefill_m=m, prefill_plain_ms=pk["plain_ms"],
+                prefill_bound_ms=pk["bound_ms"], prefill_library_ms=pk["library_ms"])
+        else:
+            per_kernel[name] = dict(pk, prefill_ms=None)
         extra = ""
         if pk["library_ms"] is not None:
             extra = f", {lib_name} {pk['library_ms']:.4f} ms"
@@ -400,8 +446,9 @@ def drive(torch, batcher, reqs):
 
 def profile_decode_step(torch, batcher):
     """Device time of one fused decode step from torch.profiler (CUPTI):
-    (wall ms under the profiler, device-busy ms, top kernels). Device
-    time 0 means the profiler saw no device activity."""
+    (wall ms under the profiler, device-busy ms, top kernels, (ms,
+    launches) of the MAC kernels #1/#5). Device time 0 means the
+    profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     batcher.step()  # fills the slots (prefill) so the next step decodes
@@ -418,7 +465,9 @@ def profile_decode_step(torch, batcher):
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), rows[:6]
+    mac = [r for r in rows if "tile_kernel" in r[2]]
+    return (wall, sum(r[0] for r in rows), rows[:6],
+            (sum(r[0] for r in mac), sum(r[1] for r in mac)))
 
 
 def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
@@ -494,10 +543,11 @@ def serving_phases(torch, tm, pm, card, dev):
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev)
     for r in make_requests(Request, cfg.vocab, seed=3, n=4):
         batcher.submit(r)
-    wall, busy, top = profile_decode_step(torch, batcher)
+    wall, busy, top, (mac_ms, mac_n) = profile_decode_step(torch, batcher)
     if busy > 0:
         log(f"profiled decode step (4 slots): {wall:.2f} ms wall under the "
-            f"profiler, {busy:.3f} ms device-busy ({100 * busy / wall:.1f}%); top "
+            f"profiler, {busy:.3f} ms device-busy ({100 * busy / wall:.1f}%), of "
+            f"which the MAC kernel #1 {mac_ms:.3f} ms x{mac_n}; top "
             "device time: " + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in top))
     else:
         log(f"profiled decode step: {wall:.2f} ms wall; device time not measured "
@@ -560,6 +610,15 @@ def serving_phases(torch, tm, pm, card, dev):
         f"{nm_counts['ternary_exact_matmul']} = 210 x "
         f"{st['decode_steps'] + st['prefill_batches']}, #1 none. Phase 3 "
         f"(blocked, kernel #1): {cim_line}")
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=nm,
+                                device=dev)
+    for r in make_requests(Request, cfg.vocab, seed=3, n=4):
+        batcher.submit(r)
+    wall, busy, _, (mac_ms, mac_n) = profile_decode_step(torch, batcher)
+    log(f"profiled NM decode step (4 slots): {wall:.2f} ms wall under the profiler, "
+        f"{busy:.3f} ms device-busy, of which the MAC kernel #5 {mac_ms:.3f} ms "
+        f"x{mac_n}" if busy > 0 else "profiled NM decode step: device time not "
+        "measured (the profiler recorded no device activity)")
     batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256,
                                 exec_spec=nm, device=dev)
     token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=4, n=4),
@@ -649,9 +708,10 @@ def main(argv=None) -> int:
     for line in str(_build.last_build.get("log", "")).splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
-    sass = check_stream_sass(_build.nvcc_path(), str(libs["packed_stream"]))
-    log("stream kernel overlap (SASS): " + "; ".join(
-        f"{name[-40:]}: {ops}" for name, ops in sorted(sass.items())))
+    sass = check_sass(_build.nvcc_path(), libs)
+    for kernel, instances in sass.items():
+        log(f"{kernel} SASS: " + "; ".join(
+            f"{name[-40:]}: {ops}" for name, ops in sorted(instances.items())))
 
     per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
                                            torch.device("cuda"))
@@ -665,13 +725,17 @@ def main(argv=None) -> int:
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": pk["ms"], "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
+            "prefill_ms": pk["prefill_ms"],
         })
     result = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(result, card=card, timed_at_m={
-                k: v["m"] for k, v in per_kernel.items()}, stream_sass=sass,
+                k: v["m"] for k, v in per_kernel.items()}, prefill={
+                k: {f: v[f] for f in v if f.startswith("prefill")}
+                for k, v in per_kernel.items() if v["prefill_ms"] is not None},
+                sass=sass,
                 **extra), f, indent=1)
     print(card, flush=True)
     print(json.dumps(result), flush=True)

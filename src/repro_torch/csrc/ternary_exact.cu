@@ -12,135 +12,56 @@
 //
 // What bounds it on the H100: at the serving shapes (decode M <= 8,
 // prefill M <= a few hundred; K, N <= 1536) the work is a few MOPs per
-// call, so the bound is the weight read: K*N int8 bytes (1 B per weight)
-// at 3.35 TB/s, the same bytes as ternary_mac.cu.
+// call, so the bound is the weight read: K*N int8 bytes at 3.35 TB/s.
+// At 0.1-1 MB a call, though, what sets the time is latency: how many
+// SMs have work and how many bytes each keeps in flight.
 //
-// What the design does about it: ternary_mac.cu's structure without the
-// clamp. Each weight byte is read from device memory once and turned
-// into 32-bit pos/neg masks in registers, 32 K rows to a word (no clamp
-// ties the word to the 16-row block here); x is staged once per block in
-// shared memory as 32-bit pos/neg masks, and the inner loop is
-//   p = popc(x+ & w+) + popc(x- & w-) - popc(x+ & w-) - popc(x- & w+)
-// with int32 accumulators (exact, no float rounding). A block owns 32
-// output columns, one per lane, so a warp reads 32 neighbouring weight
-// bytes per K row (coalesced); the block's warps split the K words and
-// add their integer partials in shared memory, so the result does not
-// depend on the split. The K loop lives inside the block. Ragged M, N
-// and K are masked here, so callers pass the logical extents. Simple:
-// byte loads, no TMA ring, no tensor cores (see PERF.md for its times).
-#include <cstdint>
-#include <cuda_runtime.h>
+// What the design does about it (the grid, the cluster K split, the
+// 16-byte cp.async ring and the fragment transpose are in
+// ternary_tile.cuh, shared with ternary_mac.cu): the function is a plain
+// int8 product, so every 32 K rows of a stage are one int8 tensor-core
+// MMA per 8 x rows, mma.sync m16n8k32 s8.s8.s32 (IMMA in the SASS),
+// accumulating in int32: exact, since |partial| <= K < 2^31. The sums are
+// converted to f32 once, at the store. The grid (16-column tiles, K split
+// over a cluster of up to 8 blocks) gives 144-192 blocks at the
+// smollm-135m shapes with N >= 576 (96 at N = 192). Its times beside
+// torch.mm on the same values are in PERF.md.
+#include "ternary_tile.cuh"
 
 namespace {
 
-constexpr int kWord = 32;   // K rows per mask word
-constexpr int kCols = 32;   // output columns per block: one per lane
-constexpr int kChunk = 32;  // K words of x staged per pass (1024 rows)
+using namespace ternary_tile;
 
-// MT rows of x per block; WARPS warps split the K words.
-template <int MT, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-exact_mac_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 float* __restrict__ out, int M, int K, int N) {
-  __shared__ uint32_t xpos[MT][kChunk];
-  __shared__ uint32_t xneg[MT][kChunk];
-  __shared__ int partial[WARPS][MT][kCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane;
-  const int m0 = blockIdx.y * MT;
-  const int kw_total = (K + kWord - 1) / kWord;
-
-  int acc[MT];
+struct ExactMac {
+  // one stage: a k32 MMA per 32 K rows and 8 x rows
+  template <int MT>
+  __device__ __forceinline__ void stage(int (&acc)[MT / 8][4], const uint8_t* slot,
+                                        int lane) const {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint8_t* xs = slot + kWStageBytes;
 #pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0;
-
-  for (int kw0 = 0; kw0 < kw_total; kw0 += kChunk) {
-    const int nkw = min(kChunk, kw_total - kw0);
-    __syncthreads();  // the previous chunk's masks are consumed
-    for (int e = threadIdx.x; e < MT * nkw; e += 32 * WARPS) {
-      const int r = e / nkw;
-      const int b = e - r * nkw;
-      const int m = m0 + r;
-      uint32_t p = 0, q = 0;
-      if (m < M) {
-        const int8_t* row = x + static_cast<size_t>(m) * K;
-        const int kbase = (kw0 + b) * kWord;
+    for (int kk = 0; kk < kStageRows; kk += 32) {
+      const uint32_t a0 = w_frag(slot, kk + t * 4, g);
+      const uint32_t a1 = w_frag(slot, kk + t * 4, g + 8);
+      const uint32_t a2 = w_frag(slot, kk + 16 + t * 4, g);
+      const uint32_t a3 = w_frag(slot, kk + 16 + t * 4, g + 8);
 #pragma unroll
-        for (int j = 0; j < kWord; ++j) {
-          const int k = kbase + j;
-          const int v = k < K ? row[k] : 0;
-          p |= static_cast<uint32_t>(v > 0) << j;
-          q |= static_cast<uint32_t>(v < 0) << j;
-        }
-      }
-      xpos[r][b] = p;
-      xneg[r][b] = q;
-    }
-    __syncthreads();
-    if (n < N) {
-      for (int b = warp; b < nkw; b += WARPS) {
-        const int kbase = (kw0 + b) * kWord;
-        uint32_t wp = 0, wn = 0;
-#pragma unroll
-        for (int j = 0; j < kWord; ++j) {
-          const int k = kbase + j;
-          const int v = k < K ? w[static_cast<size_t>(k) * N + n] : 0;
-          wp |= static_cast<uint32_t>(v > 0) << j;
-          wn |= static_cast<uint32_t>(v < 0) << j;
-        }
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const uint32_t xp = xpos[r][b];
-          const uint32_t xn = xneg[r][b];
-          acc[r] += __popc(xp & wp) + __popc(xn & wn) - __popc(xp & wn) -
-                    __popc(xn & wp);
-        }
-      }
+      for (int j = 0; j < MT / 8; ++j)
+        mma_k32(acc[j], a0, a1, a2, a3, x_frag(xs, j * 8 + g, kk + t * 4),
+                x_frag(xs, j * 8 + g, kk + 16 + t * 4));
     }
   }
-  // add the warps' integer partials (exact in any order)
-#pragma unroll
-  for (int r = 0; r < MT; ++r) partial[warp][r][lane] = acc[r];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * kCols; e += 32 * WARPS) {
-    const int r = e / kCols;
-    const int c = e - r * kCols;
-    const int m = m0 + r;
-    const int col = blockIdx.x * kCols + c;
-    if (m < M && col < N) {
-      int sum = 0;
-#pragma unroll
-      for (int v = 0; v < WARPS; ++v) sum += partial[v][r][c];
-      out[static_cast<size_t>(m) * N + col] = static_cast<float>(sum);
-    }
-  }
-}
-
-template <int MT, int WARPS>
-void launch(const int8_t* x, const int8_t* w, float* out, int M, int K, int N,
-            cudaStream_t stream) {
-  const dim3 grid((N + kCols - 1) / kCols, (M + MT - 1) / MT);
-  exact_mac_kernel<MT, WARPS><<<grid, 32 * WARPS, 0, stream>>>(x, w, out, M, K, N);
-}
+};
 
 }  // namespace
 
 // x: (M, K) int8, w: (K, N) int8, out: (M, N) f32, all contiguous on the
-// current device. rows_per_block selects the M tile (8: decode, 32:
-// prefill). Returns cudaGetLastError() after the launch.
+// current device. rows_per_block: the M tile (8: decode, 32: prefill);
+// cluster: the blocks that split K (grid z, one cluster). Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int ternary_exact_mac(const void* x, const void* w, void* out, int M,
-                                 int K, int N, int rows_per_block, void* stream) {
-  const auto* xs = static_cast<const int8_t*>(x);
-  const auto* ws = static_cast<const int8_t*>(w);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (rows_per_block == 8) {
-    launch<8, 16>(xs, ws, o, M, K, N, s);
-  } else if (rows_per_block == 32) {
-    launch<32, 8>(xs, ws, o, M, K, N, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int K, int N, int rows_per_block, int cluster,
+                                 void* stream) {
+  return launch(x, w, out, M, K, N, rows_per_block, cluster, ExactMac{}, stream);
 }

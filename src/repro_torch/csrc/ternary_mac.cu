@@ -12,136 +12,67 @@
 // What bounds it on the H100: at the serving shapes (decode M <= 8,
 // prefill M <= a few hundred; K, N <= 1536) the work is a few MOPs per
 // call, so the bound is the weight read: K*N int8 bytes at 3.35 TB/s.
+// At 0.1-1 MB a call, though, what sets the time is latency: how many
+// SMs have work and how many bytes each keeps in flight.
 //
-// What the design does about it: each weight byte is read from device
-// memory once and turned into 16-bit pos/neg masks in registers; x is
-// staged once per block in shared memory as pos/neg masks, so the inner
-// loop is popcounts on registers with integer accumulators (exact, no
-// float rounding). A block owns 32 output columns, one per lane, so a
-// warp reads 32 neighbouring weight bytes per K row (coalesced); the
-// block's warps split the K blocks between them (8-16x more loads in
-// flight than one warp per column group, which is what decode widths
-// need) and add their integer partials in shared memory, so the result
-// is independent of the split. The K loop lives inside the block: no
-// cross-block reduction, no output revisiting. Ragged M, N and K are
-// masked here, so callers pass the logical extents. Still simple: byte
-// loads, no TMA ring, no tensor cores (see PERF.md for its times).
-#include <cstdint>
-#include <cuda_runtime.h>
+// What the design does about it (the grid, the cluster K split at 16-row
+// block boundaries, the 16-byte cp.async ring and the fragment transpose
+// are in ternary_tile.cuh, shared with ternary_exact.cu): one 16-deep CiM
+// block is exactly one int8 tensor-core MMA, mma.sync m16n8k16
+// s8.s8.s32 (IMMA in the SASS). Two MMAs per block and 8 x rows, each
+// from a zero accumulator, give p = x.w and m = |x|.|w| (|v| = v & 1 for
+// a ternary code); then a = (m+p)>>1 and b = (m-p)>>1 exactly (m+p = 2a),
+// and min(a, adc_max) - min(b, adc_max) is added into a running int32
+// fragment. Every partial is an integer, so the result does not depend on
+// the K split, and is converted to f32 once, at the store.
+#include "ternary_tile.cuh"
 
 namespace {
 
-constexpr int kBlock = 16;  // rows asserted per CiM cycle (N_A)
-constexpr int kCols = 32;   // output columns per block: one per lane
-constexpr int kChunk = 64;  // 16-row K blocks of x staged per pass
+using namespace ternary_tile;
 
-// MT rows of x per block; WARPS warps split the K blocks.
-template <int MT, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-cim_mac_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               float* __restrict__ out, int M, int K, int N, int adc_max) {
-  __shared__ uint16_t xpos[MT][kChunk];
-  __shared__ uint16_t xneg[MT][kChunk];
-  __shared__ int partial[WARPS][MT][kCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane;
-  const int m0 = blockIdx.y * MT;
-  const int kb_total = (K + kBlock - 1) / kBlock;
+struct CimMac {
+  int adc_max;
 
-  int acc[MT];
+  // one stage: per 16-row CiM block and 8 x rows, two k16 MMAs
+  template <int MT>
+  __device__ __forceinline__ void stage(int (&acc)[MT / 8][4], const uint8_t* slot,
+                                        int lane) const {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint8_t* xs = slot + kWStageBytes;
 #pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0;
-
-  for (int kb0 = 0; kb0 < kb_total; kb0 += kChunk) {
-    const int nkb = min(kChunk, kb_total - kb0);
-    __syncthreads();  // the previous chunk's masks are consumed
-    for (int e = threadIdx.x; e < MT * nkb; e += 32 * WARPS) {
-      const int r = e / nkb;
-      const int b = e - r * nkb;
-      const int m = m0 + r;
-      uint32_t p = 0, q = 0;
-      if (m < M) {
-        const int8_t* row = x + static_cast<size_t>(m) * K;
-        const int kbase = (kb0 + b) * kBlock;
+    for (int kk = 0; kk < kStageRows; kk += kBlock) {
+      const uint32_t a0 = w_frag(slot, kk + t * 4, g);
+      const uint32_t a1 = w_frag(slot, kk + t * 4, g + 8);
+      const uint32_t u0 = a0 & 0x01010101u;  // |w| of a ternary code
+      const uint32_t u1 = a1 & 0x01010101u;
 #pragma unroll
-        for (int j = 0; j < kBlock; ++j) {
-          const int k = kbase + j;
-          const int v = k < K ? row[k] : 0;
-          p |= static_cast<uint32_t>(v > 0) << j;
-          q |= static_cast<uint32_t>(v < 0) << j;
-        }
-      }
-      xpos[r][b] = static_cast<uint16_t>(p);
-      xneg[r][b] = static_cast<uint16_t>(q);
-    }
-    __syncthreads();
-    if (n < N) {
-      for (int b = warp; b < nkb; b += WARPS) {
-        const int kbase = (kb0 + b) * kBlock;
-        uint32_t wp = 0, wn = 0;
+      for (int j = 0; j < MT / 8; ++j) {
+        const uint32_t b = x_frag(xs, j * 8 + g, kk + t * 4);
+        int p[4], m[4];
+        mma_k16(p, a0, a1, b);
+        mma_k16(m, u0, u1, b & 0x01010101u);
 #pragma unroll
-        for (int j = 0; j < kBlock; ++j) {
-          const int k = kbase + j;
-          const int v = k < K ? w[static_cast<size_t>(k) * N + n] : 0;
-          wp |= static_cast<uint32_t>(v > 0) << j;
-          wn |= static_cast<uint32_t>(v < 0) << j;
-        }
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const uint32_t xp = xpos[r][b];
-          const uint32_t xn = xneg[r][b];
-          const int a = __popc(xp & wp) + __popc(xn & wn);
-          const int bb = __popc(xp & wn) + __popc(xn & wp);
-          acc[r] += min(a, adc_max) - min(bb, adc_max);
+        for (int i = 0; i < 4; ++i) {
+          const int a = (m[i] + p[i]) >> 1;
+          const int bb = (m[i] - p[i]) >> 1;
+          acc[j][i] += min(a, adc_max) - min(bb, adc_max);
         }
       }
     }
   }
-  // add the warps' integer partials (exact in any order)
-#pragma unroll
-  for (int r = 0; r < MT; ++r) partial[warp][r][lane] = acc[r];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * kCols; e += 32 * WARPS) {
-    const int r = e / kCols;
-    const int c = e - r * kCols;
-    const int m = m0 + r;
-    const int col = blockIdx.x * kCols + c;
-    if (m < M && col < N) {
-      int sum = 0;
-#pragma unroll
-      for (int v = 0; v < WARPS; ++v) sum += partial[v][r][c];
-      out[static_cast<size_t>(m) * N + col] = static_cast<float>(sum);
-    }
-  }
-}
-
-template <int MT, int WARPS>
-void launch(const int8_t* x, const int8_t* w, float* out, int M, int K, int N,
-            int adc_max, cudaStream_t stream) {
-  const dim3 grid((N + kCols - 1) / kCols, (M + MT - 1) / MT);
-  cim_mac_kernel<MT, WARPS><<<grid, 32 * WARPS, 0, stream>>>(x, w, out, M, K, N,
-                                                              adc_max);
-}
+};
 
 }  // namespace
 
 // x: (M, K) int8, w: (K, N) int8, out: (M, N) f32, all contiguous on the
-// current device. rows_per_block selects the M tile (8: decode, 32:
-// prefill). Returns cudaGetLastError() after the launch.
+// current device. rows_per_block: the M tile (8: decode, 32: prefill);
+// cluster: the blocks that split K (grid z, one cluster). Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int ternary_cim_mac(const void* x, const void* w, void* out, int M,
                                int K, int N, int adc_max, int rows_per_block,
-                               void* stream) {
-  const auto* xs = static_cast<const int8_t*>(x);
-  const auto* ws = static_cast<const int8_t*>(w);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (rows_per_block == 8) {
-    launch<8, 16>(xs, ws, o, M, K, N, adc_max, s);
-  } else if (rows_per_block == 32) {
-    launch<32, 8>(xs, ws, o, M, K, N, adc_max, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                               int cluster, void* stream) {
+  return launch(x, w, out, M, K, N, rows_per_block, cluster, CimMac{adc_max},
+                stream);
 }

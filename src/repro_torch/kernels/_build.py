@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, and loaded with ``ctypes``.
 All sources compile in parallel (one ``nvcc`` each, started together) at
-first use. Libraries are keyed by a hash of their source and flags, so
-an edited source rebuilds and an unchanged one is reused. The build
+first use. Libraries are keyed by a hash of their source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. The build
 directory is ``build/repro_torch`` at the root of the checkout.
 """
 from __future__ import annotations
@@ -31,12 +32,12 @@ _I = ctypes.c_int
 
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
-    "ternary_cim_mac": ("ternary_mac", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ternary_cim_mac": ("ternary_mac", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "packed_cim_mac": (
         "packed_mac", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "packed_stream_mac": (
         "packed_stream", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "ternary_exact_mac": ("ternary_exact", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "ternary_exact_mac": ("ternary_exact", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -60,7 +61,10 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -203,3 +203,43 @@ def test_cuda_fused_serving_matches_generate(cuda_device):
         want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
                         device=cuda_device)[0].tolist()
         assert r.done and r.generated == want, r.rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(16, 8), (40, 33), (592, 200), (576, 192),
+                                 (576, 576), (1536, 576)])
+def test_cuda_tile_kernels_bit_exact_at_ragged_shapes(cuda_device, k, n):
+    """#1 and #5 at shapes that cut across their K split (592 = 37 blocks
+    of 16, which no cluster size divides), their 16-column tiles (N = 8,
+    33, 200) and both copy widths (16-byte copies and the byte path), at decode and
+    prefill M, with adc_max small enough for the clamp to bite."""
+    g = torch.Generator(device=cuda_device).manual_seed(3 * k + n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    for m in (1, 4, 8, 9, 64, 200):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        torch.testing.assert_close(tm.ternary_exact_matmul(x, w),
+                                   tm.exact_matmul_plain(x, w), rtol=0, atol=0)
+        for adc_max in (8, 3):
+            torch.testing.assert_close(
+                tm.ternary_cim_matmul(x, w, adc_max=adc_max),
+                tm.ternary_cim_matmul_plain(x, w, adc_max=adc_max), rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_refused_cluster_launch_raises(cuda_device):
+    """A cluster larger than the portable 8 is refused by the runtime: the
+    launch raises, nothing falls back, and the next launch still works."""
+    x = torch.ones((4, 576), dtype=torch.int8, device=cuda_device)
+    w = torch.ones((576, 64), dtype=torch.int8, device=cuda_device)
+    bad = tm.LaunchPlan(8, (4, 1, 16), 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tm._launch_codes("ternary_exact_mac", x, w, plan=bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tm._launch_codes("ternary_cim_mac", x, w, 8, plan=bad)
+    assert torch.equal(tm.ternary_exact_matmul(x, w),
+                       torch.full((4, 64), 576.0, device=cuda_device))
+    assert torch.equal(tm.ternary_cim_matmul(x, w),
+                       torch.full((4, 64), 36 * 8.0, device=cuda_device))
