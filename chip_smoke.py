@@ -6,19 +6,22 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. card and build: the card's name and power limit, torch/CUDA
      versions, the build of every kernel from ``src/repro_torch/csrc``,
-     and a structural check of the SASS (``cuobjdump -sass``) of #3, #1
-     and #5: asynchronous global->shared copies and a wait on them, and
-     in #1 and #5 int8 tensor-core MMAs (IMMA);
+     and a structural check of the SASS (``cuobjdump -sass``) of the four
+     tile kernels #1, #3, #4 and #5: asynchronous global->shared copies
+     and a wait on them in every 16-byte instance, and int8 tensor-core
+     MMAs (IMMA) in every instance;
   2. kernels: each hand-written kernel against its plain PyTorch version
      on the card, bit-exact, at the smollm-135m layer shapes and every M
      the later phases give it (#3 also against #2, at nbuf 2 and 3), and
-     on the very inputs it is timed on, and #1 and #5 also at ragged
-     shapes that cut across their K split and column tiles; the device
-     time per call (CUDA-graph replay, weights rotated through more
-     memory than the L2 cache holds) at decode M=4 and, for #1 and #5,
-     prefill M=64, the plain version's time, the bound, #3's time
-     against #2's on the same planes, and for #5 the time of one PyTorch
-     matmul computing the same function;
+     on the very inputs it is timed on, and also at ragged shapes that
+     cut across the tile kernels' K split and column tiles, and #2, #3
+     and #4 on plane pairs whose bits overlap (read as pos - neg = 0);
+     the device time per call (CUDA-graph replay, weights rotated through
+     more memory than the L2 cache holds) at decode M=4, for #1 and #5
+     also at prefill M=64, for #4 at M=128 with #1 beside it at M=128,
+     the plain version's time, the bound, #3's time against #2's on the
+     same planes, and for #5 the time of one PyTorch matmul computing
+     the same function;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
      (seeded random weights, 4 slots, s_max 256, 8 requests), with
      kernel #1's launch count = 210 x (decode steps + prefill batches),
@@ -38,7 +41,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      execute_packed under the blocked and exact stream specs for every
      quantized weight of layers 0 and 29 at M in {1, 4, 8, 128} == the
      */cuda/bitplane_u8 specs == execute on the folded weights (#1/#5),
-     with kernel #3 (and #4 at M=128) launched.
+     with kernel #3 (and #4 at M=128) launched; #4's launch count in the
+     kernels line is that of phases 5 and 7 together.
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -83,9 +87,13 @@ CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576),
 # slots; prefill 4 x pow2 bucket <= 64; generate() of one prompt of 1-16
 # tokens; the stored-plane phase's 4 and 128), plus a ragged 200
 CHECK_M = tuple(range(1, 17)) + (32, 64, 128, 200)
+# M of the overlapping-plane checks of #2, #3 and #4
+OVERLAP_M = (1, 4, 8, 9, 128)
 # the prefill M at which #1 and #5 are also timed: the largest that
 # phase 3's prefill gives them (4 slots x a 16-token bucket)
 TIMED_PREFILL_M = 64
+# the M at which #4 is timed (phases 5 and 7 run it there), #1 beside it
+TIMED_PLANES_M = 128
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
 
 
@@ -173,22 +181,34 @@ def reset_counts(tm, pm):
         fn.launches = 0
 
 
-# the SASS check: kernel -> (library stem, function name, must hold IMMA)
+# the SASS check: kernel -> (library stem, function name); every one is
+# a tile_kernel instance and must hold IMMA
 SASS_CHECKS = {
-    "packed_cim_matmul_decode_stream": ("packed_stream", "packed_stream_kernel", False),
-    "ternary_cim_matmul": ("ternary_mac", "tile_kernel", True),
-    "ternary_exact_matmul": ("ternary_exact", "tile_kernel", True),
+    "packed_cim_matmul_decode_stream": ("packed_stream", "tile_kernel"),
+    "packed_cim_matmul": ("packed_mac", "tile_kernel"),
+    "ternary_cim_matmul": ("ternary_mac", "tile_kernel"),
+    "ternary_exact_matmul": ("ternary_exact", "tile_kernel"),
 }
 SASS_OPS = ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS", "IMMA")
 
 
 def copy_width(name: str) -> int:
-    """The copy width CW of a tile_kernel<Mac, MT, CW> instance, from its
-    mangled name (...ELi<MT>ELi<CW>EE...)."""
-    found = re.search(r"ELi(\d+)ELi(\d+)EE", name)
-    if not found:
+    """The copy width CW of a tile_kernel<Mac, Src, MT, CW, OutT, RING>
+    instance, from its mangled name, whose integer template arguments
+    read ...ELi<MT>ELi<CW>E<OutT>Li<RING>EE..."""
+    found = re.findall(r"Li(\d+)E", name)
+    if len(found) != 3:
         fail(f"cannot read the copy width of {name}")
-    return int(found.group(2))
+    return int(found[1])
+
+
+def short_name(name: str) -> str:
+    """A kernel's mangled name without its namespace and parameter list:
+    the template arguments of a tile_kernel instance, e.g.
+    ``NS_6CimMacENS_9PlanePairELi32ELi16EfLi3E``."""
+    if "tile_kernelI" in name:
+        return name.split("tile_kernelI", 1)[1].split("EEv", 1)[0]
+    return name[-48:]
 
 
 def check_sass(nvcc: str, libs: dict) -> dict:
@@ -197,15 +217,15 @@ def check_sass(nvcc: str, libs: dict) -> dict:
     for cp.async, UBLKCP or UTMALDG for TMA) and a wait on them
     (LDGDEPBAR/DEPBAR, or SYNCS for an mbarrier) -- the counterpart of
     the Pallas stream kernel's pin of 2 dma_start and 1 dma_wait -- except
-    in the byte-copy instances of #1 and #5 (copy width 1, taken only
-    where N or K is not a multiple of 16); and for #1 and #5 int8
-    tensor-core MMAs (IMMA). Returns the opcode counts per kernel and
-    instance."""
+    in the byte-copy instances of #1, #4 and #5 (copy width 1, taken only
+    where a pointer, stride or extent is not a multiple of 16 bytes); and
+    int8 tensor-core MMAs (IMMA). Returns the opcode counts per kernel
+    and instance."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
         fail(f"cuobjdump not found beside {nvcc}")
     found = {}
-    for kernel, (stem, fn, imma) in SASS_CHECKS.items():
+    for kernel, (stem, fn) in SASS_CHECKS.items():
         res = subprocess.run([cuobjdump, "-sass", str(libs[stem])],
                              capture_output=True, text=True, timeout=120)
         if res.returncode != 0:
@@ -216,12 +236,14 @@ def check_sass(nvcc: str, libs: dict) -> dict:
             if fn not in name:
                 continue
             ops = {op: part.count(op) for op in SASS_OPS}
-            if fn != "tile_kernel" or copy_width(name) > 1:
+            if kernel == "packed_cim_matmul_decode_stream" and copy_width(name) != 16:
+                fail(f"{kernel} {name}: the stream kernel compiles 16-byte copies only")
+            if copy_width(name) > 1:
                 if not (ops["LDGSTS"] or ops["UBLKCP"] or ops["UTMALDG"]):
                     fail(f"{kernel} {name}: no asynchronous global->shared copy")
                 if not (ops["LDGDEPBAR"] or ops["DEPBAR"] or ops["SYNCS"]):
                     fail(f"{kernel} {name}: no wait on its asynchronous copies")
-            if imma and not ops["IMMA"]:
+            if not ops["IMMA"]:
                 fail(f"{kernel} {name}: no int8 tensor-core MMA (IMMA)")
             found[kernel][name] = ops
         if not found[kernel]:
@@ -286,11 +308,33 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                     check("packed_cim_matmul",
                           pm.packed_cim_matmul(x, p1, p2, n_out=n, cim=cim),
                           plain, f"{what} cim={cim}")
+        # planes whose bits overlap: a weight with both set is pos - neg = 0
+        q1 = torch.randint(0, 256, p1.shape, generator=g, device=dev, dtype=torch.uint8)
+        q2 = torch.randint(0, 256, p1.shape, generator=g, device=dev, dtype=torch.uint8)
+        qi = tern_mod.interleave_planes(q1, q2)
+        for m in OVERLAP_M:
+            x = tern((m, k))
+            for cim in (True, False):
+                what = f"overlapping planes M={m} K={k} N={n} cim={cim}"
+                plain = pm.packed_matmul_plain(x, q1, q2, n_out=n, cim=cim)
+                if m > decode_m_max:
+                    check("packed_cim_matmul",
+                          pm.packed_cim_matmul(x, q1, q2, n_out=n, cim=cim), plain, what)
+                    continue
+                check("packed_cim_matmul_decode",
+                      pm.packed_cim_matmul_decode(x, q1, q2, n_out=n, cim=cim),
+                      plain.to(torch.int32), what)
+                for nbuf in (2, 3):
+                    check("packed_cim_matmul_decode_stream",
+                          pm.packed_cim_matmul_decode_stream(x, qi, n_out=n, cim=cim,
+                                                             nbuf=nbuf),
+                          plain.to(torch.int32), f"{what} nbuf={nbuf}")
         torch.cuda.synchronize()
     log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
         f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
         f"M <= {decode_m_max}, #3 at nbuf 2 and 3 and == #2, #4 above), cim on "
-        "and off (tolerance 0)")
+        f"and off, and #2, #3 and #4 on overlapping planes at M in {list(OVERLAP_M)} "
+        "(tolerance 0)")
 
     # the library yardstick of #5: one PyTorch matmul of the same values
     # (bf16 in, f32 out where this torch has it on CUDA, else f32 with
@@ -308,16 +352,19 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         library = torch.matmul
 
     # timing: one decoder layer's 7 calls, each at its own (K, N); #1 and
-    # #5 also at prefill M (TIMED_PREFILL_M), as "prefill_ms"
+    # #5 also at prefill M (TIMED_PREFILL_M), as "prefill_ms"; #1 also at
+    # #4's M (TIMED_PLANES_M), as "cim_at_planes_m"
     per_kernel = {}
+    cim_at_planes_m = None
     stream_vs_decode = None
     for name, m in (("ternary_cim_matmul", 4), ("ternary_exact_matmul", 4),
                     ("ternary_cim_matmul", TIMED_PREFILL_M),
                     ("ternary_exact_matmul", TIMED_PREFILL_M),
                     ("packed_cim_matmul_decode", 4),
                     ("packed_cim_matmul_decode_stream", 4),
-                    ("packed_cim_matmul", 128)):
-        prefill = name in per_kernel
+                    ("packed_cim_matmul", TIMED_PLANES_M),
+                    ("ternary_cim_matmul", TIMED_PLANES_M)):
+        prefill = name in per_kernel and m == TIMED_PREFILL_M
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in LAYER_SHAPES:
@@ -396,6 +443,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             per_kernel[name].update(
                 prefill_ms=pk["ms"], prefill_m=m, prefill_plain_ms=pk["plain_ms"],
                 prefill_bound_ms=pk["bound_ms"], prefill_library_ms=pk["library_ms"])
+        elif name in per_kernel:
+            cim_at_planes_m = {f: pk[f] for f in ("m", "ms", "plain_ms", "bound_ms")}
         else:
             per_kernel[name] = dict(pk, prefill_ms=None)
         extra = ""
@@ -405,12 +454,16 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             stream_vs_decode = pk["decode_ms"] / pk["ms"]
             extra = (f", #2 on the same planes {pk['decode_ms']:.4f} ms: "
                      f"stream_vs_decode {stream_vs_decode:.3f}")
+        if cim_at_planes_m is not None and name == "ternary_cim_matmul":
+            extra = (f"; #4 on the same shapes at M={m} "
+                     f"{per_kernel['packed_cim_matmul']['ms']:.4f} ms")
         log(f"{name}: one layer's 7 calls at M={m}: {pk['ms']:.4f} ms "
             f"(plain {pk['plain_ms']:.4f} ms, bound {pk['bound_ms']:.5f} ms "
             f"by {pk['bound_by']}{extra})")
     torch.cuda.empty_cache()
     return per_kernel, errs, {"library_call": lib_name,
-                              "stream_vs_decode": stream_vs_decode}
+                              "stream_vs_decode": stream_vs_decode,
+                              "cim_at_planes_m": cim_at_planes_m}
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +725,8 @@ def serving_phases(torch, tm, pm, card, dev):
             "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
             "packed_cim_matmul_decode_stream":
                 stream_counts["packed_cim_matmul_decode_stream"],
-            "packed_cim_matmul": plane_counts["packed_cim_matmul"],
+            "packed_cim_matmul": (plane_counts["packed_cim_matmul"]
+                                  + stream_counts["packed_cim_matmul"]),
             "ternary_exact_matmul": nm_counts["ternary_exact_matmul"]}
 
 
@@ -705,13 +759,19 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     log(f"built {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.2f} s "
         f"(nvcc, one process per source)")
+    entry = ""
     for line in str(_build.last_build.get("log", "")).splitlines():
-        if "registers" in line or line.startswith("=="):
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = found.group(1)
+        elif line.startswith("=="):
             log("  " + line.strip())
+        elif "registers" in line:
+            log(f"  {short_name(entry)}: {line.split(':', 1)[-1].strip()}")
     sass = check_sass(_build.nvcc_path(), libs)
     for kernel, instances in sass.items():
         log(f"{kernel} SASS: " + "; ".join(
-            f"{name[-40:]}: {ops}" for name, ops in sorted(instances.items())))
+            f"{short_name(name)}: {ops}" for name, ops in sorted(instances.items())))
 
     per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
                                            torch.device("cuda"))

@@ -16,55 +16,19 @@
 // SMs have work and how many bytes each keeps in flight.
 //
 // What the design does about it (the grid, the cluster K split at 16-row
-// block boundaries, the 16-byte cp.async ring and the fragment transpose
-// are in ternary_tile.cuh, shared with ternary_exact.cu): one 16-deep CiM
-// block is exactly one int8 tensor-core MMA, mma.sync m16n8k16
-// s8.s8.s32 (IMMA in the SASS). Two MMAs per block and 8 x rows, each
-// from a zero accumulator, give p = x.w and m = |x|.|w| (|v| = v & 1 for
-// a ternary code); then a = (m+p)>>1 and b = (m-p)>>1 exactly (m+p = 2a),
-// and min(a, adc_max) - min(b, adc_max) is added into a running int32
-// fragment. Every partial is an integer, so the result does not depend on
-// the K split, and is converted to f32 once, at the store.
+// block boundaries, the 16-byte cp.async ring, the fragment transpose of
+// the DenseCodes source and the CimMac policy are in ternary_tile.cuh,
+// shared with the other tile kernels): one 16-deep CiM block is exactly
+// one int8 tensor-core MMA, mma.sync m16n8k16 s8.s8.s32 (IMMA in the
+// SASS). Two MMAs per block and 8 x rows, each from a zero accumulator,
+// give p = x.w and m = |x|.|w| (|v| = v & 1 for a ternary code); then
+// a = (m+p)>>1 and b = (m-p)>>1 exactly (m+p = 2a), and min(a, adc_max) -
+// min(b, adc_max) is added into a running int32 fragment. Every partial
+// is an integer, so the result does not depend on the K split, and is
+// converted to f32 once, at the store.
 #include "ternary_tile.cuh"
 
-namespace {
-
 using namespace ternary_tile;
-
-struct CimMac {
-  int adc_max;
-
-  // one stage: per 16-row CiM block and 8 x rows, two k16 MMAs
-  template <int MT>
-  __device__ __forceinline__ void stage(int (&acc)[MT / 8][4], const uint8_t* slot,
-                                        int lane) const {
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const uint8_t* xs = slot + kWStageBytes;
-#pragma unroll
-    for (int kk = 0; kk < kStageRows; kk += kBlock) {
-      const uint32_t a0 = w_frag(slot, kk + t * 4, g);
-      const uint32_t a1 = w_frag(slot, kk + t * 4, g + 8);
-      const uint32_t u0 = a0 & 0x01010101u;  // |w| of a ternary code
-      const uint32_t u1 = a1 & 0x01010101u;
-#pragma unroll
-      for (int j = 0; j < MT / 8; ++j) {
-        const uint32_t b = x_frag(xs, j * 8 + g, kk + t * 4);
-        int p[4], m[4];
-        mma_k16(p, a0, a1, b);
-        mma_k16(m, u0, u1, b & 0x01010101u);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int a = (m[i] + p[i]) >> 1;
-          const int bb = (m[i] - p[i]) >> 1;
-          acc[j][i] += min(a, adc_max) - min(bb, adc_max);
-        }
-      }
-    }
-  }
-};
-
-}  // namespace
 
 // x: (M, K) int8, w: (K, N) int8, out: (M, N) f32, all contiguous on the
 // current device. rows_per_block: the M tile (8: decode, 32: prefill);

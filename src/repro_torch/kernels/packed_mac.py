@@ -9,16 +9,19 @@ PyTorch versions.
     M, f32 output;
   * :func:`packed_cim_matmul_decode_stream` ports
     ``packed_cim_matmul_decode_stream`` — M <= 8 from ONE plane-interleaved
-    (layout 1) array streamed through a ring of ``nbuf`` stages, int32
-    output, bit-identical to the decode kernel.
+    (layout 1) array streamed through per-warp rings of ``nbuf`` stages,
+    int32 output, bit-identical to the decode kernel.
 
 Weights are the (rows, N) uint8 (M1, M2) planes with bit j of byte r =
-K row 8r+j (layout 1: byte-row 2r pos, 2r+1 neg); x is (M, K) int8 codes
-with K <= 8*rows (missing columns are zero, which is inert). ``n_out``
-keeps only the first logical columns of canonically padded planes. For a
-CUDA tensor each wrapper launches its kernel (or raises); for a CPU
-tensor it runs the plain version. Each wrapper's ``launches`` attribute
-counts its kernel launches.
+K row 8r+j (layout 1: byte-row 2r pos, 2r+1 neg), and the weight is
+pos - neg (0 where both bits are set); x is (M, K) int8 codes with
+K <= 8*rows (missing columns are zero, which is inert). ``n_out`` keeps
+only the first logical columns of canonically padded planes. For a CUDA
+tensor each wrapper launches its kernel (or raises); for a CPU tensor it
+runs the plain version. Each wrapper's ``launches`` attribute counts its
+kernel launches. #4 and #3 take their grid from
+:func:`repro_torch.kernels.plan.launch_plan` at x's K and the logical
+columns.
 """
 from __future__ import annotations
 
@@ -28,15 +31,15 @@ import torch
 
 from repro_torch.core.ternary import deinterleave_planes
 from repro_torch.kernels import DECODE_M_MAX, _build
+from repro_torch.kernels.plan import LaunchPlan, device_plan
 from repro_torch.kernels.ref import pad_axis, ref_packed_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
-# the stream kernel's ring depths (as the Pallas kernel asserts), its
-# 16-byte copies' alignment and the x extent its shared memory holds
+# the stream kernel's ring depths (as the Pallas kernel asserts) and its
+# 16-byte copies' alignment
 STREAM_NBUF = (2, 3)
 STREAM_ALIGN = 16
-STREAM_K_MAX = 16384
 
 
 def _check(x, w_pos, w_neg, n_out):
@@ -75,29 +78,56 @@ def packed_matmul_plain(x: torch.Tensor, w_pos: torch.Tensor,
     return out[:, :n_out]
 
 
-def _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode) -> bool:
-    """Launch the kernel into ``out``; False when the output is empty and
-    nothing was launched."""
-    if w_pos.stride(1) != 1 or w_neg.stride(1) != 1 or not x.is_contiguous():
-        raise ValueError("the CUDA kernel needs contiguous x and unit "
-                         "column stride planes")
-    m, kx = x.shape
-    if m == 0 or n_out == 0:
-        return False
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "packed_cim_mac", x.data_ptr(), w_pos.data_ptr(),
-            w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
-            w_pos.stride(0), w_neg.stride(0), n_out, int(adc_max), int(cim),
-            int(decode), _build.stream_ptr(x.device))
-    return True
-
-
 def _cuda_ok(x, block):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if block != DEFAULT_BLOCK:
         raise ValueError(f"the CUDA kernel implements block=16, got {block}")
+
+
+def _planes_ok(x, w_pos, w_neg):
+    if w_pos.stride(1) != 1 or w_neg.stride(1) != 1 or not x.is_contiguous():
+        raise ValueError("the CUDA kernel needs contiguous x and unit "
+                         "column stride planes")
+
+
+def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim):
+    """Launch #2 into a new int32 (M, n_out); returns (out, whether a
+    kernel was launched)."""
+    _planes_ok(x, w_pos, w_neg)
+    m, kx = x.shape
+    out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
+    if m == 0 or n_out == 0:
+        return out, False
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "packed_decode_mac", x.data_ptr(), w_pos.data_ptr(),
+            w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
+            w_pos.stride(0), w_neg.stride(0), n_out, int(adc_max), int(cim),
+            _build.stream_ptr(x.device))
+    return out, True
+
+
+def _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim,
+                    plan: Optional[LaunchPlan] = None):
+    """Launch #4 into a new f32 (M, n_out) on ``plan`` (default: the
+    card's :func:`device_plan` at x's K and ``n_out``); returns (out,
+    whether a kernel was launched). A launch that CUDA refuses raises."""
+    _planes_ok(x, w_pos, w_neg)
+    m, kx = x.shape
+    out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
+    if m == 0 or n_out == 0:
+        return out, False
+    with torch.cuda.device(x.device):
+        if plan is None:
+            plan = device_plan(m, kx, n_out)
+        _build.launch(
+            "packed_cim_mac", x.data_ptr(), w_pos.data_ptr(),
+            w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
+            w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
+            int(adc_max), int(cim), plan.rows, plan.cluster,
+            _build.stream_ptr(x.device))
+    return out, True
 
 
 def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
@@ -115,8 +145,8 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
         return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim).to(torch.int32)
     _cuda_ok(x, block)
-    out = torch.empty((x.shape[0], n_out), dtype=torch.int32, device=x.device)
-    if _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=True):
+    out, launched = _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim)
+    if launched:
         packed_cim_matmul_decode.launches += 1
     return out
 
@@ -132,8 +162,8 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
         return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
-    out = torch.empty((x.shape[0], n_out), dtype=torch.float32, device=x.device)
-    if _launch(x, w_pos, w_neg, out, n_out, adc_max, cim, decode=False):
+    out, launched = _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim)
+    if launched:
         packed_cim_matmul.launches += 1
     return out
 
@@ -147,6 +177,37 @@ def stream_matmul_plain(x: torch.Tensor, w_int: torch.Tensor, *,
     w_pos, w_neg = deinterleave_planes(w_int)
     return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
                                adc_max=adc_max, cim=cim)
+
+
+def _launch_stream(x, w_int, n_out, adc_max, cim, nbuf,
+                   plan: Optional[LaunchPlan] = None):
+    """Launch #3 into a new int32 (M, n_out) on ``plan`` (default: the
+    card's :func:`device_plan` at x's K and ``n_out``); returns (out,
+    whether a kernel was launched). Only 16-byte copies are compiled: an
+    array whose pointer, row stride or width is not a multiple of 16
+    bytes raises, and x whose K or pointer is not is first copied,
+    zero-extended, into one that is. A launch that CUDA refuses raises."""
+    if (w_int.stride(1) != 1 or w_int.stride(0) % STREAM_ALIGN
+            or w_int.shape[1] % STREAM_ALIGN or w_int.data_ptr() % STREAM_ALIGN
+            or not x.is_contiguous()):
+        raise ValueError("the stream kernel needs contiguous x and an "
+                         "interleaved array with unit column stride whose "
+                         "pointer, row stride and width are multiples of 16")
+    m, kx = x.shape
+    out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
+    if m == 0 or n_out == 0:
+        return out, False
+    if kx % STREAM_ALIGN or x.data_ptr() % STREAM_ALIGN:
+        x = pad_axis(x, STREAM_ALIGN, 1).clone()  # zero columns are inert
+    with torch.cuda.device(x.device):
+        if plan is None:
+            plan = device_plan(m, kx, n_out)
+        _build.launch(
+            "packed_stream_mac", x.data_ptr(), w_int.data_ptr(),
+            out.data_ptr(), m, x.shape[1], w_int.shape[0], w_int.stride(0),
+            n_out, int(adc_max), int(cim), int(nbuf), plan.cluster,
+            _build.stream_ptr(x.device))
+    return out, True
 
 
 def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
@@ -173,25 +234,9 @@ def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
         return stream_matmul_plain(x, w_int, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim).to(torch.int32)
     _cuda_ok(x, block)
-    if (w_int.stride(1) != 1 or w_int.stride(0) % STREAM_ALIGN
-            or w_int.shape[1] % STREAM_ALIGN or w_int.data_ptr() % STREAM_ALIGN
-            or not x.is_contiguous()):
-        raise ValueError("the stream kernel needs contiguous x and an "
-                         "interleaved array with unit column stride whose "
-                         "pointer, row stride and width are multiples of 16")
-    if x.shape[1] > STREAM_K_MAX:
-        raise ValueError(f"the stream kernel stages at most K={STREAM_K_MAX} "
-                         f"of x, got {x.shape[1]}")
-    m, kx = x.shape
-    out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
-    if m == 0 or n_out == 0:
-        return out
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "packed_stream_mac", x.data_ptr(), w_int.data_ptr(),
-            out.data_ptr(), m, kx, w_int.shape[0], w_int.stride(0), n_out,
-            int(adc_max), int(cim), int(nbuf), _build.stream_ptr(x.device))
-    packed_cim_matmul_decode_stream.launches += 1
+    out, launched = _launch_stream(x, w_int, n_out, adc_max, cim, nbuf)
+    if launched:
+        packed_cim_matmul_decode_stream.launches += 1
     return out
 
 

@@ -10,69 +10,22 @@ and their plain PyTorch versions.
 For a CUDA tensor each wrapper launches its kernel (or raises); for a CPU
 tensor it runs the plain version. Each wrapper's ``launches`` attribute
 counts its kernel launches and nothing else. Both kernels take their grid
-from :func:`launch_plan`: 16-column tiles, and K split at 16-row block
-boundaries (:func:`k_split`) across a thread-block cluster of up to 8
+from :func:`repro_torch.kernels.plan.launch_plan`: 16-column tiles, and K
+split at 16-row block boundaries across a thread-block cluster of up to 8
 blocks, enough for the grid to fill the card's SMs.
 """
 from __future__ import annotations
 
-import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import DECODE_M_MAX, _build
+from repro_torch.kernels import _build
+from repro_torch.kernels.plan import LaunchPlan, device_plan
 from repro_torch.kernels.ref import pad_axis, ref_cim_matmul, ref_exact_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
-# the decode class (M <= DECODE_M_MAX) takes DECODE_M_MAX-row M tiles,
-# the prefill class 32-row tiles
-PREFILL_ROWS = 32
-COL_TILE = 16     # output columns per block: the int8 MMA's 16 rows
-MAX_CLUSTER = 8   # the largest portable thread-block cluster
-H100_SMS = 132
-
-
-class LaunchPlan(NamedTuple):
-    """The grid of #1 and #5 for one call: ``rows`` x rows per block,
-    ``grid`` = (column tiles, row tiles, ``cluster``); the ``cluster``
-    blocks along grid z form one cluster and split K (:func:`k_split`)."""
-    rows: int
-    grid: Tuple[int, int, int]
-    cluster: int
-
-
-def launch_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> LaunchPlan:
-    """The grid for x (m, k) @ w (k, n): the smallest power-of-two cluster
-    (<= MAX_CLUSTER, and no larger than K has 16-row blocks to go around)
-    that gives at least ``sms`` blocks at decode, or ``sms // 2`` at
-    prefill (where a block does 4x the MMAs per K row and longer K ranges
-    ran faster on the card), or the largest allowed."""
-    rows = DECODE_M_MAX if m <= DECODE_M_MAX else PREFILL_ROWS
-    target = sms if m <= DECODE_M_MAX else sms // 2
-    cols, row_tiles = -(-n // COL_TILE), -(-m // rows)
-    k_blocks = -(-k // DEFAULT_BLOCK)
-    cluster = 1
-    while (cluster < MAX_CLUSTER and cols * row_tiles * cluster < target
-           and 2 * cluster <= k_blocks):
-        cluster *= 2
-    return LaunchPlan(rows, (cols, row_tiles, cluster), cluster)
-
-
-def k_split(k: int, cluster: int) -> List[Tuple[int, int]]:
-    """The K rows [lo, hi) that each block of a cluster takes, as the
-    kernels cut them: rank r gets the 16-row blocks [r*kb/S, (r+1)*kb/S)
-    of the kb = ceil(k/16), S = ``cluster``."""
-    kb = -(-k // DEFAULT_BLOCK)
-    return [(r * kb // cluster * DEFAULT_BLOCK,
-             min((r + 1) * kb // cluster * DEFAULT_BLOCK, k))
-            for r in range(cluster)]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ternary_cim_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -104,7 +57,7 @@ def _check_codes(x: torch.Tensor, w: torch.Tensor) -> None:
 def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
                   plan: Optional[LaunchPlan] = None) -> Tuple[torch.Tensor, bool]:
     """Launch the dense-code kernel ``fn`` on CUDA operands into a new f32
-    (M, N) output, on ``plan`` (default :func:`launch_plan` for the card);
+    (M, N) output, on ``plan`` (default: the card's :func:`device_plan`);
     returns (out, whether a kernel was launched). A launch that CUDA
     refuses raises."""
     if x.device.type != "cuda":
@@ -118,7 +71,7 @@ def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
         return out, False
     with torch.cuda.device(x.device):
         if plan is None:
-            plan = launch_plan(m, k, n, _sm_count(torch.cuda.current_device()))
+            plan = device_plan(m, k, n)
         _build.launch(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                       *extra, plan.rows, plan.cluster, _build.stream_ptr(x.device))
     return out, True

@@ -243,3 +243,99 @@ def test_cuda_refused_cluster_launch_raises(cuda_device):
                        torch.full((4, 64), 576.0, device=cuda_device))
     assert torch.equal(tm.ternary_cim_matmul(x, w),
                        torch.full((4, 64), 36 * 8.0, device=cuda_device))
+
+
+PLANE_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576), (16, 8), (40, 33),
+                (592, 200)]
+
+
+def _canonical_planes(w, width=None):
+    """(pos, neg) of ``w`` padded to 256 K rows and ``width`` columns (a
+    multiple of 128 by default, as prepared planes are)."""
+    k, n = w.shape
+    width = -(-n // 128) * 128 if width is None else width
+    wz = torch.zeros((-(-k // 256) * 256, width), dtype=torch.int8, device=w.device)
+    wz[:k, :n] = w
+    return pack_ternary(wz, axis=0)
+
+
+def _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=None, narrow=()):
+    """#2, #3 (nbuf 2 and 3, == #2) and #4 against the plain version on
+    (p1, p2) (and ``wi``, their layout-1 array), and #4 also on each
+    plane pair of ``narrow``; tolerance 0."""
+    want = pm.packed_matmul_plain(x, p1, p2, n_out=n, adc_max=adc_max, cim=cim)
+    kw = dict(n_out=n, adc_max=adc_max, cim=cim)
+    if x.shape[0] <= 8:
+        decode = pm.packed_cim_matmul_decode(x, p1, p2, **kw)
+        torch.testing.assert_close(decode, want.to(torch.int32), rtol=0, atol=0)
+        for nbuf in (2, 3):
+            got = pm.packed_cim_matmul_decode_stream(x, wi, nbuf=nbuf, **kw)
+            torch.testing.assert_close(got, decode, rtol=0, atol=0)
+        return
+    for a, b in ((p1, p2),) + tuple(narrow):
+        torch.testing.assert_close(pm.packed_cim_matmul(x, a, b, **kw), want,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PLANE_SHAPES)
+def test_cuda_plane_tile_kernels_bit_exact(cuda_device, k, n):
+    """#3 and #4 on the tile machinery against their plain versions (and
+    #3 against #2): canonical planes (x shorter than their K, n_out below
+    their width), #3 at M in {1, 4, 8} and nbuf 2 and 3, #4 at M in {9,
+    64, 128, 200} on the canonical planes (16-byte copies), on planes 5
+    columns wider than N (byte copies) and on the de-interleaved views of
+    both as layout 1; cim on and off, adc_max 8 and 3."""
+    g = torch.Generator(device=cuda_device).manual_seed(5 * k + n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device, dtype=torch.int8)
+    p1, p2 = _canonical_planes(w)
+    wi = interleave_planes(p1, p2)
+    q1, q2 = _canonical_planes(w, width=n + 5)
+    narrow = ((q1, q2), deinterleave_planes(wi), deinterleave_planes(interleave_planes(q1, q2)))
+    for m in (1, 4, 8, 9, 64, 128, 200):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+        for cim, adc_max in ((True, 8), (True, 3), (False, 8)):
+            _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=wi, narrow=narrow)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cim,adc_max", [(True, 8), (True, 3), (False, 8)],
+                         ids=["cim-adc8", "cim-adc3", "exact"])
+@pytest.mark.parametrize("k,n", PLANE_SHAPES)
+def test_cuda_packed_kernels_on_overlapping_planes(cuda_device, k, n, cim, adc_max):
+    """pos and neg drawn independently, so many weights have both bits
+    set, which the reference reads as pos - neg = 0: #2, #3 and #4 must
+    agree with the plain version bit for bit (the kernels of the port's
+    first versions counted such a weight on both sides, which differs
+    under the clamp: the cim cases fail on them, the exact case passes)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11 * k + n)
+    rows, width = -(-k // 256) * 32, -(-n // 128) * 128
+    pos = torch.randint(0, 256, (rows, width), generator=g, device=cuda_device,
+                        dtype=torch.uint8)
+    neg = torch.randint(0, 256, (rows, width), generator=g, device=cuda_device,
+                        dtype=torch.uint8)
+    wi = interleave_planes(pos, neg)
+    narrow = (deinterleave_planes(wi),)
+    for m in (1, 4, 8, 9, 128):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+        _hold_plane_kernels(x, pos, neg, n, adc_max, cim, wi=wi, narrow=narrow)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_plane_kernels_refused_cluster_launch_raises(cuda_device):
+    """A 16-block cluster is refused by the runtime for #3 and #4 too: the
+    launch raises, nothing falls back, and the next launch still works."""
+    w = torch.ones((576, 64), dtype=torch.int8, device=cuda_device)
+    p1, p2 = _canonical_planes(w)
+    wi = interleave_planes(p1, p2)
+    x = torch.ones((4, 576), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pm._launch_stream(x, wi, 64, 8, True, 2, plan=tm.LaunchPlan(8, (4, 1, 16), 16))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pm._launch_prefill(x, p1, p2, 64, 8, True, plan=tm.LaunchPlan(32, (4, 1, 16), 16))
+    assert torch.equal(pm.packed_cim_matmul_decode_stream(x, wi, n_out=64),
+                       torch.full((4, 64), 36 * 8, dtype=torch.int32, device=cuda_device))
+    assert torch.equal(pm.packed_cim_matmul(x, p1, p2, n_out=64),
+                       torch.full((4, 64), 36 * 8.0, device=cuda_device))

@@ -3,7 +3,8 @@
 On the CPU each wrapper runs its kernel's plain PyTorch version; here it
 is held bit-exact against the Pallas kernel in interpret mode at
 one-tile shapes (kernels #1 ternary_cim_matmul, #2
-packed_cim_matmul_decode, #4 packed_cim_matmul). The CUDA kernels are
+packed_cim_matmul_decode, #4 packed_cim_matmul), also on plane pairs
+whose bits overlap. The CUDA kernels are
 held against those plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -75,6 +76,34 @@ def test_packed_prefill_plain_matches_pallas(cim):
     p1, p2 = pack_ternary(torch.from_numpy(w), axis=0)
     got = pm.packed_cim_matmul(torch.from_numpy(x), p1, p2, cim=cim)
     assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cim", [True, False], ids=["blocked", "exact"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_packed_plain_matches_pallas_on_overlapping_planes(kernel, cim):
+    """pos and neg drawn independently, so many weights have both bits
+    set: the reference reads them as pos - neg = 0, and so must the plain
+    versions (tolerance 0). The CUDA kernels are held to the same by
+    ``tests/test_torch_cuda.py``."""
+    rng = np.random.default_rng(13 + cim + 2 * (kernel == "prefill"))
+    m = 8 if kernel == "decode" else 128
+    x = _tern(rng, (m, 256), 0.05)
+    pos = rng.integers(0, 256, (32, 128), dtype=np.uint8)
+    neg = rng.integers(0, 256, (32, 128), dtype=np.uint8)
+    assert (pos & neg).any()
+    if kernel == "decode":
+        want = jpm.packed_cim_matmul_decode(jnp.asarray(x), jnp.asarray(pos),
+                                            jnp.asarray(neg), cim=cim, bk=256,
+                                            bn=128, interpret=True)
+        got = pm.packed_cim_matmul_decode(torch.from_numpy(x), torch.from_numpy(pos),
+                                          torch.from_numpy(neg), cim=cim)
+    else:
+        want = jpm.packed_cim_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(pos),
+                                     jnp.asarray(neg), cim=cim, bm=128, bk=256,
+                                     bn=128, interpret=True)
+        got = pm.packed_cim_matmul(torch.from_numpy(x), torch.from_numpy(pos),
+                                   torch.from_numpy(neg), cim=cim)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

@@ -68,6 +68,28 @@ def test_stream_plain_matches_pallas_and_decode(m, cim, nbuf):
     assert pm.packed_cim_matmul_decode_stream.launches == before  # no launch
 
 
+@pytest.mark.parametrize("nbuf", [2, 3])
+@pytest.mark.parametrize("cim", [True, False], ids=["blocked", "exact"])
+def test_stream_plain_matches_pallas_on_overlapping_planes(cim, nbuf):
+    """An interleaved array of independent pos and neg byte-rows, so many
+    weights have both bits set (pos - neg = 0 in the reference): the
+    Pallas stream kernel (interpret) == the port's stream plain version
+    == the port's decode plain version, tolerance 0."""
+    rng = np.random.default_rng(40 + 2 * cim + nbuf)
+    x = _tern(rng, (5, 512))
+    wi = rng.integers(0, 256, (128, 128), dtype=np.uint8)
+    assert (wi[0::2] & wi[1::2]).any()
+    want = jpm.packed_cim_matmul_decode_stream(jnp.asarray(x), jnp.asarray(wi),
+                                               cim=cim, nbuf=nbuf, interpret=True)
+    got = pm.packed_cim_matmul_decode_stream(torch.from_numpy(x),
+                                             torch.from_numpy(wi), cim=cim, nbuf=nbuf)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    decode = pm.packed_cim_matmul_decode(torch.from_numpy(x),
+                                         *tt.deinterleave_planes(torch.from_numpy(wi)),
+                                         cim=cim)
+    np.testing.assert_array_equal(got.numpy(), decode.numpy())
+
+
 def test_stream_single_k_tile():
     rng = np.random.default_rng(9)
     x, w = _tern(rng, (4, 256)), _tern(rng, (256, 128))
