@@ -6,16 +6,18 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. card and build: the card's name and power limit, torch/CUDA
      versions, the build of every kernel from ``src/repro_torch/csrc``,
-     and a structural check of the SASS (``cuobjdump -sass``) of the four
-     tile kernels #1, #3, #4 and #5: asynchronous global->shared copies
-     and a wait on them in every 16-byte instance, and int8 tensor-core
-     MMAs (IMMA) in every instance;
+     and a structural check of the SASS (``cuobjdump -sass``) of the five
+     kernels, all tile_kernel instances (#2 and #4, which share a
+     library, told apart by their output type): asynchronous
+     global->shared copies and a wait on them in every 16-byte instance,
+     and int8 tensor-core MMAs (IMMA) in every instance;
   2. kernels: each hand-written kernel against its plain PyTorch version
      on the card, bit-exact, at the smollm-135m layer shapes and every M
      the later phases give it (#3 also against #2, at nbuf 2 and 3), and
      on the very inputs it is timed on, and also at ragged shapes that
      cut across the tile kernels' K split and column tiles, and #2, #3
-     and #4 on plane pairs whose bits overlap (read as pos - neg = 0);
+     and #4 on plane pairs whose bits overlap (read as pos - neg = 0),
+     #2 also on unaligned planes (its byte-copy instance);
      the device time per call (CUDA-graph replay, weights rotated through
      more memory than the L2 cache holds) at decode M=4, for #1 and #5
      also at prefill M=64, for #4 at M=128 with #1 beside it at M=128,
@@ -23,19 +25,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      same planes, and for #5 the time of one PyTorch matmul computing
      the same function;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
-     (seeded random weights, 4 slots, s_max 256, 8 requests), with
-     kernel #1's launch count = 210 x (decode steps + prefill batches),
-     and one decode step under torch.profiler (device-busy time, #1's);
-  4. token identity: the fused batcher against the port's generate(),
-     greedy, under act_scale="per_row";
+     (seeded random weights, 4 slots, s_max 256, 8 requests), its decode
+     step one captured CUDA graph, with kernel #1's launch count = 210 x
+     (decode steps + prefill batches); the same requests through the
+     same batcher with the graph switched off (eager), whose tokens must
+     equal the captured ones; both decode-step medians, both tok/s and
+     the capture time; and one replayed and one eager decode step under
+     torch.profiler (device-busy time over the device rows, #1's, busy
+     over the unprofiled median);
+  4. token identity: the captured batcher against the port's
+     generate(), greedy, under act_scale="per_row";
   5. stored planes: a prepare_weights=True batcher under
      blocked/cuda/bitplane_u8, then execute_packed on its planes for every
      quantized weight of 2 layers at M=4 and M=128 == execute on the
      folded ternary weights, through the packed kernels;
   6. the near-memory baseline: the batcher under exact/cuda on phase 3's
-     requests, kernel #5's launch count = 210 x (decode steps + prefill
-     batches) with #1 not launched, one profiled decode step (#5's device
-     time), and fused == generate() under act_scale="per_row";
+     requests, captured and eager as in phase 3, kernel #5's launch count
+     = 210 x (decode steps + prefill batches) with #1 not launched, a
+     profiled replay and eager step (#5's device time), and captured ==
+     generate() under act_scale="per_row";
   7. streaming stored planes: a prepare_weights=True batcher under
      blocked/cuda_stream/bitplane_u8 (planes stored in layout 1), then
      execute_packed under the blocked and exact stream specs for every
@@ -181,25 +189,33 @@ def reset_counts(tm, pm):
         fn.launches = 0
 
 
-# the SASS check: kernel -> (library stem, function name); every one is
-# a tile_kernel instance and must hold IMMA
+# the SASS check: kernel -> (library stem, output type of its instances
+# as mangled: "i" int32_t, "f" float); every kernel is tile_kernel
+# instances and must hold IMMA; #2 and #4 share packed_mac
 SASS_CHECKS = {
-    "packed_cim_matmul_decode_stream": ("packed_stream", "tile_kernel"),
-    "packed_cim_matmul": ("packed_mac", "tile_kernel"),
-    "ternary_cim_matmul": ("ternary_mac", "tile_kernel"),
-    "ternary_exact_matmul": ("ternary_exact", "tile_kernel"),
+    "packed_cim_matmul_decode_stream": ("packed_stream", "i"),
+    "packed_cim_matmul_decode": ("packed_mac", "i"),
+    "packed_cim_matmul": ("packed_mac", "f"),
+    "ternary_cim_matmul": ("ternary_mac", "f"),
+    "ternary_exact_matmul": ("ternary_exact", "f"),
 }
 SASS_OPS = ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS", "IMMA")
 
 
+def tile_args(name: str):
+    """(MT, CW, OutT code) of a tile_kernel<Mac, Src, MT, CW, OutT, RING>
+    instance, from its mangled name, whose template arguments read
+    ...ELi<MT>ELi<CW>E<OutT>Li<RING>EE... (OutT "i" for int32_t, "f" for
+    float)."""
+    found = re.search(r"ELi(\d+)ELi(\d+)E([a-z])Li\d+EE", name)
+    if not found:
+        fail(f"cannot read the template arguments of {name}")
+    return int(found.group(1)), int(found.group(2)), found.group(3)
+
+
 def copy_width(name: str) -> int:
-    """The copy width CW of a tile_kernel<Mac, Src, MT, CW, OutT, RING>
-    instance, from its mangled name, whose integer template arguments
-    read ...ELi<MT>ELi<CW>E<OutT>Li<RING>EE..."""
-    found = re.findall(r"Li(\d+)E", name)
-    if len(found) != 3:
-        fail(f"cannot read the copy width of {name}")
-    return int(found[1])
+    """The copy width CW of a tile_kernel instance (:func:`tile_args`)."""
+    return tile_args(name)[1]
 
 
 def short_name(name: str) -> str:
@@ -219,22 +235,27 @@ def check_sass(nvcc: str, libs: dict) -> dict:
     the Pallas stream kernel's pin of 2 dma_start and 1 dma_wait -- except
     in the byte-copy instances of #1, #4 and #5 (copy width 1, taken only
     where a pointer, stride or extent is not a multiple of 16 bytes); and
-    int8 tensor-core MMAs (IMMA). Returns the opcode counts per kernel
-    and instance."""
+    int8 tensor-core MMAs (IMMA). #2's instances are the 8-row int32
+    ones of packed_mac, #4's the float ones. Returns the opcode counts per
+    kernel and instance."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
         fail(f"cuobjdump not found beside {nvcc}")
-    found = {}
-    for kernel, (stem, fn) in SASS_CHECKS.items():
-        res = subprocess.run([cuobjdump, "-sass", str(libs[stem])],
-                             capture_output=True, text=True, timeout=120)
-        if res.returncode != 0:
-            fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
+    found, sass = {}, {}
+    for kernel, (stem, out_type) in SASS_CHECKS.items():
+        if stem not in sass:
+            res = subprocess.run([cuobjdump, "-sass", str(libs[stem])],
+                                 capture_output=True, text=True, timeout=120)
+            if res.returncode != 0:
+                fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
+            sass[stem] = res.stdout
         found[kernel] = {}
-        for part in res.stdout.split("Function : ")[1:]:
+        for part in sass[stem].split("Function : ")[1:]:
             name = part.split(None, 1)[0]
-            if fn not in name:
+            if "tile_kernel" not in name or tile_args(name)[2] != out_type:
                 continue
+            if kernel == "packed_cim_matmul_decode" and tile_args(name)[0] != 8:
+                fail(f"{kernel} {name}: #2 compiles 8-row tiles only")
             ops = {op: part.count(op) for op in SASS_OPS}
             if kernel == "packed_cim_matmul_decode_stream" and copy_width(name) != 16:
                 fail(f"{kernel} {name}: the stream kernel compiles 16-byte copies only")
@@ -247,7 +268,8 @@ def check_sass(nvcc: str, libs: dict) -> dict:
                 fail(f"{kernel} {name}: no int8 tensor-core MMA (IMMA)")
             found[kernel][name] = ops
         if not found[kernel]:
-            fail(f"no {fn} in the SASS of {libs[stem]}")
+            fail(f"no {kernel} instance (output type {out_type}) in the SASS "
+                 f"of {libs[stem]}")
     return found
 
 
@@ -262,10 +284,10 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
     def tern(shape):
         return torch.randint(-1, 2, shape, generator=g, device=dev, dtype=torch.int8)
 
-    def canonical_planes(w):
+    def canonical_planes(w, width=None):
         k, n = w.shape
-        wz = torch.zeros((-(-k // 256) * 256, -(-n // 128) * 128),
-                         dtype=torch.int8, device=dev)
+        width = -(-n // 128) * 128 if width is None else width
+        wz = torch.zeros((-(-k // 256) * 256, width), dtype=torch.int8, device=dev)
         wz[:k, :n] = w
         return tern_mod.pack_ternary(wz, axis=0)
 
@@ -282,6 +304,7 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         w = tern((k, n))
         p1, p2 = canonical_planes(w)
         wi = tern_mod.interleave_planes(p1, p2)   # plane layout 1
+        u1, u2 = canonical_planes(w, n + 5)       # unaligned: #2's byte copies
         for m in CHECK_M:
             x = tern((m, k))
             what = f"M={m} K={k} N={n}"
@@ -295,6 +318,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                     decode = pm.packed_cim_matmul_decode(x, p1, p2, n_out=n, cim=cim)
                     check("packed_cim_matmul_decode", decode,
                           plain.to(torch.int32), f"{what} cim={cim}")
+                    check("packed_cim_matmul_decode",
+                          pm.packed_cim_matmul_decode(x, u1, u2, n_out=n, cim=cim),
+                          plain.to(torch.int32), f"{what} cim={cim} unaligned planes")
                     want = pm.stream_matmul_plain(x, wi, n_out=n, cim=cim)
                     for nbuf in (2, 3):
                         got = pm.packed_cim_matmul_decode_stream(
@@ -332,9 +358,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         torch.cuda.synchronize()
     log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
         f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
-        f"M <= {decode_m_max}, #3 at nbuf 2 and 3 and == #2, #4 above), cim on "
-        f"and off, and #2, #3 and #4 on overlapping planes at M in {list(OVERLAP_M)} "
-        "(tolerance 0)")
+        f"M <= {decode_m_max}, #2 also on unaligned planes, #3 at nbuf 2 and 3 "
+        f"and == #2, #4 above), cim on and off, and #2, #3 and #4 on overlapping "
+        f"planes at M in {list(OVERLAP_M)} (tolerance 0)")
 
     # the library yardstick of #5: one PyTorch matmul of the same values
     # (bf16 in, f32 out where this torch has it on CUDA, else f32 with
@@ -453,7 +479,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         if pk["decode_ms"] is not None:
             stream_vs_decode = pk["decode_ms"] / pk["ms"]
             extra = (f", #2 on the same planes {pk['decode_ms']:.4f} ms: "
-                     f"stream_vs_decode {stream_vs_decode:.3f}")
+                     f"stream_vs_decode {stream_vs_decode:.3f}, two instances of "
+                     "tile_kernel that differ only in the weight source "
+                     "(Interleaved vs PlanePair)")
         if cim_at_planes_m is not None and name == "ternary_cim_matmul":
             extra = (f"; #4 on the same shapes at M={m} "
                      f"{per_kernel['packed_cim_matmul']['ms']:.4f} ms")
@@ -498,29 +526,44 @@ def drive(torch, batcher, reqs):
 
 
 def profile_decode_step(torch, batcher):
-    """Device time of one fused decode step from torch.profiler (CUPTI):
-    (wall ms under the profiler, device-busy ms, top kernels, (ms,
-    launches) of the MAC kernels #1/#5). Device time 0 means the
-    profiler saw no device activity."""
+    """One decode step of ``batcher`` under torch.profiler (CUPTI), after
+    a first step that fills the slots (and, for a captured batcher,
+    captures the step); the step after it is timed between two CUDA
+    events. Returns a dict: wall ms under the profiler; device-busy ms,
+    the sum over the device-side rows (kernels, copies) only; the sum
+    over all rows, which also counts each kernel again under the host op
+    that launched it (the figure PR 14 recorded); the top device rows;
+    (ms, launches) of the MAC kernels; the next step's device span in ms.
+    Device time 0 means the profiler saw no device activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batcher.step()  # fills the slots (prefill) so the next step decodes
+    batcher.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         batcher.step()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    batcher.step()
+    end.record()
+    end.synchronize()
+    rows, all_rows = [], 0.0
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
+        all_rows += dev_us / 1e3
+        if dev_us > 0 and e.device_type == DeviceType.CUDA:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     mac = [r for r in rows if "tile_kernel" in r[2]]
-    return (wall, sum(r[0] for r in rows), rows[:6],
-            (sum(r[0] for r in mac), sum(r[1] for r in mac)))
+    return {"wall_ms": wall, "busy_ms": sum(r[0] for r in rows),
+            "all_rows_ms": all_rows, "top": rows[:6],
+            "mac_ms": sum(r[0] for r in mac), "mac_launches": sum(r[1] for r in mac),
+            "span_ms": start.elapsed_time(end)}
 
 
 def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
@@ -559,17 +602,98 @@ def serving_line(reqs, st, secs, step_ms) -> str:
             f"batches, {st['host_syncs']} host syncs")
 
 
+def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, dev):
+    """Phase 3's (or 6's) serving: the same 8 requests through a batcher
+    whose decode step is one captured CUDA graph (the main path, counted)
+    and through one with the graph switched off (eager); fails unless the
+    step was captured and both give the same tokens. Returns (counts of
+    the captured run, stats, log line, numbers)."""
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    runs = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=spec,
+                                    seed=0, device=dev)
+        batcher._decode.graphed = graphed
+        reqs = make_requests(Request, cfg.vocab, seed=0)
+        what = label if graphed else f"{label} (eager)"
+        got, st, secs, step_ms = serve_counted(torch, tm, pm, batcher, reqs, cfg.vocab,
+                                               kernel, what)
+        if graphed and (batcher._decode.graph is None or batcher.capture_seconds is None):
+            fail(f"{label}: the decode step was not captured")
+        runs[graphed] = (got, st, secs, step_ms, reqs, batcher.capture_seconds)
+    tokens = {g: [r.generated for r in runs[g][4]] for g in runs}
+    if tokens[True] != tokens[False]:
+        fail(f"{label}: captured tokens {tokens[True]} != eager {tokens[False]}")
+    got, st, secs, step_ms, reqs, capture_s = runs[True]
+    _, st_e, secs_e, step_ms_e, reqs_e, _ = runs[False]
+    toks = sum(len(r.generated) for r in reqs)
+    numbers = {"captured_step_ms": statistics.median(step_ms),
+               "eager_step_ms": statistics.median(step_ms_e),
+               "captured_tok_s": toks / secs, "eager_tok_s": toks / secs_e,
+               "captured_tok_s_without_capture": toks / (secs - capture_s),
+               "capture_s": capture_s, "tokens": toks,
+               "decode_steps": st["decode_steps"],
+               "prefill_batches": st["prefill_batches"]}
+    line = (f"captured: {serving_line(reqs, st, secs, step_ms)}; capture "
+            f"{capture_s:.3f} s (warm-up step included, not in the step median; "
+            f"{numbers['captured_tok_s_without_capture']:.1f} tok/s without it); "
+            f"eager (graph off): {serving_line(reqs_e, st_e, secs_e, step_ms_e)}; "
+            f"captured step {numbers['eager_step_ms'] / numbers['captured_step_ms']:.2f}x "
+            f"faster, tokens identical")
+    return got, st, line, numbers
+
+
 def token_identity(torch, batcher, reqs, params, cfg, generate, spec, label):
     drive(torch, batcher, reqs)
+    if batcher.capture_seconds is None:
+        fail(f"{label}: the decode step was not captured")
     for r in reqs:
         solo = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=256,
                         exec_spec=spec, device=batcher.device)[0].tolist()
         if solo != r.generated:
             fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
                  f"fused {r.generated} != generate {solo}")
-    log(f"{label}: fused batcher == generate() for {len(reqs)} requests "
+    log(f"{label}: captured batcher == generate() for {len(reqs)} requests "
         f"({sum(len(r.generated) for r in reqs)} tokens, prompt lengths "
         f"{[len(r.prompt) for r in reqs]}), act_scale=per_row")
+
+
+def profile_line(torch, params, cfg, spec, mac, numbers, dev) -> dict:
+    """Profile one replayed decode step of a captured batcher and one
+    step of the same batcher with the graph off (4 slots, 4 requests),
+    log both with busy over the unprofiled median step of ``numbers``
+    (phase 3's or 6's), and return the numbers."""
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    out = {}
+    for graphed, median in ((True, numbers["captured_step_ms"]),
+                            (False, numbers["eager_step_ms"])):
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=spec,
+                                    device=dev)
+        batcher._decode.graphed = graphed
+        for r in make_requests(Request, cfg.vocab, seed=3, n=4):
+            batcher.submit(r)
+        p = profile_decode_step(torch, batcher)
+        if graphed and batcher.capture_seconds is None:
+            fail("profiled step: the decode step was not captured")
+        what = "replayed" if graphed else "eager"
+        if p["busy_ms"] > 0:
+            log(f"profiled {what} decode step (4 slots): {p['wall_ms']:.2f} ms wall "
+                f"under the profiler, {p['busy_ms']:.3f} ms device-busy (device "
+                f"rows; all rows {p['all_rows_ms']:.3f} ms), of which the MAC kernel "
+                f"{mac} {p['mac_ms']:.3f} ms x{p['mac_launches']}; busy over the "
+                f"unprofiled median {what} step {median:.2f} ms: "
+                f"{100 * p['busy_ms'] / median:.1f}% (idle share "
+                f"{100 * (1 - p['busy_ms'] / median):.1f}%); the next {what} step "
+                f"spans {p['span_ms']:.3f} ms between CUDA events; top device time: "
+                + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in p["top"]))
+        else:
+            log(f"profiled {what} decode step: {p['wall_ms']:.2f} ms wall; device "
+                f"time not measured (the profiler recorded no device activity); "
+                f"the next step spans {p['span_ms']:.3f} ms between CUDA events")
+        out[what] = {k: v for k, v in p.items() if k != "top"}
+    return out
 
 
 def serving_phases(torch, tm, pm, card, dev):
@@ -583,28 +707,15 @@ def serving_phases(torch, tm, pm, card, dev):
         fail(f"not the full-size smollm-135m config: {cfg}")
     params = T.init_params(cfg, seed=0, device=dev)
 
-    # phase 3: the main path
-    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev)
-    reqs = make_requests(Request, cfg.vocab, seed=0)
-    main_counts, st, secs, step_ms = serve_counted(
-        torch, tm, pm, batcher, reqs, cfg.vocab, "ternary_cim_matmul", "serving")
-    cim_line = serving_line(reqs, st, secs, step_ms)
+    # phase 3: the main path, its decode step one captured CUDA graph,
+    # beside the same batcher with the graph switched off
+    main_counts, st, cim_line, cim_numbers = serve_captured_and_eager(
+        torch, tm, pm, params, cfg, None, "ternary_cim_matmul", "serving", dev)
     log(f"serving smollm-135m (30 layers, d 576, vocab 49152, bf16, mode cim) "
         f"on {card}: {cim_line}; kernel #1 launches "
         f"{main_counts['ternary_cim_matmul']} = 210 x "
-        f"{st['decode_steps'] + st['prefill_batches']}")
-    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev)
-    for r in make_requests(Request, cfg.vocab, seed=3, n=4):
-        batcher.submit(r)
-    wall, busy, top, (mac_ms, mac_n) = profile_decode_step(torch, batcher)
-    if busy > 0:
-        log(f"profiled decode step (4 slots): {wall:.2f} ms wall under the "
-            f"profiler, {busy:.3f} ms device-busy ({100 * busy / wall:.1f}%), of "
-            f"which the MAC kernel #1 {mac_ms:.3f} ms x{mac_n}; top "
-            "device time: " + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in top))
-    else:
-        log(f"profiled decode step: {wall:.2f} ms wall; device time not measured "
-            "(the profiler recorded no device activity)")
+        f"{st['decode_steps'] + st['prefill_batches']} (captured run)")
+    cim_numbers["profiled"] = profile_line(torch, params, cfg, None, "#1", cim_numbers, dev)
     logits, _ = T.decode_step(params, torch.tensor([[5, 17, 33]], device=dev),
                               T.init_caches(cfg, 1, 16, device=dev), 0, cfg)
     if logits.shape != (1, 3, cfg.vocab) or not torch.isfinite(logits).all():
@@ -652,26 +763,12 @@ def serving_phases(torch, tm, pm, card, dev):
 
     # phase 6: the near-memory baseline, every dense layer through #5
     nm = api.CiMExecSpec("exact", "cuda")
-    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=nm,
-                                seed=0, device=dev)
-    reqs = make_requests(Request, cfg.vocab, seed=0)
-    nm_counts, st, secs, step_ms = serve_counted(
-        torch, tm, pm, batcher, reqs, cfg.vocab, "ternary_exact_matmul",
-        "NM serving")
+    nm_counts, st, nm_line, nm_numbers = serve_captured_and_eager(
+        torch, tm, pm, params, cfg, nm, "ternary_exact_matmul", "NM serving", dev)
     log(f"NM baseline serving (exact/cuda, the same 8 requests) on {card}: "
-        f"{serving_line(reqs, st, secs, step_ms)}; kernel #5 launches "
-        f"{nm_counts['ternary_exact_matmul']} = 210 x "
-        f"{st['decode_steps'] + st['prefill_batches']}, #1 none. Phase 3 "
-        f"(blocked, kernel #1): {cim_line}")
-    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=nm,
-                                device=dev)
-    for r in make_requests(Request, cfg.vocab, seed=3, n=4):
-        batcher.submit(r)
-    wall, busy, _, (mac_ms, mac_n) = profile_decode_step(torch, batcher)
-    log(f"profiled NM decode step (4 slots): {wall:.2f} ms wall under the profiler, "
-        f"{busy:.3f} ms device-busy, of which the MAC kernel #5 {mac_ms:.3f} ms "
-        f"x{mac_n}" if busy > 0 else "profiled NM decode step: device time not "
-        "measured (the profiler recorded no device activity)")
+        f"{nm_line}; kernel #5 launches {nm_counts['ternary_exact_matmul']} = 210 x "
+        f"{st['decode_steps'] + st['prefill_batches']} (captured run), #1 none")
+    nm_numbers["profiled"] = profile_line(torch, params, cfg, nm, "#5", nm_numbers, dev)
     batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256,
                                 exec_spec=nm, device=dev)
     token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=4, n=4),
@@ -721,13 +818,14 @@ def serving_phases(torch, tm, pm, card, dev):
         f"execute_packed under blocked|exact/cuda_stream == */cuda/bitplane_u8 == "
         f"execute (#1/#5) bit for bit on {2 * len(cases)} (weight, layer, M, "
         f"formulation) cases; launches {stream_counts}")
-    return {"ternary_cim_matmul": main_counts["ternary_cim_matmul"],
-            "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
-            "packed_cim_matmul_decode_stream":
-                stream_counts["packed_cim_matmul_decode_stream"],
-            "packed_cim_matmul": (plane_counts["packed_cim_matmul"]
-                                  + stream_counts["packed_cim_matmul"]),
-            "ternary_exact_matmul": nm_counts["ternary_exact_matmul"]}
+    launches = {"ternary_cim_matmul": main_counts["ternary_cim_matmul"],
+                "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
+                "packed_cim_matmul_decode_stream":
+                    stream_counts["packed_cim_matmul_decode_stream"],
+                "packed_cim_matmul": (plane_counts["packed_cim_matmul"]
+                                      + stream_counts["packed_cim_matmul"]),
+                "ternary_exact_matmul": nm_counts["ternary_exact_matmul"]}
+    return launches, {"cim": cim_numbers, "nm": nm_numbers}
 
 
 def main(argv=None) -> int:
@@ -775,7 +873,7 @@ def main(argv=None) -> int:
 
     per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
                                            torch.device("cuda"))
-    launches = serving_phases(torch, tm, pm, card, torch.device("cuda"))
+    launches, serving = serving_phases(torch, tm, pm, card, torch.device("cuda"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -795,7 +893,7 @@ def main(argv=None) -> int:
                 k: v["m"] for k, v in per_kernel.items()}, prefill={
                 k: {f: v[f] for f in v if f.startswith("prefill")}
                 for k, v in per_kernel.items() if v["prefill_ms"] is not None},
-                sass=sass,
+                sass=sass, serving=serving,
                 **extra), f, indent=1)
     print(card, flush=True)
     print(json.dumps(result), flush=True)

@@ -14,6 +14,7 @@ ported in this slice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -38,10 +39,18 @@ def ternary_threshold(x: torch.Tensor, axis: Axis = None,
     typed scalar is (this matters in bf16)."""
     absx = x.abs()
     axes = _axes(x, axis)
-    factor = torch.tensor(factor, dtype=x.dtype, device=x.device)
+    # a host scalar, not a device tensor: no host-to-device copy per call
+    # (a captured CUDA graph cannot hold one)
+    factor = _rounded(factor, x.dtype)
     if axes is None:
         return factor * absx.mean()
     return factor * absx.mean(dim=axes, keepdim=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def ternarize(x: torch.Tensor, axis: Axis = None,

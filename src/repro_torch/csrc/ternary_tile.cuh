@@ -1,8 +1,9 @@
-// The tile machinery shared by the four tile kernels, for Hopper
+// The tile machinery shared by the five kernels of the port, for Hopper
 // (sm_90a): ternary_mac.cu (#1, the clamped CiM MAC on int8 codes),
-// ternary_exact.cu (#5, the exact dot on int8 codes), packed_mac.cu (#4,
-// either MAC from the two stored bitplanes) and packed_stream.cu (#3,
-// either MAC from one plane-interleaved array). A kernel is
+// ternary_exact.cu (#5, the exact dot on int8 codes), packed_mac.cu (#4
+// and #2, either MAC from the two stored bitplanes, f32 or int32 out) and
+// packed_stream.cu (#3, either MAC from one plane-interleaved array). A
+// kernel is
 // tile_kernel<Mac, Src, MT, CW, OutT, RING>: a MAC policy (CimMac or
 // ExactMac: what one ring stage adds into the int32 fragments), a weight
 // source (DenseCodes, PlanePair or Interleaved: how the w part of a stage
@@ -471,20 +472,24 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The launch for `rows_per_block` (8 or 32) x rows per block, a cluster
-// of `cluster` blocks splitting K, and 16-byte copies where `wide`, else
-// byte copies. Returns the CUDA error of the launch (0 on success).
+// The launch for MT x rows per block, a cluster of `cluster` blocks
+// splitting K, and 16-byte copies where `wide`, else byte copies. Returns
+// the CUDA error of the launch (0 on success).
+template <class Mac, class Src, int MT, typename OutT>
+int launch_rows(const void* x, const Src& src, void* out, int M, int K, int N,
+                int cluster, bool wide, Mac mac, void* stream) {
+  return wide ? launch_cw<Mac, Src, MT, 16, OutT>(x, src, out, M, K, N, cluster, mac, stream)
+              : launch_cw<Mac, Src, MT, 1, OutT>(x, src, out, M, K, N, cluster, mac, stream);
+}
+
+// launch_rows for `rows_per_block` (8 or 32) chosen at run time.
 template <class Mac, class Src, typename OutT>
 int launch_src(const void* x, const Src& src, void* out, int M, int K, int N,
                int rows_per_block, int cluster, bool wide, Mac mac, void* stream) {
-  if (rows_per_block == 8) {
-    return wide ? launch_cw<Mac, Src, 8, 16, OutT>(x, src, out, M, K, N, cluster, mac, stream)
-                : launch_cw<Mac, Src, 8, 1, OutT>(x, src, out, M, K, N, cluster, mac, stream);
-  }
-  if (rows_per_block == 32) {
-    return wide ? launch_cw<Mac, Src, 32, 16, OutT>(x, src, out, M, K, N, cluster, mac, stream)
-                : launch_cw<Mac, Src, 32, 1, OutT>(x, src, out, M, K, N, cluster, mac, stream);
-  }
+  if (rows_per_block == 8)
+    return launch_rows<Mac, Src, 8, OutT>(x, src, out, M, K, N, cluster, wide, mac, stream);
+  if (rows_per_block == 32)
+    return launch_rows<Mac, Src, 32, OutT>(x, src, out, M, K, N, cluster, wide, mac, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

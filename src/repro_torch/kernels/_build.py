@@ -34,7 +34,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ternary_cim_mac": ("ternary_mac", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "packed_cim_mac": ("packed_mac", [_P, _P, _P, _P] + [_I] * 11 + [_P]),
-    "packed_decode_mac": ("packed_mac", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "packed_decode_mac": ("packed_mac", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "packed_stream_mac": ("packed_stream", [_P, _P, _P] + [_I] * 9 + [_P]),
     "ternary_exact_mac": ("ternary_exact", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }

@@ -10,7 +10,7 @@ PyTorch versions.
   * :func:`packed_cim_matmul_decode_stream` ports
     ``packed_cim_matmul_decode_stream`` — M <= 8 from ONE plane-interleaved
     (layout 1) array streamed through per-warp rings of ``nbuf`` stages,
-    int32 output, bit-identical to the decode kernel.
+    int32 output, bit-identical to the decode kernel #2.
 
 Weights are the (rows, N) uint8 (M1, M2) planes with bit j of byte r =
 K row 8r+j (layout 1: byte-row 2r pos, 2r+1 neg), and the weight is
@@ -19,7 +19,8 @@ K <= 8*rows (missing columns are zero, which is inert). ``n_out`` keeps
 only the first logical columns of canonically padded planes. For a CUDA
 tensor each wrapper launches its kernel (or raises); for a CPU tensor it
 runs the plain version. Each wrapper's ``launches`` attribute counts its
-kernel launches. #4 and #3 take their grid from
+kernel launches. All three kernels are instances of the tile template of
+``csrc/ternary_tile.cuh`` and take their grid from
 :func:`repro_torch.kernels.plan.launch_plan` at x's K and the logical
 columns.
 """
@@ -91,20 +92,25 @@ def _planes_ok(x, w_pos, w_neg):
                          "column stride planes")
 
 
-def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim):
-    """Launch #2 into a new int32 (M, n_out); returns (out, whether a
-    kernel was launched)."""
+def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim,
+                   plan: Optional[LaunchPlan] = None):
+    """Launch #2 into a new int32 (M <= 8, n_out) on ``plan`` (default:
+    the card's :func:`device_plan` at x's K and ``n_out``; its 8-row tile
+    is the kernel's own); returns (out, whether a kernel was launched).
+    A launch that CUDA refuses raises."""
     _planes_ok(x, w_pos, w_neg)
     m, kx = x.shape
     out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
     if m == 0 or n_out == 0:
         return out, False
     with torch.cuda.device(x.device):
+        if plan is None:
+            plan = device_plan(m, kx, n_out)
         _build.launch(
             "packed_decode_mac", x.data_ptr(), w_pos.data_ptr(),
             w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
-            w_pos.stride(0), w_neg.stride(0), n_out, int(adc_max), int(cim),
-            _build.stream_ptr(x.device))
+            w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
+            int(adc_max), int(cim), plan.cluster, _build.stream_ptr(x.device))
     return out, True
 
 

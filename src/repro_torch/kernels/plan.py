@@ -1,6 +1,7 @@
 """The grid of the tile kernels of ``csrc/ternary_tile.cuh``: #1
 (``ternary_cim_matmul``), #5 (``ternary_exact_matmul``), #4
-(``packed_cim_matmul``) and #3 (``packed_cim_matmul_decode_stream``).
+(``packed_cim_matmul``), #3 (``packed_cim_matmul_decode_stream``) and #2
+(``packed_cim_matmul_decode``).
 
 A block owns 16 output columns (:data:`COL_TILE`) and ``rows`` x rows (8
 in the decode class, 32 above it); the ``cluster`` blocks along grid z

@@ -11,7 +11,8 @@ serving CiM execution spec is selected with ``--exec-spec`` as
 with ``--prepare-weights`` the quantization is folded offline once
 (quant.prepare.prepare_for_spec), and a packed spec keeps the stored
 planes beside the model (``blocked/cuda_stream/bitplane_u8`` stores
-them in the stream kernel's layout 1).
+them in the stream kernel's layout 1). On the card the decode step runs
+as one captured CUDA graph; its capture time is printed on its own line.
 Not ported yet: ``--tp``, ``--serve-http`` and ``--profile``.
 """
 from __future__ import annotations
@@ -96,6 +97,12 @@ def main(argv=None) -> int:
           f"{stats['decode_steps']} decode steps, "
           f"{stats['prefill_batches']} prefill batches, "
           f"{stats['host_syncs']} host syncs")
+    if batcher.capture_seconds is not None:
+        print(f"[serve] decode step captured as one CUDA graph in "
+              f"{batcher.capture_seconds:.3f}s (warm-up included; part of "
+              f"the {dt:.3f}s above)")
+    else:
+        print(f"[serve] decode step not captured: it runs eagerly on {where}")
     if not all(r.done for r in reqs):
         raise RuntimeError("some requests did not finish")
     return 0

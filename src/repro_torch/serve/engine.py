@@ -6,7 +6,10 @@ sequences are replaced from the queue at once. One batched
 ragged-position ``decode_step`` serves every slot per step; newly
 assigned slots prefill together in one left-padded, pow2-bucketed batch;
 sampling runs on the device and the host fetches one small token vector
-per step (``host_syncs``). The steps run eagerly (no CUDA graph yet).
+per step (``host_syncs``). On the card the decode step runs as one
+captured CUDA graph (``serve.graph``), the counterpart of the
+reference's jitted step; prefill runs eagerly. ``serve_step`` and
+``make_jit_serve_step`` are the reference's single-step entry points.
 Not ported yet: the ``fused=False`` per-slot baseline, TP, KV-cache
 quantization and the profiler hooks.
 """
@@ -23,6 +26,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import CiMExecSpec, get_backend
 from repro_torch.models import transformer as T
+from repro_torch.serve.graph import CapturedStep
 
 
 def apply_exec_spec(cfg: ArchConfig, spec: Optional[CiMExecSpec]) -> ArchConfig:
@@ -64,14 +68,68 @@ def prefill(params, tokens: torch.Tensor, caches, cfg: ArchConfig):
     return logits[:, -1:, :], caches
 
 
+def serve_step(params, tokens: torch.Tensor, caches, index, cfg: ArchConfig,
+               start: Optional[torch.Tensor] = None):
+    """One decode step: tokens (B, S) at cache position ``index`` (a
+    Python int or a (B,) tensor; ``start`` (B,) the rows' left-pad dead
+    zones). The caches are updated in place. Returns (logits (B, S, V),
+    caches)."""
+    return T.decode_step(params, tokens, caches, index, cfg, start=start)
+
+
+def make_jit_serve_step(cfg: ArchConfig):
+    """:func:`serve_step` as a captured CUDA graph:
+    ``f(params, tokens, caches, index, start=None) -> (logits, caches)``.
+
+    On a CUDA device the first call for a (batch, step length, with or
+    without ``start``) warms up on a side stream and captures the step
+    into a ``torch.cuda.CUDAGraph`` (``serve.graph.CapturedStep``); later
+    calls copy their tokens, index and start into the graph's static
+    tensors and replay it. The caches are updated in place (the
+    counterpart of the reference's donated caches), and a graph is bound
+    to the params and caches of its first call: a call with others
+    raises. The logits returned are a copy of the graph's output. On the
+    CPU (no graphs) every call is :func:`serve_step`."""
+    steps: Dict[tuple, tuple] = {}
+
+    def f(params, tokens, caches, index, start=None):
+        if tokens.device.type != "cuda":
+            return serve_step(params, tokens, caches, index, cfg, start=start)
+        b, s = tokens.shape
+        if not torch.is_tensor(index):
+            index = torch.full((b,), int(index), dtype=torch.int64,
+                               device=tokens.device)
+        index = index.expand(b)
+        args = (tokens, index) if start is None else (tokens, index, start)
+        key = (b, s, start is not None)
+        if key not in steps:
+            def body(tok, idx, st=None):
+                return serve_step(params, tok, caches, idx, cfg, start=st)[0]
+
+            inputs = [a.to(device=tokens.device, dtype=torch.int64).clone()
+                      for a in args]
+            steps[key] = (params, caches, CapturedStep(body, inputs, tokens.device))
+        bound_params, bound_caches, step = steps[key]
+        if params is not bound_params or any(
+                mine.data_ptr() != bound.data_ptr()
+                for mine, bound in zip(caches, bound_caches)):
+            raise ValueError("a captured serve step is bound to the params and "
+                             "caches of its first call")
+        for static, a in zip(step.inputs, args):
+            static.copy_(a)
+        return step().clone(), caches
+
+    return f
+
+
 def fused_decode_fn(cfg: ArchConfig, temperature: float = 0.0):
     """The function the fused batcher runs for every decode step: one
     ragged-position ``decode_step`` over all slots plus on-device
     sampling; tokens out are the step's only device->host payload."""
 
     def step(params, tokens, caches, positions, start, generator):
-        logits, caches = T.decode_step(params, tokens, caches, positions, cfg,
-                                       start=start)
+        logits, caches = serve_step(params, tokens, caches, positions, cfg,
+                                    start=start)
         return sample(logits[:, -1:, :], generator, temperature)[:, 0], caches
 
     return step
@@ -144,6 +202,20 @@ class ContinuousBatcher:
     Sampling runs on the device: one host fetch per step
     (``host_syncs``).
 
+    On a CUDA device the decode step is one captured CUDA graph of
+    :func:`fused_decode_fn` (``serve.graph.CapturedStep``), captured at
+    the first decode step and replayed at every later one: per step the
+    host copies the tokens, positions and starts from pinned buffers into
+    the graph's static tensors, replays it, and fetches the tokens. The
+    KV caches keep their storage for the batcher's life (prefill writes
+    the filled rows into them in place). Sampling is part of the graph:
+    at ``temperature > 0`` the batcher's generator is registered with it,
+    so a replay draws what the eager step would and prefill's eager draws
+    continue the same sequence (the warm-up is the first step itself, so
+    nothing is drawn twice). Prefill runs eagerly, one batch per fill.
+    ``capture_seconds`` is the capture's wall time (None before it, and
+    on the CPU, where the same step runs eagerly).
+
     ``prepare_weights=True`` runs ``quant.prepare.prepare_for_spec`` once:
     the model serves folded ternary weights (``pre_quantized``), and for
     a bitplane-packed spec the canonical 2-bit planes are kept on
@@ -203,14 +275,29 @@ class ContinuousBatcher:
         self._generator = torch.Generator(device=dev).manual_seed(seed)
         self.caches = T.init_caches(cfg, n_slots, s_max, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
-        self.slot_pos = np.zeros((n_slots,), np.int64)    # next cache write slot
-        self.slot_start = np.zeros((n_slots,), np.int64)  # left-pad dead zone
-        self._last_tok = np.zeros((n_slots,), np.int64)
+        # the decode step's inputs: host buffers (pinned on the card) that
+        # the step copies into the static device tensors of its graph
+        pinned = dev.type == "cuda"
+        host = [torch.zeros((n_slots,), dtype=torch.int64, pin_memory=pinned)
+                for _ in range(3)]
+        self._last_tok, self.slot_pos, self.slot_start = (h.numpy() for h in host)
+        # slot_pos: the next cache write slot; slot_start: the left-pad dead zone
+        self._host_inputs = (host[0][:, None], host[1], host[2])
         self.queue: List[Request] = []
         self.decode_steps = 0
         self.host_syncs = 0
         self.prefill_batches = 0
-        self._decode = fused_decode_fn(cfg, self.temperature)
+        step = fused_decode_fn(cfg, self.temperature)
+        params, caches, generator = self.params, self.caches, self._generator
+        self._decode = CapturedStep(
+            lambda tokens, positions, start: step(
+                params, tokens, caches, positions, start, generator)[0],
+            [h.to(dev, copy=True) for h in self._host_inputs], dev,
+            generators=(generator,) if self.temperature else ())
+
+    @property
+    def capture_seconds(self) -> Optional[float]:
+        return self._decode.capture_seconds
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         # called between steps, after the previous step's fetch: the
@@ -266,10 +353,9 @@ class ContinuousBatcher:
                 self.slot_req[s] = None
 
     def _step(self, active) -> int:
-        toks, self.caches = self._decode(
-            self.params, self._to_device(self._last_tok[:, None]),
-            self.caches, self._to_device(self.slot_pos),
-            self._to_device(self.slot_start), self._generator)
+        for static, host in zip(self._decode.inputs, self._host_inputs):
+            static.copy_(host, non_blocking=True)
+        toks = self._decode()
         self.decode_steps += 1
         toks = toks.cpu().numpy()  # the single fetch of this step
         self.host_syncs += 1

@@ -17,7 +17,9 @@ from repro_torch.kernels import packed_mac as pm
 from repro_torch.kernels import ternary_mac as tm
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config
-from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from repro_torch.serve.engine import (ContinuousBatcher, Request, generate,
+                                      make_jit_serve_step, serve_step)
+from repro_torch.serve.graph import CapturedStep
 
 
 @pytest.fixture
@@ -261,8 +263,8 @@ def _canonical_planes(w, width=None):
 
 def _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=None, narrow=()):
     """#2, #3 (nbuf 2 and 3, == #2) and #4 against the plain version on
-    (p1, p2) (and ``wi``, their layout-1 array), and #4 also on each
-    plane pair of ``narrow``; tolerance 0."""
+    (p1, p2) (and ``wi``, their layout-1 array), and #2 (at M <= 8) or #4
+    also on each plane pair of ``narrow``; tolerance 0."""
     want = pm.packed_matmul_plain(x, p1, p2, n_out=n, adc_max=adc_max, cim=cim)
     kw = dict(n_out=n, adc_max=adc_max, cim=cim)
     if x.shape[0] <= 8:
@@ -271,6 +273,9 @@ def _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=None, narrow=()):
         for nbuf in (2, 3):
             got = pm.packed_cim_matmul_decode_stream(x, wi, nbuf=nbuf, **kw)
             torch.testing.assert_close(got, decode, rtol=0, atol=0)
+        for a, b in narrow:
+            torch.testing.assert_close(pm.packed_cim_matmul_decode(x, a, b, **kw),
+                                       decode, rtol=0, atol=0)
         return
     for a, b in ((p1, p2),) + tuple(narrow):
         torch.testing.assert_close(pm.packed_cim_matmul(x, a, b, **kw), want,
@@ -280,19 +285,20 @@ def _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=None, narrow=()):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", PLANE_SHAPES)
 def test_cuda_plane_tile_kernels_bit_exact(cuda_device, k, n):
-    """#3 and #4 on the tile machinery against their plain versions (and
-    #3 against #2): canonical planes (x shorter than their K, n_out below
-    their width), #3 at M in {1, 4, 8} and nbuf 2 and 3, #4 at M in {9,
-    64, 128, 200} on the canonical planes (16-byte copies), on planes 5
-    columns wider than N (byte copies) and on the de-interleaved views of
-    both as layout 1; cim on and off, adc_max 8 and 3."""
+    """#2, #3 and #4 on the tile machinery against their plain versions
+    (and #3 against #2): canonical planes (x shorter than their K, n_out
+    below their width), #2 and #3 at M in 1..8, #3 at nbuf 2 and 3, #4 at
+    M in {9, 64, 128, 200}; #2 and #4 on the canonical planes (16-byte
+    copies), on planes 5 columns wider than N (byte copies) and on the
+    de-interleaved views of both as layout 1; cim on and off, adc_max 8
+    and 3."""
     g = torch.Generator(device=cuda_device).manual_seed(5 * k + n)
     w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device, dtype=torch.int8)
     p1, p2 = _canonical_planes(w)
     wi = interleave_planes(p1, p2)
     q1, q2 = _canonical_planes(w, width=n + 5)
     narrow = ((q1, q2), deinterleave_planes(wi), deinterleave_planes(interleave_planes(q1, q2)))
-    for m in (1, 4, 8, 9, 64, 128, 200):
+    for m in tuple(range(1, 9)) + (9, 64, 128, 200):
         x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
         for cim, adc_max in ((True, 8), (True, 3), (False, 8)):
             _hold_plane_kernels(x, p1, p2, n, adc_max, cim, wi=wi, narrow=narrow)
@@ -317,7 +323,7 @@ def test_cuda_packed_kernels_on_overlapping_planes(cuda_device, k, n, cim, adc_m
                         dtype=torch.uint8)
     wi = interleave_planes(pos, neg)
     narrow = (deinterleave_planes(wi),)
-    for m in (1, 4, 8, 9, 128):
+    for m in (1, 3, 4, 8, 9, 128):
         x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
         _hold_plane_kernels(x, pos, neg, n, adc_max, cim, wi=wi, narrow=narrow)
     torch.cuda.synchronize()
@@ -325,8 +331,9 @@ def test_cuda_packed_kernels_on_overlapping_planes(cuda_device, k, n, cim, adc_m
 
 @pytest.mark.cuda
 def test_cuda_plane_kernels_refused_cluster_launch_raises(cuda_device):
-    """A 16-block cluster is refused by the runtime for #3 and #4 too: the
-    launch raises, nothing falls back, and the next launch still works."""
+    """A 16-block cluster is refused by the runtime for #2, #3 and #4 too:
+    the launch raises, nothing falls back, and the next launch still
+    works."""
     w = torch.ones((576, 64), dtype=torch.int8, device=cuda_device)
     p1, p2 = _canonical_planes(w)
     wi = interleave_planes(p1, p2)
@@ -335,7 +342,127 @@ def test_cuda_plane_kernels_refused_cluster_launch_raises(cuda_device):
         pm._launch_stream(x, wi, 64, 8, True, 2, plan=tm.LaunchPlan(8, (4, 1, 16), 16))
     with pytest.raises(RuntimeError, match="launch failed"):
         pm._launch_prefill(x, p1, p2, 64, 8, True, plan=tm.LaunchPlan(32, (4, 1, 16), 16))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pm._launch_decode(x, p1, p2, 64, 8, True, plan=tm.LaunchPlan(8, (4, 1, 16), 16))
+    assert torch.equal(pm.packed_cim_matmul_decode(x, p1, p2, n_out=64),
+                       torch.full((4, 64), 36 * 8, dtype=torch.int32, device=cuda_device))
     assert torch.equal(pm.packed_cim_matmul_decode_stream(x, wi, n_out=64),
                        torch.full((4, 64), 36 * 8, dtype=torch.int32, device=cuda_device))
     assert torch.equal(pm.packed_cim_matmul(x, p1, p2, n_out=64),
                        torch.full((4, 64), 36 * 8.0, device=cuda_device))
+
+
+def _smoke_model(cuda_device, act_scale="per_tensor"):
+    cfg = get_config("smollm-135m", smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale=act_scale))
+    return cfg, T.init_params(cfg, seed=0, device=cuda_device)
+
+
+def _serve(batcher, n=5):
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(n)]
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    return [r.generated for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_scale", ["per_tensor", "per_row"])
+@pytest.mark.parametrize("spec", [None, CiMExecSpec("exact", "cuda")], ids=["cim", "nm"])
+def test_cuda_captured_step_matches_eager(cuda_device, spec, act_scale):
+    """The batcher's decode step on the card is one CUDA graph, captured
+    once at the first decode step and replayed after: its tokens equal
+    the eager step's (the same batcher with the graph switched off), and
+    generate()'s under per_row; the MAC kernel counts 7 x layers launches
+    per decode step and prefill batch, replays included; one host sync
+    per step."""
+    cfg, params = _smoke_model(cuda_device, act_scale)
+    kernel = tm.ternary_cim_matmul if spec is None else tm.ternary_exact_matmul
+    got = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, exec_spec=spec,
+                                    device=cuda_device)
+        batcher._decode.graphed = graphed
+        before = kernel.launches
+        got[graphed] = _serve(batcher)
+        st = batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        assert st["host_syncs"] == steps
+        assert kernel.launches - before == 7 * cfg.n_layers * steps
+        if graphed:
+            assert batcher._decode.graph is not None
+            assert batcher.capture_seconds > 0
+            assert batcher._decode.captured_launches == {kernel: 7 * cfg.n_layers}
+        else:
+            assert batcher._decode.graph is None and batcher.capture_seconds is None
+    assert got[True] == got[False]
+    if act_scale == "per_row":
+        reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                        max_new=3 + i % 4) for i in range(5)]
+        for r, toks in zip(reqs, got[True]):
+            want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                            exec_spec=spec, device=cuda_device)[0].tolist()
+            assert toks == want, r.rid
+
+
+@pytest.mark.cuda
+def test_cuda_captured_step_sampled_matches_eager(cuda_device):
+    """At temperature > 0 the sampling is in the graph, with the batcher's
+    generator registered with it: under the same seed the captured
+    batcher draws what the eager one draws, prefill's eager draws
+    included."""
+    cfg, params = _smoke_model(cuda_device)
+    got = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, temperature=0.9,
+                                    seed=7, device=cuda_device)
+        batcher._decode.graphed = graphed
+        got[graphed] = _serve(batcher)
+    assert got[True] == got[False]
+
+
+@pytest.mark.cuda
+def test_cuda_jit_serve_step_replays_serve_step(cuda_device):
+    """make_jit_serve_step: a graph per (batch, step length), replayed with
+    new tokens and indices, == serve_step on its own caches; bound to the
+    caches of its first call."""
+    cfg, params = _smoke_model(cuda_device)
+    jit = make_jit_serve_step(cfg)
+    mine = T.init_caches(cfg, 2, 32, device=cuda_device)
+    ref = T.init_caches(cfg, 2, 32, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    prompt = torch.randint(1, cfg.vocab, (2, 4), generator=g, device=cuda_device)
+    for caches in (mine, ref):
+        serve_step(params, prompt, caches, 0, cfg)
+    for i in range(4):
+        tok = torch.randint(1, cfg.vocab, (2, 1), generator=g, device=cuda_device)
+        index = 4 + i if i % 2 else torch.tensor([4 + i, 4 + i], device=cuda_device)
+        got, _ = jit(params, tok, mine, index)
+        want, _ = serve_step(params, tok, ref, index, cfg)
+        assert torch.equal(got, want), i
+    assert torch.equal(mine.k, ref.k) and torch.equal(mine.v, ref.v)
+    with pytest.raises(ValueError, match="bound to the params and caches"):
+        jit(params, tok, ref, 9)
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(cuda_device):
+    """A launch that CUDA refuses during the capture raises out of the
+    step (no eager fallback), and the card still works after."""
+    x = torch.ones((4, 576), dtype=torch.int8, device=cuda_device)
+    w = torch.ones((576, 64), dtype=torch.int8, device=cuda_device)
+    calls = []
+
+    def fn(a):
+        calls.append(len(calls))
+        plan = None if len(calls) == 1 else tm.LaunchPlan(8, (4, 1, 16), 16)
+        return tm._launch_codes("ternary_exact_mac", a, w, plan=plan)[0]
+
+    step = CapturedStep(fn, [x], cuda_device)
+    with pytest.raises(RuntimeError):
+        step()
+    assert len(calls) == 2 and step.graph is None
+    torch.cuda.synchronize()
+    assert torch.equal(tm.ternary_exact_matmul(x, w),
+                       torch.full((4, 64), 576.0, device=cuda_device))

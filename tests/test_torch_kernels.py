@@ -4,7 +4,7 @@ On the CPU each wrapper runs its kernel's plain PyTorch version; here it
 is held bit-exact against the Pallas kernel in interpret mode at
 one-tile shapes (kernels #1 ternary_cim_matmul, #2
 packed_cim_matmul_decode, #4 packed_cim_matmul), also on plane pairs
-whose bits overlap. The CUDA kernels are
+whose bits overlap, and #2 also at ragged M, K and N. The CUDA kernels are
 held against those plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -19,6 +19,7 @@ from repro.kernels import ternary_mac as jtm
 from repro_torch.core.ternary import pack_ternary
 from repro_torch.kernels import packed_mac as pm
 from repro_torch.kernels import ternary_mac as tm
+from repro_torch.kernels.ref import ref_packed_matmul
 
 
 def _tern(rng, shape, p_zero=0.2):
@@ -105,6 +106,42 @@ def test_packed_plain_matches_pallas_on_overlapping_planes(kernel, cim):
         got = pm.packed_cim_matmul(torch.from_numpy(x), torch.from_numpy(pos),
                                    torch.from_numpy(neg), cim=cim)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["exclusive", "overlapping"])
+@pytest.mark.parametrize("cim", [True, False], ids=["blocked", "exact"])
+@pytest.mark.parametrize("m,k,n", [(1, 40, 33), (3, 300, 130), (8, 16, 8)])
+def test_packed_decode_plain_ragged_matches_pallas_and_ref(m, k, n, cim, overlap):
+    """#2's plain version at M in {1, 3, 8} and ragged K and N (x of K
+    rows against canonically padded planes, n_out of their columns), on
+    exclusive planes and on planes whose bits overlap: == the Pallas
+    decode kernel (interpret, on x zero-extended to the planes' K) and ==
+    ``kernels/ref.py``'s oracle; int32, tolerance 0. The CUDA kernel is
+    held to it on the card by ``tests/test_torch_cuda.py``."""
+    rng = np.random.default_rng(100 * m + k + n + 2 * cim + overlap)
+    rows, width = -(-k // 256) * 32, -(-n // 128) * 128
+    x = _tern(rng, (m, k))
+    if overlap:
+        pos = np.zeros((rows, width), np.uint8)
+        neg = np.zeros((rows, width), np.uint8)
+        pos[:-(-k // 8), :n] = rng.integers(0, 256, (-(-k // 8), n))
+        neg[:-(-k // 8), :n] = rng.integers(0, 256, (-(-k // 8), n))
+        assert (pos & neg).any()
+        p1, p2 = torch.from_numpy(pos), torch.from_numpy(neg)
+    else:
+        wz = np.zeros((rows * 8, width), np.int8)
+        wz[:k, :n] = _tern(rng, (k, n))
+        p1, p2 = pack_ternary(torch.from_numpy(wz), axis=0)
+    xz = np.zeros((m, rows * 8), np.int8)
+    xz[:, :k] = x
+    want = jpm.packed_cim_matmul_decode(jnp.asarray(xz), jnp.asarray(p1.numpy()),
+                                        jnp.asarray(p2.numpy()), cim=cim, bk=256,
+                                        bn=128, interpret=True)
+    oracle = ref_packed_matmul(torch.from_numpy(xz), p1, p2, cim=cim)[:, :n]
+    got = pm.packed_cim_matmul_decode(torch.from_numpy(x), p1, p2, n_out=n, cim=cim)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:, :n])
+    np.testing.assert_array_equal(got.numpy(), oracle.numpy().astype(np.int32))
 
 
 def test_packed_plain_short_x_and_n_out():

@@ -1,4 +1,4 @@
-"""The host-side launch plan of the tile kernels #1, #3, #4 and #5
+"""The host-side launch plan of the tile kernels #1, #2, #3, #4 and #5
 (``plan.launch_plan`` and ``plan.k_split``): how many blocks the grid
 gives, how large the cluster is, and how the cluster's blocks split K.
 Pure functions: no card needed.
@@ -75,7 +75,7 @@ def test_plan_at_the_layer_shapes():
 
 
 def test_plane_kernel_grids_at_the_layer_shapes():
-    """#3 (decode M, x's K, the logical columns) takes #1's decode grid;
+    """#2 and #3 (decode M, x's K, the logical columns) take #1's decode grid;
     #4 at the M=128 of the stored-plane checks takes 4 row tiles of 32
     and a cluster only at N = 192 (12 column tiles x 4 < 66)."""
     for m in (1, 4, 8):
