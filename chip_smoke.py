@@ -50,7 +50,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      quantized weight of layers 0 and 29 at M in {1, 4, 8, 128} == the
      */cuda/bitplane_u8 specs == execute on the folded weights (#1/#5),
      with kernel #3 (and #4 at M=128) launched; #4's launch count in the
-     kernels line is that of phases 5 and 7 together.
+     kernels line is that of phases 5 and 7 together;
+  8. capacity: a captured batcher (2 slots, s_max 16, per_row) over a mix
+     in which one request fills its slot to s_max while another still
+     decodes (the freed slot rides on as a dead lane); the reference's
+     token counts and truncation flags, tokens == generate(), no device
+     assert;
+  9. quantized KV caches: phase 3's requests, captured and eager, under
+     cache_dtype int8 and ternary (tokens equal, #1 launched 210 x
+     steps), per_row batchers == generate() under the same cache_dtype,
+     step medians and tok/s beside phase 3's, the cache bytes per slot;
+ 10. the looped baseline (fused=False, greedy, per_row, eager) over 4
+     requests: tokens == generate(), one host sync per prefill and per
+     active slot a step, its step median beside phase 3's;
+ 11. full-size starcoder2-7b (32 layers, d 4608, seeded random weights)
+     with an int8 cache, captured and eager (tokens equal, #1 launched
+     224 x steps): step median, tok/s, capture time, peak memory, and a
+     profiled replayed step (device-busy time, #1's share). The
+     kernel phase also bit-checks and times #1 and #5 at one
+     starcoder2-7b layer's 7 shapes at M=4 ("starcoder2_7b" in the
+     kernels line), #5 beside torch.mm.
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -86,6 +105,11 @@ KERNELS = {
 LAYER_SHAPES = (("q", 576, 576), ("k", 576, 192), ("v", 576, 192),
                 ("o", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
                 ("down", 1536, 576))
+# one starcoder2-7b decoder layer's (d 4608, 36/4 heads of 128, d_ff
+# 18432): 301.9 M weight codes, the first realistic width
+SC7B_SHAPES = (("q", 4608, 4608), ("k", 4608, 512), ("v", 4608, 512),
+               ("o", 4608, 4608), ("gate", 4608, 18432), ("up", 4608, 18432),
+               ("down", 18432, 4608))
 # the layer shapes, then ragged ones that cut across #1's and #5's K split
 # and column tiles: K=16 (one block), N=8 (half a tile), 37 blocks of 16
 # (prime: no split divides it) by N=200 (12.5 tiles)
@@ -379,21 +403,26 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
 
     # timing: one decoder layer's 7 calls, each at its own (K, N); #1 and
     # #5 also at prefill M (TIMED_PREFILL_M), as "prefill_ms"; #1 also at
-    # #4's M (TIMED_PLANES_M), as "cim_at_planes_m"
+    # #4's M (TIMED_PLANES_M), as "cim_at_planes_m"; #1 and #5 also at
+    # starcoder2-7b's layer (M=4), as "starcoder2_7b" (bit-checked there
+    # on the timed inputs, like every timed shape)
     per_kernel = {}
     cim_at_planes_m = None
     stream_vs_decode = None
-    for name, m in (("ternary_cim_matmul", 4), ("ternary_exact_matmul", 4),
-                    ("ternary_cim_matmul", TIMED_PREFILL_M),
-                    ("ternary_exact_matmul", TIMED_PREFILL_M),
-                    ("packed_cim_matmul_decode", 4),
-                    ("packed_cim_matmul_decode_stream", 4),
-                    ("packed_cim_matmul", TIMED_PLANES_M),
-                    ("ternary_cim_matmul", TIMED_PLANES_M)):
-        prefill = name in per_kernel and m == TIMED_PREFILL_M
+    for name, m, shapes, tag in (
+            ("ternary_cim_matmul", 4, LAYER_SHAPES, None),
+            ("ternary_exact_matmul", 4, LAYER_SHAPES, None),
+            ("ternary_cim_matmul", TIMED_PREFILL_M, LAYER_SHAPES, "prefill"),
+            ("ternary_exact_matmul", TIMED_PREFILL_M, LAYER_SHAPES, "prefill"),
+            ("packed_cim_matmul_decode", 4, LAYER_SHAPES, None),
+            ("packed_cim_matmul_decode_stream", 4, LAYER_SHAPES, None),
+            ("packed_cim_matmul", TIMED_PLANES_M, LAYER_SHAPES, None),
+            ("ternary_cim_matmul", TIMED_PLANES_M, LAYER_SHAPES, "planes_m"),
+            ("ternary_cim_matmul", 4, SC7B_SHAPES, "starcoder2_7b"),
+            ("ternary_exact_matmul", 4, SC7B_SHAPES, "starcoder2_7b")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
-        for label, k, n in LAYER_SHAPES:
+        for label, k, n in shapes:
             x = tern((m, k))
             extra = ""
             if name.startswith("ternary"):
@@ -465,12 +494,15 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             del calls, plain
         pk = dict(tot, bound_ms=max(t_bytes, t_ops), m=m,
                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        if prefill:
+        if tag == "prefill":
             per_kernel[name].update(
                 prefill_ms=pk["ms"], prefill_m=m, prefill_plain_ms=pk["plain_ms"],
                 prefill_bound_ms=pk["bound_ms"], prefill_library_ms=pk["library_ms"])
-        elif name in per_kernel:
+        elif tag == "planes_m":
             cim_at_planes_m = {f: pk[f] for f in ("m", "ms", "plain_ms", "bound_ms")}
+        elif tag == "starcoder2_7b":
+            per_kernel[name][tag] = {f: pk[f] for f in (
+                "m", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         else:
             per_kernel[name] = dict(pk, prefill_ms=None)
         extra = ""
@@ -482,10 +514,11 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                      f"stream_vs_decode {stream_vs_decode:.3f}, two instances of "
                      "tile_kernel that differ only in the weight source "
                      "(Interleaved vs PlanePair)")
-        if cim_at_planes_m is not None and name == "ternary_cim_matmul":
+        if tag == "planes_m":
             extra = (f"; #4 on the same shapes at M={m} "
                      f"{per_kernel['packed_cim_matmul']['ms']:.4f} ms")
-        log(f"{name}: one layer's 7 calls at M={m}: {pk['ms']:.4f} ms "
+        layer = "one starcoder2-7b layer's" if tag == "starcoder2_7b" else "one layer's"
+        log(f"{name}: {layer} 7 calls at M={m}: {pk['ms']:.4f} ms "
             f"(plain {pk['plain_ms']:.4f} ms, bound {pk['bound_ms']:.5f} ms "
             f"by {pk['bound_by']}{extra})")
     torch.cuda.empty_cache()
@@ -569,9 +602,10 @@ def profile_decode_step(torch, batcher):
 def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
     """Drive ``batcher`` over ``reqs`` with every launch count at 0 just
     before; fail unless every request finished with tokens in range, one
-    host sync per step, ``kernel`` launched 210 x (decode steps + prefill
-    batches) (one launch per quantized dense layer of the 30) and no
-    other kernel launched. Returns (counts, stats, seconds, step ms)."""
+    host sync per step, ``kernel`` launched 7 x layers x (decode steps +
+    prefill batches) (one launch per quantized dense layer: 210 for
+    smollm-135m's 30 layers) and no other kernel launched. Returns
+    (counts, stats, seconds, step ms)."""
     reset_counts(tm, pm)
     secs, step_ms = drive(torch, batcher, reqs)
     got = counts(tm, pm)
@@ -581,9 +615,10 @@ def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
     if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
         fail(f"{label}: host_syncs {st}")
     steps = st["decode_steps"] + st["prefill_batches"]
-    if got[kernel] != 210 * steps:
+    per_step = 7 * batcher.cfg.n_layers
+    if got[kernel] != per_step * steps:
         fail(f"{label}: {kernel} launched {got[kernel]} times, expected "
-             f"210 x {steps}")
+             f"{per_step} x {steps}")
     others = {k: v for k, v in got.items() if k != kernel and v}
     if others:
         fail(f"{label}: other kernels launched {others}")
@@ -602,26 +637,32 @@ def serving_line(reqs, st, secs, step_ms) -> str:
             f"batches, {st['host_syncs']} host syncs")
 
 
-def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, dev):
-    """Phase 3's (or 6's) serving: the same 8 requests through a batcher
-    whose decode step is one captured CUDA graph (the main path, counted)
-    and through one with the graph switched off (eager); fails unless the
-    step was captured and both give the same tokens. Returns (counts of
-    the captured run, stats, log line, numbers)."""
+def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, dev,
+                             cache_dtype=None, n_slots=4, s_max=256,
+                             requests=lambda Request, vocab: make_requests(
+                                 Request, vocab, seed=0)):
+    """Phase 3's (or 6's, 9's, 11's) serving: the same requests (phase
+    3's 8 by default) through a batcher whose decode step is one captured
+    CUDA graph (the main path, counted) and through one with the graph
+    switched off (eager); fails unless the step was captured and both
+    give the same tokens. Returns (counts of the captured run, stats, log
+    line, numbers)."""
     from repro_torch.serve.engine import ContinuousBatcher, Request
 
     runs = {}
     for graphed in (True, False):
-        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=spec,
-                                    seed=0, device=dev)
+        batcher = ContinuousBatcher(params, cfg, n_slots=n_slots, s_max=s_max,
+                                    exec_spec=spec, seed=0, device=dev,
+                                    cache_dtype=cache_dtype)
         batcher._decode.graphed = graphed
-        reqs = make_requests(Request, cfg.vocab, seed=0)
+        reqs = requests(Request, cfg.vocab)
         what = label if graphed else f"{label} (eager)"
         got, st, secs, step_ms = serve_counted(torch, tm, pm, batcher, reqs, cfg.vocab,
                                                kernel, what)
         if graphed and (batcher._decode.graph is None or batcher.capture_seconds is None):
             fail(f"{label}: the decode step was not captured")
         runs[graphed] = (got, st, secs, step_ms, reqs, batcher.capture_seconds)
+        del batcher   # its graph's memory pool goes before the next batcher's
     tokens = {g: [r.generated for r in runs[g][4]] for g in runs}
     if tokens[True] != tokens[False]:
         fail(f"{label}: captured tokens {tokens[True]} != eager {tokens[False]}")
@@ -818,6 +859,9 @@ def serving_phases(torch, tm, pm, card, dev):
         f"execute_packed under blocked|exact/cuda_stream == */cuda/bitplane_u8 == "
         f"execute (#1/#5) bit for bit on {2 * len(cases)} (weight, layer, M, "
         f"formulation) cases; launches {stream_counts}")
+    capacity = capacity_phase(torch, params, row_cfg, dev)
+    kvq = kv_cache_phases(torch, tm, pm, params, cfg, row_cfg, card, cim_numbers, dev)
+    looped = looped_phase(torch, tm, pm, params, row_cfg, card, cim_numbers, dev)
     launches = {"ternary_cim_matmul": main_counts["ternary_cim_matmul"],
                 "packed_cim_matmul_decode": plane_counts["packed_cim_matmul_decode"],
                 "packed_cim_matmul_decode_stream":
@@ -825,7 +869,207 @@ def serving_phases(torch, tm, pm, card, dev):
                 "packed_cim_matmul": (plane_counts["packed_cim_matmul"]
                                       + stream_counts["packed_cim_matmul"]),
                 "ternary_exact_matmul": nm_counts["ternary_exact_matmul"]}
-    return launches, {"cim": cim_numbers, "nm": nm_numbers}
+    return launches, {"cim": cim_numbers, "nm": nm_numbers, "capacity": capacity,
+                      "kv_cache": kvq, "looped": looped}
+
+
+# ---------------------------------------------------------------------------
+# phases 8-11: capacity, quantized KV caches, the looped baseline and
+# starcoder2-7b
+# ---------------------------------------------------------------------------
+
+# the CPU tests' capacity mix scaled to s_max 16: request 0 fills its slot at
+# s_max while request 2 still decodes, so slot 0 rides on as a dead lane
+# whose cache write the step clamps to its row's last slot. Both prefill
+# to a 4-slot bucket: request 0 gets 1 + (16 - 4) = 13 tokens of 100 and
+# request 2 13 of 14 (both truncated), request 1 its 2 (the reference's
+# counts and flags for this mix)
+CAPACITY_MIX = (([11, 12, 13], 100), ([14], 2), ([15, 16], 14))
+CAPACITY_WANT = ([13, 2, 13], [True, False, True])
+# per-slot cache bytes of full-size smollm-135m at s_max 256: 30 layers x
+# 256 positions x k and v x (bf16 2D | int8 D + 4 | ternary D/2 + 4), D 192
+KV_BYTES_PER_SLOT = {"bf16": 5_898_240, "int8": 3_010_560, "ternary": 1_536_000}
+
+
+def capacity_phase(torch, params, row_cfg, dev) -> dict:
+    """Phase 8: a captured batcher (2 slots, s_max 16, per_row) over
+    CAPACITY_MIX; fails unless the step was captured, the mix finishes
+    (no device assert) with the reference's counts and flags, and each
+    request's tokens == generate()."""
+    from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+    batcher = ContinuousBatcher(params, row_cfg, n_slots=2, s_max=16, device=dev)
+    reqs = [Request(i, list(p), max_new=m) for i, (p, m) in enumerate(CAPACITY_MIX)]
+    secs, _ = drive(torch, batcher, reqs)
+    torch.cuda.synchronize()
+    if batcher.capture_seconds is None:
+        fail("capacity: the decode step was not captured")
+    got = ([len(r.generated) for r in reqs], [r.truncated for r in reqs])
+    if got != CAPACITY_WANT or not all(r.done for r in reqs):
+        fail(f"capacity: token counts and truncation flags {got}, expected "
+             f"{CAPACITY_WANT}")
+    for r in reqs:
+        solo = generate(params, [r.prompt], row_cfg, max_new=len(r.generated),
+                        s_max=16, device=dev)[0].tolist()
+        if solo != r.generated:
+            fail(f"capacity: request {r.rid} batcher {r.generated} != generate {solo}")
+    log(f"capacity: captured batcher (2 slots, s_max 16, per_row) served "
+        f"{[(len(p), m) for p, m in CAPACITY_MIX]} (prompt, max_new) to "
+        f"{got[0]} tokens, truncated {got[1]}, with slot 0 a dead lane at s_max "
+        f"while request 2 decoded; no device assert; tokens == generate(); "
+        f"{batcher.stats()}, {secs:.3f} s")
+    return {"tokens": got[0], "truncated": got[1], "stats": batcher.stats()}
+
+
+def kv_cache_phases(torch, tm, pm, params, cfg, row_cfg, card, bf16, dev) -> dict:
+    """Phase 9: phase 3's requests through captured and eager batchers
+    under cache_dtype int8 and ternary (tokens equal, #1 launched 210 x
+    steps), then per_row batchers == generate() under the same
+    cache_dtype; step medians and tok/s beside phase 3's bf16 (``bf16``),
+    and the cache bytes per slot."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+    out = {}
+    for cd in ("int8", "ternary"):
+        qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, cache_dtype=cd))
+        caches = T.init_caches(qcfg, 4, 256, device=dev)
+        per_slot = sum(leaf.numel() * leaf.element_size() for leaf in caches) // 4
+        del caches
+        if per_slot != KV_BYTES_PER_SLOT[cd]:
+            fail(f"{cd} cache: {per_slot} bytes per slot, expected {KV_BYTES_PER_SLOT[cd]}")
+        got, st, line, numbers = serve_captured_and_eager(
+            torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+            f"{cd} cache serving", dev, cache_dtype=cd)
+        ratio = KV_BYTES_PER_SLOT["bf16"] / per_slot
+        log(f"{cd} KV cache serving smollm-135m on {card}: {line}; kernel #1 launches "
+            f"{got['ternary_cim_matmul']} = {7 * cfg.n_layers} x "
+            f"{st['decode_steps'] + st['prefill_batches']}; captured step "
+            f"{numbers['captured_step_ms']:.2f} ms against bf16's "
+            f"{bf16['captured_step_ms']:.2f} ms, {numbers['captured_tok_s']:.1f} tok/s "
+            f"against {bf16['captured_tok_s']:.1f}; {per_slot} cache bytes per slot "
+            f"at s_max 256 against bf16's {KV_BYTES_PER_SLOT['bf16']} ({ratio:.3f}x)")
+        qrow = row_cfg.replace(quant=dataclasses.replace(row_cfg.quant, cache_dtype=cd))
+        batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256,
+                                    cache_dtype=cd, device=dev)
+        token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=1, n=4),
+                       params, qrow, generate, None, f"{cd} cache token identity")
+        out[cd] = dict(numbers, bytes_per_slot=per_slot, launches=got["ternary_cim_matmul"])
+    return out
+
+
+def looped_phase(torch, tm, pm, params, row_cfg, card, fused, dev) -> dict:
+    """Phase 10: the looped baseline (fused=False, greedy, per_row) over 4
+    requests, eager: tokens == generate(), one host sync per prefill and
+    per active slot a step (= the tokens served), one prefill batch per
+    request, #1 launched 210 x (4 slots x decode steps + prefills); its
+    step median beside the fused step's (phase 3, ``fused``)."""
+    from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+    batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256, fused=False,
+                                device=dev)
+    reqs = make_requests(Request, row_cfg.vocab, seed=6, n=4)
+    reset_counts(tm, pm)
+    secs, step_ms = drive(torch, batcher, reqs)
+    got = counts(tm, pm)
+    st = batcher.stats()
+    toks = sum(len(r.generated) for r in reqs)
+    if not all(r.done for r in reqs) or batcher.capture_seconds is not None:
+        fail(f"looped: not every request finished, or a graph was captured {st}")
+    if st["host_syncs"] != toks or st["prefill_batches"] != len(reqs):
+        fail(f"looped: {st}, expected {toks} host syncs (one per token) and "
+             f"{len(reqs)} prefill batches")
+    per_step = 7 * row_cfg.n_layers
+    want = per_step * (4 * st["decode_steps"] + st["prefill_batches"])
+    if got["ternary_cim_matmul"] != want or sum(got.values()) != want:
+        fail(f"looped: launches {got}, expected #1 only, {want} times")
+    for r in reqs:
+        solo = generate(params, [r.prompt], row_cfg, max_new=r.max_new, s_max=256,
+                        device=dev)[0].tolist()
+        if solo != r.generated:
+            fail(f"looped: request {r.rid} {r.generated} != generate {solo}")
+    median = statistics.median(step_ms)
+    log(f"looped baseline (fused=False, per_row, eager) on {card}: "
+        f"{serving_line(reqs, st, secs, step_ms)}; tokens == generate(); host syncs "
+        f"= tokens; #1 launches {want} = {per_step} x (4 x {st['decode_steps']} + "
+        f"{st['prefill_batches']}); step {median:.2f} ms against the fused step's "
+        f"{fused['captured_step_ms']:.2f} ms captured, {fused['eager_step_ms']:.2f} ms "
+        f"eager (phase 3, 8 requests)")
+    return {"step_ms": median, "tok_s": toks / secs, "tokens": toks, **st}
+
+
+def starcoder2_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 11: full-size starcoder2-7b (seeded random weights) through
+    captured and eager batchers with an int8 KV cache: 4 slots, s_max
+    128, 4 requests of 1-16 prompt tokens and 8 new tokens; tokens equal,
+    #1 launched 224 x (decode steps + prefill batches); step median,
+    tok/s, capture time and the peak device memory; then one replayed
+    step under the profiler."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("starcoder2-7b")
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings)
+    if shape != (32, 4608, 36, 4, 128, 18432, 49152, False) or not (
+            10.0e9 < cfg.param_count() < 10.2e9):
+        fail(f"not the full-size starcoder2-7b config: {shape}, "
+             f"{cfg.param_count()} params")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def requests(Request, vocab):
+        rng = np.random.default_rng(7)
+        lengths = [1, 16] + list(rng.integers(1, 17, 2))
+        return [Request(i, [int(t) for t in rng.integers(1, vocab, n)], max_new=8)
+                for i, n in enumerate(lengths)]
+
+    got, st, line, numbers = serve_captured_and_eager(
+        torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+        "starcoder2-7b serving", dev, cache_dtype="int8", n_slots=4, s_max=128,
+        requests=requests)
+    peak = torch.cuda.max_memory_allocated()
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, cache_dtype="int8",
+                                device=dev)
+    for r in requests(Request, cfg.vocab):
+        batcher.submit(r)
+    prof = profile_decode_step(torch, batcher)
+    if batcher.capture_seconds is None:
+        fail("starcoder2-7b profiled step: the decode step was not captured")
+    del batcher
+    median = numbers["captured_step_ms"]
+    log(f"starcoder2-7b profiled replayed decode step (4 slots): {prof['busy_ms']:.3f} ms "
+        f"device-busy, of which #1 {prof['mac_ms']:.3f} ms x{prof['mac_launches']}; "
+        f"busy over the unprofiled median step {median:.2f} ms: "
+        f"{100 * prof['busy_ms'] / median:.1f}%; the next step spans "
+        f"{prof['span_ms']:.3f} ms between CUDA events; top device time: "
+        + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in prof["top"]))
+    numbers["profiled"] = {k: v for k, v in prof.items() if k != "top"}
+    log(f"starcoder2-7b (32 layers, d 4608, 36/4 heads of 128, d_ff 18432, vocab "
+        f"49152, untied, {cfg.param_count() / 1e9:.2f} B params, {n_bytes / 1e9:.2f} "
+        f"GB bf16, initialized in {init_s:.1f} s at a peak of {init_peak / 1e9:.2f} GB) "
+        f"with an int8 KV cache on {card}: {line}; kernel #1 launches "
+        f"{got['ternary_cim_matmul']} = 224 x "
+        f"{st['decode_steps'] + st['prefill_batches']}; peak device memory while "
+        f"serving {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    return dict(numbers, param_bytes=n_bytes, init_s=init_s, init_peak_bytes=init_peak,
+                peak_bytes=peak, launches=got["ternary_cim_matmul"])
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def main(argv=None) -> int:
@@ -874,6 +1118,7 @@ def main(argv=None) -> int:
     per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
                                            torch.device("cuda"))
     launches, serving = serving_phases(torch, tm, pm, card, torch.device("cuda"))
+    serving["starcoder2_7b"] = starcoder2_phase(torch, tm, pm, card, torch.device("cuda"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -884,6 +1129,7 @@ def main(argv=None) -> int:
             "ms": pk["ms"], "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
             "prefill_ms": pk["prefill_ms"],
+            "starcoder2_7b": pk.get("starcoder2_7b"),
         })
     result = {"kernels": kernels}
     if args.out:

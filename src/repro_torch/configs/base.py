@@ -26,7 +26,13 @@ class ArchConfig:
     tie_embeddings: bool = False
     quant: QuantConfig = QuantConfig(mode="off")
     quantize_unembed: bool = False
+    # 0 = full attention (materialized scores); > 0 = online-softmax
+    # attention over KV chunks of this size in ``forward`` (cache-free)
+    attn_chunk: int = 0
     dtype: str = "bfloat16"
+    # the reference's training flag, kept so the configs read as its own;
+    # the port does not train
+    remat: bool = True
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -18,5 +18,5 @@ CONFIG = ArchConfig(
 
 SMOKE_CONFIG = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-    d_ff=128, vocab=256,
+    d_ff=128, vocab=256, remat=False,
 )

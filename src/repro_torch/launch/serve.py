@@ -13,7 +13,10 @@ with ``--prepare-weights`` the quantization is folded offline once
 planes beside the model (``blocked/cuda_stream/bitplane_u8`` stores
 them in the stream kernel's layout 1). On the card the decode step runs
 as one captured CUDA graph; its capture time is printed on its own line.
-Not ported yet: ``--tp``, ``--serve-http`` and ``--profile``.
+``--loop-decode`` serves the per-slot loop baseline instead (greedy,
+eager). The KV cache follows the config's ``quant.cache_dtype`` (the
+reference's CLI has no flag for it). Not ported yet: ``--tp``,
+``--serve-http`` and ``--profile``.
 """
 from __future__ import annotations
 
@@ -52,6 +55,9 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of sampling")
+    ap.add_argument("--loop-decode", action="store_true",
+                    help="use the legacy per-slot-loop decode baseline "
+                         "instead of the fused ragged-position step")
     ap.add_argument("--prepare-weights", action="store_true",
                     help="run quant.prepare.prepare_for_spec once at startup "
                          "(requires --exec-spec)")
@@ -74,7 +80,7 @@ def main(argv=None) -> int:
         ap.error("--prepare-weights requires --exec-spec")
     batcher = ContinuousBatcher(
         params, cfg, n_slots=args.slots, s_max=args.s_max, exec_spec=exec_spec,
-        temperature=args.temperature, seed=args.seed,
+        temperature=args.temperature, seed=args.seed, fused=not args.loop_decode,
         prepare_weights=args.prepare_weights, device=device)
     reqs = [
         Request(i, [1 + (i * 7 + j) % (cfg.vocab - 1) for j in range(1 + i % 4)],
@@ -101,6 +107,9 @@ def main(argv=None) -> int:
         print(f"[serve] decode step captured as one CUDA graph in "
               f"{batcher.capture_seconds:.3f}s (warm-up included; part of "
               f"the {dt:.3f}s above)")
+    elif args.loop_decode:
+        print(f"[serve] decode step is the per-slot loop baseline, run eagerly "
+              f"on {where}")
     else:
         print(f"[serve] decode step not captured: it runs eagerly on {where}")
     if not all(r.done for r in reqs):

@@ -1,5 +1,5 @@
-"""GQA attention with a bf16 KV cache (port of the GQA part of
-``repro/models/attention.py``).
+"""GQA attention with a bf16 or quantized KV cache (port of the GQA part
+of ``repro/models/attention.py``).
 
 Weight projections route through ``layers.dense`` so the ternary/CiM
 modes apply; the score/value contractions are activation-activation
@@ -10,9 +10,19 @@ on its batchmates, nor on where left-padding put its tokens in the
 cache. That keeps fused serving token-identical to ``generate()`` on
 the GPU, whose reduction order changes with shapes.
 
-The port writes caches in place: a stacked cache is one tensor per k/v
+The port writes caches in place: a stacked cache is one tensor per leaf
 that every layer and step updates at its own token slots (the JAX
-package returns new arrays instead).
+package returns new arrays instead). A write whose offset would run past
+the cache is clamped to its last slots, as ``dynamic_update_slice``
+clamps it in the reference: a slot freed at capacity rides the batched
+step as a dead lane and rewrites the last slot of its own row.
+
+Quantized caches (:class:`QuantKVCache`, the reference's DESIGN.md §13)
+store int8 codes, or ternary codes nibble-packed two per byte, with one
+f32 scale per (row, position). Dequantization stays in the attention
+contractions: the codes enter the score and value einsums and the
+scales multiply the (B, ..., Sk) score and probability matrices; no
+dequantized copy of the cache is made.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import ternary as tern
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -40,6 +51,107 @@ class KVCache(NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
+# ---------------------------------------------------------------------------
+# Quantized KV caches
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor, cache_dtype: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``x`` (B, S, ...) per (row, position) over every trailing
+    axis. Returns ``(codes, scale)`` with scale (B, S) f32:
+
+      * ``"int8"``:    ``round(x/scale)`` (half to even) in [-127, 127],
+                       ``scale = amax/127`` (1.0 where the slice is all
+                       zero: dead pad rows stay exactly zero);
+      * ``"ternary"``: TWN codes in {-1,0,1} (``core.ternary.ternarize``)
+                       nibble-packed two per byte along the last axis
+                       (uint8, last dim halved).
+    """
+    red = tuple(range(2, x.ndim))
+    xf = x.to(torch.float32)
+    if cache_dtype == "int8":
+        amax = xf.abs().amax(dim=red)
+        scale = torch.where(amax > 0, amax / 127.0, 1.0)
+        q = torch.round(xf / scale[(...,) + (None,) * len(red)])
+        return torch.clamp(q, -127, 127).to(torch.int8), scale
+    if cache_dtype == "ternary":
+        t, scale = tern.ternarize(xf, axis=red)
+        return pack_ternary_kv(t.to(torch.int8)), scale.reshape(x.shape[:2])
+    raise ValueError(f"quantize_kv: unknown cache_dtype {cache_dtype!r}")
+
+
+def pack_ternary_kv(t: torch.Tensor) -> torch.Tensor:
+    """Pack ternary codes {-1,0,1} (int8) two per byte along the last
+    axis, high nibble first: stored nibbles are ``t+1`` in {0,1,2}.
+    Needs an even last dim (checked when the cache is made)."""
+    c = (t + 1).to(torch.uint8)
+    return (c[..., 0::2] << 4) | c[..., 1::2]
+
+
+def unpack_ternary_kv(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`pack_ternary_kv`: uint8 (..., D/2) -> codes
+    (..., D) in {-1,0,1} as ``dtype``."""
+    hi = ((p >> 4) & 0xF).to(torch.int8) - 1
+    lo = (p & 0xF).to(torch.int8) - 1
+    codes = torch.stack([hi, lo], dim=-1).reshape(p.shape[:-1] + (2 * p.shape[-1],))
+    return codes.to(dtype)
+
+
+def _kv_codes(buf: torch.Tensor, dtype) -> torch.Tensor:
+    """Stored cache codes -> codes in ``dtype`` (int8: a cast; uint8: the
+    nibble unpack)."""
+    if buf.dtype == torch.uint8:
+        return unpack_ternary_kv(buf, dtype)
+    return buf.to(dtype)
+
+
+def _quant_zeros(shape: Tuple[int, ...], cache_dtype: str,
+                 device=None) -> torch.Tensor:
+    if cache_dtype == "ternary":
+        if shape[-1] % 2:
+            raise ValueError(
+                f"ternary cache_dtype packs 2 codes/byte along the last "
+                f"axis; got odd trailing dim {shape[-1]} (shape {shape})")
+        # all-zero codes pack to nibble value 1 on both halves
+        return torch.full(shape[:-1] + (shape[-1] // 2,), 0x11,
+                          dtype=torch.uint8, device=device)
+    if cache_dtype == "int8":
+        return torch.zeros(shape, dtype=torch.int8, device=device)
+    raise ValueError(f"unknown quantized cache_dtype {cache_dtype!r}")
+
+
+class QuantKVCache(NamedTuple):
+    """Quantized GQA cache: codes + per-(row, position) f32 scales.
+
+    ``k``/``v`` are int8 (B, S_max, H_kv, Dh) or ternary-packed uint8
+    (B, S_max, H_kv, Dh/2), the storage mode carried by the leaf dtype;
+    ``k_scale``/``v_scale`` are (B, S_max) f32. Stacked for the layer
+    stack, every leaf gains a leading (L,) axis."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+    @staticmethod
+    def zeros(batch: int, s_max: int, n_kv: int, head_dim: int,
+              cache_dtype: str = "int8", device=None,
+              layers: Optional[int] = None):
+        lead = () if layers is None else (layers,)
+        shape = lead + (batch, s_max, n_kv, head_dim)
+        # four leaves of their own storage: the port writes them in place
+        return QuantKVCache(
+            _quant_zeros(shape, cache_dtype, device),
+            _quant_zeros(shape, cache_dtype, device),
+            torch.ones(lead + (batch, s_max), dtype=torch.float32, device=device),
+            torch.ones(lead + (batch, s_max), dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Cache writes
+# ---------------------------------------------------------------------------
+
+
 def _index_vector(index, b: int, device) -> torch.Tensor:
     """Normalize a scalar-or-(B,) cache index to a (B,) int64 vector (a
     Python int fills on the device: no host-to-device copy)."""
@@ -52,15 +164,19 @@ def write_cache_rows(buf: torch.Tensor, new: torch.Tensor, index) -> torch.Tenso
     """Write ``new`` (B, s, ...) into ``buf`` (B, S_max, ...) at sequence
     offset ``index`` in place, and return ``buf``. A scalar ``index``
     writes every row at the same offset; a (B,) vector writes each row at
-    its own offset (ragged decode)."""
+    its own offset (ragged decode). Each offset is clamped to
+    [0, S_max - s], as ``dynamic_update_slice`` clamps it in the
+    reference (a tensor clamp: no host branch in a captured step)."""
     new = new.to(buf.dtype)
     s = new.shape[1]
+    last = buf.shape[1] - s
     if not torch.is_tensor(index) or index.dim() == 0:
-        i = int(index)
+        i = min(max(int(index), 0), last)
         buf[:, i:i + s] = new
         return buf
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
-    cols = index.to(torch.int64)[:, None] + torch.arange(s, device=buf.device)[None, :]
+    cols = (index.to(torch.int64).clamp(0, last)[:, None]
+            + torch.arange(s, device=buf.device)[None, :])
     buf[rows, cols] = new
     return buf
 
@@ -75,7 +191,8 @@ def init_gqa(generator: torch.Generator, cfg: ArchConfig, dtype, device,
             for name, shape in shapes.items()}
 
 
-def _sdpa(q, k, v, causal_offset, length=None, start=None):
+def _sdpa(q, k, v, causal_offset, length=None, start=None,
+          k_scale=None, v_scale=None):
     """q: (B, Sq, H, Dh); k, v: (B, Sk, Hkv, Dh). GQA via head grouping.
 
     causal_offset: position of q[0] relative to k[0] (None = no mask);
@@ -83,13 +200,25 @@ def _sdpa(q, k, v, causal_offset, length=None, start=None):
     length: (B,) valid KV length (mask at and beyond).
     start: (B,) first valid KV slot (mask below) — the left-padding dead
       zone of a batched prefill.
+    k_scale/v_scale: (B, Sk) f32 scales of a quantized cache, whose k/v
+      then hold int8 or ternary-packed uint8 codes. The codes enter the
+      contractions; k_scale multiplies the scores and v_scale the
+      probabilities (each is constant along Dh, so it factors out of the
+      contraction), and the probabilities round to q's dtype after it,
+      as in the reference.
     """
+    quant = k_scale is not None
+    acc = torch.float64
+    if quant:
+        k, v = _kv_codes(k, acc), _kv_codes(v, acc)
+    out_dtype = q.dtype if quant else v.dtype
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
-    acc = torch.float64
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(acc), k.to(acc))
+    if quant:
+        scores = scores * k_scale.to(acc)[:, None, None, None, :]
     scores = scores / math.sqrt(dh)
     dev = q.device
     kpos = torch.arange(sk, device=dev)
@@ -107,19 +236,68 @@ def _sdpa(q, k, v, causal_offset, length=None, start=None):
     if start is not None:
         live = kpos[None, :] >= start[:, None]
         scores = torch.where(live[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = probs * v_scale.to(acc)[:, None, None, None, :]
+    probs = probs.to(out_dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(acc), v.to(acc))
-    return out.to(v.dtype).reshape(b, sq, h, dh)
+    return out.to(out_dtype).reshape(b, sq, h, dh)
+
+
+def _sdpa_chunked(q, k, v, chunk: int, k_scale=None, v_scale=None):
+    """Causal attention from position 0 as an online softmax over KV
+    chunks of ``chunk`` slots (the reference's flash-style scan; used by
+    ``forward`` under ``cfg.attn_chunk``): no (B, H, Sq, Sk) score matrix
+    is made. Accumulates in float64, as :func:`_sdpa`. Optional
+    k_scale/v_scale (B, Sk): quantized-cache codes in k/v, with
+    :func:`_sdpa`'s scale contract applied per chunk."""
+    quant = k_scale is not None
+    acc = torch.float64
+    if quant:
+        k, v = _kv_codes(k, q.dtype), _kv_codes(v, q.dtype)
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sk % chunk:
+        raise ValueError(f"KV length {sk} is not a multiple of chunk {chunk}")
+    g = h // hkv
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, g, dh).to(acc)
+    qpos = torch.arange(sq, device=dev)
+    m = torch.full((b, hkv, g, sq), -math.inf, dtype=acc, device=dev)
+    denom = torch.zeros((b, hkv, g, sq), dtype=acc, device=dev)
+    out = torch.zeros((b, hkv, g, sq, dh), dtype=acc, device=dev)
+    for c0 in range(0, sk, chunk):
+        cols = slice(c0, c0 + chunk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, cols].to(acc))
+        if quant:
+            s = s * k_scale[:, cols].to(acc)[:, None, None, None, :]
+        s = s / math.sqrt(dh)
+        kpos = c0 + torch.arange(chunk, device=dev)
+        s = torch.where((kpos[None, :] <= qpos[:, None])[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        denom = denom * alpha + p.sum(dim=-1)
+        if quant:
+            p = p * v_scale[:, cols].to(acc)[:, None, None, None, :]
+        out = out * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v.dtype).to(acc), v[:, cols].to(acc))
+        m = m_new
+    out = out / torch.clamp(denom, min=1e-30)[..., None]
+    return out.movedim(-2, 1).reshape(b, sq, h, dh).to(q.dtype)
 
 
 def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
-                  positions: torch.Tensor, cache: Optional[KVCache] = None,
+                  positions: torch.Tensor, cache=None,
                   cache_index=None, start: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """x: (B, S, D). With a cache (one layer's (B, S_max, Hkv, Dh) k/v):
-    the new KV is written at ``cache_index`` (scalar or (B,)) in place and
-    attention runs against the whole cache; ``start`` marks each row's
-    first valid slot. Returns (out, cache)."""
+                  ) -> Tuple[torch.Tensor, Optional[tuple]]:
+    """x: (B, S, D). With a cache (one layer's :class:`KVCache` or
+    :class:`QuantKVCache`): the new KV is written at ``cache_index``
+    (scalar or (B,)) in place — quantized on write for a
+    :class:`QuantKVCache` — and attention runs against the whole cache;
+    ``start`` marks each row's first valid slot. Without a cache,
+    attention is causal over x, chunked under ``cfg.attn_chunk`` when it
+    divides S. Returns (out, cache)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qc = cfg.quant
@@ -129,12 +307,26 @@ def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = _sdpa(q, k, v, causal_offset=0)
+        if cfg.attn_chunk and s % cfg.attn_chunk == 0 and s > cfg.attn_chunk:
+            out = _sdpa_chunked(q, k, v, cfg.attn_chunk)
+        else:
+            out = _sdpa(q, k, v, causal_offset=0)
     else:
-        write_cache_rows(cache.k, k, cache_index)
-        write_cache_rows(cache.v, v, cache_index)
         length = _index_vector(cache_index, b, x.device) + s
-        out = _sdpa(q, cache.k, cache.v, causal_offset=cache_index,
-                    length=length, start=start)
+        if isinstance(cache, QuantKVCache):
+            cd = "ternary" if cache.k.dtype == torch.uint8 else "int8"
+            for buf, scale_buf, new in ((cache.k, cache.k_scale, k),
+                                        (cache.v, cache.v_scale, v)):
+                codes, scale = quantize_kv(new, cd)
+                write_cache_rows(buf, codes, cache_index)
+                write_cache_rows(scale_buf, scale, cache_index)
+            out = _sdpa(q, cache.k, cache.v, causal_offset=cache_index,
+                        length=length, start=start, k_scale=cache.k_scale,
+                        v_scale=cache.v_scale)
+        else:
+            write_cache_rows(cache.k, k, cache_index)
+            write_cache_rows(cache.v, v, cache_index)
+            out = _sdpa(q, cache.k, cache.v, causal_offset=cache_index,
+                        length=length, start=start)
     out = out.reshape(b, s, h * hd)
     return L.dense(out, params["wo"], qc), cache

@@ -41,6 +41,11 @@ class QuantConfig:
     pre_quantized: weights were ternarized offline (quant.prepare) with
       the per-channel scale folded in; dense() recovers the codes with
       one max-reduce instead of the threshold quantizer.
+    cache_dtype: KV-cache storage (orthogonal to ``mode``: the cache
+      holds activations). "bf16" stores the cache in the activation
+      dtype; "int8" stores symmetric int8 codes and "ternary" TWN codes
+      nibble-packed two per byte, each with one f32 scale per (row,
+      position) (``attention.QuantKVCache``).
     """
     mode: str = "off"
     block: int = 16
@@ -51,10 +56,14 @@ class QuantConfig:
     threshold_factor: float = tern.TWN_THRESHOLD_FACTOR
     exec_spec: Optional[CiMExecSpec] = None
     pre_quantized: bool = False
+    cache_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.mode not in ("off", "ternary", "cim", "cim_fused"):
             raise ValueError(self.mode)
+        if self.cache_dtype not in ("bf16", "int8", "ternary"):
+            raise ValueError(
+                f"unknown cache_dtype {self.cache_dtype!r} (bf16 | int8 | ternary)")
         if self.act_scale not in ("per_tensor", "per_row"):
             raise ValueError(
                 f"unknown act_scale {self.act_scale!r} (per_tensor | per_row)")
@@ -178,9 +187,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_dense_weight(generator: torch.Generator, shape, dtype,
                       device) -> torch.Tensor:
-    """N(0, 1/fan_in) weights, fan_in = shape[-2] (the contraction dim)."""
-    w = torch.randn(shape, generator=generator, device=device) * shape[-2] ** -0.5
-    return w.to(dtype)
+    """N(0, 1/fan_in) weights, fan_in = shape[-2] (the contraction dim).
+    A stacked (L, K, N) weight is drawn one layer at a time into its
+    ``dtype`` stack, so the f32 draw never holds more than one layer."""
+    if len(shape) == 2:
+        w = torch.randn(shape, generator=generator, device=device) * shape[-2] ** -0.5
+        return w.to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = init_dense_weight(generator, shape[1:], dtype, device)
+    return out
 
 
 def mlp(params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> config (port of
-``repro/models/registry.py``). Archs whose family is not ported yet
-raise."""
+``repro/models/registry.py``). The dense family is ported; archs of
+the other families raise."""
 from __future__ import annotations
 
 import importlib
@@ -20,7 +20,7 @@ ARCH_IDS = (
     "llava-next-34b",
 )
 
-PORTED = ("smollm-135m",)
+PORTED = ("smollm-135m", "starcoder2-7b", "starcoder2-15b", "yi-34b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:

@@ -4,7 +4,8 @@
 Entry points:
   * init_params(cfg, seed=, device=)   — params, stacked-layer layout
   * forward(params, tokens, cfg)       — teacher-forced logits
-  * init_caches(cfg, batch, s_max)     — stacked decode caches
+  * init_caches(cfg, batch, s_max)     — stacked decode caches, bf16 or
+                                         quantized (cfg.quant.cache_dtype)
   * decode_step(params, tokens, caches, index, cfg, start=) — cached step
 
 Params are nested dicts with the JAX package's stacked layout (e.g.
@@ -67,7 +68,7 @@ def layer_params(blocks: Dict, i: int) -> Dict:
 
 
 def apply_block(p: Dict, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor, cache: Optional[attn.KVCache],
+                positions: torch.Tensor, cache,
                 cache_index, start: Optional[torch.Tensor] = None):
     """One decoder layer; returns (x, cache)."""
     h = L.rms_norm(x, p["ln1"])
@@ -103,17 +104,30 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def init_caches(cfg: ArchConfig, batch: int, s_max: int,
-                dtype=torch.bfloat16, device: DeviceLike = None) -> attn.KVCache:
-    """Stacked bf16 KV caches (L, B, S_max, H_kv, Dh) for the layer stack."""
+                dtype=torch.bfloat16, device: DeviceLike = None):
+    """Stacked KV caches for the layer stack, every leaf (L, B, S_max,
+    ...), in the layout of ``cfg.quant.cache_dtype``: "bf16" gives a
+    :class:`~repro_torch.models.attention.KVCache` of ``dtype`` k/v
+    (L, B, S_max, H_kv, Dh); "int8" and "ternary" give a
+    :class:`~repro_torch.models.attention.QuantKVCache` of codes (int8,
+    or uint8 with Dh halved) and (L, B, S_max) f32 scales, made as zero
+    codes (ternary: bytes 0x11) with scales 1.0. Decode writes them in
+    place; an offset past the cache is clamped to its last slots."""
     _check_family(cfg)
-    return attn.KVCache.zeros(batch, s_max, cfg.n_kv_heads,
-                              cfg.resolved_head_dim, dtype=dtype,
-                              device=resolve_device(device), layers=cfg.n_layers)
+    dev = resolve_device(device)
+    cd = cfg.quant.cache_dtype
+    if cd == "bf16":
+        return attn.KVCache.zeros(batch, s_max, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim, dtype=dtype,
+                                  device=dev, layers=cfg.n_layers)
+    return attn.QuantKVCache.zeros(batch, s_max, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, cd, device=dev,
+                                   layers=cfg.n_layers)
 
 
-def decode_step(params, tokens: torch.Tensor, caches: attn.KVCache, index,
+def decode_step(params, tokens: torch.Tensor, caches, index,
                 cfg: ArchConfig, start: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, attn.KVCache]:
+                ) -> Tuple[torch.Tensor, tuple]:
     """One cached step. tokens: (B, S_step); ``index`` is the cache write
     offset — a Python int (every row at the same position) or a (B,)
     tensor (ragged decode). ``start`` (B,) marks each row's left-padding
@@ -131,7 +145,7 @@ def decode_step(params, tokens: torch.Tensor, caches: attn.KVCache, index,
         base = base - start.to(torch.int64)
     positions = base.expand(b)[:, None] + torch.arange(s, device=dev)[None, :]
     for i in range(cfg.n_layers):
-        layer_cache = attn.KVCache(caches.k[i], caches.v[i])
+        layer_cache = type(caches)(*(leaf[i] for leaf in caches))
         x, _ = apply_block(layer_params(params["blocks"], i), x, cfg,
                            positions, layer_cache, index, start)
     # the decode unembedding is always the plain matmul, as in the reference

@@ -8,10 +8,11 @@ assigned slots prefill together in one left-padded, pow2-bucketed batch;
 sampling runs on the device and the host fetches one small token vector
 per step (``host_syncs``). On the card the decode step runs as one
 captured CUDA graph (``serve.graph``), the counterpart of the
-reference's jitted step; prefill runs eagerly. ``serve_step`` and
-``make_jit_serve_step`` are the reference's single-step entry points.
-Not ported yet: the ``fused=False`` per-slot baseline, TP, KV-cache
-quantization and the profiler hooks.
+reference's jitted step; prefill runs eagerly. ``fused=False`` serves
+the reference's per-slot loop instead, the measured baseline of the old
+formulation. The KV cache is bf16 or quantized (``cache_dtype``).
+``serve_step`` and ``make_jit_serve_step`` are the reference's
+single-step entry points. Not ported yet: TP and the profiler hooks.
 """
 from __future__ import annotations
 
@@ -228,9 +229,30 @@ class ContinuousBatcher:
     ``cuda`` kernel. A formulation with no dense kernel at all raises
     ``KeyError`` here.
 
+    ``cache_dtype`` overrides ``cfg.quant.cache_dtype``: "bf16" (the
+    config's default) stores k/v as they are; "int8" and "ternary" store
+    codes with one f32 scale per (row, position)
+    (``attention.QuantKVCache``), quantized on write and dequantized
+    inside the attention contractions. Prefill's fresh caches follow it,
+    so a refilled slot is rebuilt in that layout: zero codes (ternary:
+    bytes 0x11) and scales 1.0 beyond what its prefill wrote.
+
+    A slot freed at capacity (``slot_pos == s_max``) keeps riding the
+    batched step as a dead lane until it is refilled; its cache write is
+    clamped to the last slot of its own row, as the reference's
+    ``dynamic_update_slice`` clamps it, and its tokens are discarded.
+
     Fused serving is token-identical to :func:`generate` under
     ``QuantConfig(act_scale="per_row")``; the per-tensor scale couples
     co-batched rows through one amax.
+
+    ``fused=False`` is the reference's looped baseline, greedy only
+    (``temperature > 0`` raises): each new request prefills its slot
+    alone at index 0 with no left pad, one prefill batch per slot, and
+    each decode step is a loop of single-row :func:`serve_step` calls,
+    one per slot, each writing its slot's row of the stacked caches in
+    place; the host fetches each active slot's token on its own (one
+    host sync per active slot). It runs eagerly, with no graph.
 
     Runs on ``device`` (default ``cuda``; raises without CUDA unless
     ``device="cpu"``).
@@ -238,9 +260,14 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg: ArchConfig, n_slots: int = 4,
                  s_max: int = 128, exec_spec: Optional[CiMExecSpec] = None,
-                 temperature: float = 0.0, seed: int = 0,
-                 prepare_weights: bool = False, device: DeviceLike = None):
+                 temperature: float = 0.0, seed: int = 0, fused: bool = True,
+                 prepare_weights: bool = False, device: DeviceLike = None,
+                 cache_dtype: Optional[str] = None):
         self.device = dev = resolve_device(device)
+        if not fused and temperature != 0.0:
+            raise ValueError(
+                "temperature sampling is only implemented for the fused "
+                "decode path (the looped baseline is greedy-only)")
         self.packed = None
         if prepare_weights and exec_spec is None:
             raise ValueError(
@@ -268,7 +295,12 @@ class ContinuousBatcher:
             cfg = cfg.replace(
                 quant=dataclasses.replace(cfg.quant, pre_quantized=True))
         self.cfg = cfg = apply_exec_spec(cfg, exec_spec)
+        if cache_dtype is not None:
+            # validated by QuantConfig.__post_init__
+            self.cfg = cfg = cfg.replace(
+                quant=dataclasses.replace(cfg.quant, cache_dtype=cache_dtype))
         self.params = params
+        self.fused = fused
         self.n_slots = n_slots
         self.s_max = s_max
         self.temperature = float(temperature)
@@ -287,6 +319,9 @@ class ContinuousBatcher:
         self.decode_steps = 0
         self.host_syncs = 0
         self.prefill_batches = 0
+        self._decode = None
+        if not fused:
+            return
         step = fused_decode_fn(cfg, self.temperature)
         params, caches, generator = self.params, self.caches, self._generator
         self._decode = CapturedStep(
@@ -297,7 +332,7 @@ class ContinuousBatcher:
 
     @property
     def capture_seconds(self) -> Optional[float]:
-        return self._decode.capture_seconds
+        return None if self._decode is None else self._decode.capture_seconds
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         # called between steps, after the previous step's fetch: the
@@ -305,8 +340,10 @@ class ContinuousBatcher:
         return torch.from_numpy(arr).to(self.device)
 
     def _prefill(self, tokens, start, fill):
-        """Prefill all n_slots rows against fresh caches (dummy rows
-        compute garbage), then copy the filled rows' caches in."""
+        """Prefill all n_slots rows against fresh caches in the
+        ``cache_dtype`` layout (dummy rows compute garbage), then copy the
+        filled rows of every cache leaf in place: the caches keep their
+        storage, which a captured step holds."""
         cfg, n = self.cfg, self.n_slots
         fresh = T.init_caches(cfg, n, self.s_max, device=self.device)
         logits, fresh = T.decode_step(self.params, tokens, fresh, 0, cfg,
@@ -343,14 +380,32 @@ class ContinuousBatcher:
         self.host_syncs += 1
         self.prefill_batches += 1
         for s in newly:
-            req = self.slot_req[s]
-            req.generated.append(int(toks[s]))
-            self._last_tok[s] = toks[s]
-            self.slot_pos[s] = s_pad
-            self.slot_start[s] = start[s]
-            if len(req.generated) >= req.max_new:
-                req.done = True
-                self.slot_req[s] = None
+            self._admit(s, int(toks[s]), s_pad, start[s])
+
+    def _admit(self, s: int, tok: int, pos: int, start: int) -> None:
+        """Record slot ``s``'s first token (from its prefill); its next
+        cache write is at ``pos``, its dead zone below ``start``."""
+        req = self.slot_req[s]
+        req.generated.append(tok)
+        self._last_tok[s] = tok
+        self.slot_pos[s] = pos
+        self.slot_start[s] = start
+        if len(req.generated) >= req.max_new:
+            req.done = True
+            self.slot_req[s] = None
+
+    def _advance(self, s: int, tok: int) -> None:
+        """Record slot ``s``'s decoded token; free the slot when its
+        request is done or its cache is full."""
+        req = self.slot_req[s]
+        req.generated.append(tok)
+        self._last_tok[s] = tok
+        self.slot_pos[s] += 1
+        # slot_pos is the NEXT write offset: the last cache slot is usable
+        if len(req.generated) >= req.max_new or self.slot_pos[s] >= self.s_max:
+            req.done = True
+            req.truncated = len(req.generated) < req.max_new
+            self.slot_req[s] = None
 
     def _step(self, active) -> int:
         for static, host in zip(self._decode.inputs, self._host_inputs):
@@ -360,15 +415,39 @@ class ContinuousBatcher:
         toks = toks.cpu().numpy()  # the single fetch of this step
         self.host_syncs += 1
         for s in active:
-            req = self.slot_req[s]
-            req.generated.append(int(toks[s]))
-            self._last_tok[s] = toks[s]
-            self.slot_pos[s] += 1
-            # slot_pos is the NEXT write offset: the last cache slot is usable
-            if len(req.generated) >= req.max_new or self.slot_pos[s] >= self.s_max:
-                req.done = True
-                req.truncated = len(req.generated) < req.max_new
-                self.slot_req[s] = None
+            self._advance(s, int(toks[s]))
+        return len(active)
+
+    # -- the looped baseline (fused=False) ------------------------------------
+
+    def _row_caches(self, s: int):
+        """Slot ``s``'s row of every stacked cache leaf, as views: a step
+        on them writes the stacked caches in place."""
+        return type(self.caches)(*(leaf[:, s:s + 1] for leaf in self.caches))
+
+    def _fill_slots_looped(self):
+        for s in range(self.n_slots):
+            if self.slot_req[s] is None and self.queue:
+                req = self.slot_req[s] = self.queue.pop(0)
+                prompt = torch.tensor([req.prompt], dtype=torch.int64,
+                                      device=self.device)
+                logits, _ = prefill(self.params, prompt, self._row_caches(s),
+                                    self.cfg)
+                tok = int(torch.argmax(logits[0, -1]))  # one fetch per slot
+                self.host_syncs += 1
+                self.prefill_batches += 1
+                self._admit(s, tok, len(req.prompt), 0)
+
+    def _step_looped(self, active) -> int:
+        tokens = self._to_device(self._last_tok[:, None])
+        logits = [serve_step(self.params, tokens[s:s + 1], self._row_caches(s),
+                             int(self.slot_pos[s]), self.cfg)[0]
+                  for s in range(self.n_slots)]
+        toks = torch.argmax(torch.cat(logits)[:, 0, :], dim=-1)
+        self.decode_steps += 1
+        for s in active:
+            self._advance(s, int(toks[s]))  # one host sync per active slot
+            self.host_syncs += 1
         return len(active)
 
     def submit(self, req: Request):
@@ -402,11 +481,11 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         """One decode step over all active slots; returns #active."""
-        self._fill_slots()
+        (self._fill_slots if self.fused else self._fill_slots_looped)()
         active = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
         if not active:
             return 0
-        return self._step(active)
+        return (self._step if self.fused else self._step_looped)(active)
 
     def stats(self) -> Dict[str, int]:
         return {

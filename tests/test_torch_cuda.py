@@ -466,3 +466,83 @@ def test_cuda_failed_capture_raises(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(tm.ternary_exact_matmul(x, w),
                        torch.full((4, 64), 576.0, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_capacity_mix_finishes(cuda_device):
+    """A slot freed at s_max rides the captured step as a dead lane whose
+    cache write is clamped to its row's last slot (an unclamped write
+    would be an out-of-bounds index_put_ in the graph, a device assert):
+    the mix finishes with the reference's counts and flags, and each
+    request's tokens == generate() under per_row."""
+    cfg, params = _smoke_model(cuda_device, "per_row")
+    for cache_dtype in ("bf16", "int8"):
+        batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=8,
+                                    cache_dtype=cache_dtype, device=cuda_device)
+        reqs = [Request(0, [1, 2, 3], 100), Request(1, [4], 2), Request(2, [5, 6], 6)]
+        for r in reqs:
+            batcher.submit(r)
+        batcher.run()
+        torch.cuda.synchronize()
+        assert batcher._decode.graph is not None
+        assert [len(r.generated) for r in reqs] == [5, 2, 5]
+        assert [r.truncated for r in reqs] == [True, False, True]
+        for r in reqs:
+            want = generate(params, [r.prompt], batcher.cfg, max_new=len(r.generated),
+                            s_max=8, device=cuda_device)[0].tolist()
+            assert r.generated == want, (cache_dtype, r.rid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["int8", "ternary"])
+def test_cuda_quant_cache_captured_matches_eager(cuda_device, cache_dtype):
+    """The captured step over a quantized cache (four leaves per stack,
+    prefill merging every leaf in place): tokens == the eager step's ==
+    generate()'s under per_row, 7 x layers launches of #1 per decode step
+    and prefill batch, one host sync per step."""
+    cfg, params = _smoke_model(cuda_device, "per_row")
+    got = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32,
+                                    cache_dtype=cache_dtype, device=cuda_device)
+        batcher._decode.graphed = graphed
+        ptrs = [leaf.data_ptr() for leaf in batcher.caches]
+        before = tm.ternary_cim_matmul.launches
+        got[graphed] = _serve(batcher)
+        st = batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        assert st["host_syncs"] == steps
+        assert tm.ternary_cim_matmul.launches - before == 7 * cfg.n_layers * steps
+        assert [leaf.data_ptr() for leaf in batcher.caches] == ptrs
+        assert (batcher._decode.graph is not None) == graphed
+    assert got[True] == got[False]
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(5)]
+    for r, toks in zip(reqs, got[True]):
+        want = generate(params, [r.prompt], batcher.cfg, max_new=r.max_new, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert toks == want, r.rid
+
+
+@pytest.mark.cuda
+def test_cuda_looped_baseline_matches_generate(cuda_device):
+    """fused=False on the card: eager, no graph; tokens == generate(), one
+    host sync per prefill and per active slot a step, one prefill batch
+    per slot fill."""
+    cfg, params = _smoke_model(cuda_device)
+    batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, fused=False,
+                                device=cuda_device)
+    before = tm.ternary_cim_matmul.launches
+    toks = _serve(batcher)
+    st = batcher.stats()
+    assert batcher.capture_seconds is None
+    assert st["host_syncs"] == sum(len(t) for t in toks) and st["prefill_batches"] == 5
+    # one single-row step per slot per decode step, one prefill per request
+    assert (tm.ternary_cim_matmul.launches - before
+            == 7 * cfg.n_layers * (3 * st["decode_steps"] + 5))
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(5)]
+    for r, got in zip(reqs, toks):
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert got == want, r.rid

@@ -33,7 +33,8 @@ def test_port_imports_no_jax(path):
 
 def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"execution.py", "engine.py", "chip_smoke.py", "_build.py"} <= names
+    assert {"execution.py", "engine.py", "chip_smoke.py", "_build.py",
+            "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py"} <= names
 
 
 @pytest.fixture

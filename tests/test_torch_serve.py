@@ -1,8 +1,10 @@
 """Serving: the port's generate() against the JAX package's (greedy
 prefix under mode="cim"), the port's fused batcher against its own
-generate() (exact under act_scale="per_row"), batcher bookkeeping, and
-the stored-plane path (prepare_for_spec byte-identical to the JAX
-package; execute_packed on the prepared planes == execute)."""
+generate() (exact under act_scale="per_row"), batcher bookkeeping, the
+stored-plane path (prepare_for_spec byte-identical to the JAX package;
+execute_packed on the prepared planes == execute), a slot freed at
+capacity, the quantized KV caches and the looped baseline (fused=False)
+against generate() and the JAX batcher."""
 import dataclasses
 
 import jax
@@ -15,6 +17,8 @@ from repro.core.execution import CiMExecSpec as JSpec
 from repro.models import transformer as jT
 from repro.models.registry import get_config as jget_config
 from repro.quant.prepare import prepare_for_spec as jprepare
+from repro.serve.engine import ContinuousBatcher as JBatcher
+from repro.serve.engine import Request as JRequest
 from repro.serve.engine import generate as jgenerate
 from repro_torch import api
 from repro_torch.bridge import params_from_numpy
@@ -190,3 +194,186 @@ def test_dense_pre_quantized_codes_exact():
     qc = tL.QuantConfig(mode="cim", pre_quantized=True)
     codes, sw = tL._weight_codes((t * s).to(torch.bfloat16), qc)
     assert torch.equal(codes.float(), t)
+
+
+# ---------------------------------------------------------------------------
+# capacity, quantized KV caches and the looped baseline
+# ---------------------------------------------------------------------------
+
+# the reference's tests/test_kv_quant.py request mix
+PROMPTS = [[3, 1, 4], [9, 8], [2, 7, 1, 8, 2], [6]]
+MAX_NEWS = [4, 5, 3, 4]
+# a slot freed at s_max while another keeps decoding: its dead lane
+# writes at offset s_max on the next step (n_slots=2, s_max=8)
+CAPACITY_MIX = [([1, 2, 3], 100), ([4], 2), ([5, 6], 6)]
+
+
+def _mix_requests(mix):
+    return [Request(i, list(p), max_new=m) for i, (p, m) in enumerate(mix)]
+
+
+def _serve_mix(batcher, mix):
+    reqs = _mix_requests(mix)
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    assert all(r.done for r in reqs)
+    return reqs
+
+
+def _with_quant(cfg, **kw):
+    return cfg.replace(quant=dataclasses.replace(cfg.quant, **kw))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "looped"])
+def test_capacity_mix_matches_generate_and_jax(port_model, fused):
+    """A slot freed at s_max rides on as a dead lane whose cache write is
+    clamped to the last slot of its row (the reference's
+    dynamic_update_slice): the mix finishes with each request's tokens
+    == generate(), and token counts and truncation flags == the JAX
+    batcher's."""
+    cfg, params = port_model
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=8, fused=fused,
+                                device="cpu")
+    reqs = _serve_mix(batcher, CAPACITY_MIX)
+    for r in reqs:
+        want = generate(params, [r.prompt], cfg, max_new=len(r.generated), s_max=8,
+                        device="cpu")[0].tolist()
+        assert r.generated == want, r.rid
+    jcfg = jget_config("smollm-135m", smoke=True)
+    jb = JBatcher(jT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, n_slots=2,
+                  s_max=8, fused=fused)
+    jreqs = [JRequest(i, list(p), max_new=m) for i, (p, m) in enumerate(CAPACITY_MIX)]
+    for r in jreqs:
+        jb.submit(r)
+    jb.run()
+    assert [len(r.generated) for r in reqs] == [len(r.generated) for r in jreqs]
+    assert [r.truncated for r in reqs] == [r.truncated for r in jreqs]
+    assert batcher.stats() == jb.stats()
+    if fused:
+        assert [len(r.generated) for r in reqs] == [5, 2, 5]
+        assert [r.truncated for r in reqs] == [True, False, True]
+
+
+def test_engine_cache_dtype_overrides_config(port_model):
+    cfg, params = port_model
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=16,
+                                cache_dtype="int8", device="cpu")
+    assert batcher.cfg.quant.cache_dtype == "int8"
+    assert batcher.caches.k.dtype == torch.int8
+    assert ContinuousBatcher(params, cfg, n_slots=2, s_max=16,
+                             device="cpu").caches.k.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="cache_dtype"):
+        ContinuousBatcher(params, cfg, n_slots=2, s_max=16, cache_dtype="int4",
+                          device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["off", "cim"])
+@pytest.mark.parametrize("cache_dtype", ["int8", "ternary"])
+def test_quant_cache_batcher_matches_generate(port_model, cache_dtype, mode):
+    """Per-(row, position) scales make the cache's quantization a
+    function of each row's own vectors: fused serving is token-identical
+    to generate() under the same cache_dtype (mode "off" as in the
+    reference's test, and the config's cim under per_row)."""
+    cfg, params = port_model
+    cfg = _with_quant(cfg, mode=mode, cache_dtype=cache_dtype)
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32, device="cpu")
+    reqs = _serve_mix(batcher, zip(PROMPTS, MAX_NEWS))
+    for r in reqs:
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        device="cpu")[0].tolist()
+        assert r.generated == want, r.rid
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "ternary"])
+def test_quant_cache_batcher_greedy_prefix_matches_jax(cache_dtype):
+    """The port's batcher against the JAX batcher on bridged bf16 params
+    (mode "off"): a float ulp between the frameworks can flip a late
+    greedy token, so each request must agree on a prefix of >= 2."""
+    jcfg, jparams, tcfg, tparams = _jax_params("bfloat16")
+    jcfg = _with_quant(jcfg, mode="off", cache_dtype=cache_dtype)
+    tcfg = _with_quant(tcfg, mode="off", cache_dtype=cache_dtype)
+    jb = JBatcher(jparams, jcfg, n_slots=2, s_max=32)
+    jreqs = [JRequest(i, p, max_new=m) for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEWS))]
+    for r in jreqs:
+        jb.submit(r)
+    jb.run()
+    reqs = _serve_mix(ContinuousBatcher(tparams, tcfg, n_slots=2, s_max=32,
+                                        device="cpu"), zip(PROMPTS, MAX_NEWS))
+    for got, want in zip(reqs, jreqs):
+        prefix = next((i for i, (a, b) in enumerate(zip(got.generated, want.generated))
+                       if a != b), len(want.generated))
+        assert prefix >= 2, (got.generated, want.generated)
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "ternary"])
+def test_refilled_slot_rebuilt_in_cache_layout(port_model, cache_dtype):
+    """A freed slot is refilled from fresh caches in the cache_dtype
+    layout: past what its prefill and first decode step wrote, its row
+    holds zero codes (ternary: 0x11) and scales 1.0, though the request
+    before it wrote there."""
+    cfg, params = port_model
+    batcher = ContinuousBatcher(params, cfg, n_slots=1, s_max=32,
+                                cache_dtype=cache_dtype, device="cpu")
+    first, second = Request(0, [1, 2, 3, 4, 5], max_new=12), Request(1, [7], max_new=4)
+    batcher.submit(first)
+    batcher.submit(second)
+    while not first.done:
+        batcher.step()
+    assert int(batcher.slot_pos[0]) == 8 + 11
+    batcher.step()                       # refill with the second request
+    assert batcher.slot_req[0] is second
+    pos = int(batcher.slot_pos[0])       # 4-token pad bucket + one decode
+    assert pos == 5
+    zero = 0x11 if cache_dtype == "ternary" else 0
+    for leaf in batcher.caches.k, batcher.caches.v:
+        assert (leaf[:, 0, pos:] == zero).all()
+        assert not (leaf[:, 0, :pos] == zero).all()
+    for leaf in batcher.caches.k_scale, batcher.caches.v_scale:
+        assert (leaf[:, 0, pos:] == 1.0).all()
+    batcher.run()
+    want = generate(params, [second.prompt], batcher.cfg, max_new=4, s_max=32,
+                    device="cpu")[0].tolist()
+    assert second.generated == want
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_looped_baseline_matches_generate_and_jax_counts(port_model, cache_dtype):
+    """fused=False: per-slot prefill at index 0 and a per-slot loop of
+    single-row steps; tokens == generate(), and host_syncs (one per
+    prefill and per active slot a step) and prefill_batches (one per
+    slot fill) == the JAX looped batcher's on the same requests."""
+    cfg, params = port_model
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32, fused=False,
+                                cache_dtype=cache_dtype, device="cpu")
+    reqs = _serve_mix(batcher, zip(PROMPTS, MAX_NEWS))
+    for r in reqs:
+        want = generate(params, [r.prompt], batcher.cfg, max_new=r.max_new, s_max=32,
+                        device="cpu")[0].tolist()
+        assert r.generated == want, r.rid
+    st = batcher.stats()
+    assert st["host_syncs"] == sum(len(r.generated) for r in reqs)
+    assert st["prefill_batches"] == len(reqs) and batcher.capture_seconds is None
+    jcfg = jget_config("smollm-135m", smoke=True)
+    jb = JBatcher(jT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, n_slots=2,
+                  s_max=32, fused=False)
+    for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEWS)):
+        jb.submit(JRequest(i, p, max_new=m))
+    jb.run()
+    assert st == jb.stats()
+
+
+def test_looped_baseline_is_greedy_only(port_model):
+    cfg, params = port_model
+    with pytest.raises(ValueError, match="greedy-only"):
+        ContinuousBatcher(params, cfg, n_slots=2, s_max=32, fused=False,
+                          temperature=0.5, device="cpu")
+
+
+def test_serve_cli_loop_decode_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--slots", "2",
+                       "--s-max", "16", "--max-new", "3", "--loop-decode"]) == 0
+    out = capsys.readouterr().out
+    assert "per-slot loop baseline" in out and "3 prefill batches" in out
