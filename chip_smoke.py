@@ -69,7 +69,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      profiled replayed step (device-busy time, #1's share). The
      kernel phase also bit-checks and times #1 and #5 at one
      starcoder2-7b layer's 7 shapes at M=4 ("starcoder2_7b" in the
-     kernels line), #5 beside torch.mm.
+     kernels line), #5 beside torch.mm;
+ 12. full-size mamba2-780m (48 layers, d 1536, seeded random weights,
+     f32 SSM caches): phase 3's requests captured and eager (tokens
+     equal, #1 launched 96 x steps: w_in and w_out of every layer, no
+     other kernel), per_row batcher == generate(), step medians, tok/s,
+     capture time, the SSM cache bytes per slot, peak memory and a
+     profiled replayed step;
+ 13. full-size zamba2-2.7b (54 mamba layers, d 2560, the shared attention
+     block every 6 layers), the same run under the bf16 and then the
+     int8 KV cache (#1 launched 171 x steps: 2 x 54 + 7 x 9), both step
+     medians side by side; then phase 8's capacity mix on zamba2 at smoke
+     width through the captured step. The kernel phase bit-checks #1 at
+     every (K, N) of phases 12 and 13 (N = 6448, 10448) at M in {1, 4,
+     16, 64} and times it at one mamba2 and one zamba2 layer's two calls
+     ("mamba2_780m", "zamba2_2_7b" in the kernels line).
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -110,6 +124,17 @@ LAYER_SHAPES = (("q", 576, 576), ("k", 576, 192), ("v", 576, 192),
 SC7B_SHAPES = (("q", 4608, 4608), ("k", 4608, 512), ("v", 4608, 512),
                ("o", 4608, 4608), ("gate", 4608, 18432), ("up", 4608, 18432),
                ("down", 18432, 4608))
+# one mamba2-780m layer's quantized dense layers (d 1536, d_inner 3072:
+# in_proj to 2 x 3072 + 2 x 128 + 48 heads = 6448) and one zamba2-2.7b
+# layer's (d 2560, d_inner 5120: 2 x 5120 + 2 x 64 + 80 heads = 10448)
+MAMBA2_SHAPES = (("w_in", 1536, 6448), ("w_out", 3072, 1536))
+ZAMBA2_SHAPES = (("w_in", 2560, 10448), ("w_out", 5120, 2560))
+# every (K, N) #1 meets in phases 12 and 13 (zamba2's shared block: q/k/v/o
+# 2560 -> 2560, MLP 2560 <-> 10240), at the M they give it: decode 1-4
+# rows, generate()'s prefill up to 16, the batched prefill 4 x 16
+SSM_CHECK_SHAPES = tuple((k, n) for _, k, n in MAMBA2_SHAPES + ZAMBA2_SHAPES) + (
+    (2560, 2560), (2560, 10240), (10240, 2560))
+SSM_CHECK_M = (1, 4, 16, 64)
 # the layer shapes, then ragged ones that cut across #1's and #5's K split
 # and column tiles: K=16 (one block), N=8 (half a tile), 37 blocks of 16
 # (prime: no split divides it) by N=200 (12.5 tiles)
@@ -127,6 +152,9 @@ TIMED_PREFILL_M = 64
 # the M at which #4 is timed (phases 5 and 7 run it there), #1 beside it
 TIMED_PLANES_M = 128
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
+# the kernel phase's per-model timings: tag -> model
+MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
+              "zamba2_2_7b": "zamba2-2.7b"}
 
 
 def fail(msg: str) -> None:
@@ -380,6 +408,16 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                                                              nbuf=nbuf),
                           plain.to(torch.int32), f"{what} nbuf={nbuf}")
         torch.cuda.synchronize()
+    for k, n in SSM_CHECK_SHAPES:
+        w = tern((k, n))
+        for m in SSM_CHECK_M:
+            x = tern((m, k))
+            check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
+                  tm.ternary_cim_matmul_plain(x, w), f"M={m} K={k} N={n}")
+        del w
+        torch.cuda.synchronize()
+    log(f"kernels: #1 bit-exact at the mamba2/zamba2 widths (K,N) in "
+        f"{list(SSM_CHECK_SHAPES)}, M in {list(SSM_CHECK_M)} (tolerance 0)")
     log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
         f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
         f"M <= {decode_m_max}, #2 also on unaligned planes, #3 at nbuf 2 and 3 "
@@ -419,7 +457,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             ("packed_cim_matmul", TIMED_PLANES_M, LAYER_SHAPES, None),
             ("ternary_cim_matmul", TIMED_PLANES_M, LAYER_SHAPES, "planes_m"),
             ("ternary_cim_matmul", 4, SC7B_SHAPES, "starcoder2_7b"),
-            ("ternary_exact_matmul", 4, SC7B_SHAPES, "starcoder2_7b")):
+            ("ternary_exact_matmul", 4, SC7B_SHAPES, "starcoder2_7b"),
+            ("ternary_cim_matmul", 4, MAMBA2_SHAPES, "mamba2_780m"),
+            ("ternary_cim_matmul", 4, ZAMBA2_SHAPES, "zamba2_2_7b")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in shapes:
@@ -500,7 +540,7 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                 prefill_bound_ms=pk["bound_ms"], prefill_library_ms=pk["library_ms"])
         elif tag == "planes_m":
             cim_at_planes_m = {f: pk[f] for f in ("m", "ms", "plain_ms", "bound_ms")}
-        elif tag == "starcoder2_7b":
+        elif tag in MODEL_TAGS:
             per_kernel[name][tag] = {f: pk[f] for f in (
                 "m", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         else:
@@ -517,8 +557,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         if tag == "planes_m":
             extra = (f"; #4 on the same shapes at M={m} "
                      f"{per_kernel['packed_cim_matmul']['ms']:.4f} ms")
-        layer = "one starcoder2-7b layer's" if tag == "starcoder2_7b" else "one layer's"
-        log(f"{name}: {layer} 7 calls at M={m}: {pk['ms']:.4f} ms "
+        layer = f"one {MODEL_TAGS[tag]} layer's" if tag in MODEL_TAGS else "one layer's"
+        log(f"{name}: {layer} {len(shapes)} calls at M={m}: {pk['ms']:.4f} ms "
             f"(plain {pk['plain_ms']:.4f} ms, bound {pk['bound_ms']:.5f} ms "
             f"by {pk['bound_by']}{extra})")
     torch.cuda.empty_cache()
@@ -558,7 +598,7 @@ def drive(torch, batcher, reqs):
     return time.perf_counter() - t0, step_ms
 
 
-def profile_decode_step(torch, batcher):
+def profile_decode_step(torch, batcher, top=6):
     """One decode step of ``batcher`` under torch.profiler (CUPTI), after
     a first step that fills the slots (and, for a captured batcher,
     captures the step); the step after it is timed between two CUDA
@@ -594,18 +634,31 @@ def profile_decode_step(torch, batcher):
     rows.sort(reverse=True)
     mac = [r for r in rows if "tile_kernel" in r[2]]
     return {"wall_ms": wall, "busy_ms": sum(r[0] for r in rows),
-            "all_rows_ms": all_rows, "top": rows[:6],
+            "all_rows_ms": all_rows, "top": rows[:top],
             "mac_ms": sum(r[0] for r in mac), "mac_launches": sum(r[1] for r in mac),
             "span_ms": start.elapsed_time(end)}
+
+
+def macs_per_step(cfg) -> int:
+    """MAC launches per decode step or prefill batch, one per quantized
+    dense layer: 7 per decoder layer (210 for smollm-135m), 2 per mamba
+    layer (w_in, w_out: 96 for mamba2-780m), 7 per application of
+    zamba2's shared block (2 x 54 + 7 x 9 = 171)."""
+    if cfg.family == "dense":
+        return 7 * cfg.n_layers
+    shared = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    return 2 * cfg.n_layers + 7 * shared
 
 
 def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
     """Drive ``batcher`` over ``reqs`` with every launch count at 0 just
     before; fail unless every request finished with tokens in range, one
-    host sync per step, ``kernel`` launched 7 x layers x (decode steps +
-    prefill batches) (one launch per quantized dense layer: 210 for
-    smollm-135m's 30 layers) and no other kernel launched. Returns
-    (counts, stats, seconds, step ms)."""
+    host sync per step, ``kernel`` launched macs_per_step x (decode steps
+    + prefill batches) and no other kernel launched, and every cache leaf
+    kept its storage. Returns (counts, stats, seconds, step ms)."""
+    from repro_torch.models import transformer as T
+
+    ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
     reset_counts(tm, pm)
     secs, step_ms = drive(torch, batcher, reqs)
     got = counts(tm, pm)
@@ -615,7 +668,9 @@ def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
     if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
         fail(f"{label}: host_syncs {st}")
     steps = st["decode_steps"] + st["prefill_batches"]
-    per_step = 7 * batcher.cfg.n_layers
+    per_step = macs_per_step(batcher.cfg)
+    if [a.data_ptr() for a in T.cache_leaves(batcher.caches)] != ptrs:
+        fail(f"{label}: a cache leaf changed its storage")
     if got[kernel] != per_step * steps:
         fail(f"{label}: {kernel} launched {got[kernel]} times, expected "
              f"{per_step} x {steps}")
@@ -891,11 +946,15 @@ CAPACITY_WANT = ([13, 2, 13], [True, False, True])
 KV_BYTES_PER_SLOT = {"bf16": 5_898_240, "int8": 3_010_560, "ternary": 1_536_000}
 
 
-def capacity_phase(torch, params, row_cfg, dev) -> dict:
-    """Phase 8: a captured batcher (2 slots, s_max 16, per_row) over
-    CAPACITY_MIX; fails unless the step was captured, the mix finishes
-    (no device assert) with the reference's counts and flags, and each
-    request's tokens == generate()."""
+def cache_bytes(T, caches) -> int:
+    return sum(a.numel() * a.element_size() for a in T.cache_leaves(caches))
+
+
+def capacity_phase(torch, params, row_cfg, dev, label="capacity") -> dict:
+    """Phase 8 (and its zamba2 twin): a captured batcher (2 slots, s_max
+    16, per_row) over CAPACITY_MIX; fails unless the step was captured,
+    the mix finishes (no device assert) with the reference's counts and
+    flags, and each request's tokens == generate()."""
     from repro_torch.serve.engine import ContinuousBatcher, Request, generate
 
     batcher = ContinuousBatcher(params, row_cfg, n_slots=2, s_max=16, device=dev)
@@ -903,17 +962,17 @@ def capacity_phase(torch, params, row_cfg, dev) -> dict:
     secs, _ = drive(torch, batcher, reqs)
     torch.cuda.synchronize()
     if batcher.capture_seconds is None:
-        fail("capacity: the decode step was not captured")
+        fail(f"{label}: the decode step was not captured")
     got = ([len(r.generated) for r in reqs], [r.truncated for r in reqs])
     if got != CAPACITY_WANT or not all(r.done for r in reqs):
-        fail(f"capacity: token counts and truncation flags {got}, expected "
+        fail(f"{label}: token counts and truncation flags {got}, expected "
              f"{CAPACITY_WANT}")
     for r in reqs:
         solo = generate(params, [r.prompt], row_cfg, max_new=len(r.generated),
                         s_max=16, device=dev)[0].tolist()
         if solo != r.generated:
-            fail(f"capacity: request {r.rid} batcher {r.generated} != generate {solo}")
-    log(f"capacity: captured batcher (2 slots, s_max 16, per_row) served "
+            fail(f"{label}: request {r.rid} batcher {r.generated} != generate {solo}")
+    log(f"{label}: captured batcher (2 slots, s_max 16, per_row) served "
         f"{[(len(p), m) for p, m in CAPACITY_MIX]} (prompt, max_new) to "
         f"{got[0]} tokens, truncated {got[1]}, with slot 0 a dead lane at s_max "
         f"while request 2 decoded; no device assert; tokens == generate(); "
@@ -934,7 +993,7 @@ def kv_cache_phases(torch, tm, pm, params, cfg, row_cfg, card, bf16, dev) -> dic
     for cd in ("int8", "ternary"):
         qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, cache_dtype=cd))
         caches = T.init_caches(qcfg, 4, 256, device=dev)
-        per_slot = sum(leaf.numel() * leaf.element_size() for leaf in caches) // 4
+        per_slot = cache_bytes(T, caches) // 4
         del caches
         if per_slot != KV_BYTES_PER_SLOT[cd]:
             fail(f"{cd} cache: {per_slot} bytes per slot, expected {KV_BYTES_PER_SLOT[cd]}")
@@ -1067,6 +1126,148 @@ def starcoder2_phase(torch, tm, pm, card, dev) -> dict:
                 peak_bytes=peak, launches=got["ternary_cim_matmul"])
 
 
+# phases 12 and 13: the full-size config's fields, the reference's band of
+# param_count (tests/test_models.py), and the cache bytes per slot at
+# s_max 256 under each cache dtype run: the SSM leaves are f32 and do not
+# grow with s_max (mamba2: conv 48 x 3 x 3328 x 4 B = 1,916,928, state
+# 48 x 48 x 64 x 128 x 4 B = 75,497,472; zamba2: 3,400,704 + 70,778,880);
+# zamba2's KV stack is 9 applications x k, v x 256 positions x (bf16 2D |
+# int8 D + 4 B), D = 32 x 80
+SSM_ARCHS = {
+    "mamba2-780m": dict(
+        fields=dict(n_layers=48, d_model=1536, ssm_d_inner=3072, ssm_n_heads=48,
+                    ssm_head_dim=64, ssm_state=128, vocab=50280, tie_embeddings=False),
+        band=(0.6e9, 1.0e9), ssm_bytes=77_414_400, kv_bytes={"bf16": 0}),
+    "zamba2-2.7b": dict(
+        fields=dict(n_layers=54, d_model=2560, ssm_d_inner=5120, ssm_n_heads=80,
+                    ssm_head_dim=64, ssm_state=64, vocab=32000, tie_embeddings=False,
+                    n_heads=32, n_kv_heads=32, resolved_head_dim=80, d_ff=10240,
+                    hybrid_attn_every=6),
+        band=(2.0e9, 3.4e9), ssm_bytes=74_179_584,
+        kv_bytes={"bf16": 23_592_960, "int8": 11_814_912}),
+}
+
+
+def ssm_family_phase(torch, tm, pm, card, dev, arch) -> dict:
+    """Phases 12 (mamba2-780m) and 13 (zamba2-2.7b) at full width and depth
+    (seeded random weights): for each cache dtype of SSM_ARCHS (the SSM
+    leaves f32 under all), phase 3's 8 requests through captured and
+    eager batchers (4 slots, s_max 256; tokens equal, #1 launched
+    macs_per_step x steps, no other kernel, cache storage kept), the
+    cache bytes per slot, the peak memory, and a per_row batcher ==
+    generate() on 4 requests; then one replayed bf16-cache step under the
+    profiler."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+    want = SSM_ARCHS[arch]
+    cfg = get_config(arch)
+    fields = {f: getattr(cfg, f) for f in want["fields"]}
+    lo, hi = want["band"]
+    if fields != want["fields"] or not lo < cfg.param_count() < hi:
+        fail(f"not the full-size {arch} config: {fields}, {cfg.param_count()} params")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    per_step = macs_per_step(cfg)
+    out = {"param_bytes": n_bytes, "init_s": init_s, "macs_per_step": per_step}
+    for cd, kv_bytes in want["kv_bytes"].items():
+        qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, cache_dtype=cd))
+        caches = T.init_caches(qcfg, 4, 256, device=dev)
+        ssm_caches = caches[0] if cfg.family == "hybrid" else caches
+        per_slot, ssm_slot = cache_bytes(T, caches) // 4, cache_bytes(T, ssm_caches) // 4
+        if (per_slot, ssm_slot) != (want["ssm_bytes"] + kv_bytes, want["ssm_bytes"]) or any(
+                a.dtype != torch.float32 for a in T.cache_leaves(ssm_caches)):
+            fail(f"{arch} {cd} cache: {per_slot} bytes per slot ({ssm_slot} SSM), "
+                 f"expected {want['ssm_bytes']} SSM (f32) + {kv_bytes} KV")
+        del caches, ssm_caches
+        torch.cuda.reset_peak_memory_stats()
+        got, st, line, numbers = serve_captured_and_eager(
+            torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+            f"{arch} {cd} serving", dev, cache_dtype=cd)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch} {cd} cache on {card}: {line}; kernel #1 launches "
+            f"{got['ternary_cim_matmul']} = {per_step} x "
+            f"{st['decode_steps'] + st['prefill_batches']}; {per_slot} cache bytes per "
+            f"slot at s_max 256 ({ssm_slot} of them the f32 SSM conv and state); peak "
+            f"device memory while serving {peak / 1e9:.2f} GB")
+        row_cfg = qcfg.replace(quant=dataclasses.replace(qcfg.quant, act_scale="per_row"))
+        batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256, device=dev)
+        token_identity(torch, batcher, make_requests(Request, cfg.vocab, seed=1, n=4),
+                       params, row_cfg, generate, None, f"{arch} {cd} token identity")
+        del batcher
+        out[cd] = dict(numbers, bytes_per_slot=per_slot, ssm_bytes_per_slot=ssm_slot,
+                       peak_bytes=peak, launches=got["ternary_cim_matmul"])
+    if len(want["kv_bytes"]) > 1:
+        log(f"{arch} captured step by cache: " + "; ".join(
+            f"{cd} {out[cd]['captured_step_ms']:.2f} ms ({out[cd]['captured_tok_s']:.1f} "
+            f"tok/s, {out[cd]['bytes_per_slot']} B/slot)" for cd in want["kv_bytes"]))
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev)
+    for r in make_requests(Request, cfg.vocab, seed=3, n=4):
+        batcher.submit(r)
+    prof = profile_decode_step(torch, batcher, top=10)
+    if batcher.capture_seconds is None:
+        fail(f"{arch} profiled step: the decode step was not captured")
+    del batcher
+    median = out["bf16"]["captured_step_ms"]
+    log(f"{arch} profiled replayed decode step (4 slots, bf16 cache): "
+        f"{prof['busy_ms']:.3f} ms device-busy, of which #1 {prof['mac_ms']:.3f} ms "
+        f"x{prof['mac_launches']} ({100 * prof['mac_ms'] / prof['busy_ms']:.1f}%); busy "
+        f"over the unprofiled median step {median:.2f} ms: "
+        f"{100 * prof['busy_ms'] / median:.1f}% (idle share "
+        f"{100 * (1 - prof['busy_ms'] / median):.1f}%); the next step spans "
+        f"{prof['span_ms']:.3f} ms between CUDA events; top device time: "
+        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof["top"]))
+    out["profiled"] = {k: v for k, v in prof.items() if k != "top"}
+    out["profiled"]["top"] = [[k[:120], ms, n] for ms, n, k in prof["top"]]
+    # the same requests with mode "off" (bf16 matmuls, no ternarization):
+    # what the step costs without the quantized dense layers, i.e. the
+    # recurrence, conv, gating, norms and attention around them
+    off = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=256, device=dev)
+    secs, step_ms = drive(torch, batcher, make_requests(Request, cfg.vocab, seed=0))
+    if batcher.capture_seconds is None or not all(r is None for r in batcher.slot_req):
+        fail(f"{arch} mode off: the step was not captured or a request did not finish")
+    del batcher
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=256, device=dev)
+    for r in make_requests(Request, cfg.vocab, seed=3, n=4):
+        batcher.submit(r)
+    prof_off = profile_decode_step(torch, batcher, top=10)
+    del batcher
+    out["mode_off"] = {"captured_step_ms": statistics.median(step_ms),
+                       "busy_ms": prof_off["busy_ms"],
+                       "top": [[k[:120], ms, n] for ms, n, k in prof_off["top"]]}
+    log(f"{arch} with mode off (bf16 matmuls, no ternarization, bf16 cache): captured "
+        f"step {out['mode_off']['captured_step_ms']:.2f} ms median against "
+        f"{median:.2f} ms under mode cim; profiled replayed step "
+        f"{prof_off['busy_ms']:.3f} ms device-busy; top device time: "
+        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof_off["top"]))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"{arch} ({cfg.param_count() / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB, "
+        f"initialized in {init_s:.1f} s): phase wall time {out['wall_s']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def zamba2_capacity(torch, dev) -> dict:
+    """Phase 8's capacity mix on zamba2 at smoke width (seeded random
+    weights, per_row) through the captured step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    return capacity_phase(torch, T.init_params(cfg, seed=0, device=dev), cfg, dev,
+                          label="zamba2 capacity")
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1119,6 +1320,13 @@ def main(argv=None) -> int:
                                            torch.device("cuda"))
     launches, serving = serving_phases(torch, tm, pm, card, torch.device("cuda"))
     serving["starcoder2_7b"] = starcoder2_phase(torch, tm, pm, card, torch.device("cuda"))
+    for arch in SSM_ARCHS:
+        tag = arch.replace("-", "_").replace(".", "_")
+        serving[tag] = ssm_family_phase(torch, tm, pm, card, torch.device("cuda"), arch)
+        per_kernel["ternary_cim_matmul"][tag].update(
+            launches=serving[tag]["bf16"]["launches"],
+            launches_per_step=serving[tag]["macs_per_step"])
+    serving["capacity_zamba2"] = zamba2_capacity(torch, torch.device("cuda"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1129,7 +1337,7 @@ def main(argv=None) -> int:
             "ms": pk["ms"], "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
             "prefill_ms": pk["prefill_ms"],
-            "starcoder2_7b": pk.get("starcoder2_7b"),
+            **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}
     if args.out:

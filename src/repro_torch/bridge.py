@@ -3,8 +3,10 @@
 ``params_from_numpy`` takes the JAX params as nested dicts of numpy
 arrays (the ``repro.models.transformer.init_params`` pytree, converted
 leaf by leaf with ``np.asarray(leaf, np.float32)``: numpy has no bf16)
-and returns the port's params on ``device`` in the config's dtype. The
-f32 round trip of bf16 values is exact.
+and returns the port's params on ``device`` in the config's dtype,
+except the mamba leaves that the reference keeps in float32 under any
+config dtype (``ssm.F32_LEAVES``), which stay float32. The f32 round
+trip of bf16 values is exact.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.ssm import F32_LEAVES
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
@@ -22,12 +25,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
 
-    def convert(node):
+    def convert(node, path):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
         arr = np.asarray(node)
         if arr.dtype != np.float32:
             raise TypeError(f"expected float32 leaves, got {arr.dtype}")
-        return torch.tensor(arr, dtype=dtype, device=dev)
+        f32 = "mamba" in path and path[-1] in F32_LEAVES
+        return torch.tensor(arr, dtype=torch.float32 if f32 else dtype, device=dev)
 
-    return convert(tree)
+    return convert(tree, ())

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 8 --slots 4
 
+``--arch`` takes any ported arch of ``models.registry`` (the dense
+configs, ``mamba2-780m`` and ``zamba2-2.7b``).
+
 Runs on ``cuda`` by default and exits with an error without CUDA unless
 ``--device cpu`` is given (use it with ``--smoke`` on a CPU host). The
 serving CiM execution spec is selected with ``--exec-spec`` as

@@ -182,12 +182,15 @@ def write_cache_rows(buf: torch.Tensor, new: torch.Tensor, index) -> torch.Tenso
 
 
 def init_gqa(generator: torch.Generator, cfg: ArchConfig, dtype, device,
-             layers: int):
+             layers: Optional[int] = None):
+    """q/k/v/o weights, stacked (layers, K, N) for a layer stack or (K, N)
+    for one block (``layers=None``: zamba2's shared block)."""
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    lead = () if layers is None else (layers,)
     shapes = {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
               "wo": (h * hd, d)}
-    return {name: L.init_dense_weight(generator, (layers,) + shape, dtype, device)
+    return {name: L.init_dense_weight(generator, lead + shape, dtype, device)
             for name, shape in shapes.items()}
 
 

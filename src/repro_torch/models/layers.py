@@ -147,10 +147,14 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
 
 
-def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
-    # silu as x * 1/(1 + exp(-x)), each step rounded in the input dtype:
+def silu(x: torch.Tensor) -> torch.Tensor:
+    # x * 1/(1 + exp(-x)), each step rounded in the input dtype:
     # bit-identical to the reference's bf16 silu on the CPU
-    return x_gate * (1 / (1 + torch.exp(-x_gate))) * x_up
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    return silu(x_gate) * x_up
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

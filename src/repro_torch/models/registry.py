@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> config (port of
-``repro/models/registry.py``). The dense family is ported; archs of
-the other families raise."""
+``repro/models/registry.py``). The dense, ssm and hybrid families are
+ported; archs of the other families raise."""
 from __future__ import annotations
 
 import importlib
@@ -20,7 +20,8 @@ ARCH_IDS = (
     "llava-next-34b",
 )
 
-PORTED = ("smollm-135m", "starcoder2-7b", "starcoder2-15b", "yi-34b")
+PORTED = ("smollm-135m", "starcoder2-7b", "starcoder2-15b", "yi-34b",
+          "mamba2-780m", "zamba2-2.7b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:

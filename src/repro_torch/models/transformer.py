@@ -1,20 +1,23 @@
-"""Model assembly for the dense decoder family (port of
-``repro/models/transformer.py``).
+"""Model assembly for the dense, SSM (mamba2) and hybrid (zamba2)
+families (port of ``repro/models/transformer.py``).
 
 Entry points:
   * init_params(cfg, seed=, device=)   — params, stacked-layer layout
   * forward(params, tokens, cfg)       — teacher-forced logits
-  * init_caches(cfg, batch, s_max)     — stacked decode caches, bf16 or
-                                         quantized (cfg.quant.cache_dtype)
+  * init_caches(cfg, batch, s_max)     — stacked decode caches: KV (bf16
+                                         or quantized, cfg.quant.cache_dtype),
+                                         SSM (f32), or hybrid's pair
   * decode_step(params, tokens, caches, index, cfg, start=) — cached step
 
 Params are nested dicts with the JAX package's stacked layout (e.g.
 ``blocks/attn/wq`` of shape (L, K, N)); a Python loop over layers takes
-the place of ``lax.scan``.
+the place of ``lax.scan``. A cache tree is a cache NamedTuple or the
+hybrid pair of them; :func:`map_caches` and :func:`cache_leaves` walk
+it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -22,40 +25,80 @@ from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 
 UNEMBED_OFF = L.QuantConfig(mode="off")
 
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Cache trees
+# ---------------------------------------------------------------------------
+
+
+def map_caches(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a cache tree (a cache NamedTuple, or
+    a plain tuple of them: hybrid's (SSM, KV) pair), keeping the
+    structure: the port's ``jax.tree.map`` over caches."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    parts = [map_caches(fn, part) for part in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def cache_leaves(tree) -> Iterator[torch.Tensor]:
+    """The leaves of a cache tree, in :func:`map_caches`' order."""
+    if torch.is_tensor(tree):
+        yield tree
+    else:
+        for part in tree:
+            yield from cache_leaves(part)
+
+
+# ---------------------------------------------------------------------------
+# Params and blocks
+# ---------------------------------------------------------------------------
+
+
+def _init_mlp(g: torch.Generator, cfg: ArchConfig, dtype, dev, lead=()):
+    d = cfg.d_model
+    return {name: L.init_dense_weight(g, lead + shape, dtype, dev)
+            for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
+                                ("w_down", (cfg.d_ff, d)))}
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: DeviceLike = None) -> Dict:
     """Seeded random params on ``device`` (default ``cuda``; raises
-    without CUDA unless ``device="cpu"``)."""
+    without CUDA unless ``device="cpu"``): ``blocks/{ln1, ln2, attn,
+    mlp}`` for dense, ``blocks/{ln1, mamba}`` for ssm and hybrid, and
+    hybrid's one ``shared_attn/{ln1, ln2, attn, mlp}``."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
     n, d = cfg.n_layers, cfg.d_model
     embed = torch.randn((cfg.vocab, d), generator=g, device=dev) * 0.02
-    params = {
-        "embed": embed.to(dtype),
-        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
-        "blocks": {
-            "ln1": torch.ones((n, d), dtype=dtype, device=dev),
-            "ln2": torch.ones((n, d), dtype=dtype, device=dev),
-            "attn": attn.init_gqa(g, cfg, dtype, dev, n),
-            "mlp": {
-                name: L.init_dense_weight(g, (n,) + shape, dtype, dev)
-                for name, shape in (("w_gate", (d, cfg.d_ff)),
-                                    ("w_up", (d, cfg.d_ff)),
-                                    ("w_down", (cfg.d_ff, d)))
-            },
-        },
-    }
+    ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
+    params = {"embed": embed.to(dtype), "final_norm": ones(d)}
+    if cfg.family == "dense":
+        params["blocks"] = {"ln1": ones(n, d), "ln2": ones(n, d),
+                            "attn": attn.init_gqa(g, cfg, dtype, dev, n),
+                            "mlp": _init_mlp(g, cfg, dtype, dev, (n,))}
+    else:
+        params["blocks"] = {"ln1": ones(n, d),
+                            "mamba": ssm.init_mamba2(g, cfg, dtype, dev, n)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {"ln1": ones(d), "ln2": ones(d),
+                                 "attn": attn.init_gqa(g, cfg, dtype, dev),
+                                 "mlp": _init_mlp(g, cfg, dtype, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_dense_weight(g, (d, cfg.vocab), dtype, dev)
     return params
@@ -70,13 +113,48 @@ def layer_params(blocks: Dict, i: int) -> Dict:
 def apply_block(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, cache,
                 cache_index, start: Optional[torch.Tensor] = None):
-    """One decoder layer; returns (x, cache)."""
+    """One decoder or mamba layer; returns (x, cache). A mamba layer
+    given a cache and ``start`` treats the columns of negative position
+    (the left pad) as inert."""
     h = L.rms_norm(x, p["ln1"])
+    if "mamba" in p:
+        valid = positions >= 0 if cache is not None and start is not None else None
+        out, cache = ssm.mamba2_block(p["mamba"], h, cfg, cache, valid=valid)
+        return x + out, cache
     a, cache = attn.gqa_attention(p["attn"], h, cfg, positions, cache,
                                   cache_index, start)
     x = x + a
     h = L.rms_norm(x, p["ln2"])
     return x + L.mlp(p["mlp"], h, cfg.quant), cache
+
+
+def _run_stack(params, x, cfg, positions, caches, index, start):
+    """The layer stack (dense or ssm), or hybrid's segments: every
+    ``hybrid_attn_every`` mamba layers, the weight-shared attention and
+    MLP block, with its own KV cache per application. Caches (None in
+    ``forward``) are written in place: hybrid's KV writes land in the
+    application's view of the stack, so nothing is restacked."""
+    layer_cache = lambda stack, i: (None if stack is None
+                                    else map_caches(lambda a: a[i], stack))
+    if cfg.family != "hybrid":
+        for i in range(cfg.n_layers):
+            x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, positions,
+                               layer_cache(caches, i), index, start)
+        return x
+    k = cfg.hybrid_attn_every
+    sp = params["shared_attn"]
+    ssm_caches, kv_caches = (None, None) if caches is None else caches
+    for seg in range(cfg.n_layers // k):
+        for i in range(seg * k, (seg + 1) * k):
+            x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, positions,
+                               layer_cache(ssm_caches, i), index, start)
+        h = L.rms_norm(x, sp["ln1"])
+        a, _ = attn.gqa_attention(sp["attn"], h, cfg, positions,
+                                  layer_cache(kv_caches, seg), index, start)
+        x = x + a
+        h = L.rms_norm(x, sp["ln2"])
+        x = x + L.mlp(sp["mlp"], h, cfg.quant)
+    return x
 
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig,
@@ -97,32 +175,47 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = L.embed(tokens, params["embed"]).to(dtype_of(cfg.dtype))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for i in range(cfg.n_layers):
-        x, _ = apply_block(layer_params(params["blocks"], i), x, cfg,
-                           positions, None, None)
+    x = _run_stack(params, x, cfg, positions, None, None, None)
     return _logits(params, x, cfg, cfg.quant if cfg.quantize_unembed else UNEMBED_OFF)
 
 
-def init_caches(cfg: ArchConfig, batch: int, s_max: int,
-                dtype=torch.bfloat16, device: DeviceLike = None):
-    """Stacked KV caches for the layer stack, every leaf (L, B, S_max,
-    ...), in the layout of ``cfg.quant.cache_dtype``: "bf16" gives a
-    :class:`~repro_torch.models.attention.KVCache` of ``dtype`` k/v
-    (L, B, S_max, H_kv, Dh); "int8" and "ternary" give a
-    :class:`~repro_torch.models.attention.QuantKVCache` of codes (int8,
-    or uint8 with Dh halved) and (L, B, S_max) f32 scales, made as zero
-    codes (ternary: bytes 0x11) with scales 1.0. Decode writes them in
-    place; an offset past the cache is clamped to its last slots."""
-    _check_family(cfg)
-    dev = resolve_device(device)
+def _kv_caches(cfg: ArchConfig, batch: int, s_max: int, dtype, dev, layers: int):
     cd = cfg.quant.cache_dtype
     if cd == "bf16":
         return attn.KVCache.zeros(batch, s_max, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, dtype=dtype,
-                                  device=dev, layers=cfg.n_layers)
+                                  device=dev, layers=layers)
     return attn.QuantKVCache.zeros(batch, s_max, cfg.n_kv_heads,
                                    cfg.resolved_head_dim, cd, device=dev,
-                                   layers=cfg.n_layers)
+                                   layers=layers)
+
+
+def init_caches(cfg: ArchConfig, batch: int, s_max: int,
+                dtype=torch.bfloat16, device: DeviceLike = None):
+    """Stacked decode caches, every leaf (L, B, ...), slots on axis 1.
+
+    dense: KV caches in the layout of ``cfg.quant.cache_dtype``: "bf16"
+    gives a :class:`~repro_torch.models.attention.KVCache` of ``dtype``
+    k/v (L, B, S_max, H_kv, Dh); "int8" and "ternary" give a
+    :class:`~repro_torch.models.attention.QuantKVCache` of codes (int8,
+    or uint8 with Dh halved) and (L, B, S_max) f32 scales, made as zero
+    codes (ternary: bytes 0x11) with scales 1.0. An offset past the cache
+    is clamped to its last slots.
+    ssm: a :class:`~repro_torch.models.ssm.SSMCache` (conv window and
+    state), f32 under any ``cache_dtype`` (small, rewritten every step,
+    and recurrent: quantization error would compound).
+    hybrid: the pair (SSMCache over the mamba layers, KV caches over the
+    ``n_layers // hybrid_attn_every`` applications of the shared block).
+    Decode writes them in place."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        return _kv_caches(cfg, batch, s_max, dtype, dev, cfg.n_layers)
+    ssm_caches = ssm.SSMCache.zeros(batch, cfg, device=dev, layers=cfg.n_layers)
+    if cfg.family == "ssm":
+        return ssm_caches
+    return (ssm_caches, _kv_caches(cfg, batch, s_max, dtype, dev,
+                                   cfg.n_layers // cfg.hybrid_attn_every))
 
 
 def decode_step(params, tokens: torch.Tensor, caches, index,
@@ -131,8 +224,9 @@ def decode_step(params, tokens: torch.Tensor, caches, index,
     """One cached step. tokens: (B, S_step); ``index`` is the cache write
     offset — a Python int (every row at the same position) or a (B,)
     tensor (ragged decode). ``start`` (B,) marks each row's left-padding
-    dead zone; RoPE positions are logical, ``index - start``. The caches
-    are updated in place and returned with the logits (B, S_step, V)."""
+    dead zone; RoPE positions are logical, ``index - start``, and mamba
+    layers hold the pad columns inert. The caches are updated in place
+    and returned with the logits (B, S_step, V)."""
     _check_family(cfg)
     x = L.embed(tokens, params["embed"]).to(dtype_of(cfg.dtype))
     b, s = x.shape[:2]
@@ -144,9 +238,6 @@ def decode_step(params, tokens: torch.Tensor, caches, index,
     if start is not None:
         base = base - start.to(torch.int64)
     positions = base.expand(b)[:, None] + torch.arange(s, device=dev)[None, :]
-    for i in range(cfg.n_layers):
-        layer_cache = type(caches)(*(leaf[i] for leaf in caches))
-        x, _ = apply_block(layer_params(params["blocks"], i), x, cfg,
-                           positions, layer_cache, index, start)
+    x = _run_stack(params, x, cfg, positions, caches, index, start)
     # the decode unembedding is always the plain matmul, as in the reference
     return _logits(params, x, cfg, UNEMBED_OFF), caches

@@ -10,7 +10,9 @@ per step (``host_syncs``). On the card the decode step runs as one
 captured CUDA graph (``serve.graph``), the counterpart of the
 reference's jitted step; prefill runs eagerly. ``fused=False`` serves
 the reference's per-slot loop instead, the measured baseline of the old
-formulation. The KV cache is bf16 or quantized (``cache_dtype``).
+formulation. The caches are KV caches (bf16 or quantized,
+``cache_dtype``), SSM caches, or hybrid's pair of them, walked leaf by
+leaf with ``transformer.map_caches``/``cache_leaves``.
 ``serve_step`` and ``make_jit_serve_step`` are the reference's
 single-step entry points. Not ported yet: TP and the profiler hooks.
 """
@@ -113,7 +115,8 @@ def make_jit_serve_step(cfg: ArchConfig):
         bound_params, bound_caches, step = steps[key]
         if params is not bound_params or any(
                 mine.data_ptr() != bound.data_ptr()
-                for mine, bound in zip(caches, bound_caches)):
+                for mine, bound in zip(T.cache_leaves(caches),
+                                       T.cache_leaves(bound_caches))):
             raise ValueError("a captured serve step is bound to the params and "
                              "caches of its first call")
         for static, a in zip(step.inputs, args):
@@ -208,7 +211,8 @@ class ContinuousBatcher:
     the first decode step and replayed at every later one: per step the
     host copies the tokens, positions and starts from pinned buffers into
     the graph's static tensors, replays it, and fetches the tokens. The
-    KV caches keep their storage for the batcher's life (prefill writes
+    caches (KV, SSM, or hybrid's pair of them; every leaf has its slots
+    on axis 1) keep their storage for the batcher's life (prefill writes
     the filled rows into them in place). Sampling is part of the graph:
     at ``temperature > 0`` the batcher's generator is registered with it,
     so a replay draws what the eager step would and prefill's eager draws
@@ -248,7 +252,9 @@ class ContinuousBatcher:
 
     ``fused=False`` is the reference's looped baseline, greedy only
     (``temperature > 0`` raises): each new request prefills its slot
-    alone at index 0 with no left pad, one prefill batch per slot, and
+    alone at index 0 with no left pad, from a fresh cache row (the
+    reference continues a refilled SSM row from its old state), one
+    prefill batch per slot, and
     each decode step is a loop of single-row :func:`serve_step` calls,
     one per slot, each writing its slot's row of the stacked caches in
     place; the host fetches each active slot's token on its own (one
@@ -350,7 +356,7 @@ class ContinuousBatcher:
                                       start=start)
         # left-padding: the last column is every row's last real token
         toks = sample(logits[:, -1:, :], self._generator, self.temperature)[:, 0]
-        for old, new in zip(self.caches, fresh):
+        for old, new in zip(T.cache_leaves(self.caches), T.cache_leaves(fresh)):
             old.index_copy_(1, fill, new.index_select(1, fill))
         return toks
 
@@ -423,7 +429,7 @@ class ContinuousBatcher:
     def _row_caches(self, s: int):
         """Slot ``s``'s row of every stacked cache leaf, as views: a step
         on them writes the stacked caches in place."""
-        return type(self.caches)(*(leaf[:, s:s + 1] for leaf in self.caches))
+        return T.map_caches(lambda leaf: leaf[:, s:s + 1], self.caches)
 
     def _fill_slots_looped(self):
         for s in range(self.n_slots):
@@ -431,8 +437,13 @@ class ContinuousBatcher:
                 req = self.slot_req[s] = self.queue.pop(0)
                 prompt = torch.tensor([req.prompt], dtype=torch.int64,
                                       device=self.device)
-                logits, _ = prefill(self.params, prompt, self._row_caches(s),
-                                    self.cfg)
+                # the row starts from fresh caches, as a fused refill does:
+                # an SSM prefill continues from the row's state
+                row = self._row_caches(s)
+                fresh = T.init_caches(self.cfg, 1, self.s_max, device=self.device)
+                for old, new in zip(T.cache_leaves(row), T.cache_leaves(fresh)):
+                    old.copy_(new)
+                logits, _ = prefill(self.params, prompt, row, self.cfg)
                 tok = int(torch.argmax(logits[0, -1]))  # one fetch per slot
                 self.host_syncs += 1
                 self.prefill_batches += 1

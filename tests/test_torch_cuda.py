@@ -546,3 +546,84 @@ def test_cuda_looped_baseline_matches_generate(cuda_device):
         want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
                         device=cuda_device)[0].tolist()
         assert got == want, r.rid
+
+
+# the ssm and hybrid families' dense layers: mamba2-780m's w_in and w_out,
+# zamba2-2.7b's w_in, w_out, q/k/v/o and MLP (N = 6448 = 16 x 403 and
+# 10448 = 16 x 653: multiples of 16 and of no larger power of two)
+SSM_SHAPES = [(1536, 6448), (3072, 1536), (2560, 10448), (5120, 2560),
+              (2560, 2560), (2560, 10240), (10240, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", SSM_SHAPES)
+def test_cuda_cim_kernel_bit_exact_at_ssm_widths(cuda_device, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device, dtype=torch.int8)
+    for m in (1, 4, 64):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+        assert torch.equal(tm.ternary_cim_matmul(x, w), tm.ternary_cim_matmul_plain(x, w)), m
+
+
+def _macs_per_step(cfg):
+    """#1 launches per decode step or prefill batch: 2 per mamba layer
+    (w_in, w_out), 7 per application of zamba2's shared block."""
+    if cfg.family == "dense":
+        return 7 * cfg.n_layers
+    return 2 * cfg.n_layers + (7 * (cfg.n_layers // cfg.hybrid_attn_every)
+                               if cfg.family == "hybrid" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_cuda_ssm_captured_step_matches_generate(cuda_device, arch):
+    """The captured step over SSM (and hybrid's KV) caches at 4 slots:
+    tokens == the eager step's == generate()'s at 1 row under per_row
+    (the recurrence's reductions must not depend on the batch), #1
+    launched _macs_per_step x (decode steps + prefill batches), and every
+    cache leaf keeps its storage across prefills and replays."""
+    cfg = get_config(arch, smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    got = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=32, device=cuda_device)
+        batcher._decode.graphed = graphed
+        ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
+        before = tm.ternary_cim_matmul.launches
+        got[graphed] = _serve(batcher, n=7)
+        st = batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        assert tm.ternary_cim_matmul.launches - before == _macs_per_step(cfg) * steps
+        assert [a.data_ptr() for a in T.cache_leaves(batcher.caches)] == ptrs
+        assert (batcher._decode.graph is not None) == graphed
+    assert got[True] == got[False]
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(7)]
+    for r, toks in zip(reqs, got[True]):
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert toks == want, r.rid
+
+
+@pytest.mark.cuda
+def test_cuda_zamba2_capacity_mix_finishes(cuda_device):
+    """test_cuda_capacity_mix_finishes on zamba2: the dead lane's KV write
+    is clamped and its SSM state rides on until a refill overwrites the
+    row; the reference's counts and flags, tokens == generate()."""
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=8, device=cuda_device)
+    reqs = [Request(0, [1, 2, 3], 100), Request(1, [4], 2), Request(2, [5, 6], 6)]
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    torch.cuda.synchronize()
+    assert batcher._decode.graph is not None
+    assert [len(r.generated) for r in reqs] == [5, 2, 5]
+    assert [r.truncated for r in reqs] == [True, False, True]
+    for r in reqs:
+        want = generate(params, [r.prompt], cfg, max_new=len(r.generated), s_max=8,
+                        device=cuda_device)[0].tolist()
+        assert r.generated == want, r.rid

@@ -34,7 +34,8 @@ def test_port_imports_no_jax(path):
 def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"execution.py", "engine.py", "chip_smoke.py", "_build.py",
-            "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py"} <= names
+            "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py", "ssm.py",
+            "mamba2_780m.py", "zamba2_2_7b.py"} <= names
 
 
 @pytest.fixture
@@ -56,6 +57,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
         T.init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({"embed": np.zeros((2, 2), np.float32)}, cfg)
+    mamba = get_config("mamba2-780m", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_params(mamba)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_caches(mamba, 1, 8)
     params = T.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousBatcher(params, cfg)
