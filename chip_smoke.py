@@ -83,7 +83,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      width through the captured step. The kernel phase bit-checks #1 at
      every (K, N) of phases 12 and 13 (N = 6448, 10448) at M in {1, 4,
      16, 64} and times it at one mamba2 and one zamba2 layer's two calls
-     ("mamba2_780m", "zamba2_2_7b" in the kernels line).
+     ("mamba2_780m", "zamba2_2_7b" in the kernels line);
+ 14. the moe family at full width, depth cut: deepseek-v2-236b (MLA, 160
+     experts top-6 with 2 shared; 4 of its 60 layers) and grok-1-314b (GQA,
+     8 experts top-2; 2 of its 64 layers), seeded random weights, the
+     published widths checked against the config: 4 requests (4 slots,
+     s_max 128, 1-16 prompt tokens, 8 new) captured and eager (tokens
+     equal, #1 launched 6 and 4 x layers x steps, no other kernel, cache
+     storage kept) under deepseek's bf16 and int8 MLA caches and grok's
+     bf16 KV cache, the exact cache bytes per slot, the peak memory, the
+     (token, expert) assignments a batched prefill drops under the
+     config's capacity factor, a per_row batcher == generate() under the
+     capacity factor n_experts / top_k (nothing drops), a profiled
+     replayed step (busy, idle share, #1's share) and the same requests
+     under mode "off". The kernel phase bit-checks #1 at every (K, N) of
+     both at M in {1, 4, 16, 64} and times one layer's calls of each
+     ("deepseek_v2_236b", "grok_1_314b" in the kernels line).
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -135,6 +150,15 @@ ZAMBA2_SHAPES = (("w_in", 2560, 10448), ("w_out", 5120, 2560))
 SSM_CHECK_SHAPES = tuple((k, n) for _, k, n in MAMBA2_SHAPES + ZAMBA2_SHAPES) + (
     (2560, 2560), (2560, 10240), (10240, 2560))
 SSM_CHECK_M = (1, 4, 16, 64)
+# one deepseek-v2-236b layer's quantized dense layers (d 5120, 128 heads of
+# 128 + 64 rope, kv_lora 512, the 2 shared experts' MLP of 2 x 1536) and one
+# grok-1-314b layer's (d 6144, 48/8 heads of 128); the routed experts are
+# plain products, not #1's
+DEEPSEEK_SHAPES = (("wq", 5120, 24576), ("w_dkv", 5120, 576), ("wo", 16384, 5120),
+                   ("gate", 5120, 3072), ("up", 5120, 3072), ("down", 3072, 5120))
+GROK_SHAPES = (("wq", 6144, 6144), ("wk", 6144, 1024), ("wv", 6144, 1024),
+               ("wo", 6144, 6144))
+MOE_CHECK_SHAPES = tuple(dict.fromkeys((k, n) for _, k, n in DEEPSEEK_SHAPES + GROK_SHAPES))
 # the layer shapes, then ragged ones that cut across #1's and #5's K split
 # and column tiles: K=16 (one block), N=8 (half a tile), 37 blocks of 16
 # (prime: no split divides it) by N=200 (12.5 tiles)
@@ -154,7 +178,8 @@ TIMED_PLANES_M = 128
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
 # the kernel phase's per-model timings: tag -> model
 MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
-              "zamba2_2_7b": "zamba2-2.7b"}
+              "zamba2_2_7b": "zamba2-2.7b", "deepseek_v2_236b": "deepseek-v2-236b",
+              "grok_1_314b": "grok-1-314b"}
 
 
 def fail(msg: str) -> None:
@@ -408,7 +433,7 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                                                              nbuf=nbuf),
                           plain.to(torch.int32), f"{what} nbuf={nbuf}")
         torch.cuda.synchronize()
-    for k, n in SSM_CHECK_SHAPES:
+    for k, n in SSM_CHECK_SHAPES + MOE_CHECK_SHAPES:
         w = tern((k, n))
         for m in SSM_CHECK_M:
             x = tern((m, k))
@@ -417,7 +442,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         del w
         torch.cuda.synchronize()
     log(f"kernels: #1 bit-exact at the mamba2/zamba2 widths (K,N) in "
-        f"{list(SSM_CHECK_SHAPES)}, M in {list(SSM_CHECK_M)} (tolerance 0)")
+        f"{list(SSM_CHECK_SHAPES)} and the deepseek-v2/grok-1 widths "
+        f"{list(MOE_CHECK_SHAPES)}, M in {list(SSM_CHECK_M)} (tolerance 0)")
     log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
         f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
         f"M <= {decode_m_max}, #2 also on unaligned planes, #3 at nbuf 2 and 3 "
@@ -459,7 +485,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             ("ternary_cim_matmul", 4, SC7B_SHAPES, "starcoder2_7b"),
             ("ternary_exact_matmul", 4, SC7B_SHAPES, "starcoder2_7b"),
             ("ternary_cim_matmul", 4, MAMBA2_SHAPES, "mamba2_780m"),
-            ("ternary_cim_matmul", 4, ZAMBA2_SHAPES, "zamba2_2_7b")):
+            ("ternary_cim_matmul", 4, ZAMBA2_SHAPES, "zamba2_2_7b"),
+            ("ternary_cim_matmul", 4, DEEPSEEK_SHAPES, "deepseek_v2_236b"),
+            ("ternary_cim_matmul", 4, GROK_SHAPES, "grok_1_314b")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in shapes:
@@ -582,6 +610,17 @@ def make_requests(Request, vocab, seed, n=8):
             for i, lens in enumerate(lengths)]
 
 
+def four_requests(Request, vocab, seed=7):
+    """Phase 11's and 14's requests: 4 prompts of 1, 16 and two random
+    lengths in 1-16 tokens, 8 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = [1, 16] + list(rng.integers(1, 17, 2))
+    return [Request(i, [int(t) for t in rng.integers(1, vocab, n)], max_new=8)
+            for i, n in enumerate(lengths)]
+
+
 def drive(torch, batcher, reqs):
     """Run the batcher to completion; returns (seconds, decode-step ms)."""
     for r in reqs:
@@ -643,7 +682,12 @@ def macs_per_step(cfg) -> int:
     """MAC launches per decode step or prefill batch, one per quantized
     dense layer: 7 per decoder layer (210 for smollm-135m), 2 per mamba
     layer (w_in, w_out: 96 for mamba2-780m), 7 per application of
-    zamba2's shared block (2 x 54 + 7 x 9 = 171)."""
+    zamba2's shared block (2 x 54 + 7 x 9 = 171); per moe layer the
+    attention's projections (MLA's wq, w_dkv, wo; GQA's 4) and the shared
+    experts' MLP where there is one: 6 per deepseek-v2 layer, 4 per
+    grok-1 layer (the routed experts are plain products)."""
+    if cfg.family == "moe":
+        return ((3 if cfg.mla else 4) + (3 if cfg.n_shared_experts else 0)) * cfg.n_layers
     if cfg.family == "dense":
         return 7 * cfg.n_layers
     shared = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
@@ -745,8 +789,9 @@ def token_identity(torch, batcher, reqs, params, cfg, generate, spec, label):
     if batcher.capture_seconds is None:
         fail(f"{label}: the decode step was not captured")
     for r in reqs:
-        solo = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=256,
-                        exec_spec=spec, device=batcher.device)[0].tolist()
+        solo = generate(params, [r.prompt], cfg, max_new=r.max_new,
+                        s_max=batcher.s_max, exec_spec=spec,
+                        device=batcher.device)[0].tolist()
         if solo != r.generated:
             fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
                  f"fused {r.generated} != generate {solo}")
@@ -1064,8 +1109,6 @@ def starcoder2_phase(torch, tm, pm, card, dev) -> dict:
     #1 launched 224 x (decode steps + prefill batches); step median,
     tok/s, capture time and the peak device memory; then one replayed
     step under the profiler."""
-    import numpy as np
-
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
 
@@ -1086,22 +1129,16 @@ def starcoder2_phase(torch, tm, pm, card, dev) -> dict:
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    def requests(Request, vocab):
-        rng = np.random.default_rng(7)
-        lengths = [1, 16] + list(rng.integers(1, 17, 2))
-        return [Request(i, [int(t) for t in rng.integers(1, vocab, n)], max_new=8)
-                for i, n in enumerate(lengths)]
-
     got, st, line, numbers = serve_captured_and_eager(
         torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
         "starcoder2-7b serving", dev, cache_dtype="int8", n_slots=4, s_max=128,
-        requests=requests)
+        requests=four_requests)
     peak = torch.cuda.max_memory_allocated()
     from repro_torch.serve.engine import ContinuousBatcher, Request
 
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, cache_dtype="int8",
                                 device=dev)
-    for r in requests(Request, cfg.vocab):
+    for r in four_requests(Request, cfg.vocab):
         batcher.submit(r)
     prof = profile_decode_step(torch, batcher)
     if batcher.capture_seconds is None:
@@ -1256,6 +1293,190 @@ def ssm_family_phase(torch, tm, pm, card, dev, arch) -> dict:
     return out
 
 
+# phase 14: the moe family. The published widths of each config (checked
+# against it before the cut), the depth it is cut to (the whole model does
+# not fit one 80 GB card: 472 GB and 629 GB in bf16), and the exact cache
+# bytes per slot at s_max 128 by cache dtype (deepseek: layers x 128 x
+# (512 + 64) codes at 2, 1 or 1/2 bytes, plus 2 f32 scales a position for
+# the quantized caches; grok: layers x k, v x 128 x 8 heads x 128 x 2
+# bytes), and the cache dtypes served
+MOE_ARCHS = {
+    "deepseek-v2-236b": dict(
+        fields=dict(n_layers=60, d_model=5120, n_heads=128, mla=True, kv_lora_rank=512,
+                    q_lora_rank=0, qk_rope_head_dim=64, qk_nope_head_dim=128,
+                    v_head_dim=128, n_experts=160, n_shared_experts=2, top_k=6,
+                    expert_d_ff=1536, vocab=102400, tie_embeddings=False,
+                    moe_capacity_factor=1.25),
+        layers=4, cache_bytes={"bf16": 589_824, "int8": 299_008, "ternary": 151_552},
+        served=("bf16", "int8")),
+    "grok-1-314b": dict(
+        fields=dict(n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8, mla=False,
+                    resolved_head_dim=128, n_experts=8, n_shared_experts=0, top_k=2,
+                    expert_d_ff=32768, vocab=131072, tie_embeddings=False,
+                    moe_capacity_factor=1.25),
+        layers=2, cache_bytes={"bf16": 1_048_576}, served=("bf16",)),
+}
+
+
+def prefill_drops(torch, params, cfg, reqs, dev) -> dict:
+    """Serve ``reqs``' first step (their batched prefill, then one decode
+    step) through an eager batcher under ``cfg``'s own capacity factor,
+    counting with ``moe.route`` the (token, expert) assignments each MoE
+    block dropped; returns the prefill's and the decode step's totals
+    over the layers, and the assignments routed."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ContinuousBatcher
+
+    seen = []
+    block = moe.moe_block
+
+    def counted(p, x, c):
+        keep = moe.route(p, x.reshape(-1, x.shape[-1]), c)[2]
+        seen.append((x.shape[0] * x.shape[1], (~keep).sum(), keep.numel()))
+        return block(p, x, c)
+
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, device=dev)
+    batcher._decode.graphed = False
+    for r in reqs:
+        batcher.submit(r)
+    moe.moe_block = counted
+    try:
+        batcher.step()
+    finally:
+        moe.moe_block = block
+    del batcher
+    out = {"prefill": 0, "decode": 0, "prefill_assignments": 0}
+    for tokens, dropped, routed in seen:
+        kind = "prefill" if tokens > 4 else "decode"
+        out[kind] += int(dropped)
+        if kind == "prefill":
+            out["prefill_assignments"] += routed
+    return out
+
+
+def moe_family_phase(torch, tm, pm, card, dev, arch) -> dict:
+    """Phase 14 for one arch of MOE_ARCHS: the published widths checked,
+    the depth cut, seeded random weights; per served cache dtype, phase
+    11's 4 requests through captured and eager batchers (4 slots, s_max
+    128; tokens equal, #1 launched macs_per_step x steps, no other
+    kernel, cache storage kept), the exact cache bytes per slot and the
+    peak memory; the drops of a batched prefill under the config's
+    capacity factor; a per_row batcher == generate() under the factor
+    n_experts / top_k; a profiled replayed step; the requests again
+    under mode "off"."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+
+    want = MOE_ARCHS[arch]
+    full = get_config(arch)
+    fields = {f: getattr(full, f) for f in want["fields"]}
+    if fields != want["fields"]:
+        fail(f"{arch}: not the published widths: {fields}")
+    cfg = full.replace(n_layers=want["layers"])
+    t_phase = time.perf_counter()
+    log(f"{arch}: published widths {fields}; {full.param_count() / 1e9:.1f} B params "
+        f"({full.active_param_count() / 1e9:.1f} B active) over {full.n_layers} layers, "
+        f"cut to {cfg.n_layers} layers for one 80 GB card: {cfg.param_count() / 1e9:.2f} "
+        f"B params, widths unchanged")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    per_step = macs_per_step(cfg)
+    out = {"n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+           "param_bytes": n_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
+           "macs_per_step": per_step}
+    out["bytes_per_slot"] = {}
+    for cd, expect in want["cache_bytes"].items():
+        qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, cache_dtype=cd))
+        caches = T.init_caches(qcfg, 4, 128, device=dev)
+        out["bytes_per_slot"][cd] = per_slot = cache_bytes(T, caches) // 4
+        del caches
+        if per_slot != expect:
+            fail(f"{arch} {cd} cache: {per_slot} bytes per slot, expected {expect}")
+    for cd in want["served"]:
+        torch.cuda.reset_peak_memory_stats()
+        got, st, line, numbers = serve_captured_and_eager(
+            torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+            f"{arch} {cd} serving", dev, cache_dtype=cd, n_slots=4, s_max=128,
+            requests=four_requests)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch} ({cfg.n_layers} layers) {cd} cache on {card}: {line}; kernel #1 "
+            f"launches {got['ternary_cim_matmul']} = {per_step} x "
+            f"{st['decode_steps'] + st['prefill_batches']}; "
+            f"{out['bytes_per_slot'][cd]} cache bytes per slot at s_max 128; peak "
+            f"device memory while serving {peak / 1e9:.2f} GB")
+        out[cd] = dict(numbers, peak_bytes=peak, launches=got["ternary_cim_matmul"])
+    drops = prefill_drops(torch, params, cfg, four_requests(Request, cfg.vocab), dev)
+    if drops["decode"]:
+        fail(f"{arch}: a decode step of 4 tokens dropped {drops['decode']} assignments")
+    out["drops"] = drops
+    log(f"{arch} under the config's capacity factor {cfg.moe_capacity_factor}: the "
+        f"batched prefill of phase 14's 4 requests (4 slots x a 16-token bucket, "
+        f"left pad routed like real tokens) dropped {drops['prefill']} of "
+        f"{drops['prefill_assignments']} (token, expert) assignments over "
+        f"{cfg.n_layers} layers; the decode step after it none")
+    row_cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k,
+                          quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=128, device=dev)
+    token_identity(torch, batcher, four_requests(Request, cfg.vocab, seed=1), params,
+                   row_cfg, generate, None,
+                   f"{arch} token identity (capacity factor {row_cfg.moe_capacity_factor:g})")
+    del batcher
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, device=dev)
+    for r in four_requests(Request, cfg.vocab, seed=3):
+        batcher.submit(r)
+    prof = profile_decode_step(torch, batcher, top=10)
+    if batcher.capture_seconds is None:
+        fail(f"{arch} profiled step: the decode step was not captured")
+    del batcher
+    median = out["bf16"]["captured_step_ms"]
+    log(f"{arch} profiled replayed decode step (4 slots, bf16 cache): "
+        f"{prof['busy_ms']:.3f} ms device-busy, of which #1 {prof['mac_ms']:.3f} ms "
+        f"x{prof['mac_launches']} ({100 * prof['mac_ms'] / prof['busy_ms']:.1f}%); busy "
+        f"over the unprofiled median step {median:.2f} ms: "
+        f"{100 * prof['busy_ms'] / median:.1f}% (idle share "
+        f"{100 * (1 - prof['busy_ms'] / median):.1f}%); the next step spans "
+        f"{prof['span_ms']:.3f} ms between CUDA events; top device time: "
+        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof["top"]))
+    out["profiled"] = {k: v for k, v in prof.items() if k != "top"}
+    out["profiled"]["top"] = [[k[:120], ms, n] for ms, n, k in prof["top"]]
+    # mode "off": bf16 dense matmuls and no ternarization anywhere; what is
+    # left is MLA or GQA, the routing, the float64 expert products over the
+    # raw weights and the float64 unembedding
+    off = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
+    secs, step_ms = drive(torch, batcher, four_requests(Request, cfg.vocab))
+    if batcher.capture_seconds is None or not all(r is None for r in batcher.slot_req):
+        fail(f"{arch} mode off: the step was not captured or a request did not finish")
+    del batcher
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
+    for r in four_requests(Request, cfg.vocab, seed=3):
+        batcher.submit(r)
+    prof_off = profile_decode_step(torch, batcher, top=10)
+    del batcher
+    out["mode_off"] = {"captured_step_ms": statistics.median(step_ms),
+                       "busy_ms": prof_off["busy_ms"],
+                       "top": [[k[:120], ms, n] for ms, n, k in prof_off["top"]]}
+    log(f"{arch} with mode off (bf16 dense matmuls, no ternarization, bf16 cache): "
+        f"captured step {out['mode_off']['captured_step_ms']:.2f} ms median against "
+        f"{median:.2f} ms under mode cim; profiled replayed step "
+        f"{prof_off['busy_ms']:.3f} ms device-busy; top device time: "
+        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof_off["top"]))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"{arch} ({cfg.n_layers} of {full.n_layers} layers, {n_bytes / 1e9:.2f} GB of "
+        f"weights, initialized in {init_s:.1f} s at a peak of {init_peak / 1e9:.2f} GB): "
+        f"phase wall time {out['wall_s']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def zamba2_capacity(torch, dev) -> dict:
     """Phase 8's capacity mix on zamba2 at smoke width (seeded random
     weights, per_row) through the captured step."""
@@ -1327,6 +1548,12 @@ def main(argv=None) -> int:
             launches=serving[tag]["bf16"]["launches"],
             launches_per_step=serving[tag]["macs_per_step"])
     serving["capacity_zamba2"] = zamba2_capacity(torch, torch.device("cuda"))
+    for arch in MOE_ARCHS:
+        tag = arch.replace("-", "_").replace(".", "_")
+        serving[tag] = moe_family_phase(torch, tm, pm, card, torch.device("cuda"), arch)
+        per_kernel["ternary_cim_matmul"][tag].update(
+            launches=serving[tag]["bf16"]["launches"],
+            launches_per_step=serving[tag]["macs_per_step"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

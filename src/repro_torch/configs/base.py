@@ -1,8 +1,8 @@
 """Architecture configuration schema (port of ``repro/configs/base.py``).
 
 The port keeps its own copy of the fields the ported model families
-(dense, ssm, hybrid) read; families not ported yet keep only their name
-in ``family``.
+(dense, ssm, hybrid, moe) read; families not ported yet (encdec, vlm)
+keep only their name in ``family``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from repro_torch.models.layers import QuantConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | ssm | hybrid (the families ported)
+    family: str                  # dense | ssm | hybrid | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,6 +25,19 @@ class ArchConfig:
     head_dim: Optional[int] = None        # defaults to d_model // n_heads
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0                  # per-expert FFN width (moe)
+    moe_capacity_factor: float = 1.25
+    # --- MLA (deepseek-v2) ---
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
     # --- SSM (mamba2 SSD) ---
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -61,17 +74,45 @@ class ArchConfig:
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def _attn_params(self) -> int:
+        d, h, hd = self.d_model, self.n_heads, self.resolved_head_dim
+        if not self.mla:
+            return d * hd * (h + 2 * self.n_kv_heads) + h * hd * d
+        r, dn, dr, dv = (self.kv_lora_rank, self.qk_nope_head_dim,
+                         self.qk_rope_head_dim, self.v_head_dim)
+        kv = d * (r + dr) + r * h * (dn + dv) + h * dv * d
+        if self.q_lora_rank:
+            return (d * self.q_lora_rank + kv
+                    + self.q_lora_rank * h * (dn + dr))
+        return d * h * (dn + dr) + kv
+
     def param_count(self) -> int:
         """Parameter count of the ported families, as the reference counts
         it: projections and embeddings only (no norms, conv or SSM
-        vectors); hybrid adds its one shared attention block and MLP."""
-        d, f, v, hd = self.d_model, self.d_ff, self.vocab, self.resolved_head_dim
+        vectors); hybrid adds its one shared attention block and MLP, moe
+        counts every expert, the shared experts and the router."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
         emb = v * d * (1 if self.tie_embeddings else 2)
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        if self.family == "dense":
-            return int(emb + self.n_layers * (attn + 3 * d * f))
+        attn = self._attn_params()
+        if self.family in ("dense", "moe"):
+            if self.n_experts:
+                ffn = (3 * d * self.expert_d_ff
+                       * (self.n_experts + self.n_shared_experts)
+                       + d * self.n_experts)
+            else:
+                ffn = 3 * d * f
+            return int(emb + self.n_layers * (attn + ffn))
         di = self.ssm_d_inner
         mamba = (d * (2 * di + 2 * self.ssm_n_groups * self.ssm_state
                       + self.ssm_n_heads) + di * d)
         shared = attn + 3 * d * f if self.family == "hybrid" else 0
         return int(emb + self.n_layers * mamba + shared)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: a moe model counts only its top-k
+        routed experts (and the shared ones); other families all."""
+        full = self.param_count()
+        if not self.n_experts:
+            return full
+        per_expert = 3 * self.d_model * self.expert_d_ff * self.n_layers
+        return int(full - per_expert * (self.n_experts - self.top_k))

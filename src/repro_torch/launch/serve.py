@@ -4,7 +4,8 @@
         --requests 8 --slots 4
 
 ``--arch`` takes any ported arch of ``models.registry`` (the dense
-configs, ``mamba2-780m`` and ``zamba2-2.7b``).
+configs, ``mamba2-780m``, ``zamba2-2.7b``, ``deepseek-v2-236b`` and
+``grok-1-314b``).
 
 Runs on ``cuda`` by default and exits with an error without CUDA unless
 ``--device cpu`` is given (use it with ``--smoke`` on a CPU host). The

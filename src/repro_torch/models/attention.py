@@ -1,5 +1,5 @@
-"""GQA attention with a bf16 or quantized KV cache (port of the GQA part
-of ``repro/models/attention.py``).
+"""GQA and MLA attention with bf16 or quantized caches (port of
+``repro/models/attention.py``; cross attention is not ported yet).
 
 Weight projections route through ``layers.dense`` so the ternary/CiM
 modes apply; the score/value contractions are activation-activation
@@ -17,9 +17,14 @@ the cache is clamped to its last slots, as ``dynamic_update_slice``
 clamps it in the reference: a slot freed at capacity rides the batched
 step as a dead lane and rewrites the last slot of its own row.
 
-Quantized caches (:class:`QuantKVCache`, the reference's DESIGN.md §13)
-store int8 codes, or ternary codes nibble-packed two per byte, with one
-f32 scale per (row, position). Dequantization stays in the attention
+MLA (deepseek-v2) caches the compressed latent ``ckv`` and the
+decoupled rope key instead of k/v (:class:`MLACache`) and attends in the
+absorbed-weight form: ``W_uk`` folds into the query and ``W_uv`` is
+applied after the values are attended in latent space.
+
+Quantized caches (:class:`QuantKVCache`, :class:`QuantMLACache`, the
+reference's DESIGN.md §13) store int8 codes, or ternary codes
+nibble-packed two per byte, with one f32 scale per (row, position). Dequantization stays in the attention
 contractions: the codes enter the score and value einsums and the
 scales multiply the (B, ..., Sk) score and probability matrices; no
 dequantized copy of the cache is made.
@@ -145,6 +150,44 @@ class QuantKVCache(NamedTuple):
             _quant_zeros(shape, cache_dtype, device),
             torch.ones(lead + (batch, s_max), dtype=torch.float32, device=device),
             torch.ones(lead + (batch, s_max), dtype=torch.float32, device=device))
+
+
+class MLACache(NamedTuple):
+    """Compressed MLA cache: latent ``ckv`` (B, S_max, kv_lora) and rope
+    key ``k_rope`` (B, S_max, Dr); stacked, every leaf gains (L,)."""
+    ckv: torch.Tensor
+    k_rope: torch.Tensor
+
+    @staticmethod
+    def zeros(batch: int, s_max: int, kv_lora: int, rope_dim: int,
+              dtype=torch.bfloat16, device=None, layers: Optional[int] = None):
+        lead = () if layers is None else (layers,)
+        return MLACache(
+            torch.zeros(lead + (batch, s_max, kv_lora), dtype=dtype, device=device),
+            torch.zeros(lead + (batch, s_max, rope_dim), dtype=dtype, device=device))
+
+
+class QuantMLACache(NamedTuple):
+    """Quantized MLA cache: latent and rope-key codes (int8, or ternary
+    nibble-packed uint8 with the last dim halved) with (B, S_max) f32
+    scales, the storage mode carried by the leaf dtype, as
+    :class:`QuantKVCache`."""
+    ckv: torch.Tensor
+    k_rope: torch.Tensor
+    ckv_scale: torch.Tensor
+    krope_scale: torch.Tensor
+
+    @staticmethod
+    def zeros(batch: int, s_max: int, kv_lora: int, rope_dim: int,
+              cache_dtype: str = "int8", device=None,
+              layers: Optional[int] = None):
+        lead = () if layers is None else (layers,)
+        scale = lambda: torch.ones(lead + (batch, s_max), dtype=torch.float32,
+                                   device=device)
+        return QuantMLACache(
+            _quant_zeros(lead + (batch, s_max, kv_lora), cache_dtype, device),
+            _quant_zeros(lead + (batch, s_max, rope_dim), cache_dtype, device),
+            scale(), scale())
 
 
 # ---------------------------------------------------------------------------
@@ -333,3 +376,105 @@ def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
                         length=length, start=start)
     out = out.reshape(b, s, h * hd)
     return L.dense(out, params["wo"], qc), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank joint KV compression + decoupled rope key
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ArchConfig, dtype, device,
+             layers: int):
+    """Stacked (layers, K, N) MLA weights: full-rank queries ``wq`` (no q
+    LoRA, as the reference), the joint KV down-projection with the rope
+    key ``w_dkv``, the up-projections ``w_uk``/``w_uv`` from the latent,
+    ``wo``, and the latent's norm ``kv_norm``."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    shapes = {"wq": (d, h * (dn + dr)), "w_dkv": (d, r + dr), "w_uk": (r, h * dn),
+              "w_uv": (r, h * dv), "wo": (h * dv, d)}
+    p = {name: L.init_dense_weight(generator, (layers,) + shape, dtype, device)
+         for name, shape in shapes.items()}
+    p["kv_norm"] = torch.ones((layers, r), dtype=dtype, device=device)
+    return p
+
+
+def mla_attention(params, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, cache=None, cache_index=None,
+                  start: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[tuple]]:
+    """x: (B, S, D). With a cache (one layer's :class:`MLACache` or
+    :class:`QuantMLACache`) the new latent and rope key are written at
+    ``cache_index`` in place (quantized on write for a quantized cache)
+    and attention runs against the whole cache, ``start`` masking each
+    row's left pad; without one it is causal over x.
+
+    The absorbed-weight form: q_lat = q_nope·W_uk, scores = q_lat·ckv +
+    q_rope·k_rope (each term times its own cache scale before the sum),
+    probabilities attend the latent, then W_uv. ``wq``, ``w_dkv`` and
+    ``wo`` are dense layers (the ternary/CiM modes apply: kernel #1 on
+    the card); ``w_uk`` and ``w_uv`` are plain contractions, as in the
+    reference. The contractions accumulate in float64 and round to x's
+    dtype where the reference rounds (``layers.accum_einsum``)."""
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qc, dt = cfg.quant, x.dtype
+    q = L.dense(x, params["wq"], qc).reshape(b, s, h, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    dkv = L.dense(x, params["w_dkv"], qc)
+    ckv = L.rms_norm(dkv[..., :r], params["kv_norm"])
+    k_rope = L.apply_rope(dkv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+
+    ckv_scale = krope_scale = length = None
+    if cache is None:
+        ckv_all, krope_all, offset, start = ckv, k_rope, 0, None
+    else:
+        if isinstance(cache, QuantMLACache):
+            cd = "ternary" if cache.ckv.dtype == torch.uint8 else "int8"
+            for buf, scale_buf, new in ((cache.ckv, cache.ckv_scale, ckv),
+                                        (cache.k_rope, cache.krope_scale, k_rope)):
+                codes, scale = quantize_kv(new, cd)
+                write_cache_rows(buf, codes, cache_index)
+                write_cache_rows(scale_buf, scale, cache_index)
+            ckv_scale, krope_scale = cache.ckv_scale, cache.krope_scale
+        else:
+            write_cache_rows(cache.ckv, ckv, cache_index)
+            write_cache_rows(cache.k_rope, k_rope, cache_index)
+        ckv_all, krope_all, offset = cache.ckv, cache.k_rope, cache_index
+        length = _index_vector(cache_index, b, x.device) + s
+    sk = ckv_all.shape[1]
+    ckv_c, krope_c = _kv_codes(ckv_all, dt), _kv_codes(krope_all, dt)
+
+    w_uk = params["w_uk"].reshape(r, h, dn).to(dt)
+    q_lat = L.accum_einsum("bqhd,rhd->bqhr", q_nope, w_uk).to(dt)
+    nope = L.accum_einsum("bqhr,bkr->bhqk", q_lat, ckv_c)
+    rope = L.accum_einsum("bqhd,bkd->bhqk", q_rope, krope_c)
+    if ckv_scale is not None:
+        # the two terms carry independent scales: applied before the sum
+        nope = nope * ckv_scale.to(torch.float64)[:, None, None, :]
+        rope = rope * krope_scale.to(torch.float64)[:, None, None, :]
+    scores = (nope + rope) / math.sqrt(dn + dr)
+    dev = x.device
+    if torch.is_tensor(offset):
+        off = offset.to(torch.int64).reshape(-1)
+    else:
+        off = torch.full((1,), int(offset), dtype=torch.int64, device=dev)
+    qpos = off[:, None] + torch.arange(s, device=dev)[None, :]      # (1|B, s)
+    kpos = torch.arange(sk, device=dev)
+    scores = torch.where((kpos[None, None, :] <= qpos[:, :, None])[:, None],
+                         scores, NEG_INF)
+    if length is not None:
+        valid = kpos[None, :] < length[:, None]
+        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    if start is not None:
+        live = kpos[None, :] >= start[:, None]
+        scores = torch.where(live[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    if ckv_scale is not None:
+        probs = probs * ckv_scale.to(torch.float64)[:, None, None, :]
+    lat = L.accum_einsum("bhqk,bkr->bqhr", probs.to(dt), ckv_c).to(dt)
+    w_uv = params["w_uv"].reshape(r, h, dv).to(dt)
+    out = L.accum_einsum("bqhr,rhd->bqhd", lat, w_uv).to(dt)
+    return L.dense(out.reshape(b, s, h * dv), params["wo"], qc), cache

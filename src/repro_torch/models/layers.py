@@ -101,6 +101,15 @@ def _weight_codes(w: torch.Tensor, qc: QuantConfig
     return tern.ternarize(w, axis=axes, factor=qc.threshold_factor)
 
 
+def accum_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``einsum`` accumulated and returned in float64: the counterpart of
+    the reference's f32-accumulating ``accum_einsum``, one step wider.
+    Products of bf16 (or f32) values are exact in float64, so a row's
+    result does not depend on the reduction order, i.e. on its batchmates
+    or the shapes around it; callers round where the reference rounds."""
+    return torch.einsum(spec, *(o.to(torch.float64) for o in ops))
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
           bias: Optional[torch.Tensor] = None,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -201,6 +210,15 @@ def init_dense_weight(generator: torch.Generator, shape, dtype,
     for i in range(shape[0]):
         out[i] = init_dense_weight(generator, shape[1:], dtype, device)
     return out
+
+
+def init_mlp(generator: torch.Generator, d: int, f: int, dtype, device,
+             lead=()):
+    """SwiGLU weights ``w_gate``/``w_up`` (d, f) and ``w_down`` (f, d),
+    stacked (lead..., K, N) for a layer stack."""
+    return {name: init_dense_weight(generator, lead + shape, dtype, device)
+            for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                ("w_down", (f, d)))}
 
 
 def mlp(params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:

@@ -1,0 +1,159 @@
+"""Token-choice top-k Mixture-of-Experts, deepseek-v2 / grok-1 style (port
+of ``repro/models/moe.py``, one routing group: the port has no mesh).
+
+Dispatch is the reference's capacity-buffer formulation: each (token,
+expert) assignment takes the next free row of its expert's ``cap`` rows
+in an (E·cap + 1, D) buffer, assignments past ``cap`` go to the one
+overflow row and are dropped (the residual path keeps the token), the
+experts run batched over E, and the outputs are gathered back by slot
+and combined with the router gates. Every shape is fixed by (tokens,
+config), never by the routing: a decode step that routes is captured
+into a CUDA graph like any other.
+
+The routed-expert products are plain PyTorch, as they are ``jnp``
+outside any Pallas kernel in the reference: per expert, per-out-channel
+ternarized weights (:func:`_tern3`) and, under the CiM modes, the
+reference's two-product form p = x·w, m = |x|·|w|, each rounded to the
+activation dtype, combined as min((m+p)/2, 2^14) − min((m−p)/2, 2^14).
+They accumulate in float64 so that a token's result does not depend on
+its slot in the buffer or on ``cap``, both of which change between a
+batched prefill and a solo ``generate()``. A float64 copy of a whole
+expert stack does not fit the card (10 GB for one deepseek-v2 layer's
+``w_gate``, 13 GB for grok-1's), so the experts go through in chunks of
+as many as fit :data:`CHUNK_BYTES` of float64 weights, at least one
+(grok-1's one expert matrix is 1.6 GB in float64). The shared experts
+are an ordinary MLP of dense layers (kernel #1 on the card).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import ternary as tern
+from repro_torch.models import layers as L
+
+# moe leaves that the reference keeps in float32 under any config dtype
+F32_LEAVES = ("router",)
+# float64 weight bytes a chunk of experts takes in _expert_matmul (or one
+# expert's, where that is more)
+CHUNK_BYTES = 1 << 30
+_CLAMP = 2.0 ** 14
+
+
+def moe_capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    """Rows per expert in the dispatch buffer (at least 8)."""
+    cap = int(n_tokens * cfg.top_k * cfg.moe_capacity_factor / cfg.n_experts)
+    return max(cap, 8)
+
+
+def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype, device,
+             layers: int) -> Dict[str, torch.Tensor]:
+    """Stacked (layers, ...) seeded weights: the router (D, E) in float32
+    (:data:`F32_LEAVES`), the expert stacks ``w_gate``/``w_up`` (E, D, F)
+    and ``w_down`` (E, F, D), and the shared experts' MLP of width
+    ``expert_d_ff * n_shared_experts`` when the config has any."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    lead = (layers,)
+    p = {name: L.init_dense_weight(
+            generator, lead + shape,
+            torch.float32 if name in F32_LEAVES else dtype, device)
+         for name, shape in (("router", (d, e)), ("w_gate", (e, d, f)),
+                             ("w_up", (e, d, f)), ("w_down", (e, f, d)))}
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_mlp(generator, d, f * cfg.n_shared_experts, dtype,
+                                 device, lead)
+    return p
+
+
+def _tern3(w: torch.Tensor) -> torch.Tensor:
+    """Per-expert, per-out-channel ternarization of (E, K, N), the scale
+    folded into the ternary weight (the reference's value, without its
+    STE: the port does not train)."""
+    t, scale = tern.ternarize(w, axis=(1,))
+    return t * scale
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor, qc: L.QuantConfig
+                   ) -> torch.Tensor:
+    """x (E, C, K) against the expert stack w (E, K, N): (E, C, N) in x's
+    dtype, the reference's ``emm`` (see the module docstring), over
+    chunks of experts each ternarized and widened to float64 on its own
+    (ternarization is per expert, so a chunk's codes are the stack's)."""
+    e, k, n = w.shape
+    step = max(1, CHUNK_BYTES // (8 * k * n))
+    out = torch.empty((e, x.shape[1], n), dtype=x.dtype, device=x.device)
+    for e0 in range(0, e, step):
+        xc, wc = x[e0:e0 + step], w[e0:e0 + step]
+        if qc.mode != "off":
+            wc = _tern3(wc)
+        w64 = wc.to(x.dtype).to(torch.float64)
+        p = torch.matmul(xc.to(torch.float64), w64).to(x.dtype)
+        if qc.mode not in ("cim", "cim_fused"):
+            out[e0:e0 + step] = p
+            continue
+        m = torch.matmul(xc.abs().to(torch.float64), w64.abs_()).to(x.dtype)
+        pf, mf = p.to(torch.float32), m.to(torch.float32)
+        out[e0:e0 + step] = (torch.clamp((mf + pf) * 0.5, max=_CLAMP)
+                             - torch.clamp((mf - pf) * 0.5, max=_CLAMP))
+    return out
+
+
+def _expert_ffn(params, xe: torch.Tensor, qc: L.QuantConfig) -> torch.Tensor:
+    """xe (E, C, D) -> (E, C, D): every expert's SwiGLU FFN on its rows."""
+    g = _expert_matmul(xe, params["w_gate"], qc)
+    u = _expert_matmul(xe, params["w_up"], qc)
+    return _expert_matmul(L.swiglu(g, u), params["w_down"], qc)
+
+
+def route(params, xt: torch.Tensor, cfg: ArchConfig):
+    """Routing of tokens xt (T, D): returns ``(gates, slot, keep)`` over
+    the T·K assignments in token order (token i's top-k at [i·K,
+    (i+1)·K)): the renormalized top-k gates (f32), each assignment's
+    row in the (E·cap + 1, D) buffer (E·cap, the overflow row, where
+    dropped) and whether it was kept. The router logits come from x
+    against the router cast to x's dtype, accumulated in float64, then
+    softmax, top-k and renormalization."""
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(t, cfg)
+    logits = L.accum_einsum("td,de->te", xt, params["router"].to(xt.dtype))
+    top_g, top_e = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
+    flat_e = top_e.reshape(t * k)
+    # position within the expert's buffer: a cumsum over one-hot rows
+    onehot = (flat_e[:, None] == torch.arange(e, device=xt.device)).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos, e * cap)
+    return top_g.reshape(t * k).to(torch.float32), slot, keep
+
+
+def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D): route, dispatch into the capacity buffer,
+    run the experts, gather back and combine, plus the shared experts.
+
+    Each token's K contributions are summed in rank order in x's dtype,
+    as the reference's in-order scatter-add (``out.at[tok_id].add``)
+    rounds them; no atomic ``index_add_``, whose bf16 sums would depend
+    on timing on the card."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    cap = moe_capacity(t, cfg)
+    xt = x.reshape(t, d)
+    gates, slot, keep = route(params, xt, cfg)
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    # rows are unique but for the overflow row, which is discarded
+    buf[slot] = xt.repeat_interleave(k, dim=0)
+    ye = _expert_ffn(params, buf[:e * cap].reshape(e, cap, d), cfg.quant)
+    ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
+    weight = (gates * keep.to(torch.float32)).to(ye.dtype)
+    contrib = (ye[slot] * weight[:, None]).reshape(t, k, d)
+    out = torch.zeros_like(xt)
+    for j in range(k):
+        out = out + contrib[:, j]
+    if cfg.n_shared_experts:
+        out = out + L.mlp(params["shared"], xt, cfg.quant)
+    return out.reshape(b, s, d)

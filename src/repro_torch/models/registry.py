@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> config (port of
-``repro/models/registry.py``). The dense, ssm and hybrid families are
-ported; archs of the other families raise."""
+``repro/models/registry.py``). The dense, ssm, hybrid and moe families
+are ported; archs of the other families (encdec, vlm) raise."""
 from __future__ import annotations
 
 import importlib
@@ -21,7 +21,7 @@ ARCH_IDS = (
 )
 
 PORTED = ("smollm-135m", "starcoder2-7b", "starcoder2-15b", "yi-34b",
-          "mamba2-780m", "zamba2-2.7b")
+          "mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b", "grok-1-314b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:

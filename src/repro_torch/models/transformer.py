@@ -1,12 +1,14 @@
-"""Model assembly for the dense, SSM (mamba2) and hybrid (zamba2)
-families (port of ``repro/models/transformer.py``).
+"""Model assembly for the dense, SSM (mamba2), hybrid (zamba2) and MoE
+(deepseek-v2 with MLA, grok-1) families (port of
+``repro/models/transformer.py``).
 
 Entry points:
   * init_params(cfg, seed=, device=)   — params, stacked-layer layout
   * forward(params, tokens, cfg)       — teacher-forced logits
-  * init_caches(cfg, batch, s_max)     — stacked decode caches: KV (bf16
-                                         or quantized, cfg.quant.cache_dtype),
-                                         SSM (f32), or hybrid's pair
+  * init_caches(cfg, batch, s_max)     — stacked decode caches: KV or MLA
+                                         (bf16 or quantized,
+                                         cfg.quant.cache_dtype), SSM (f32),
+                                         or hybrid's pair
   * decode_step(params, tokens, caches, index, cfg, start=) — cached step
 
 Params are nested dicts with the JAX package's stacked layout (e.g.
@@ -25,12 +27,13 @@ from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models import ssm
 
 UNEMBED_OFF = L.QuantConfig(mode="off")
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -67,19 +70,13 @@ def cache_leaves(tree) -> Iterator[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _init_mlp(g: torch.Generator, cfg: ArchConfig, dtype, dev, lead=()):
-    d = cfg.d_model
-    return {name: L.init_dense_weight(g, lead + shape, dtype, dev)
-            for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
-                                ("w_down", (cfg.d_ff, d)))}
-
-
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: DeviceLike = None) -> Dict:
     """Seeded random params on ``device`` (default ``cuda``; raises
     without CUDA unless ``device="cpu"``): ``blocks/{ln1, ln2, attn,
-    mlp}`` for dense, ``blocks/{ln1, mamba}`` for ssm and hybrid, and
-    hybrid's one ``shared_attn/{ln1, ln2, attn, mlp}``."""
+    mlp}`` for dense, ``blocks/{ln1, ln2, attn, moe}`` for moe (``attn``
+    MLA's weights where ``cfg.mla``), ``blocks/{ln1, mamba}`` for ssm and
+    hybrid, and hybrid's one ``shared_attn/{ln1, ln2, attn, mlp}``."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -88,17 +85,21 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     embed = torch.randn((cfg.vocab, d), generator=g, device=dev) * 0.02
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
     params = {"embed": embed.to(dtype), "final_norm": ones(d)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         params["blocks"] = {"ln1": ones(n, d), "ln2": ones(n, d),
-                            "attn": attn.init_gqa(g, cfg, dtype, dev, n),
-                            "mlp": _init_mlp(g, cfg, dtype, dev, (n,))}
+                            "attn": (attn.init_mla if cfg.mla else attn.init_gqa)(
+                                g, cfg, dtype, dev, n)}
+        if cfg.n_experts:
+            params["blocks"]["moe"] = moe.init_moe(g, cfg, dtype, dev, n)
+        else:
+            params["blocks"]["mlp"] = L.init_mlp(g, d, cfg.d_ff, dtype, dev, (n,))
     else:
         params["blocks"] = {"ln1": ones(n, d),
                             "mamba": ssm.init_mamba2(g, cfg, dtype, dev, n)}
     if cfg.family == "hybrid":
         params["shared_attn"] = {"ln1": ones(d), "ln2": ones(d),
                                  "attn": attn.init_gqa(g, cfg, dtype, dev),
-                                 "mlp": _init_mlp(g, cfg, dtype, dev)}
+                                 "mlp": L.init_mlp(g, d, cfg.d_ff, dtype, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_dense_weight(g, (d, cfg.vocab), dtype, dev)
     return params
@@ -115,16 +116,20 @@ def apply_block(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                 cache_index, start: Optional[torch.Tensor] = None):
     """One decoder or mamba layer; returns (x, cache). A mamba layer
     given a cache and ``start`` treats the columns of negative position
-    (the left pad) as inert."""
+    (the left pad) as inert. A decoder layer attends with MLA where
+    ``cfg.mla``, else GQA, and runs the MoE block where it has one, else
+    the MLP."""
     h = L.rms_norm(x, p["ln1"])
     if "mamba" in p:
         valid = positions >= 0 if cache is not None and start is not None else None
         out, cache = ssm.mamba2_block(p["mamba"], h, cfg, cache, valid=valid)
         return x + out, cache
-    a, cache = attn.gqa_attention(p["attn"], h, cfg, positions, cache,
-                                  cache_index, start)
+    attend = attn.mla_attention if cfg.mla else attn.gqa_attention
+    a, cache = attend(p["attn"], h, cfg, positions, cache, cache_index, start)
     x = x + a
     h = L.rms_norm(x, p["ln2"])
+    if "moe" in p:
+        return x + moe.moe_block(p["moe"], h, cfg), cache
     return x + L.mlp(p["mlp"], h, cfg.quant), cache
 
 
@@ -181,6 +186,14 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def _kv_caches(cfg: ArchConfig, batch: int, s_max: int, dtype, dev, layers: int):
     cd = cfg.quant.cache_dtype
+    if cfg.mla:
+        if cd == "bf16":
+            return attn.MLACache.zeros(batch, s_max, cfg.kv_lora_rank,
+                                       cfg.qk_rope_head_dim, dtype=dtype,
+                                       device=dev, layers=layers)
+        return attn.QuantMLACache.zeros(batch, s_max, cfg.kv_lora_rank,
+                                        cfg.qk_rope_head_dim, cd, device=dev,
+                                        layers=layers)
     if cd == "bf16":
         return attn.KVCache.zeros(batch, s_max, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, dtype=dtype,
@@ -201,6 +214,11 @@ def init_caches(cfg: ArchConfig, batch: int, s_max: int,
     or uint8 with Dh halved) and (L, B, S_max) f32 scales, made as zero
     codes (ternary: bytes 0x11) with scales 1.0. An offset past the cache
     is clamped to its last slots.
+    moe: the same KV caches (grok-1), or under ``cfg.mla`` (deepseek-v2)
+    an :class:`~repro_torch.models.attention.MLACache` of the latent
+    (L, B, S_max, kv_lora) and the rope key (L, B, S_max, Dr), or its
+    :class:`~repro_torch.models.attention.QuantMLACache` with (L, B,
+    S_max) scales, by ``cache_dtype`` as above.
     ssm: a :class:`~repro_torch.models.ssm.SSMCache` (conv window and
     state), f32 under any ``cache_dtype`` (small, rewritten every step,
     and recurrent: quantization error would compound).
@@ -209,7 +227,7 @@ def init_caches(cfg: ArchConfig, batch: int, s_max: int,
     Decode writes them in place."""
     _check_family(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _kv_caches(cfg, batch, s_max, dtype, dev, cfg.n_layers)
     ssm_caches = ssm.SSMCache.zeros(batch, cfg, device=dev, layers=cfg.n_layers)
     if cfg.family == "ssm":

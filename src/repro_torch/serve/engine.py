@@ -10,9 +10,10 @@ per step (``host_syncs``). On the card the decode step runs as one
 captured CUDA graph (``serve.graph``), the counterpart of the
 reference's jitted step; prefill runs eagerly. ``fused=False`` serves
 the reference's per-slot loop instead, the measured baseline of the old
-formulation. The caches are KV caches (bf16 or quantized,
+formulation. The caches are KV or MLA caches (bf16 or quantized,
 ``cache_dtype``), SSM caches, or hybrid's pair of them, walked leaf by
-leaf with ``transformer.map_caches``/``cache_leaves``.
+leaf with ``transformer.map_caches``/``cache_leaves``; nothing here is
+specific to a family (the moe family's routing is inside its step).
 ``serve_step`` and ``make_jit_serve_step`` are the reference's
 single-step entry points. Not ported yet: TP and the profiler hooks.
 """
@@ -211,7 +212,7 @@ class ContinuousBatcher:
     the first decode step and replayed at every later one: per step the
     host copies the tokens, positions and starts from pinned buffers into
     the graph's static tensors, replays it, and fetches the tokens. The
-    caches (KV, SSM, or hybrid's pair of them; every leaf has its slots
+    caches (KV, MLA, SSM, or hybrid's pair of them; every leaf has its slots
     on axis 1) keep their storage for the batcher's life (prefill writes
     the filled rows into them in place). Sampling is part of the graph:
     at ``temperature > 0`` the batcher's generator is registered with it,
@@ -236,7 +237,8 @@ class ContinuousBatcher:
     ``cache_dtype`` overrides ``cfg.quant.cache_dtype``: "bf16" (the
     config's default) stores k/v as they are; "int8" and "ternary" store
     codes with one f32 scale per (row, position)
-    (``attention.QuantKVCache``), quantized on write and dequantized
+    (``attention.QuantKVCache``, MLA's ``QuantMLACache``), quantized on
+    write and dequantized
     inside the attention contractions. Prefill's fresh caches follow it,
     so a refilled slot is rebuilt in that layout: zero codes (ternary:
     bytes 0x11) and scales 1.0 beyond what its prefill wrote.

@@ -566,8 +566,13 @@ def test_cuda_cim_kernel_bit_exact_at_ssm_widths(cuda_device, k, n):
 
 
 def _macs_per_step(cfg):
-    """#1 launches per decode step or prefill batch: 2 per mamba layer
-    (w_in, w_out), 7 per application of zamba2's shared block."""
+    """#1 launches per decode step or prefill batch: 7 per dense layer, 2
+    per mamba layer (w_in, w_out), 7 per application of zamba2's shared
+    block; per moe layer the attention's projections (3 MLA, 4 GQA) and
+    the shared experts' MLP (3) where there is one (the routed experts
+    are plain products)."""
+    if cfg.family == "moe":
+        return ((3 if cfg.mla else 4) + (3 if cfg.n_shared_experts else 0)) * cfg.n_layers
     if cfg.family == "dense":
         return 7 * cfg.n_layers
     return 2 * cfg.n_layers + (7 * (cfg.n_layers // cfg.hybrid_attn_every)
@@ -627,3 +632,56 @@ def test_cuda_zamba2_capacity_mix_finishes(cuda_device):
         want = generate(params, [r.prompt], cfg, max_new=len(r.generated), s_max=8,
                         device=cuda_device)[0].tolist()
         assert r.generated == want, r.rid
+
+
+# the moe family's dense layers: deepseek-v2's wq, w_dkv, wo and shared MLP
+# (gate/up 5120 -> 3072, down 3072 -> 5120), grok-1's wq/wo and wk/wv
+MOE_SHAPES = [(5120, 24576), (5120, 576), (16384, 5120), (5120, 3072), (3072, 5120),
+              (6144, 6144), (6144, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MOE_SHAPES)
+def test_cuda_cim_kernel_bit_exact_at_moe_widths(cuda_device, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device, dtype=torch.int8)
+    for m in (1, 4, 16, 64):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+        assert torch.equal(tm.ternary_cim_matmul(x, w), tm.ternary_cim_matmul_plain(x, w)), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cache_dtype", [("deepseek-v2-236b", "bf16"),
+                                              ("deepseek-v2-236b", "int8"),
+                                              ("grok-1-314b", "bf16")])
+def test_cuda_moe_captured_step_matches_generate(cuda_device, arch, cache_dtype):
+    """The captured step over the routed MoE block (and MLA's latent
+    cache) at 4 slots: tokens == the eager step's == generate()'s at 1
+    row under per_row and the capacity factor n_experts / top_k (no
+    assignment drops), #1 launched _macs_per_step x (decode steps +
+    prefill batches) and no other kernel, cache storage kept."""
+    cfg = get_config(arch, smoke=True)
+    cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k,
+                      quant=dataclasses.replace(cfg.quant, act_scale="per_row",
+                                                cache_dtype=cache_dtype))
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    got = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=32, device=cuda_device)
+        batcher._decode.graphed = graphed
+        ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
+        before = _launches()
+        got[graphed] = _serve(batcher, n=7)
+        st = batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        moved = [a - b for a, b in zip(_launches(), before)]
+        assert moved == [_macs_per_step(cfg) * steps, 0, 0, 0, 0]
+        assert [a.data_ptr() for a in T.cache_leaves(batcher.caches)] == ptrs
+        assert (batcher._decode.graph is not None) == graphed
+    assert got[True] == got[False]
+    reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
+                    max_new=3 + i % 4) for i in range(7)]
+    for r, toks in zip(reqs, got[True]):
+        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert toks == want, r.rid

@@ -35,7 +35,8 @@ def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"execution.py", "engine.py", "chip_smoke.py", "_build.py",
             "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py", "ssm.py",
-            "mamba2_780m.py", "zamba2_2_7b.py"} <= names
+            "mamba2_780m.py", "zamba2_2_7b.py", "moe.py", "deepseek_v2_236b.py",
+            "grok_1_314b.py"} <= names
 
 
 @pytest.fixture
@@ -57,11 +58,12 @@ def test_entry_points_raise_without_cuda(no_cuda):
         T.init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({"embed": np.zeros((2, 2), np.float32)}, cfg)
-    mamba = get_config("mamba2-780m", smoke=True)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        T.init_params(mamba)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        T.init_caches(mamba, 1, 8)
+    for arch in ("mamba2-780m", "deepseek-v2-236b", "grok-1-314b"):
+        other = get_config(arch, smoke=True)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T.init_params(other)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T.init_caches(other, 1, 8)
     params = T.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousBatcher(params, cfg)
