@@ -98,7 +98,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      replayed step (busy, idle share, #1's share) and the same requests
      under mode "off". The kernel phase bit-checks #1 at every (K, N) of
      both at M in {1, 4, 16, 64} and times one layer's calls of each
-     ("deepseek_v2_236b", "grok_1_314b" in the kernels line).
+     ("deepseek_v2_236b", "grok_1_314b" in the kernels line);
+ 15. (run after phase 16) full-size whisper-large-v3 (32 encoder and 32
+     decoder layers, d 1280,
+     nothing cut), seeded random weights and seeded frame embeddings (4,
+     1500, 1280) for 4 requests: run_encoder (#1 launched 224 a run, the
+     median of 3); a 4-row prompt of 8 tokens, 8 new each, through
+     make_jit_serve_step(enc=) (captured) and serve_step (eager): tokens
+     equal, #1 launched 352 in the prefill and every step (the cross K/V
+     recomputed from enc each step, as in the reference) and nothing else,
+     cache storage kept, the exact KV bytes per slot; generate(enc=) under
+     per_row, rows together == each alone; a profiled replayed step; the
+     step under mode "off"; the batcher (no enc, as the reference's) on 4
+     token requests, captured == eager;
+ 16. llava-next-34b at full width, 8 of its 60 layers (the whole model is
+     69 GB in bf16): forward with seeded patches (1, 2880, 1024) and 16
+     tokens (logits (1, 2896, 64000) finite, #1 launched 57 a run, the
+     median of 3 and the peak memory), then phase 14's batcher checks
+     under the bf16 KV cache. The kernel phase bit-checks #1 at both
+     models' (K, N) (and llava's projector) at M in 1-16, 32, 64 and at
+     the prefill-scale M in {1500, 1501, 2896, 2897}, whisper's also at
+     {6000, 6001}, the projector's at 2880 (the plain version over row
+     slices), and times one layer's calls of each at M=4 and at M=6000
+     (whisper's encoder run) and M=2896 (llava's forward), against the
+     bytes bound and the operations bound ("whisper_large_v3",
+     "whisper_large_v3_prefill", "llava_next_34b", "llava_next_34b_prefill"
+     in the kernels line).
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -159,6 +184,37 @@ DEEPSEEK_SHAPES = (("wq", 5120, 24576), ("w_dkv", 5120, 576), ("wo", 16384, 5120
 GROK_SHAPES = (("wq", 6144, 6144), ("wk", 6144, 1024), ("wv", 6144, 1024),
                ("wo", 6144, 6144))
 MOE_CHECK_SHAPES = tuple(dict.fromkeys((k, n) for _, k, n in DEEPSEEK_SHAPES + GROK_SHAPES))
+# one whisper-large-v3 block's quantized dense layers (d 1280, 20 heads of
+# 64, d_ff 5120): the encoder's self-attention and the decoder's self and
+# cross attention share the q/k/v/o shapes. The unembedding (1280, 51866)
+# runs under mode "off", not through #1
+WHISPER_SHAPES = (("q", 1280, 1280), ("k", 1280, 1280), ("v", 1280, 1280),
+                  ("o", 1280, 1280), ("gate", 1280, 5120), ("up", 1280, 5120),
+                  ("down", 5120, 1280))
+# one llava-next-34b decoder layer's (its Yi-34B backbone: d 7168, 56/8
+# heads of 128, d_ff 20480); the projector is (1024, 7168)
+LLAVA_SHAPES = (("q", 7168, 7168), ("k", 7168, 1024), ("v", 7168, 1024),
+                ("o", 7168, 7168), ("gate", 7168, 20480), ("up", 7168, 20480),
+                ("down", 20480, 7168))
+LLAVA_PROJECTOR = (1024, 7168)
+ENCDEC_VLM_CHECK_SHAPES = tuple(dict.fromkeys(
+    (k, n) for _, k, n in WHISPER_SHAPES + LLAVA_SHAPES)) + (LLAVA_PROJECTOR,)
+# M of the #1 checks at the whisper/llava widths, every M their phases
+# give it: up to 64, decode (4 slots, 1 row in generate()), the batcher's
+# prefill (4 slots x a pow2 bucket <= 16), generate()'s one prompt of
+# 1-16 tokens, phase 15's prompts of 8 tokens (4 rows, 1 row); then the
+# prefill-scale M at every whisper and llava (K,N): whisper's encoder and
+# cross K/V at 1500 rows a request, llava's forward at 2880 image + 16
+# text rows; at whisper's (K,N) also 4 requests' 6000 rows (the encoder
+# run and the cross K/V of every captured step), at the projector's its
+# 2880 image rows. 1501, 2897 and 6001 leave the last 32-row tile partial
+ENCDEC_VLM_CHECK_M = tuple(range(1, 17)) + (32, 64)
+PREFILL_CHECK_M = (1500, 1501, 2896, 2897)
+WHISPER_ENC_M = 4 * 1500
+LLAVA_FORWARD_M = 2896
+PATH_CHECK_M = dict.fromkeys(((k, n) for _, k, n in WHISPER_SHAPES),
+                             (WHISPER_ENC_M, WHISPER_ENC_M + 1))
+PATH_CHECK_M[LLAVA_PROJECTOR] = (2880,)
 # the layer shapes, then ragged ones that cut across #1's and #5's K split
 # and column tiles: K=16 (one block), N=8 (half a tile), 37 blocks of 16
 # (prime: no split divides it) by N=200 (12.5 tiles)
@@ -179,7 +235,10 @@ L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
 # the kernel phase's per-model timings: tag -> model
 MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
               "zamba2_2_7b": "zamba2-2.7b", "deepseek_v2_236b": "deepseek-v2-236b",
-              "grok_1_314b": "grok-1-314b"}
+              "grok_1_314b": "grok-1-314b", "whisper_large_v3": "whisper-large-v3",
+              "whisper_large_v3_prefill": "whisper-large-v3",
+              "llava_next_34b": "llava-next-34b",
+              "llava_next_34b_prefill": "llava-next-34b"}
 
 
 def fail(msg: str) -> None:
@@ -444,6 +503,27 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
     log(f"kernels: #1 bit-exact at the mamba2/zamba2 widths (K,N) in "
         f"{list(SSM_CHECK_SHAPES)} and the deepseek-v2/grok-1 widths "
         f"{list(MOE_CHECK_SHAPES)}, M in {list(SSM_CHECK_M)} (tolerance 0)")
+    # the whisper/llava widths, also at prefill-scale M: the kernel runs at
+    # the full (M, K, N), its plain version over slices of x's rows
+    # (ternary_mac.PLAIN_SLICE_BYTES), since at once it would not fit
+    t0 = time.perf_counter()
+    for k, n in ENCDEC_VLM_CHECK_SHAPES:
+        w = tern((k, n))
+        for m in ENCDEC_VLM_CHECK_M + PREFILL_CHECK_M + PATH_CHECK_M.get((k, n), ()):
+            x = tern((m, k))
+            check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
+                  tm.ternary_cim_matmul_plain(x, w), f"M={m} K={k} N={n}")
+            del x
+        del w
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    log(f"kernels: #1 bit-exact at the whisper-large-v3/llava-next-34b widths "
+        f"(K,N) in {list(ENCDEC_VLM_CHECK_SHAPES)}, M in "
+        f"{list(ENCDEC_VLM_CHECK_M + PREFILL_CHECK_M)}, and also at "
+        + ", ".join(f"{kn} M in {list(ms)}" for kn, ms in PATH_CHECK_M.items())
+        + f" (tolerance 0; plain version over row slices of <= "
+        f"{tm.PLAIN_SLICE_BYTES >> 30} GiB of intermediates) in "
+        f"{time.perf_counter() - t0:.1f} s")
     log("kernels: #1, #2, #3, #4 and #5 bit-exact against their plain versions "
         f"at (K,N) in {list(CHECK_SHAPES)}, M in {list(CHECK_M)} (#2 and #3 at "
         f"M <= {decode_m_max}, #2 also on unaligned planes, #3 at nbuf 2 and 3 "
@@ -468,8 +548,10 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
     # timing: one decoder layer's 7 calls, each at its own (K, N); #1 and
     # #5 also at prefill M (TIMED_PREFILL_M), as "prefill_ms"; #1 also at
     # #4's M (TIMED_PLANES_M), as "cim_at_planes_m"; #1 and #5 also at
-    # starcoder2-7b's layer (M=4), as "starcoder2_7b" (bit-checked there
-    # on the timed inputs, like every timed shape)
+    # starcoder2-7b's layer (M=4), as "starcoder2_7b"; #1 at each later
+    # model's layer, at M=4 and for whisper and llava also at their
+    # prefill M (bit-checked on the timed inputs, like every timed shape;
+    # at prefill M the plain version runs once per timing, over row slices)
     per_kernel = {}
     cim_at_planes_m = None
     stream_vs_decode = None
@@ -487,7 +569,13 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             ("ternary_cim_matmul", 4, MAMBA2_SHAPES, "mamba2_780m"),
             ("ternary_cim_matmul", 4, ZAMBA2_SHAPES, "zamba2_2_7b"),
             ("ternary_cim_matmul", 4, DEEPSEEK_SHAPES, "deepseek_v2_236b"),
-            ("ternary_cim_matmul", 4, GROK_SHAPES, "grok_1_314b")):
+            ("ternary_cim_matmul", 4, GROK_SHAPES, "grok_1_314b"),
+            ("ternary_cim_matmul", 4, WHISPER_SHAPES, "whisper_large_v3"),
+            ("ternary_cim_matmul", WHISPER_ENC_M, WHISPER_SHAPES,
+             "whisper_large_v3_prefill"),
+            ("ternary_cim_matmul", 4, LLAVA_SHAPES, "llava_next_34b"),
+            ("ternary_cim_matmul", LLAVA_FORWARD_M, LLAVA_SHAPES,
+             "llava_next_34b_prefill")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in shapes:
@@ -502,7 +590,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                 ref = tm.ternary_cim_matmul_plain if name == "ternary_cim_matmul" \
                     else tm.exact_matmul_plain
                 calls = [lambda c=c: fn(x, ws[c]) for c in range(copies)]
-                plain = [lambda: ref(x, ws[0])] * 10
+                # at prefill-scale M one plain call takes seconds: time one
+                plain = [lambda: ref(x, ws[0])] * (1 if m > 1024 else 10)
                 want = plain[0]()
                 dots = 2 if name == "ternary_cim_matmul" else 1
                 tb, to = bound_parts(m * k + k * n, 4 * m * n, m, k, n, dots)
@@ -549,7 +638,7 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
                     want = plain[0]().to(torch.int32 if decode else torch.float32)
             check(name, calls[0](), want, f"the timed inputs {label} M={m}")
             t_k = graph_ms(torch, calls)
-            t_p = graph_ms(torch, plain)
+            t_p = graph_ms(torch, plain, reps=1 if len(plain) == 1 else 5)
             if name == "packed_cim_matmul_decode_stream":
                 extra = f", #2 on the same planes {t_d * 1e3:.2f} us"
             log(f"{name} {label} M={m} K={k} N={n}: {t_k * 1e3:.2f} us/call "
@@ -569,8 +658,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         elif tag == "planes_m":
             cim_at_planes_m = {f: pk[f] for f in ("m", "ms", "plain_ms", "bound_ms")}
         elif tag in MODEL_TAGS:
-            per_kernel[name][tag] = {f: pk[f] for f in (
-                "m", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            per_kernel[name][tag] = dict({f: pk[f] for f in (
+                "m", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                bytes_ms=t_bytes, ops_ms=t_ops)
         else:
             per_kernel[name] = dict(pk, prefill_ms=None)
         extra = ""
@@ -588,7 +678,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         layer = f"one {MODEL_TAGS[tag]} layer's" if tag in MODEL_TAGS else "one layer's"
         log(f"{name}: {layer} {len(shapes)} calls at M={m}: {pk['ms']:.4f} ms "
             f"(plain {pk['plain_ms']:.4f} ms, bound {pk['bound_ms']:.5f} ms "
-            f"by {pk['bound_by']}{extra})")
+            f"by {pk['bound_by']}: bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms; "
+            f"{100 * pk['bound_ms'] / pk['ms']:.1f}% of the bound{extra})")
     torch.cuda.empty_cache()
     return per_kernel, errs, {"library_call": lib_name,
                               "stream_vs_decode": stream_vs_decode,
@@ -637,11 +728,14 @@ def drive(torch, batcher, reqs):
     return time.perf_counter() - t0, step_ms
 
 
-def profile_decode_step(torch, batcher, top=6):
-    """One decode step of ``batcher`` under torch.profiler (CUPTI), after
-    a first step that fills the slots (and, for a captured batcher,
-    captures the step); the step after it is timed between two CUDA
-    events. Returns a dict: wall ms under the profiler; device-busy ms,
+def profile_step(torch, step, top=6, drain=False):
+    """One call of ``step`` (a batcher's ``step``, or a serve step) under
+    torch.profiler (CUPTI), after a first call that fills the slots (and,
+    for a captured step, captures it); the call after it is timed between
+    two CUDA events. The wall time ends where ``step`` returns (a batcher
+    step ends in its host fetch) or, with ``drain``, for a call that
+    returns before its kernels end, after a device synchronize.
+    Returns a dict: wall ms under the profiler; device-busy ms,
     the sum over the device-side rows (kernels, copies) only; the sum
     over all rows, which also counts each kernel again under the host op
     that launched it (the figure PR 14 recorded); the top device rows;
@@ -650,16 +744,18 @@ def profile_decode_step(torch, batcher, top=6):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batcher.step()
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batcher.step()
+        step()
+        if drain:
+            torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    batcher.step()
+    step()
     end.record()
     end.synchronize()
     rows, all_rows = [], 0.0
@@ -678,9 +774,30 @@ def profile_decode_step(torch, batcher, top=6):
             "span_ms": start.elapsed_time(end)}
 
 
+def busy_line(prof, median) -> str:
+    """A :func:`profile_step` result against the unprofiled median of the
+    same call: device-busy, #1's share, the idle share, the CUDA-event
+    span of the next call and the top device rows."""
+    return (f"{prof['busy_ms']:.3f} ms device-busy, of which #1 {prof['mac_ms']:.3f} ms "
+            f"x{prof['mac_launches']} ({100 * prof['mac_ms'] / prof['busy_ms']:.1f}%); "
+            f"busy over the unprofiled median {median:.2f} ms: "
+            f"{100 * prof['busy_ms'] / median:.1f}% (idle share "
+            f"{100 * (1 - prof['busy_ms'] / median):.1f}%); the next call spans "
+            f"{prof['span_ms']:.3f} ms between CUDA events; top device time: "
+            + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof["top"]))
+
+
+def profiled(prof) -> dict:
+    """A :func:`profile_step` result for the --out JSON."""
+    return dict({k: v for k, v in prof.items() if k != "top"},
+                top=[[k[:120], ms, n] for ms, n, k in prof["top"]])
+
+
 def macs_per_step(cfg) -> int:
-    """MAC launches per decode step or prefill batch, one per quantized
-    dense layer: 7 per decoder layer (210 for smollm-135m), 2 per mamba
+    """MAC launches per decode step or prefill batch of the batcher, one
+    per quantized dense layer: 7 per decoder layer (210 for smollm-135m;
+    the batcher serves whisper-large-v3 without cross attention and
+    llava-next-34b's token stream, so 7 for theirs too), 2 per mamba
     layer (w_in, w_out: 96 for mamba2-780m), 7 per application of
     zamba2's shared block (2 x 54 + 7 x 9 = 171); per moe layer the
     attention's projections (MLA's wq, w_dkv, wo; GQA's 4) and the shared
@@ -688,7 +805,7 @@ def macs_per_step(cfg) -> int:
     grok-1 layer (the routed experts are plain products)."""
     if cfg.family == "moe":
         return ((3 if cfg.mla else 4) + (3 if cfg.n_shared_experts else 0)) * cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "encdec", "vlm"):
         return 7 * cfg.n_layers
     shared = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     return 2 * cfg.n_layers + 7 * shared
@@ -815,7 +932,7 @@ def profile_line(torch, params, cfg, spec, mac, numbers, dev) -> dict:
         batcher._decode.graphed = graphed
         for r in make_requests(Request, cfg.vocab, seed=3, n=4):
             batcher.submit(r)
-        p = profile_decode_step(torch, batcher)
+        p = profile_step(torch, batcher.step)
         if graphed and batcher.capture_seconds is None:
             fail("profiled step: the decode step was not captured")
         what = "replayed" if graphed else "eager"
@@ -1140,7 +1257,7 @@ def starcoder2_phase(torch, tm, pm, card, dev) -> dict:
                                 device=dev)
     for r in four_requests(Request, cfg.vocab):
         batcher.submit(r)
-    prof = profile_decode_step(torch, batcher)
+    prof = profile_step(torch, batcher.step)
     if batcher.capture_seconds is None:
         fail("starcoder2-7b profiled step: the decode step was not captured")
     del batcher
@@ -1248,7 +1365,7 @@ def ssm_family_phase(torch, tm, pm, card, dev, arch) -> dict:
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev)
     for r in make_requests(Request, cfg.vocab, seed=3, n=4):
         batcher.submit(r)
-    prof = profile_decode_step(torch, batcher, top=10)
+    prof = profile_step(torch, batcher.step, top=10)
     if batcher.capture_seconds is None:
         fail(f"{arch} profiled step: the decode step was not captured")
     del batcher
@@ -1275,7 +1392,7 @@ def ssm_family_phase(torch, tm, pm, card, dev, arch) -> dict:
     batcher = ContinuousBatcher(params, off, n_slots=4, s_max=256, device=dev)
     for r in make_requests(Request, cfg.vocab, seed=3, n=4):
         batcher.submit(r)
-    prof_off = profile_decode_step(torch, batcher, top=10)
+    prof_off = profile_step(torch, batcher.step, top=10)
     del batcher
     out["mode_off"] = {"captured_step_ms": statistics.median(step_ms),
                        "busy_ms": prof_off["busy_ms"],
@@ -1293,14 +1410,16 @@ def ssm_family_phase(torch, tm, pm, card, dev, arch) -> dict:
     return out
 
 
-# phase 14: the moe family. The published widths of each config (checked
-# against it before the cut), the depth it is cut to (the whole model does
-# not fit one 80 GB card: 472 GB and 629 GB in bf16), and the exact cache
-# bytes per slot at s_max 128 by cache dtype (deepseek: layers x 128 x
-# (512 + 64) codes at 2, 1 or 1/2 bytes, plus 2 f32 scales a position for
-# the quantized caches; grok: layers x k, v x 128 x 8 heads x 128 x 2
-# bytes), and the cache dtypes served
-MOE_ARCHS = {
+# phases 14 and 16: the moe family and llava, whole models that do not fit
+# one 80 GB card (472 GB, 629 GB and 69 GB in bf16). The published widths
+# of each config (checked against it before the cut), the depth it is cut
+# to, and the exact cache bytes per slot at s_max 128 by cache dtype
+# (deepseek: layers x 128 x (512 + 64) codes at 2, 1 or 1/2 bytes, plus 2
+# f32 scales a position for the quantized caches; grok and llava: layers
+# x k, v x 128 x 8 heads x 128 x 2 bytes), and the cache dtypes served.
+# llava's cut: 60 layers are 34.4 B params, 69 GB in bf16, which leaves
+# no room on the card for a step's ternarized copies; 8 layers are 5.39 B
+CUT_ARCHS = {
     "deepseek-v2-236b": dict(
         fields=dict(n_layers=60, d_model=5120, n_heads=128, mla=True, kv_lora_rank=512,
                     q_lora_rank=0, qk_rope_head_dim=64, qk_nope_head_dim=128,
@@ -1315,6 +1434,12 @@ MOE_ARCHS = {
                     expert_d_ff=32768, vocab=131072, tie_embeddings=False,
                     moe_capacity_factor=1.25),
         layers=2, cache_bytes={"bf16": 1_048_576}, served=("bf16",)),
+    "llava-next-34b": dict(
+        fields=dict(n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8,
+                    resolved_head_dim=128, d_ff=20480, vocab=64000,
+                    n_image_tokens=2880, d_vision=1024, rope_theta=5e6,
+                    tie_embeddings=False),
+        layers=8, cache_bytes={"bf16": 4_194_304}, served=("bf16",)),
 }
 
 
@@ -1354,29 +1479,94 @@ def prefill_drops(torch, params, cfg, reqs, dev) -> dict:
     return out
 
 
-def moe_family_phase(torch, tm, pm, card, dev, arch) -> dict:
-    """Phase 14 for one arch of MOE_ARCHS: the published widths checked,
-    the depth cut, seeded random weights; per served cache dtype, phase
-    11's 4 requests through captured and eager batchers (4 slots, s_max
-    128; tokens equal, #1 launched macs_per_step x steps, no other
-    kernel, cache storage kept), the exact cache bytes per slot and the
-    peak memory; the drops of a batched prefill under the config's
-    capacity factor; a per_row batcher == generate() under the factor
-    n_experts / top_k; a profiled replayed step; the requests again
-    under mode "off"."""
-    from repro_torch.models import transformer as T
-    from repro_torch.models.registry import get_config
+def batcher_checks(torch, tm, pm, card, dev, arch, params, cfg, row_cfg, served,
+                   out) -> None:
+    """The batcher part of phases 14 and 16, into ``out``: per cache dtype
+    of ``served``, phase 11's 4 requests through captured and eager
+    batchers (4 slots, s_max 128; tokens equal, #1 launched
+    macs_per_step x steps, no other kernel, cache storage kept) with the
+    peak memory; a ``row_cfg`` (per_row) batcher == generate(); a
+    profiled replayed step (busy, idle share, #1's share); the same
+    requests under mode "off", captured and profiled."""
     from repro_torch.serve.engine import ContinuousBatcher, Request, generate
 
-    want = MOE_ARCHS[arch]
+    per_step = macs_per_step(cfg)
+    for cd in served:
+        torch.cuda.reset_peak_memory_stats()
+        got, st, line, numbers = serve_captured_and_eager(
+            torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+            f"{arch} {cd} serving", dev, cache_dtype=cd, n_slots=4, s_max=128,
+            requests=four_requests)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch} ({cfg.n_layers} layers) {cd} cache on {card}: {line}; kernel #1 "
+            f"launches {got['ternary_cim_matmul']} = {per_step} x "
+            f"{st['decode_steps'] + st['prefill_batches']}; "
+            f"{out['bytes_per_slot'][cd]} cache bytes per slot at s_max 128; peak "
+            f"device memory while serving {peak / 1e9:.2f} GB")
+        out[cd] = dict(numbers, peak_bytes=peak, launches=got["ternary_cim_matmul"])
+    batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=128, device=dev)
+    token_identity(torch, batcher, four_requests(Request, cfg.vocab, seed=1), params,
+                   row_cfg, generate, None, f"{arch} token identity" + (
+                       f" (capacity factor {row_cfg.moe_capacity_factor:g})"
+                       if cfg.n_experts else ""))
+    del batcher
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, device=dev)
+    for r in four_requests(Request, cfg.vocab, seed=3):
+        batcher.submit(r)
+    prof = profile_step(torch, batcher.step, top=10)
+    if batcher.capture_seconds is None:
+        fail(f"{arch} profiled step: the decode step was not captured")
+    del batcher
+    median = out["bf16"]["captured_step_ms"]
+    log(f"{arch} profiled replayed decode step (4 slots, bf16 cache): "
+        f"{busy_line(prof, median)}")
+    out["profiled"] = profiled(prof)
+    # mode "off": bf16 dense matmuls and no ternarization anywhere; what is
+    # left is the attention (MLA or GQA), for moe the routing and the
+    # float64 expert products over the raw weights, and the float64
+    # unembedding
+    off = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
+    secs, step_ms = drive(torch, batcher, four_requests(Request, cfg.vocab))
+    if batcher.capture_seconds is None or not all(r is None for r in batcher.slot_req):
+        fail(f"{arch} mode off: the step was not captured or a request did not finish")
+    del batcher
+    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
+    for r in four_requests(Request, cfg.vocab, seed=3):
+        batcher.submit(r)
+    prof_off = profile_step(torch, batcher.step, top=10)
+    del batcher
+    out["mode_off"] = {"captured_step_ms": statistics.median(step_ms),
+                       "busy_ms": prof_off["busy_ms"],
+                       "top": [[k[:120], ms, n] for ms, n, k in prof_off["top"]]}
+    log(f"{arch} with mode off (bf16 dense matmuls, no ternarization, bf16 cache): "
+        f"captured step {out['mode_off']['captured_step_ms']:.2f} ms median against "
+        f"{median:.2f} ms under mode cim; profiled replayed step "
+        f"{prof_off['busy_ms']:.3f} ms device-busy; top device time: "
+        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof_off["top"]))
+
+
+def cut_model_phase(torch, tm, pm, card, dev, arch) -> dict:
+    """Phase 14 or 16 for one arch of CUT_ARCHS: the published widths
+    checked, the depth cut, seeded random weights, the exact cache bytes
+    per slot; for llava :func:`vlm_forward`; :func:`batcher_checks` with
+    a per_row batcher (moe: under the capacity factor n_experts / top_k);
+    for moe the drops of a batched prefill under the config's capacity
+    factor."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import Request
+
+    want = CUT_ARCHS[arch]
     full = get_config(arch)
     fields = {f: getattr(full, f) for f in want["fields"]}
     if fields != want["fields"]:
         fail(f"{arch}: not the published widths: {fields}")
     cfg = full.replace(n_layers=want["layers"])
     t_phase = time.perf_counter()
-    log(f"{arch}: published widths {fields}; {full.param_count() / 1e9:.1f} B params "
-        f"({full.active_param_count() / 1e9:.1f} B active) over {full.n_layers} layers, "
+    log(f"{arch}: published widths {fields}; {full.param_count() / 1e9:.2f} B params "
+        f"({full.active_param_count() / 1e9:.1f} B active, "
+        f"{2 * full.param_count() / 1e9:.1f} GB in bf16) over {full.n_layers} layers, "
         f"cut to {cfg.n_layers} layers for one 80 GB card: {cfg.param_count() / 1e9:.2f} "
         f"B params, widths unchanged")
     torch.cuda.empty_cache()
@@ -1399,80 +1589,272 @@ def moe_family_phase(torch, tm, pm, card, dev, arch) -> dict:
         del caches
         if per_slot != expect:
             fail(f"{arch} {cd} cache: {per_slot} bytes per slot, expected {expect}")
-    for cd in want["served"]:
-        torch.cuda.reset_peak_memory_stats()
-        got, st, line, numbers = serve_captured_and_eager(
-            torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
-            f"{arch} {cd} serving", dev, cache_dtype=cd, n_slots=4, s_max=128,
-            requests=four_requests)
-        peak = torch.cuda.max_memory_allocated()
-        log(f"{arch} ({cfg.n_layers} layers) {cd} cache on {card}: {line}; kernel #1 "
-            f"launches {got['ternary_cim_matmul']} = {per_step} x "
-            f"{st['decode_steps'] + st['prefill_batches']}; "
-            f"{out['bytes_per_slot'][cd]} cache bytes per slot at s_max 128; peak "
-            f"device memory while serving {peak / 1e9:.2f} GB")
-        out[cd] = dict(numbers, peak_bytes=peak, launches=got["ternary_cim_matmul"])
-    drops = prefill_drops(torch, params, cfg, four_requests(Request, cfg.vocab), dev)
-    if drops["decode"]:
-        fail(f"{arch}: a decode step of 4 tokens dropped {drops['decode']} assignments")
-    out["drops"] = drops
-    log(f"{arch} under the config's capacity factor {cfg.moe_capacity_factor}: the "
-        f"batched prefill of phase 14's 4 requests (4 slots x a 16-token bucket, "
-        f"left pad routed like real tokens) dropped {drops['prefill']} of "
-        f"{drops['prefill_assignments']} (token, expert) assignments over "
-        f"{cfg.n_layers} layers; the decode step after it none")
-    row_cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k,
-                          quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
-    batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=128, device=dev)
-    token_identity(torch, batcher, four_requests(Request, cfg.vocab, seed=1), params,
-                   row_cfg, generate, None,
-                   f"{arch} token identity (capacity factor {row_cfg.moe_capacity_factor:g})")
-    del batcher
-    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, device=dev)
-    for r in four_requests(Request, cfg.vocab, seed=3):
-        batcher.submit(r)
-    prof = profile_decode_step(torch, batcher, top=10)
-    if batcher.capture_seconds is None:
-        fail(f"{arch} profiled step: the decode step was not captured")
-    del batcher
-    median = out["bf16"]["captured_step_ms"]
-    log(f"{arch} profiled replayed decode step (4 slots, bf16 cache): "
-        f"{prof['busy_ms']:.3f} ms device-busy, of which #1 {prof['mac_ms']:.3f} ms "
-        f"x{prof['mac_launches']} ({100 * prof['mac_ms'] / prof['busy_ms']:.1f}%); busy "
-        f"over the unprofiled median step {median:.2f} ms: "
-        f"{100 * prof['busy_ms'] / median:.1f}% (idle share "
-        f"{100 * (1 - prof['busy_ms'] / median):.1f}%); the next step spans "
-        f"{prof['span_ms']:.3f} ms between CUDA events; top device time: "
-        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof["top"]))
-    out["profiled"] = {k: v for k, v in prof.items() if k != "top"}
-    out["profiled"]["top"] = [[k[:120], ms, n] for ms, n, k in prof["top"]]
-    # mode "off": bf16 dense matmuls and no ternarization anywhere; what is
-    # left is MLA or GQA, the routing, the float64 expert products over the
-    # raw weights and the float64 unembedding
-    off = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
-    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
-    secs, step_ms = drive(torch, batcher, four_requests(Request, cfg.vocab))
-    if batcher.capture_seconds is None or not all(r is None for r in batcher.slot_req):
-        fail(f"{arch} mode off: the step was not captured or a request did not finish")
-    del batcher
-    batcher = ContinuousBatcher(params, off, n_slots=4, s_max=128, device=dev)
-    for r in four_requests(Request, cfg.vocab, seed=3):
-        batcher.submit(r)
-    prof_off = profile_decode_step(torch, batcher, top=10)
-    del batcher
-    out["mode_off"] = {"captured_step_ms": statistics.median(step_ms),
-                       "busy_ms": prof_off["busy_ms"],
-                       "top": [[k[:120], ms, n] for ms, n, k in prof_off["top"]]}
-    log(f"{arch} with mode off (bf16 dense matmuls, no ternarization, bf16 cache): "
-        f"captured step {out['mode_off']['captured_step_ms']:.2f} ms median against "
-        f"{median:.2f} ms under mode cim; profiled replayed step "
-        f"{prof_off['busy_ms']:.3f} ms device-busy; top device time: "
-        + "; ".join(f"{k[:100]} {ms:.3f} ms x{n}" for ms, n, k in prof_off["top"]))
+    if cfg.family == "vlm":
+        out["forward"] = vlm_forward(torch, tm, pm, params, cfg, card, dev)
+    row_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    if cfg.n_experts:
+        row_cfg = row_cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    batcher_checks(torch, tm, pm, card, dev, arch, params, cfg, row_cfg,
+                   want["served"], out)
+    if cfg.n_experts:
+        out["drops"] = drops = prefill_drops(torch, params, cfg,
+                                             four_requests(Request, cfg.vocab), dev)
+        if drops["decode"]:
+            fail(f"{arch}: a decode step of 4 tokens dropped {drops['decode']} "
+                 f"assignments")
+        log(f"{arch} under the config's capacity factor {cfg.moe_capacity_factor}: "
+            f"the batched prefill of phase 14's 4 requests (4 slots x a 16-token "
+            f"bucket, left pad routed like real tokens) dropped {drops['prefill']} of "
+            f"{drops['prefill_assignments']} (token, expert) assignments over "
+            f"{cfg.n_layers} layers; the decode step after it none")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"{arch} ({cfg.n_layers} of {full.n_layers} layers, {n_bytes / 1e9:.2f} GB of "
         f"weights, initialized in {init_s:.1f} s at a peak of {init_peak / 1e9:.2f} GB): "
         f"phase wall time {out['wall_s']:.1f} s")
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def expect_launches(tm, pm, n: int, label: str) -> None:
+    """Fail unless #1 was launched ``n`` times since the counts were set to
+    0, and no other kernel."""
+    got = counts(tm, pm)
+    others = {k: v for k, v in got.items() if k != "ternary_cim_matmul" and v}
+    if got["ternary_cim_matmul"] != n or others:
+        fail(f"{label}: launches {got}, expected #1 x {n} and nothing else")
+
+
+def vlm_forward(torch, tm, pm, params, cfg, card, dev) -> dict:
+    """Phase 16's forward: seeded patches (1, n_image_tokens, d_vision) in
+    bf16 and 16 text tokens; logits (1, n_image_tokens + 16, vocab),
+    finite; #1 launched 1 + 7 x layers times a run (the projector, then
+    every decoder layer's dense layers at M = n_image_tokens + 16) and no
+    other kernel; the median of 3 runs and the peak memory."""
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    patches = torch.randn((1, cfg.n_image_tokens, cfg.d_vision), generator=g,
+                          device=dev).to(torch.bfloat16)
+    tokens = torch.randint(1, cfg.vocab, (1, 16), generator=g, device=dev)
+    n = 1 + macs_per_step(cfg)
+    shape = (1, cfg.n_image_tokens + 16, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        reset_counts(tm, pm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = T.forward(params, tokens, cfg, patches=patches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        expect_launches(tm, pm, n, "llava forward")
+        if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+            fail(f"llava forward: logits {tuple(logits.shape)}, want {shape} finite")
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(torch, lambda: T.forward(params, tokens, cfg, patches=patches),
+                        top=10, drain=True)
+    log(f"llava-next-34b ({cfg.n_layers} layers) forward on {card}: patches "
+        f"{tuple(patches.shape)} bf16 + 16 tokens -> logits {shape}, finite; #1 "
+        f"launched {n} = 1 + 7 x {cfg.n_layers} times a run at M = "
+        f"{cfg.n_image_tokens} and {shape[1]}, no other kernel; "
+        f"{statistics.median(ms):.2f} ms median of 3 runs ({', '.join(f'{t:.2f}' for t in ms)}); "
+        f"peak device memory {peak / 1e9:.2f} GB")
+    log(f"llava-next-34b profiled forward: {busy_line(prof, statistics.median(ms))}")
+    return {"ms": statistics.median(ms), "runs_ms": ms, "launches": n,
+            "peak_bytes": peak, "m": shape[1], "profiled": profiled(prof)}
+
+
+# phase 15: whisper-large-v3 at full size, nothing cut: the published
+# widths, the reference's param_count (tests/test_torch_encdec.py) and the
+# bf16 KV bytes a slot at s_max 128 (32 layers x k, v x 128 x 20 heads x
+# 64 x 2 bytes)
+WHISPER_FIELDS = dict(n_layers=32, n_encoder_layers=32, d_model=1280, n_heads=20,
+                      n_kv_heads=20, resolved_head_dim=64, d_ff=5120, vocab=51866,
+                      encoder_seq=1500, tie_embeddings=False)
+WHISPER_PARAMS = 2_020_213_760
+WHISPER_KV_BYTES_PER_SLOT = 20_971_520
+
+
+def whisper_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 15: full-size whisper-large-v3, seeded random weights and 4
+    requests' seeded frame embeddings (4, 1500, 1280) bf16, standing in
+    for the reference's stubbed conv frontend. ``run_encoder`` 3 times
+    (#1 launched 7 x 32 a run, no other kernel; the median); a 4-row
+    prompt of 8 tokens and 8 new tokens each through
+    ``make_jit_serve_step(enc=)`` (captured) and through ``serve_step``
+    (eager) on caches of their own: #1 launched 11 x 32 in the prefill
+    and in every step and nothing else, tokens equal, cache storage
+    kept, the exact bytes per slot; ``generate(enc=)`` under per_row, the
+    4 rows together == each row alone (its own encoder run); a profiled
+    replayed step; the step under mode "off"; the batcher (no enc, as
+    the reference's) on 4 token-only requests, captured == eager."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import engine as E
+
+    cfg = get_config("whisper-large-v3")
+    fields = {f: getattr(cfg, f) for f in WHISPER_FIELDS}
+    if fields != WHISPER_FIELDS or cfg.param_count() != WHISPER_PARAMS:
+        fail(f"not the full-size whisper-large-v3 config: {fields}, "
+             f"{cfg.param_count()} params")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(15)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    if frames.shape[0] * frames.shape[1] != WHISPER_ENC_M:
+        fail(f"whisper frames {tuple(frames.shape)}: not the M = {WHISPER_ENC_M} "
+             f"the kernel phase checked and timed")
+    prompt = torch.randint(1, cfg.vocab, (4, 8), generator=g, device=dev)
+    enc_macs, step_macs = 7 * cfg.n_encoder_layers, 11 * cfg.n_layers
+    out = {"param_bytes": n_bytes, "init_s": init_s, "macs_per_step": step_macs,
+           "encoder_launches": enc_macs}
+
+    enc_ms = []
+    for _ in range(3):
+        reset_counts(tm, pm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = T.run_encoder(params, frames, cfg)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        expect_launches(tm, pm, enc_macs, "whisper encoder")
+    if enc.shape != frames.shape or enc.dtype != frames.dtype or not bool(
+            torch.isfinite(enc).all()):
+        fail(f"whisper encoder output {tuple(enc.shape)} {enc.dtype} is not finite "
+             f"of the frames' shape")
+    out["encoder_ms"] = statistics.median(enc_ms)
+    log(f"whisper-large-v3 encoder on {card}: 4 x {cfg.encoder_seq} frames, #1 "
+        f"launched {enc_macs} = 7 x {cfg.n_encoder_layers} times a run at M = "
+        f"{4 * cfg.encoder_seq}, no other kernel; {out['encoder_ms']:.2f} ms median "
+        f"of 3 runs ({', '.join(f'{t:.2f}' for t in enc_ms)})")
+    prof = profile_step(torch, lambda: T.run_encoder(params, frames, cfg), top=10,
+                        drain=True)
+    out["encoder_profiled"] = profiled(prof)
+    log(f"whisper-large-v3 profiled encoder run: {busy_line(prof, out['encoder_ms'])}")
+
+    def serve(step, caches, qcfg, macs, label):
+        """The prompt's prefill (eager), then 7 steps through ``step``;
+        returns the tokens (4, 8), each step's ms and #1's launches summed
+        over the counts read after the prefill and after every step."""
+        reset_counts(tm, pm)
+        logits, _ = E.prefill(params, prompt, caches, qcfg, enc)
+        expect_launches(tm, pm, macs, f"{label} prefill")
+        launched = counts(tm, pm)["ternary_cim_matmul"]
+        tok = E.sample(logits, None)
+        toks, ms = [tok], []
+        for i in range(7):
+            reset_counts(tm, pm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = step(tok, caches, prompt.shape[1] + i)
+            tok = E.sample(logits[:, -1:], None)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            expect_launches(tm, pm, macs, f"{label} step {i}")
+            launched += counts(tm, pm)["ternary_cim_matmul"]
+            toks.append(tok)
+        return torch.cat(toks, dim=1), ms, launched
+
+    runs = {}
+    for graphed in (True, False):
+        caches = T.init_caches(cfg, 4, 128, device=dev)
+        per_slot = cache_bytes(T, caches) // 4
+        if per_slot != WHISPER_KV_BYTES_PER_SLOT:
+            fail(f"whisper cache: {per_slot} bytes per slot, expected "
+                 f"{WHISPER_KV_BYTES_PER_SLOT}")
+        ptrs = [a.data_ptr() for a in T.cache_leaves(caches)]
+        if graphed:
+            jit = E.make_jit_serve_step(cfg)
+            step = lambda tok, c, i: jit(params, tok, c, i, enc=enc)  # noqa: E731
+        else:
+            step = lambda tok, c, i: E.serve_step(params, tok, c, i, cfg,  # noqa: E731
+                                                  enc=enc)
+        label = "whisper captured" if graphed else "whisper eager"
+        toks, ms, launched = serve(step, caches, cfg, step_macs, label)
+        if [a.data_ptr() for a in T.cache_leaves(caches)] != ptrs:
+            fail(f"{label}: a cache leaf changed its storage")
+        runs[graphed] = (toks, ms, caches, step, launched)
+    if not torch.equal(runs[True][0], runs[False][0]):
+        fail(f"whisper: captured tokens {runs[True][0].tolist()} != eager "
+             f"{runs[False][0].tolist()}")
+    cap_ms, eager_ms = runs[True][1], runs[False][1]
+    # launches: the eager prefill and the 7 captured steps after it
+    out["captured"] = {"step_ms": statistics.median(cap_ms[1:]),
+                       "first_call_ms": cap_ms[0], "launches": runs[True][4]}
+    out["eager"] = {"step_ms": statistics.median(eager_ms)}
+    out["bytes_per_slot"] = WHISPER_KV_BYTES_PER_SLOT
+    log(f"whisper-large-v3 serving with the encoder output on {card}: a 4-row prompt "
+        f"of 8 tokens, 8 new tokens each; #1 launched {step_macs} = 11 x "
+        f"{cfg.n_layers} times in the prefill and in every step (self q/k/v/o, "
+        f"cross q/k/v/o with k and v at M = {4 * cfg.encoder_seq}, MLP), no other "
+        f"kernel; captured (make_jit_serve_step(enc=)) step "
+        f"{out['captured']['step_ms']:.2f} ms median of 6 replays (first call, "
+        f"warm-up and capture, {cap_ms[0]:.1f} ms); eager (serve_step) "
+        f"{out['eager']['step_ms']:.2f} ms median of 7; tokens identical "
+        f"{runs[True][0].tolist()}; cache storage kept; {per_slot} bf16 KV bytes per "
+        f"slot at s_max 128")
+
+    caches, step = runs[True][2], runs[True][3]
+    tok = runs[True][0][:, -1:]
+    prof = profile_step(torch, lambda: step(tok, caches, 15), top=10, drain=True)
+    median = out["captured"]["step_ms"]
+    out["profiled"] = profiled(prof)
+    log(f"whisper-large-v3 profiled replayed step (4 rows, with enc): "
+        f"{busy_line(prof, median)}")
+    del runs, caches, step, jit
+
+    # mode "off": bf16 dense matmuls (the cross K/V projections included),
+    # no ternarization
+    off = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
+    caches = T.init_caches(off, 4, 128, device=dev)
+    jit_off = E.make_jit_serve_step(off)
+    _, off_ms, _ = serve(lambda tok, c, i: jit_off(params, tok, c, i, enc=enc),
+                         caches, off, 0, "whisper mode off")
+    out["mode_off"] = {"captured_step_ms": statistics.median(off_ms[1:])}
+    log(f"whisper-large-v3 with mode off (bf16 dense matmuls, no ternarization): "
+        f"captured step {out['mode_off']['captured_step_ms']:.2f} ms median against "
+        f"{median:.2f} ms under mode cim")
+    del caches, jit_off
+
+    # per_row: no activation scale couples the rows, so each row served
+    # alone (its own encoder run) gives the batched rows' tokens
+    row_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    batched = E.generate(params, prompt, row_cfg, max_new=8, s_max=128, device=dev,
+                         enc=T.run_encoder(params, frames, row_cfg))
+    for i in range(4):
+        solo = E.generate(params, prompt[i:i + 1], row_cfg, max_new=8, s_max=128,
+                          device=dev, enc=T.run_encoder(params, frames[i:i + 1], row_cfg))
+        if not torch.equal(solo[0], batched[i]):
+            fail(f"whisper per_row: row {i} alone {solo[0].tolist()} != batched "
+                 f"{batched[i].tolist()}")
+    log(f"whisper-large-v3 generate(enc=) under act_scale=per_row: the 4 rows "
+        f"together == each row alone with its own encoder run "
+        f"({batched.tolist()})")
+
+    got, st, line, numbers = serve_captured_and_eager(
+        torch, tm, pm, params, cfg, None, "ternary_cim_matmul",
+        "whisper-large-v3 batcher", dev, n_slots=4, s_max=128, requests=four_requests)
+    out["batcher"] = dict(numbers, launches=got["ternary_cim_matmul"])
+    log(f"whisper-large-v3 batcher (token requests, no enc: the decoder without "
+        f"cross attention, as the reference's batcher) on {card}: {line}; kernel #1 "
+        f"launches {got['ternary_cim_matmul']} = {macs_per_step(cfg)} x "
+        f"{st['decode_steps'] + st['prefill_batches']}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"whisper-large-v3 (32 + 32 layers, {cfg.param_count() / 1e9:.3f} B params, "
+        f"{n_bytes / 1e9:.2f} GB of weights, initialized in {init_s:.1f} s): peak "
+        f"device memory {out['peak_bytes'] / 1e9:.2f} GB; phase wall time "
+        f"{out['wall_s']:.1f} s")
+    del params, enc
     torch.cuda.empty_cache()
     return out
 
@@ -1548,12 +1930,17 @@ def main(argv=None) -> int:
             launches=serving[tag]["bf16"]["launches"],
             launches_per_step=serving[tag]["macs_per_step"])
     serving["capacity_zamba2"] = zamba2_capacity(torch, torch.device("cuda"))
-    for arch in MOE_ARCHS:
+    for arch in CUT_ARCHS:
         tag = arch.replace("-", "_").replace(".", "_")
-        serving[tag] = moe_family_phase(torch, tm, pm, card, torch.device("cuda"), arch)
+        serving[tag] = cut_model_phase(torch, tm, pm, card, torch.device("cuda"), arch)
         per_kernel["ternary_cim_matmul"][tag].update(
             launches=serving[tag]["bf16"]["launches"],
             launches_per_step=serving[tag]["macs_per_step"])
+    serving["whisper_large_v3"] = whisper = whisper_phase(torch, tm, pm, card,
+                                                          torch.device("cuda"))
+    per_kernel["ternary_cim_matmul"]["whisper_large_v3"].update(
+        launches=whisper["captured"]["launches"],
+        launches_per_step=whisper["macs_per_step"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

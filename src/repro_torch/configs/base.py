@@ -1,8 +1,9 @@
 """Architecture configuration schema (port of ``repro/configs/base.py``).
 
-The port keeps its own copy of the fields the ported model families
-(dense, ssm, hybrid, moe) read; families not ported yet (encdec, vlm)
-keep only their name in ``family``.
+The port keeps its own copy of the reference's fields, for every family
+of its registry: dense, ssm, hybrid, moe, encdec (whisper) and vlm
+(llava). ``norm`` is kept as the reference keeps it: no block reads it
+(every block uses ``rms_norm``, whisper's included).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from repro_torch.models.layers import QuantConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | ssm | hybrid | moe (the families ported)
+    family: str                  # dense | ssm | hybrid | moe | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,6 +25,7 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None        # defaults to d_model // n_heads
     rope_theta: float = 10000.0
+    norm: str = "rmsnorm"                 # rmsnorm | layernorm (read by no block)
     tie_embeddings: bool = False
     # --- MoE ---
     n_experts: int = 0
@@ -47,6 +49,12 @@ class ArchConfig:
     ssm_expand: int = 2
     # --- hybrid (zamba2): shared attention block every k mamba layers ---
     hybrid_attn_every: int = 6
+    # --- encdec (whisper) ---
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500               # precomputed frame embeddings
+    # --- vlm (llava-next) ---
+    n_image_tokens: int = 0
+    d_vision: int = 1024                  # patch-embedding width (stub)
     quant: QuantConfig = QuantConfig(mode="off")
     quantize_unembed: bool = False
     # 0 = full attention (materialized scores); > 0 = online-softmax
@@ -87,21 +95,29 @@ class ArchConfig:
         return d * h * (dn + dr) + kv
 
     def param_count(self) -> int:
-        """Parameter count of the ported families, as the reference counts
-        it: projections and embeddings only (no norms, conv or SSM
-        vectors); hybrid adds its one shared attention block and MLP, moe
-        counts every expert, the shared experts and the router."""
+        """Parameter count, as the reference counts it: projections and
+        embeddings only (no norms, conv or SSM vectors, nor whisper's
+        ``enc_pos``); hybrid adds its one shared attention block and MLP,
+        moe counts every expert, the shared experts and the router,
+        encdec its encoder blocks and every decoder layer's cross
+        attention, vlm its projector."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         emb = v * d * (1 if self.tie_embeddings else 2)
         attn = self._attn_params()
-        if self.family in ("dense", "moe"):
+        if self.family in ("dense", "moe", "encdec", "vlm"):
             if self.n_experts:
                 ffn = (3 * d * self.expert_d_ff
                        * (self.n_experts + self.n_shared_experts)
                        + d * self.n_experts)
             else:
                 ffn = 3 * d * f
-            return int(emb + self.n_layers * (attn + ffn))
+            total = emb + self.n_layers * (attn + ffn)
+            if self.family == "encdec":
+                total += self.n_encoder_layers * (4 * d * d + 3 * d * f)
+                total += self.n_layers * 4 * d * d       # cross attention
+            if self.family == "vlm":
+                total += self.d_vision * d               # projector
+            return int(total)
         di = self.ssm_d_inner
         mamba = (d * (2 * di + 2 * self.ssm_n_groups * self.ssm_state
                       + self.ssm_n_heads) + di * d)

@@ -26,15 +26,35 @@ from repro_torch.kernels.ref import pad_axis, ref_cim_matmul, ref_exact_matmul
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
+# the C entries take M, K and N as int; the tile kernels index memory
+# with size_t offsets (ternary_tile.cuh), so only the extents themselves
+# and the grid's row tiles (CUDA's grid y) are limited. The largest call
+# the served models make, llava-next-34b's MLP at 4 x 2896 rows, has
+# M*K = 237 M, under 2^31 as well.
+INT_MAX = 2 ** 31 - 1
+GRID_Y_MAX = 65535
+
+
+# the plain MAC materializes about six f32 (rows, K/16, N) tensors, so it
+# runs over slices of x's rows (independent of each other) whose
+# intermediates stay within this many bytes: at prefill M one call at
+# once would take ~100 GB (llava-next-34b's MLP at M = 2897)
+PLAIN_SLICE_BYTES = 4 << 30
 
 
 def ternary_cim_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                              block: int = DEFAULT_BLOCK,
                              adc_max: int = DEFAULT_ADC_MAX) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x (M, K), w (K, N) ternary
-    codes of any dtype (K zero-extended to whole blocks) -> f32 (M, N)."""
-    return ref_cim_matmul(pad_axis(x, block, 1), pad_axis(w, block, 0),
-                          block=block, adc_max=adc_max)
+    codes of any dtype (K zero-extended to whole blocks) -> f32 (M, N),
+    over slices of x's rows of at most :data:`PLAIN_SLICE_BYTES` of
+    intermediates each."""
+    x, w = pad_axis(x, block, 1), pad_axis(w, block, 0)
+    rows = max(1, PLAIN_SLICE_BYTES // (6 * 4 * (x.shape[1] // block) * w.shape[1] or 1))
+    if x.shape[0] <= rows:
+        return ref_cim_matmul(x, w, block=block, adc_max=adc_max)
+    return torch.cat([ref_cim_matmul(x[i:i + rows], w, block=block, adc_max=adc_max)
+                      for i in range(0, x.shape[0], rows)])
 
 
 def exact_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -72,6 +92,9 @@ def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
     with torch.cuda.device(x.device):
         if plan is None:
             plan = device_plan(m, k, n)
+        if max(m, k, n) > INT_MAX or plan.grid[1] > GRID_Y_MAX:
+            raise ValueError(f"(M, K, N) = {(m, k, n)} is beyond the kernel's int "
+                             f"extents or its grid of {plan.grid}")
         _build.launch(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                       *extra, plan.rows, plan.cluster, _build.stream_ptr(x.device))
     return out, True

@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 8 --slots 4
 
-``--arch`` takes any ported arch of ``models.registry`` (the dense
-configs, ``mamba2-780m``, ``zamba2-2.7b``, ``deepseek-v2-236b`` and
-``grok-1-314b``).
+``--arch`` takes any arch of ``models.registry`` (the dense configs,
+``mamba2-780m``, ``zamba2-2.7b``, ``deepseek-v2-236b``, ``grok-1-314b``,
+``whisper-large-v3`` and ``llava-next-34b``). As the reference's CLI,
+it serves token requests only: whisper as its decoder without cross
+attention (the batcher takes no encoder output), llava as its Yi-34B
+token stream (image patches enter only ``transformer.forward``).
 
 Runs on ``cuda`` by default and exits with an error without CUDA unless
 ``--device cpu`` is given (use it with ``--smoke`` on a CPU host). The

@@ -1,5 +1,5 @@
-"""GQA and MLA attention with bf16 or quantized caches (port of
-``repro/models/attention.py``; cross attention is not ported yet).
+"""GQA, MLA and cross attention, with bf16 or quantized caches (port of
+``repro/models/attention.py``).
 
 Weight projections route through ``layers.dense`` so the ternary/CiM
 modes apply; the score/value contractions are activation-activation
@@ -478,3 +478,34 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig,
     w_uv = params["w_uv"].reshape(r, h, dv).to(dt)
     out = L.accum_einsum("bqhr,rhd->bqhd", lat, w_uv).to(dt)
     return L.dense(out.reshape(b, s, h * dv), params["wo"], qc), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper's decoder; its encoder's self-attention)
+# ---------------------------------------------------------------------------
+
+
+def init_cross(generator: torch.Generator, cfg: ArchConfig, dtype, device,
+               layers: Optional[int] = None):
+    """:func:`init_gqa`'s q/k/v/o weights with ``n_heads`` for k and v too
+    (full multi-head attention), stacked (layers, K, N) for a stack."""
+    return init_gqa(generator, cfg.replace(n_kv_heads=cfg.n_heads), dtype, device,
+                    layers)
+
+
+def cross_attention(params, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Queries from x (B, S, D), keys and values from ``enc`` (B, S_enc,
+    D), unmasked, no RoPE. K and V are projected from ``enc`` on every
+    call, as in the reference: there is no cross-KV cache. Every
+    projection is a dense layer (kernel #1 on the card under mode cim);
+    the contractions are :func:`_sdpa`'s, in float64."""
+    b, s, _ = x.shape
+    se = enc.shape[1]
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    qc = cfg.quant
+    q = L.dense(x, params["wq"], qc).reshape(b, s, h, hd)
+    k = L.dense(enc, params["wk"], qc).reshape(b, se, h, hd)
+    v = L.dense(enc, params["wv"], qc).reshape(b, se, h, hd)
+    out = _sdpa(q, k, v, causal_offset=None)
+    return L.dense(out.reshape(b, s, h * hd), params["wo"], qc)

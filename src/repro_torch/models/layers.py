@@ -156,6 +156,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (population variance), rounded
+    to x's dtype before the affine, as the reference's. No block calls
+    it: the reference's blocks all use :func:`rms_norm`."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     # x * 1/(1 + exp(-x)), each step rounded in the input dtype:
     # bit-identical to the reference's bf16 silu on the CPU

@@ -15,7 +15,11 @@ formulation. The caches are KV or MLA caches (bf16 or quantized,
 leaf with ``transformer.map_caches``/``cache_leaves``; nothing here is
 specific to a family (the moe family's routing is inside its step).
 ``serve_step`` and ``make_jit_serve_step`` are the reference's
-single-step entry points. Not ported yet: TP and the profiler hooks.
+single-step entry points; they, ``prefill`` and ``generate`` take
+encdec's encoder output ``enc``, which the batcher does not (as in the
+reference, the batcher serves whisper as its decoder without cross
+attention, and llava as its token stream). Not ported yet: TP and the
+profiler hooks.
 """
 from __future__ import annotations
 
@@ -65,53 +69,65 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=generator)
 
 
-def prefill(params, tokens: torch.Tensor, caches, cfg: ArchConfig):
-    """Run the prompt through the cached path at index 0. Returns
-    (last_logits (B, 1, V), caches)."""
-    logits, caches = T.decode_step(params, tokens, caches, 0, cfg)
+def prefill(params, tokens: torch.Tensor, caches, cfg: ArchConfig,
+            enc: Optional[torch.Tensor] = None):
+    """Run the prompt through the cached path at index 0 (``enc``:
+    encdec's encoder output). Returns (last_logits (B, 1, V), caches)."""
+    logits, caches = T.decode_step(params, tokens, caches, 0, cfg, enc=enc)
     return logits[:, -1:, :], caches
 
 
 def serve_step(params, tokens: torch.Tensor, caches, index, cfg: ArchConfig,
-               start: Optional[torch.Tensor] = None):
+               start: Optional[torch.Tensor] = None,
+               enc: Optional[torch.Tensor] = None):
     """One decode step: tokens (B, S) at cache position ``index`` (a
     Python int or a (B,) tensor; ``start`` (B,) the rows' left-pad dead
-    zones). The caches are updated in place. Returns (logits (B, S, V),
-    caches)."""
-    return T.decode_step(params, tokens, caches, index, cfg, start=start)
+    zones; ``enc`` (B, S_enc, D) encdec's encoder output). The caches are
+    updated in place. Returns (logits (B, S, V), caches)."""
+    return T.decode_step(params, tokens, caches, index, cfg, start=start, enc=enc)
 
 
 def make_jit_serve_step(cfg: ArchConfig):
     """:func:`serve_step` as a captured CUDA graph:
-    ``f(params, tokens, caches, index, start=None) -> (logits, caches)``.
+    ``f(params, tokens, caches, index, start=None, enc=None) -> (logits,
+    caches)``.
 
     On a CUDA device the first call for a (batch, step length, with or
-    without ``start``) warms up on a side stream and captures the step
-    into a ``torch.cuda.CUDAGraph`` (``serve.graph.CapturedStep``); later
-    calls copy their tokens, index and start into the graph's static
-    tensors and replay it. The caches are updated in place (the
-    counterpart of the reference's donated caches), and a graph is bound
-    to the params and caches of its first call: a call with others
+    without ``start``, with or without ``enc``) warms up on a side stream
+    and captures the step into a ``torch.cuda.CUDAGraph``
+    (``serve.graph.CapturedStep``); later calls copy their tokens, index,
+    start and enc into the graph's static tensors and replay it, so the
+    cross attention's K and V are projected from the copied ``enc`` on
+    every replay, as the reference recomputes them every step. The caches
+    are updated in place (the counterpart of the reference's donated
+    caches), and a graph is bound to the params and caches of its first
+    call and to the shape and dtype of its ``enc``: a call with others
     raises. The logits returned are a copy of the graph's output. On the
     CPU (no graphs) every call is :func:`serve_step`."""
     steps: Dict[tuple, tuple] = {}
 
-    def f(params, tokens, caches, index, start=None):
+    def f(params, tokens, caches, index, start=None, enc=None):
         if tokens.device.type != "cuda":
-            return serve_step(params, tokens, caches, index, cfg, start=start)
+            return serve_step(params, tokens, caches, index, cfg, start=start,
+                              enc=enc)
         b, s = tokens.shape
         if not torch.is_tensor(index):
             index = torch.full((b,), int(index), dtype=torch.int64,
                                device=tokens.device)
         index = index.expand(b)
-        args = (tokens, index) if start is None else (tokens, index, start)
-        key = (b, s, start is not None)
+        ints = (tokens, index) if start is None else (tokens, index, start)
+        args = ints if enc is None else ints + (enc,)
+        key = (b, s, start is not None, enc is not None)
         if key not in steps:
-            def body(tok, idx, st=None):
-                return serve_step(params, tok, caches, idx, cfg, start=st)[0]
+            def body(tok, idx, *rest):
+                st = rest[0] if start is not None else None
+                e = rest[-1] if enc is not None else None
+                return serve_step(params, tok, caches, idx, cfg, start=st, enc=e)[0]
 
             inputs = [a.to(device=tokens.device, dtype=torch.int64).clone()
-                      for a in args]
+                      for a in ints]
+            if enc is not None:
+                inputs.append(enc.to(tokens.device).clone())
             steps[key] = (params, caches, CapturedStep(body, inputs, tokens.device))
         bound_params, bound_caches, step = steps[key]
         if params is not bound_params or any(
@@ -120,6 +136,12 @@ def make_jit_serve_step(cfg: ArchConfig):
                                        T.cache_leaves(bound_caches))):
             raise ValueError("a captured serve step is bound to the params and "
                              "caches of its first call")
+        if enc is not None and (enc.shape != step.inputs[-1].shape
+                                or enc.dtype != step.inputs[-1].dtype):
+            raise ValueError(
+                f"a captured serve step is bound to the enc of its first call: "
+                f"{tuple(step.inputs[-1].shape)} {step.inputs[-1].dtype}, got "
+                f"{tuple(enc.shape)} {enc.dtype}")
         for static, a in zip(step.inputs, args):
             static.copy_(a)
         return step().clone(), caches
@@ -149,21 +171,25 @@ def generate(params, prompt, cfg: ArchConfig, max_new: int = 16,
              s_max: int = 128, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              exec_spec: Optional[CiMExecSpec] = None,
-             device: DeviceLike = None) -> torch.Tensor:
+             device: DeviceLike = None,
+             enc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy/temperature generation for a (B, S) prompt on ``device``
-    (default ``cuda``; raises without CUDA unless ``device="cpu"``).
-    Returns (B, max_new) token ids."""
+    (default ``cuda``; raises without CUDA unless ``device="cpu"``),
+    attending to encdec's encoder output ``enc`` (B, S_enc, D) at every
+    step where it is given. Returns (B, max_new) token ids."""
     dev = resolve_device(device)
     cfg = apply_exec_spec(cfg, exec_spec)
     params = _params_to(params, dev)
     prompt = torch.as_tensor(prompt, dtype=torch.int64).to(dev)
+    if enc is not None:
+        enc = enc.to(dev)
     b, s0 = prompt.shape
     caches = T.init_caches(cfg, b, s_max, device=dev)
-    logits, caches = prefill(params, prompt, caches, cfg)
+    logits, caches = prefill(params, prompt, caches, cfg, enc)
     tok = sample(logits, generator, temperature)
     out = [tok]
     for i in range(max_new - 1):
-        logits, caches = T.decode_step(params, tok, caches, s0 + i, cfg)
+        logits, caches = T.decode_step(params, tok, caches, s0 + i, cfg, enc=enc)
         tok = sample(logits, generator, temperature)
         out.append(tok)
     return torch.cat(out, dim=1)

@@ -685,3 +685,91 @@ def test_cuda_moe_captured_step_matches_generate(cuda_device, arch, cache_dtype)
         want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
                         device=cuda_device)[0].tolist()
         assert toks == want, r.rid
+
+
+# whisper-large-v3's and llava-next-34b's (K, N) at prefill-scale M: whisper's
+# encoder and cross K/V run at 1500 rows a request (6000 for 4 requests),
+# llava's forward at 2880 image + 16 text rows (1501, 2897 and 6001 leave
+# the last 32-row tile partial); the plain version runs over slices of x's rows
+WHISPER_KN = [(1280, 1280), (1280, 5120), (5120, 1280)]
+PREFILL_SHAPES = WHISPER_KN + [(7168, 1024), (1024, 7168)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PREFILL_SHAPES)
+def test_cuda_cim_kernel_bit_exact_at_prefill_m(cuda_device, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(k + 3 * n)
+    w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device, dtype=torch.int8)
+    for m in (1501, 2897) + ((6001,) if (k, n) in WHISPER_KN else ()):
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+        assert torch.equal(tm.ternary_cim_matmul(x, w), tm.ternary_cim_matmul_plain(x, w)), m
+
+
+def _encdec_smoke(device, mode="cim"):
+    """whisper smoke at f32: seed-0 weights on ``device``, and 2 requests'
+    seeded frames."""
+    cfg = get_config("whisper-large-v3", smoke=True)
+    cfg = cfg.replace(dtype="float32", quant=dataclasses.replace(cfg.quant, mode=mode))
+    params = T.init_params(cfg, seed=0, device="cpu")
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                         generator=torch.Generator().manual_seed(5))
+    to = lambda tree: {k: to(v) if isinstance(v, dict) else v.to(device)  # noqa: E731
+                       for k, v in tree.items()}
+    return cfg, to(params), frames.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_cross_attention_and_encoder_match_cpu(cuda_device):
+    """f32, mode cim: cross_attention and run_encoder on the card (#1 for
+    every projection) against the port on the CPU at rtol = atol = 1e-4:
+    the norms' means, the ternarization's mean and amax and the float64
+    attention are summed in another order on the card."""
+    from repro_torch.models import attention as attn
+
+    cfg, params, frames = _encdec_smoke(cuda_device)
+    _, cpu_params, cpu_frames = _encdec_smoke("cpu")
+    p = T.layer_params(params["blocks"], 0)["cross"]
+    cpu_p = T.layer_params(cpu_params["blocks"], 0)["cross"]
+    x = frames[:, :5] * 0.5
+    before = tm.ternary_cim_matmul.launches
+    got = attn.cross_attention(p, x, frames, cfg)
+    assert tm.ternary_cim_matmul.launches - before == 4
+    torch.testing.assert_close(got.cpu(), attn.cross_attention(cpu_p, x.cpu(), cpu_frames, cfg),
+                               rtol=1e-4, atol=1e-4)
+    before = tm.ternary_cim_matmul.launches
+    got = T.run_encoder(params, frames, cfg)
+    assert tm.ternary_cim_matmul.launches - before == 7 * cfg.n_encoder_layers
+    torch.testing.assert_close(got.cpu(), T.run_encoder(cpu_params, cpu_frames, cfg),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_jit_serve_step_with_enc_replays_serve_step(cuda_device):
+    """make_jit_serve_step(enc=): the captured step copies enc in and
+    recomputes the cross K/V on every replay (#1 launched 11 x layers a
+    step), == serve_step on its own caches, bit for bit, for a new enc
+    of the bound shape too; an enc of another shape raises."""
+    cfg = get_config("whisper-large-v3", smoke=True)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=cuda_device).to(torch.bfloat16)
+    enc = T.run_encoder(params, frames, cfg)
+    jit = make_jit_serve_step(cfg)
+    mine = T.init_caches(cfg, 2, 32, device=cuda_device)
+    ref = T.init_caches(cfg, 2, 32, device=cuda_device)
+    prompt = torch.randint(1, cfg.vocab, (2, 4), generator=g, device=cuda_device)
+    for caches in (mine, ref):
+        serve_step(params, prompt, caches, 0, cfg, enc=enc)
+    for i in range(4):
+        if i == 2:   # another encoder output of the same shape
+            enc = T.run_encoder(params, frames.flip(1), cfg)
+        tok = torch.randint(1, cfg.vocab, (2, 1), generator=g, device=cuda_device)
+        before = tm.ternary_cim_matmul.launches
+        got, _ = jit(params, tok, mine, 4 + i, enc=enc)
+        assert tm.ternary_cim_matmul.launches - before == 11 * cfg.n_layers
+        want, _ = serve_step(params, tok, ref, 4 + i, cfg, enc=enc)
+        assert torch.equal(got, want), i
+    assert torch.equal(mine.k, ref.k) and torch.equal(mine.v, ref.v)
+    with pytest.raises(ValueError, match="bound to the enc"):
+        jit(params, tok, mine, 9, enc=enc[:, :16])

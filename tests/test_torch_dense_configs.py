@@ -17,7 +17,7 @@ from repro.models import transformer as jT
 from repro.models.registry import get_config as jget_config
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import transformer as tT
-from repro_torch.models.registry import PORTED, get_config
+from repro_torch.models.registry import ARCH_IDS, get_config
 
 ATOL = 1e-5
 ARCHS = ("starcoder2-7b", "starcoder2-15b", "yi-34b")
@@ -39,7 +39,7 @@ def _same_fields(port, ref):
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_jax(arch, smoke):
-    assert arch in PORTED
+    assert arch in ARCH_IDS
     port, ref = get_config(arch, smoke=smoke), jget_config(arch, smoke=smoke)
     _same_fields(port, ref)
     assert not port.tie_embeddings and port.quant.mode == "cim"

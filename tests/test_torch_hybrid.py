@@ -277,14 +277,3 @@ def test_prepare_for_spec_folds_only_projections(models):
     assert batcher.cfg.quant.pre_quantized
     pcfg = _with(batcher.cfg, pre_quantized=True)
     assert [r.generated for r in reqs] == _solos(batcher.params, pcfg, reqs)
-
-
-def test_other_families_still_raise():
-    for arch in ("whisper-large-v3", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_config(arch)
-    cfg = get_config("smollm-135m", smoke=True).replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec family"):
-        tT.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec family"):
-        tT.init_caches(cfg, 1, 8, device="cpu")

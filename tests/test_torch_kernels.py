@@ -41,6 +41,20 @@ def test_cim_plain_matches_pallas(m, bm):
     assert tm.ternary_cim_matmul.launches == before  # the plain path is no launch
 
 
+def test_cim_plain_over_row_slices_matches_pallas(monkeypatch):
+    """At prefill-scale M the plain MAC runs over slices of x's rows (one
+    call's intermediates would not fit); a slice budget of a few rows
+    here, with a partial last slice, gives the Pallas kernel's result."""
+    monkeypatch.setattr(tm, "PLAIN_SLICE_BYTES", 3 * 6 * 4 * 8 * 128)  # 3 rows
+    rng = np.random.default_rng(11)
+    x, w = _tern(rng, (16, 128)), _tern(rng, (128, 128))
+    want = jtm.ternary_cim_matmul(jnp.asarray(x, jnp.bfloat16),
+                                  jnp.asarray(w, jnp.bfloat16),
+                                  bm=16, bk=128, bn=128, interpret=True)
+    got = tm.ternary_cim_matmul_plain(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_cim_plain_ragged_edges():
     rng = np.random.default_rng(5)
     x, w = _tern(rng, (3, 40)), _tern(rng, (40, 9))

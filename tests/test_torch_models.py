@@ -43,8 +43,8 @@ def test_smoke_config_matches_jax():
     assert (full.n_layers, full.d_model, full.vocab, full.quant.mode) == \
         (30, 576, 49152, "cim")
     assert full.param_count() == jget_config("smollm-135m").param_count()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("whisper-large-v3")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-tiny")
 
 
 def test_rms_norm_and_rope_match_jax():

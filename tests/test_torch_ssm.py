@@ -27,7 +27,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models import layers as tL
 from repro_torch.models import ssm as tS
 from repro_torch.models import transformer as tT
-from repro_torch.models.registry import PORTED, get_config
+from repro_torch.models.registry import ARCH_IDS, get_config
 
 ATOL = 1e-5
 ARCHS = ("mamba2-780m", "zamba2-2.7b")
@@ -211,7 +211,7 @@ def _same_fields(port, ref):
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_and_param_count_match_jax(arch, smoke):
-    assert arch in PORTED
+    assert arch in ARCH_IDS
     port, ref = get_config(arch, smoke=smoke), jget_config(arch, smoke=smoke)
     _same_fields(port, ref)
     assert (port.ssm_d_inner, port.ssm_n_heads) == (ref.ssm_d_inner, ref.ssm_n_heads)
