@@ -123,6 +123,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      (whisper's encoder run) and M=2896 (llava's forward), against the
      bytes bound and the operations bound ("whisper_large_v3",
      "whisper_large_v3_prefill", "llava_next_34b", "llava_next_34b_prefill"
+     in the kernels line);
+ 17. (run last) training: full-size smollm-135m (bf16, remat, the CiM
+     spec) through the port's Trainer for 20 steps at batch 8 x seq 128
+     (seeded params, TokenPipeline seed 0, lr 3e-4 warmup_cosine(20, 20),
+     checkpoints every 10 steps, a failure injected at step 15) under
+     torch.use_deterministic_algorithms: losses and grad norms finite,
+     the loss falling (last 5 steps' mean below the first 5's), one
+     restart, the replayed steps 10-14 bit-equal to their first pass, #1
+     launched 420 times in every step (the forward's 210 dense layers and
+     remat's recompute) and no other MAC kernel; one step under exact/cuda
+     (#5 420 times); the eager step median and training tokens/s, the
+     checkpoint save time, the peak memory, a profiled step, and the
+     launcher's main() for 3 steps. The kernel phase bit-checks #1 and #5
+     at the training M in {1024, 1023} at the four (K, N) of its layers
+     and times one layer's 7 calls of #1 at M=1024 ("smollm_135m_train"
      in the kernels line).
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
@@ -133,6 +148,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -232,13 +248,22 @@ TIMED_PREFILL_M = 64
 # the M at which #4 is timed (phases 5 and 7 run it there), #1 beside it
 TIMED_PLANES_M = 128
 L2_BUDGET = 96 << 20         # weight bytes rotated per timing, > the 50 MB L2
+# phase 17 trains full-size smollm-135m at the reference launcher's
+# defaults: batch 8 x seq 128, so #1 and #5 meet M = 1024 rows at the four
+# (K, N) of its layers; 1023 leaves the last 32-row tile partial
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_CHECK_M = (TRAIN_M, TRAIN_M - 1)
+TRAIN_CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576))
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 15
 # the kernel phase's per-model timings: tag -> model
 MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
               "zamba2_2_7b": "zamba2-2.7b", "deepseek_v2_236b": "deepseek-v2-236b",
               "grok_1_314b": "grok-1-314b", "whisper_large_v3": "whisper-large-v3",
               "whisper_large_v3_prefill": "whisper-large-v3",
               "llava_next_34b": "llava-next-34b",
-              "llava_next_34b_prefill": "llava-next-34b"}
+              "llava_next_34b_prefill": "llava-next-34b",
+              "smollm_135m_train": "smollm-135m"}
 
 
 def fail(msg: str) -> None:
@@ -517,6 +542,20 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         del w
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # phase 17's training M: every dense layer of a smollm-135m train step,
+    # #1 under the CiM spec, #5 under exact/cuda
+    for k, n in TRAIN_CHECK_SHAPES:
+        w = tern((k, n))
+        for m in TRAIN_CHECK_M:
+            x = tern((m, k))
+            what = f"M={m} K={k} N={n}"
+            check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
+                  tm.ternary_cim_matmul_plain(x, w), what)
+            check("ternary_exact_matmul", tm.ternary_exact_matmul(x, w),
+                  tm.exact_matmul_plain(x, w), what)
+        torch.cuda.synchronize()
+    log(f"kernels: #1 and #5 bit-exact at phase 17's training M in "
+        f"{list(TRAIN_CHECK_M)}, (K,N) in {list(TRAIN_CHECK_SHAPES)} (tolerance 0)")
     log(f"kernels: #1 bit-exact at the whisper-large-v3/llava-next-34b widths "
         f"(K,N) in {list(ENCDEC_VLM_CHECK_SHAPES)}, M in "
         f"{list(ENCDEC_VLM_CHECK_M + PREFILL_CHECK_M)}, and also at "
@@ -575,7 +614,8 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
              "whisper_large_v3_prefill"),
             ("ternary_cim_matmul", 4, LLAVA_SHAPES, "llava_next_34b"),
             ("ternary_cim_matmul", LLAVA_FORWARD_M, LLAVA_SHAPES,
-             "llava_next_34b_prefill")):
+             "llava_next_34b_prefill"),
+            ("ternary_cim_matmul", TRAIN_M, LAYER_SHAPES, "smollm_135m_train")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in shapes:
@@ -728,7 +768,7 @@ def drive(torch, batcher, reqs):
     return time.perf_counter() - t0, step_ms
 
 
-def profile_step(torch, step, top=6, drain=False):
+def profile_step(torch, step, top=6, drain=False, host=True):
     """One call of ``step`` (a batcher's ``step``, or a serve step) under
     torch.profiler (CUPTI), after a first call that fills the slots (and,
     for a captured step, captures it); the call after it is timed between
@@ -740,13 +780,17 @@ def profile_step(torch, step, top=6, drain=False):
     over all rows, which also counts each kernel again under the host op
     that launched it (the figure PR 14 recorded); the top device rows;
     (ms, launches) of the MAC kernels; the next step's device span in ms.
-    Device time 0 means the profiler saw no device activity."""
+    Device time 0 means the profiler saw no device activity. ``host=False``
+    traces the device alone (a train step's tens of thousands of host ops
+    take the profiler tens of seconds to summarize; the device rows are
+    the same)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         if drain:
@@ -1871,6 +1915,186 @@ def zamba2_capacity(torch, dev) -> dict:
                           label="zamba2 capacity")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+
+def train_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 17: full-size smollm-135m (30 layers, d 576, vocab 49152,
+    bf16, remat, the CiM spec: all its config's) trained from seed-0
+    params on TokenPipeline(seed 0) at the reference launcher's defaults
+    (batch 8, seq 128, lr 3e-4 under warmup_cosine(20, 20)) for 20 steps
+    through the port's Trainer, checkpoints every 10 steps into a
+    temporary directory and a failure injected at step 15: every loss and
+    grad norm finite, the mean loss of the last 5 steps below the first
+    5's, one restart, steps 10-14 replayed with the losses of their first
+    pass (the phase runs under torch.use_deterministic_algorithms), #1
+    launched 420 times in every step (210 dense layers, then remat's
+    recompute) and no other MAC kernel. Then one step under exact/cuda
+    (#5 420 times, loss finite), the step median and tokens/s, the
+    checkpoint save time, the peak memory, one profiled step, and the
+    launcher's main() for 3 steps on the card."""
+    import tempfile
+    import warnings
+
+    from repro_torch.core.execution import CiMExecSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
+
+    cfg = get_config("smollm-135m")
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+             cfg.dtype, cfg.remat, cfg.quant.mode)
+    if shape != (30, 576, 9, 3, 64, 1536, 49152, True, "bfloat16", True, "cim"):
+        fail(f"not the full-size smollm-135m training config: {shape}")
+    per_step = 2 * macs_per_step(cfg)   # the forward, then remat's recompute
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    opt = AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+    with tempfile.TemporaryDirectory() as ckpt_dir, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer = Trainer(cfg, opt, TrainConfig(
+                num_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+                log_every=5), pipe, seed=0,
+                failure_injector=FailureInjector([TRAIN_FAIL_AT]), device=dev)
+            inner, per_call = trainer.step_fn, []
+
+            def counted(state, batch):
+                before = counts(tm, pm)
+                out = inner(state, batch)
+                per_call.append({k: v - before[k] for k, v in counts(tm, pm).items()})
+                return out
+
+            trainer.step_fn = counted
+            reset_counts(tm, pm)
+            t0 = time.perf_counter()
+            log_ = trainer.run()
+            run_s = time.perf_counter() - t0
+            got = counts(tm, pm)
+            peak = torch.cuda.max_memory_allocated()
+            # the checkpoint save: blocking part (device-to-host copies) and
+            # the whole commit
+            t0 = time.perf_counter()
+            fut = ckpt.save(ckpt_dir, 99, trainer.state, async_=True)
+            save_block_s = time.perf_counter() - t0
+            fut.result()
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, "step_00000099",
+                                                      "arrays.npz"))
+            latest = ckpt.latest_step(ckpt_dir)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    det_warnings = sorted({str(w.message).split(".")[0][:120] for w in caught
+                           if "deterministic" in str(w.message)})
+    want = dict.fromkeys(got, 0)
+    want["ternary_cim_matmul"] = per_step
+    bad = [i for i, c in enumerate(per_call) if c != want]
+    if bad:
+        fail(f"training: step calls {bad} launched {per_call[bad[0]]}, expected {want}")
+    if got["ternary_cim_matmul"] != per_step * len(per_call):
+        fail(f"training: #1 launched {got['ternary_cim_matmul']} times over "
+             f"{len(per_call)} steps")
+    steps = [m["step"] for m in log_]
+    # steps 0-14, the failure at 15, then 10-19 from the checkpoint at 10
+    replayed = list(range(TRAIN_CKPT_EVERY, TRAIN_FAIL_AT))
+    restarts = trainer.restarts
+    if restarts != 1 or steps != list(range(TRAIN_FAIL_AT)) + list(
+            range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
+        fail(f"training: restarts {restarts}, steps {steps}")
+    if latest != 99 or len(per_call) != len(steps):
+        fail(f"training: LATEST {latest}, {len(per_call)} step calls for {len(steps)} steps")
+    for m in log_:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"training: step {m['step']} loss {m['loss']} grad norm {m['grad_norm']}")
+    first = {}
+    for m in log_:
+        first.setdefault(m["step"], m)
+    again = log_[TRAIN_FAIL_AT:TRAIN_FAIL_AT + len(replayed)]
+    for m in again:
+        a = first[m["step"]]
+        if (m["loss"], m["grad_norm"]) != (a["loss"], a["grad_norm"]):
+            fail(f"training: replayed step {m['step']} loss {m['loss']!r} grad norm "
+                 f"{m['grad_norm']!r} != first pass {a['loss']!r} {a['grad_norm']!r}")
+    losses = [first[i]["loss"] for i in range(TRAIN_STEPS)]
+    head, tail = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
+    if not tail < head:
+        fail(f"training: the loss did not fall: first 5 {head:.4f}, last 5 {tail:.4f}")
+    secs = [m["sec"] for m in log_[1:]]
+    step_ms = statistics.median(secs) * 1e3
+    tok_s = TRAIN_M / (step_ms / 1e3)
+    log(f"training smollm-135m (full size, bf16, remat, CiM spec; batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) on {card}: {len(steps)} steps in "
+        f"{run_s:.1f} s ({TRAIN_STEPS} + {len(replayed)} replayed after the failure at "
+        f"step {TRAIN_FAIL_AT}, restarts {restarts}); loss "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; replayed steps "
+        f"{replayed} == their first pass (loss and grad norm, bit for bit); "
+        f"#1 launched {per_step} in each of the {len(per_call)} step calls "
+        f"({got['ternary_cim_matmul']} in all), no other MAC kernel; "
+        f"deterministic-mode warnings: {det_warnings or 'none'}")
+    log(f"training: eager step median {step_ms:.2f} ms (mean "
+        f"{statistics.fmean(secs) * 1e3:.2f}, first step "
+        f"{log_[0]['sec'] * 1e3:.1f} ms) = {tok_s:.0f} training tokens/s; checkpoint "
+        f"save {save_block_s * 1e3:.1f} ms blocking (device-to-host) and "
+        f"{save_s * 1e3:.1f} ms committed ({ckpt_bytes / 1e9:.3f} GB npz); peak device "
+        f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) on {card}")
+
+    # one step under the near-memory baseline: every dense layer through #5
+    state = trainer.state
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(TRAIN_STEPS).items()}
+    nm_cfg = cfg.replace(quant=dataclasses.replace(
+        cfg.quant, exec_spec=CiMExecSpec(formulation="exact", backend="cuda")))
+    nm_step = make_train_step(nm_cfg, opt)
+    reset_counts(tm, pm)
+    t0 = time.perf_counter()
+    _, nm = nm_step(state, batch)
+    nm_loss = float(nm["loss"])
+    nm_ms = (time.perf_counter() - t0) * 1e3
+    nm_got = counts(tm, pm)
+    nm_want = dict.fromkeys(nm_got, 0)
+    nm_want["ternary_exact_matmul"] = per_step
+    if nm_got != nm_want or not math.isfinite(nm_loss):
+        fail(f"training under exact/cuda: launches {nm_got}, loss {nm_loss}")
+    log(f"training: one step under exact/cuda: loss {nm_loss:.4f}, #5 launched "
+        f"{per_step}, no other MAC kernel, {nm_ms:.1f} ms on {card}")
+
+    # one profiled step of the main path (the state is not modified)
+    step_fn = make_train_step(cfg, opt)
+    prof = profile_step(torch, lambda: step_fn(state, batch), drain=True, host=False)
+    log(f"training: one profiled step on {card}: " + busy_line(prof, step_ms))
+
+    # the launcher, in process, on the card
+    t0 = time.perf_counter()
+    if launch_train.main(["--arch", "smollm-135m", "--steps", "3", "--quant", "cim"]) != 0:
+        fail("training: the launcher failed")
+    cli_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    log(f"training: the launcher (3 steps on cuda) in {cli_s:.1f} s; phase 17 wall "
+        f"time {wall:.1f} s on {card}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "replayed": [m["loss"] for m in again],
+            "restarts": restarts, "step_ms": step_ms, "tokens_per_s": tok_s,
+            "launches": got["ternary_cim_matmul"], "launches_per_step": per_step,
+            "save_blocking_s": save_block_s, "save_s": save_s, "ckpt_bytes": ckpt_bytes,
+            "peak_bytes": peak, "nm_loss": nm_loss, "nm_ms": nm_ms,
+            "profiled": profiled(prof), "cli_s": cli_s, "wall_s": wall,
+            "deterministic_warnings": det_warnings}
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1941,6 +2165,10 @@ def main(argv=None) -> int:
     per_kernel["ternary_cim_matmul"]["whisper_large_v3"].update(
         launches=whisper["captured"]["launches"],
         launches_per_step=whisper["macs_per_step"])
+    serving["training"] = training = train_phase(torch, tm, pm, card,
+                                                 torch.device("cuda"))
+    per_kernel["ternary_cim_matmul"]["smollm_135m_train"].update(
+        launches=training["launches"], launches_per_step=training["launches_per_step"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -61,8 +61,8 @@ class ArchConfig:
     # attention over KV chunks of this size in ``forward`` (cache-free)
     attn_chunk: int = 0
     dtype: str = "bfloat16"
-    # the reference's training flag, kept so the configs read as its own;
-    # the port does not train
+    # activation checkpointing of each layer in training (``forward`` with
+    # grad on); serving never reads it
     remat: bool = True
     # long-context marker of the reference: archs with sub-quadratic decode
     subquadratic: bool = False

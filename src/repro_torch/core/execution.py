@@ -29,7 +29,7 @@ The tile tables of the JAX package are kept for
 to the JAX ones. The CUDA kernels keep their K loop inside one block and
 choose their own M tile by :func:`shape_class`.
 
-Not ported yet: the STE backward, ``execute_tp`` /
+Not ported yet: ``execute_tp`` /
 ``execute_packed_tp``, autotune (``nbuf`` of the stream tiles stays the
 table's 2) and the profiler sink.
 """
@@ -245,6 +245,37 @@ def _forward(spec: CiMExecSpec, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     return entry.fn(xp, wp, spec).reshape(lead + (n,)).to(x.dtype)
 
 
+class _SteExecute(torch.autograd.Function):
+    """:func:`_forward` under every backend, with the reference's
+    straight-through backward past the clamp: the exact-matmul gradients
+    ``dx = g w^T`` and ``dw = x^T g`` (summed over x's leading dims),
+    accumulated in f32 for clamping formulations and in the operand dtype
+    otherwise, each rounded to its operand's dtype. Plain products: the
+    reference computes them outside any kernel, so no backward kernel
+    exists. The forward's kernel backends cast the codes to int8 inside
+    (one byte per weight into the kernel)."""
+
+    @staticmethod
+    def forward(ctx, spec: CiMExecSpec, x: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+        ctx.spec = spec
+        ctx.save_for_backward(x, w)
+        return _forward(spec, x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        acc = torch.float32 if ctx.spec.clamps else x.dtype
+        gf = g.to(acc)
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dx = (gf @ w.to(acc).T).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            k, n = x.shape[-1], g.shape[-1]
+            dw = (x.reshape(-1, k).to(acc).T @ gf.reshape(-1, n)).to(w.dtype)
+        return None, dx, dw
+
+
 def _apply_sense_channel(spec: CiMExecSpec, out: torch.Tensor, k_dim: int,
                          generator: Optional[torch.Generator]) -> torch.Tensor:
     """Shared post-MAC sensing-error application (validation + noise)."""
@@ -276,18 +307,25 @@ def _sense_noise(generator: torch.Generator, shape, kb: int, prob: float,
 
 def execute(spec: CiMExecSpec, x_t: torch.Tensor, w_t: torch.Tensor, *,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Run one ternary MAC under ``spec`` (forward only).
+    """Run one ternary MAC under ``spec``.
 
     x_t: (..., K) ternary values (any numeric dtype); w_t: (K, N) ternary
-    values on the same device. Returns (..., N) in the dtype of ``x_t``.
-    ``generator`` feeds the sensing-error channel (required iff
-    ``spec.error_prob > 0``). With ``packing="bitplane_u8"`` the weight is
-    packed on the fly; serving packs once (``quant.prepare``) and calls
+    values on the same device. Returns (..., N) in the dtype of ``x_t``,
+    with gradients defined straight through (the exact-matmul backward of
+    :class:`_SteExecute`) when grad is on and an operand requires it;
+    otherwise the MAC is called directly, so serving and captured steps
+    run no autograd. ``generator`` feeds the sensing-error channel
+    (required iff ``spec.error_prob > 0``), which stays outside the
+    gradient. With ``packing="bitplane_u8"`` the weight is packed on the
+    fly; serving packs once (``quant.prepare``) and calls
     :func:`execute_packed`.
     """
     spec = spec.resolve(x_t.device)
     clean = dataclasses.replace(spec, error_prob=0.0)
-    out = _forward(clean, x_t, w_t)
+    if torch.is_grad_enabled() and (x_t.requires_grad or w_t.requires_grad):
+        out = _SteExecute.apply(clean, x_t, w_t)
+    else:
+        out = _forward(clean, x_t, w_t)
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
 
 

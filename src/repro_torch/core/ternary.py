@@ -3,13 +3,13 @@
 
   * threshold ternarization (TWN, factor 0.7) with a per-tensor or
     per-axis scale,
+  * the straight-through estimators of training: :func:`ste_ternarize`
+    (scaled) and :func:`ste_unit_ternarize` (codes only), whose backward
+    is the clipped STE ``g * (|x| <= 1)``,
   * the differential (M1, M2) bitplane encoding of the SiTe CiM cell
     (W=+1 -> M1=1,M2=0; W=-1 -> M1=0,M2=1; W=0 -> M1=M2=0),
   * 8-way bit packing of each plane into uint8 along K (bit j of byte r
     is row 8r+j), the two plane layouts and :class:`PackedPlanes`.
-
-The STE wrappers of the JAX module belong to training and are not
-ported in this slice.
 """
 from __future__ import annotations
 
@@ -69,6 +69,34 @@ def ternarize(x: torch.Tensor, axis: Axis = None,
         num = (x.abs() * mask).sum(dim=axes, keepdim=True)
         den = torch.clamp(mask.sum(dim=axes, keepdim=True), min=1.0)
     return t, (num / den).to(x.dtype)
+
+
+class _SteTernarize(torch.autograd.Function):
+    """Per-tensor ternarization, scaled (``t * scale``) or not (``t``),
+    with the clipped straight-through gradient ``g * (|x| <= 1)``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scaled: bool) -> torch.Tensor:
+        t, scale = ternarize(x)
+        ctx.save_for_backward(x)
+        return t * scale if scaled else t
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype), None
+
+
+def ste_ternarize(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor scaled ternarization with the clipped STE gradient."""
+    return _SteTernarize.apply(x, True)
+
+
+def ste_unit_ternarize(x: torch.Tensor) -> torch.Tensor:
+    """Unscaled ternarization (exactly {-1, 0, 1}) with the clipped STE
+    gradient: activations feeding a SiTe CiM array, whose scale folds
+    into the layer output."""
+    return _SteTernarize.apply(x, False)
 
 
 def to_bitplanes(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

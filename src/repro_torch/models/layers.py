@@ -15,7 +15,10 @@ Every weight-bearing matmul flows through :func:`dense`, whose
 
 Scales fold after the ternary MAC: output = (x_t @ w_t) * sx * sw, with
 a per-tensor (default) or per-row activation scale and a per-output-
-channel weight scale. The port is inference-only in this slice: no STE.
+channel weight scale. Under autograd the codes carry the value-exact
+straight-through estimator ``t + (w - w.detach())`` (the same for x), the
+scales are detached, and the MAC's backward is the STE exact matmul of
+``core.execution.execute``: the reference's quantization-aware training.
 """
 from __future__ import annotations
 
@@ -90,15 +93,29 @@ class QuantConfig:
                            block=self.block, adc_max=self.adc_max)
 
 
+def _ste_codes(x: torch.Tensor, axis, factor: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes in {-1,0,1} in x's dtype, detached scale). When x needs a
+    gradient the codes are ``t + (x - x.detach())``: exactly t forward
+    (``x + (t - x)`` would round in bf16 and move the CiM event counts),
+    the identity backward."""
+    t, scale = tern.ternarize(x.detach(), axis=axis, factor=factor)
+    if x.requires_grad and torch.is_grad_enabled():
+        t = t + (x - x.detach())
+    return t, scale
+
+
 def _weight_codes(w: torch.Tensor, qc: QuantConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(codes in {-1,0,1} in w's dtype, per-output-channel scale (.., 1, N))."""
+    """(codes in {-1,0,1} in w's dtype, per-output-channel scale (.., 1, N),
+    detached)."""
     axes = tuple(range(w.ndim - 1))
     if qc.pre_quantized:
-        # folded offline to {-s_n, 0, +s_n}: one max-reduce recovers (t, s)
+        # folded offline to {-s_n, 0, +s_n}: one max-reduce recovers (t, s);
+        # the gradient flows through the division, as in the reference
         sw = w.abs().amax(dim=axes, keepdim=True)
-        return w / torch.clamp(sw, min=1e-12), sw
-    return tern.ternarize(w, axis=axes, factor=qc.threshold_factor)
+        return w / torch.clamp(sw, min=1e-12), sw.detach()
+    return _ste_codes(w, axes, qc.threshold_factor)
 
 
 def accum_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -115,26 +132,25 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The mode-switched linear layer. x: (..., K), w: (K, N).
 
-    Clamping specs and every CUDA-kernel backend receive the weight as
-    int8 codes made straight from the stored weight (one byte per weight
-    into the kernel) and the activation codes in f32, as the reference
-    passes clamping specs theirs. Other exact specs (``exact/torch``,
-    ``mode="ternary"``) take the operand-dtype dot of the reference's
-    ``exact/jnp``."""
+    Clamping specs receive the activation codes in f32, as the reference
+    passes them, and the weight codes in the weight's dtype; exact specs
+    take both in x's dtype (the operand-dtype dot of the reference's
+    ``exact/jnp``, and the STE backward's accumulation dtype). The kernel
+    backends cast the codes to int8 inside the MAC: one byte per weight
+    into the kernel. Gradients reach x and w straight through the codes
+    and the MAC (see the module docstring)."""
     if qc.mode == "off":
         out = x @ w.to(x.dtype)
     else:
         w_t, sw = _weight_codes(w, qc)
         if qc.quantize_activations:
             axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None
-            x_t, sx = tern.ternarize(x, axis=axis, factor=qc.threshold_factor)
+            x_t, sx = _ste_codes(x, axis, qc.threshold_factor)
         else:
             x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
         spec = qc.resolved_spec()
-        resolved = spec.resolve(x.device)
-        if resolved.clamps or resolved.backend in ("cuda", "cuda_stream"):
-            out = exec_mac(spec, x_t.to(torch.float32), w_t.to(torch.int8),
-                           generator=generator)
+        if spec.resolve(x.device).clamps:
+            out = exec_mac(spec, x_t.to(torch.float32), w_t, generator=generator)
         else:
             out = exec_mac(spec, x_t.to(x.dtype), w_t.to(x.dtype),
                            generator=generator)

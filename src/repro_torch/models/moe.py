@@ -69,8 +69,9 @@ def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype, device,
 
 def _tern3(w: torch.Tensor) -> torch.Tensor:
     """Per-expert, per-out-channel ternarization of (E, K, N), the scale
-    folded into the ternary weight (the reference's value, without its
-    STE: the port does not train)."""
+    folded into the ternary weight: the reference's value. Its STE is not
+    ported yet, so the moe family does not train (``train.train_step``
+    raises for it)."""
     t, scale = tern.ternarize(w, axis=(1,))
     return t * scale
 

@@ -25,9 +25,11 @@ it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -189,21 +191,29 @@ def _run_stack(params, x, cfg, positions, caches, index, start, enc=None):
     ``hybrid_attn_every`` mamba layers, the weight-shared attention and
     MLP block, with its own KV cache per application. Caches (None in
     ``forward``) are written in place: hybrid's KV writes land in the
-    application's view of the stack, so nothing is restacked."""
+    application's view of the stack, so nothing is restacked. Under
+    ``cfg.remat``, without caches and with grad on, each layer runs under
+    activation checkpointing."""
     layer_cache = lambda stack, i: (None if stack is None
                                     else map_caches(lambda a: a[i], stack))
+    block = apply_block
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        # the reference's jax.checkpoint of the scanned block: each layer
+        # keeps only its input, and the backward recomputes it (MACs
+        # included) through the same STE functions
+        block = functools.partial(checkpoint, apply_block, use_reentrant=False)
     if cfg.family != "hybrid":
         for i in range(cfg.n_layers):
-            x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, positions,
-                               layer_cache(caches, i), index, start, enc)
+            x, _ = block(layer_params(params["blocks"], i), x, cfg, positions,
+                         layer_cache(caches, i), index, start, enc)
         return x
     k = cfg.hybrid_attn_every
     sp = params["shared_attn"]
     ssm_caches, kv_caches = (None, None) if caches is None else caches
     for seg in range(cfg.n_layers // k):
         for i in range(seg * k, (seg + 1) * k):
-            x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, positions,
-                               layer_cache(ssm_caches, i), index, start)
+            x, _ = block(layer_params(params["blocks"], i), x, cfg, positions,
+                         layer_cache(ssm_caches, i), index, start)
         h = L.rms_norm(x, sp["ln1"])
         a, _ = attn.gqa_attention(sp["attn"], h, cfg, positions,
                                   layer_cache(kv_caches, seg), index, start)

@@ -1,0 +1,101 @@
+"""AdamW as a functional update over a params tree (port of
+``repro/optim/adamw.py``).
+
+The optimizer state mirrors the params tree leaf for leaf: f32 first and
+second moments, an int32 step. Each leaf's update runs in f32 and rounds
+to the param's dtype once, as the reference does; ``torch.optim.AdamW``
+would do its arithmetic in place in the param dtype (bf16), which rounds
+differently. A tree is a nested dict of tensors; leaves are visited in
+sorted-key order, as ``jax.tree_util`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None  # step -> lr scale
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    mu: PyTree
+    nu: PyTree
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of nested dicts (``rest`` of the same
+    structure), keeping the structure; leaves are visited in sorted-key
+    order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree):
+    """The leaves of nested dicts in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
+
+
+def init(params: PyTree) -> AdamWState:
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    step = torch.zeros((), dtype=torch.int32, device=next(tree_leaves(params)).device)
+    return AdamWState(step, tree_map(zeros, params), tree_map(zeros, params))
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float
+                        ) -> Tuple[PyTree, torch.Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+
+
+def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
+           ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm); the inputs are not
+    modified."""
+    if cfg.grad_clip:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gnorm = global_norm(grads)
+    step = state.step + 1
+    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
+    if cfg.schedule is not None:
+        lr = lr * cfg.schedule(step)
+    b1, b2 = cfg.b1, cfg.b2
+    sf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, sf)
+    bc2 = 1.0 - torch.pow(b2, sf)
+
+    def leaf(p, g, m, v):
+        gf = g.to(torch.float32)
+        m2 = b1 * m + (1 - b1) * gf
+        v2 = b2 * v + (1 - b2) * gf * gf
+        upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
+        upd = upd + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * upd).to(p.dtype), m2, v2
+
+    out = tree_map(leaf, params, grads, state.mu, state.nu)
+    pick = lambda i: tree_map(lambda t: t[i], out)
+    return pick(0), AdamWState(step, pick(1), pick(2)), gnorm

@@ -773,3 +773,94 @@ def test_cuda_jit_serve_step_with_enc_replays_serve_step(cuda_device):
     assert torch.equal(mine.k, ref.k) and torch.equal(mine.v, ref.v)
     with pytest.raises(ValueError, match="bound to the enc"):
         jit(params, tok, mine, 9, enc=enc[:, :16])
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _smoke_train(device, remat=False, steps=1):
+    """``steps`` smoke f32 CiM train steps from seed-0 params made on the
+    CPU and moved to ``device``; returns (losses, params, #1 launches)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = get_config("smollm-135m", smoke=True).replace(dtype="float32", remat=remat)
+    params = adamw.tree_map(lambda p: p.to(device),
+                            T.init_params(cfg, seed=0, device="cpu"))
+    state = TrainState(params, adamw.init(params),
+                       torch.Generator(device=device).manual_seed(1), None)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    losses = []
+    before = _launches()
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch(i).items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    moved = tuple(a - b for a, b in zip(_launches(), before))
+    return losses, state.params, moved, cfg
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One smoke f32 CiM train step through #1 on the card == the port on
+    the CPU, TF32 off: the loss at rtol 1e-5; the params at rtol 1e-4 with
+    atol 1e-4 (a tenth of lr) and a mean difference under 1e-8. The atol:
+    Adam's first update is lr·g/(|g| + eps), so where |g| is near eps
+    (1e-8) the sums' order moves it by a visible fraction of lr (2% on
+    one of the 16,384 weights of the embedding table in the first run)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    losses, params, moved, _ = _smoke_train(cuda_device)
+    want_losses, want_params, _, _ = _smoke_train(torch.device("cpu"))
+    assert moved[0] > 0 and not any(moved[1:])
+    torch.testing.assert_close(losses, want_losses, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(params), tree_leaves(want_params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        assert float((a.cpu() - b).abs().mean()) < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_train_step_launches(cuda_device, remat):
+    """#1 runs once per dense layer in the forward, and under remat once
+    more in the backward's recompute; no other MAC kernel runs, and the
+    two give the same loss bit for bit."""
+    losses, _, moved, cfg = _smoke_train(cuda_device, remat=remat, steps=2)
+    per_step = 7 * cfg.n_layers * (2 if remat else 1)
+    assert moved == (2 * per_step, 0, 0, 0, 0)
+    other, _, _, _ = _smoke_train(cuda_device, remat=not remat, steps=2)
+    assert losses == other
+
+
+@pytest.mark.cuda
+def test_cuda_dense_with_grad_params_captures_under_no_grad(cuda_device):
+    """dense on params that require grad, under no_grad (serving a model
+    being trained): the step captures into a CUDA graph as today (the MAC
+    called directly, not through the STE Function), and its replays
+    equal the eager calls bit for bit, #1 counted once per replay."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    w = torch.randn((576, 1536), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_()
+    x = torch.randn((4, 576), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    qc = L.QuantConfig(mode="cim")
+
+    def fn(a):
+        with torch.no_grad():
+            return L.dense(a, w, qc)
+
+    step = CapturedStep(fn, [x], cuda_device)
+    first = step()
+    assert step.graph is not None and not first.requires_grad
+    for i in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda_device, dtype=x.dtype))
+        before = tm.ternary_cim_matmul.launches
+        got = step()
+        assert tm.ternary_cim_matmul.launches - before == 1
+        assert torch.equal(got, fn(x)), i

@@ -36,7 +36,8 @@ def test_scan_sees_the_package():
     assert {"execution.py", "engine.py", "chip_smoke.py", "_build.py",
             "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py", "ssm.py",
             "mamba2_780m.py", "zamba2_2_7b.py", "moe.py", "deepseek_v2_236b.py",
-            "grok_1_314b.py", "whisper_large_v3.py", "llava_next_34b.py"} <= names
+            "grok_1_314b.py", "whisper_large_v3.py", "llava_next_34b.py",
+            "adamw.py", "trainer.py", "checkpoint.py", "pipeline.py"} <= names
 
 
 @pytest.fixture
