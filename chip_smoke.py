@@ -124,8 +124,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      bytes bound and the operations bound ("whisper_large_v3",
      "whisper_large_v3_prefill", "llava_next_34b", "llava_next_34b_prefill"
      in the kernels line);
- 17. (run last) training: full-size smollm-135m (bf16, remat, the CiM
-     spec) through the port's Trainer for 20 steps at batch 8 x seq 128
+ 17. training: full-size smollm-135m (bf16, remat, the CiM spec)
+     through the port's Trainer for 20 steps at batch 8 x seq 128
      (seeded params, TokenPipeline seed 0, lr 3e-4 warmup_cosine(20, 20),
      checkpoints every 10 steps, a failure injected at step 15) under
      torch.use_deterministic_algorithms: losses and grad norms finite,
@@ -138,7 +138,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      launcher's main() for 3 steps. The kernel phase bit-checks #1 and #5
      at the training M in {1024, 1023} at the four (K, N) of its layers
      and times one layer's 7 calls of #1 at M=1024 ("smollm_135m_train"
-     in the kernels line).
+     in the kernels line);
+ 18. (run last) training the ssm and hybrid families: full-size
+     mamba2-780m (bf16, remat, the CiM spec) through the Trainer as in
+     phase 17 (20 steps, checkpoints every 10, a failure at 15), the
+     phase leaving deterministic mode to Trainer.run(): losses and grad
+     norms finite, the loss falling, steps 10-14 replayed bit-equal, #1
+     launched 192 times in every step (96 forward + 96 remat) and no
+     other MAC kernel; one exact/cuda step (#5 192 times) and one under
+     mode "off" (its grad norm), the step median, tokens/s, peak memory
+     and a profiled step; then full-size
+     zamba2-2.7b: 3 steps of make_train_step, finite losses, #1 279 times
+     a step (171 + 108: only the mamba layers sit under remat), step ms
+     and peak memory. The kernel phase bit-checks #1 at M in {1024, 1023}
+     at every (K, N) of phases 12 and 13 (#5 at mamba2's) and times one
+     mamba2 and one zamba2 layer's calls at M=1024 ("mamba2_780m_train",
+     "zamba2_2_7b_train" in the kernels line).
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -256,6 +271,10 @@ TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_CHECK_M = (TRAIN_M, TRAIN_M - 1)
 TRAIN_CHECK_SHAPES = ((576, 576), (576, 192), (576, 1536), (1536, 576))
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 15
+# phase 18 trains mamba2-780m and zamba2-2.7b at the same batch: #1 meets
+# M = 1024 at every (K, N) of phases 12 and 13, #5 at mamba2's (its
+# exact/cuda step)
+TRAIN_EXACT_SSM_SHAPES = tuple((k, n) for _, k, n in MAMBA2_SHAPES)
 # the kernel phase's per-model timings: tag -> model
 MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
               "zamba2_2_7b": "zamba2-2.7b", "deepseek_v2_236b": "deepseek-v2-236b",
@@ -263,7 +282,8 @@ MODEL_TAGS = {"starcoder2_7b": "starcoder2-7b", "mamba2_780m": "mamba2-780m",
               "whisper_large_v3_prefill": "whisper-large-v3",
               "llava_next_34b": "llava-next-34b",
               "llava_next_34b_prefill": "llava-next-34b",
-              "smollm_135m_train": "smollm-135m"}
+              "smollm_135m_train": "smollm-135m",
+              "mamba2_780m_train": "mamba2-780m", "zamba2_2_7b_train": "zamba2-2.7b"}
 
 
 def fail(msg: str) -> None:
@@ -556,6 +576,26 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
         torch.cuda.synchronize()
     log(f"kernels: #1 and #5 bit-exact at phase 17's training M in "
         f"{list(TRAIN_CHECK_M)}, (K,N) in {list(TRAIN_CHECK_SHAPES)} (tolerance 0)")
+    # phase 18's: every dense layer of a mamba2-780m or zamba2-2.7b train
+    # step under the CiM spec, mamba2's also under exact/cuda
+    t0 = time.perf_counter()
+    for k, n in SSM_CHECK_SHAPES:
+        w = tern((k, n))
+        for m in TRAIN_CHECK_M:
+            x = tern((m, k))
+            what = f"M={m} K={k} N={n}"
+            check("ternary_cim_matmul", tm.ternary_cim_matmul(x, w),
+                  tm.ternary_cim_matmul_plain(x, w), what)
+            if (k, n) in TRAIN_EXACT_SSM_SHAPES:
+                check("ternary_exact_matmul", tm.ternary_exact_matmul(x, w),
+                      tm.exact_matmul_plain(x, w), what)
+        del w
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"kernels: #1 bit-exact at phase 18's training M in {list(TRAIN_CHECK_M)}, "
+        f"(K,N) in {list(SSM_CHECK_SHAPES)}, #5 too at "
+        f"{list(TRAIN_EXACT_SSM_SHAPES)} (tolerance 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"kernels: #1 bit-exact at the whisper-large-v3/llava-next-34b widths "
         f"(K,N) in {list(ENCDEC_VLM_CHECK_SHAPES)}, M in "
         f"{list(ENCDEC_VLM_CHECK_M + PREFILL_CHECK_M)}, and also at "
@@ -615,7 +655,9 @@ def kernel_phase(torch, tm, pm, tern_mod, decode_m_max, dev):
             ("ternary_cim_matmul", 4, LLAVA_SHAPES, "llava_next_34b"),
             ("ternary_cim_matmul", LLAVA_FORWARD_M, LLAVA_SHAPES,
              "llava_next_34b_prefill"),
-            ("ternary_cim_matmul", TRAIN_M, LAYER_SHAPES, "smollm_135m_train")):
+            ("ternary_cim_matmul", TRAIN_M, LAYER_SHAPES, "smollm_135m_train"),
+            ("ternary_cim_matmul", TRAIN_M, MAMBA2_SHAPES, "mamba2_780m_train"),
+            ("ternary_cim_matmul", TRAIN_M, ZAMBA2_SHAPES, "zamba2_2_7b_train")):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "decode_ms": None}
         t_bytes = t_ops = 0.0
         for label, k, n in shapes:
@@ -2095,6 +2137,240 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
             "deterministic_warnings": det_warnings}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training the ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 18: full-size mamba2-780m (48 layers, d 1536, vocab 50280,
+    bf16, remat, the CiM spec: its config's, checked as phase 12 does)
+    trained as phase 17 trains smollm-135m: seed-0 params, TokenPipeline
+    seed 0 at batch 8 x seq 128, lr 3e-4 under warmup_cosine(20, 20), 20
+    steps through the port's Trainer, checkpoints every 10 steps and a
+    failure injected at step 15. The phase does not touch deterministic
+    mode: Trainer.run() sets it and restores it, and the phase fails
+    unless it is off again after the run. Every loss and grad norm
+    finite, the last 5 steps' mean loss below the first 5's, one restart,
+    steps 10-14 replayed bit-equal, #1 launched 2 x 96 = 192 times in
+    every step (remat checkpoints each mamba layer) and no other MAC
+    kernel. Then one step under exact/cuda (#5 192 times) and the same
+    step under mode "off" (its grad norm beside the CiM ones), the step
+    median, training tokens/s and peak memory, one profiled step. Then
+    full-size zamba2-2.7b: 3 steps of make_train_step at the same batch,
+    finite losses, #1 171 + 2 x 54 = 279 times a step (only the mamba
+    layers sit under remat; the shared attention block does not, as in
+    the reference), the step median and peak memory."""
+    import tempfile
+    import warnings
+
+    from repro_torch.core.execution import CiMExecSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
+
+    def full_size(arch):
+        cfg = get_config(arch)
+        want = dict(SSM_ARCHS[arch]["fields"], dtype="bfloat16", remat=True)
+        got = {f: getattr(cfg, f) for f in want}
+        if got != want or cfg.quant.mode != "cim":
+            fail(f"not the full-size {arch} training config: {got}, {cfg.quant.mode}")
+        return cfg
+
+    t_phase = time.perf_counter()
+    cfg = full_size("mamba2-780m")
+    per_step = 2 * macs_per_step(cfg)   # the forward, then remat's recompute
+    if per_step != 192:
+        fail(f"mamba2 training: {per_step} MACs a step, expected 192")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    opt = AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+    if torch.are_deterministic_algorithms_enabled():
+        fail("mamba2 training: deterministic mode is on before the Trainer runs")
+    with tempfile.TemporaryDirectory() as ckpt_dir, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = Trainer(cfg, opt, TrainConfig(
+            num_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+            log_every=5), pipe, seed=0,
+            failure_injector=FailureInjector([TRAIN_FAIL_AT]), device=dev)
+        inner, per_call = trainer.step_fn, []
+
+        def counted(state, batch):
+            before = counts(tm, pm)
+            out = inner(state, batch)
+            per_call.append({k: v - before[k] for k, v in counts(tm, pm).items()})
+            return out
+
+        trainer.step_fn = counted
+        reset_counts(tm, pm)
+        t0 = time.perf_counter()
+        log_ = trainer.run()
+        run_s = time.perf_counter() - t0
+        got = counts(tm, pm)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(root, f))
+                         for root, _, files in os.walk(ckpt_dir) for f in files)
+    if torch.are_deterministic_algorithms_enabled():
+        fail("mamba2 training: Trainer.run() left deterministic mode on")
+    det_warnings = sorted({str(w.message).split(".")[0][:120] for w in caught
+                           if "deterministic" in str(w.message)})
+    want = dict.fromkeys(got, 0)
+    want["ternary_cim_matmul"] = per_step
+    bad = [i for i, c in enumerate(per_call) if c != want]
+    if bad:
+        fail(f"mamba2 training: step calls {bad} launched {per_call[bad[0]]}, "
+             f"expected {want}")
+    if got["ternary_cim_matmul"] != per_step * len(per_call):
+        fail(f"mamba2 training: #1 launched {got['ternary_cim_matmul']} times over "
+             f"{len(per_call)} steps")
+    steps = [m["step"] for m in log_]
+    replayed = list(range(TRAIN_CKPT_EVERY, TRAIN_FAIL_AT))
+    if trainer.restarts != 1 or steps != list(range(TRAIN_FAIL_AT)) + list(
+            range(TRAIN_CKPT_EVERY, TRAIN_STEPS)) or len(per_call) != len(steps):
+        fail(f"mamba2 training: restarts {trainer.restarts}, steps {steps}, "
+             f"{len(per_call)} step calls")
+    for m in log_:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"mamba2 training: step {m['step']} loss {m['loss']} grad norm "
+                 f"{m['grad_norm']}")
+    first = {}
+    for m in log_:
+        first.setdefault(m["step"], m)
+    again = log_[TRAIN_FAIL_AT:TRAIN_FAIL_AT + len(replayed)]
+    for m in again:
+        a = first[m["step"]]
+        if (m["loss"], m["grad_norm"]) != (a["loss"], a["grad_norm"]):
+            fail(f"mamba2 training: replayed step {m['step']} loss {m['loss']!r} grad "
+                 f"norm {m['grad_norm']!r} != first pass {a['loss']!r} {a['grad_norm']!r}")
+    losses = [first[i]["loss"] for i in range(TRAIN_STEPS)]
+    head, tail = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
+    if not tail < head:
+        fail(f"mamba2 training: the loss did not fall: first 5 {head:.4f}, "
+             f"last 5 {tail:.4f}")
+    secs = [m["sec"] for m in log_[1:]]
+    step_ms = statistics.median(secs) * 1e3
+    tok_s = TRAIN_M / (step_ms / 1e3)
+    log(f"training mamba2-780m (full size, bf16, remat, CiM spec; batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) on {card}: {len(steps)} steps in "
+        f"{run_s:.1f} s ({TRAIN_STEPS} + {len(replayed)} replayed after the failure at "
+        f"step {TRAIN_FAIL_AT}, restarts {trainer.restarts}); loss "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; replayed steps "
+        f"{replayed} == their first pass (loss and grad norm, bit for bit) with "
+        f"deterministic mode set by Trainer.run() alone (off again after it); #1 "
+        f"launched {per_step} in each of the {len(per_call)} step calls "
+        f"({got['ternary_cim_matmul']} in all), no other MAC kernel; "
+        f"deterministic-mode warnings: {det_warnings or 'none'}")
+    log(f"mamba2 training: eager step median {step_ms:.2f} ms (mean "
+        f"{statistics.fmean(secs) * 1e3:.2f}, first step {log_[0]['sec'] * 1e3:.1f} "
+        f"ms) = {tok_s:.0f} training tokens/s; grad norms "
+        + " ".join(f"{first[i]['grad_norm']:.3f}" for i in range(TRAIN_STEPS))
+        + f"; checkpoints on disk at the end {ckpt_bytes / 1e9:.2f} GB; peak device "
+        f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) on {card}")
+
+    # one step under the near-memory baseline: every dense layer through #5
+    state = trainer.state
+    del trainer
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(TRAIN_STEPS).items()}
+    nm_cfg = cfg.replace(quant=dataclasses.replace(
+        cfg.quant, exec_spec=CiMExecSpec(formulation="exact", backend="cuda")))
+    nm_step = make_train_step(nm_cfg, opt)
+    reset_counts(tm, pm)
+    t0 = time.perf_counter()
+    _, nm = nm_step(state, batch)
+    nm_loss = float(nm["loss"])
+    nm_ms = (time.perf_counter() - t0) * 1e3
+    nm_got = counts(tm, pm)
+    nm_want = dict.fromkeys(nm_got, 0)
+    nm_want["ternary_exact_matmul"] = per_step
+    if nm_got != nm_want or not math.isfinite(nm_loss):
+        fail(f"mamba2 training under exact/cuda: launches {nm_got}, loss {nm_loss}")
+    log(f"mamba2 training: one step under exact/cuda: loss {nm_loss:.4f}, #5 launched "
+        f"{per_step}, no other MAC kernel, {nm_ms:.1f} ms on {card}")
+    # the same step under mode "off": the grad norm without the CiM STE
+    off_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="off"))
+    reset_counts(tm, pm)
+    _, off = make_train_step(off_cfg, opt)(state, batch)
+    off_loss, off_norm = float(off["loss"]), float(off["grad_norm"])
+    if any(counts(tm, pm).values()) or not math.isfinite(off_norm):
+        fail(f"mamba2 training under mode off: launches {counts(tm, pm)}, grad norm "
+             f"{off_norm}")
+    log(f"mamba2 training: the same step under mode off: loss {off_loss:.4f}, grad norm "
+        f"{off_norm:.3f} (under exact/cuda {float(nm['grad_norm']):.3f}), no MAC kernel")
+    step_fn = make_train_step(cfg, opt)
+    prof = profile_step(torch, lambda: step_fn(state, batch), drain=True, host=False)
+    log(f"mamba2 training: one profiled step on {card}: " + busy_line(prof, step_ms))
+    del state, nm_step, step_fn
+    torch.cuda.empty_cache()
+    out = {"mamba2_780m": {
+        "losses": losses, "replayed": [m["loss"] for m in again], "restarts": 1,
+        "step_ms": step_ms, "tokens_per_s": tok_s, "run_s": run_s,
+        "launches": got["ternary_cim_matmul"], "launches_per_step": per_step,
+        "grad_norms": [first[i]["grad_norm"] for i in range(TRAIN_STEPS)],
+        "ckpt_bytes": ckpt_bytes, "peak_bytes": peak, "nm_loss": nm_loss,
+        "nm_ms": nm_ms, "nm_grad_norm": float(nm["grad_norm"]), "off_loss": off_loss,
+        "off_grad_norm": off_norm, "profiled": profiled(prof),
+        "deterministic_warnings": det_warnings}}
+
+    # zamba2-2.7b: 3 steps of make_train_step
+    cfg = full_size("zamba2-2.7b")
+    z_per_step = macs_per_step(cfg) + 2 * cfg.n_layers
+    if z_per_step != 279:
+        fail(f"zamba2 training: {z_per_step} MACs a step, expected 279")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    step_fn = make_train_step(cfg, opt)
+    z_losses, z_secs, z_launches = [], [], 0
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+        reset_counts(tm, pm)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        z_secs.append(time.perf_counter() - t0)
+        z_got = counts(tm, pm)
+        z_launches += z_got["ternary_cim_matmul"]
+        z_want = dict.fromkeys(z_got, 0)
+        z_want["ternary_cim_matmul"] = z_per_step
+        if z_got != z_want:
+            fail(f"zamba2 training: step {i} launched {z_got}, expected {z_want}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"zamba2 training: step {i} loss {loss} grad norm {gnorm}")
+        z_losses.append(loss)
+    z_peak = torch.cuda.max_memory_allocated()
+    z_ms = statistics.median(z_secs[1:]) * 1e3
+    log(f"training zamba2-2.7b (full size, bf16, remat, CiM spec; batch {TRAIN_BATCH} "
+        f"x seq {TRAIN_SEQ}) on {card}: 3 steps of make_train_step, loss "
+        + " ".join(f"{v:.4f}" for v in z_losses)
+        + f"; #1 launched {z_per_step} in each step (171 forward + 108 remat; "
+        f"{z_launches} in all), no other MAC kernel; step {z_secs[0] * 1e3:.1f}, "
+        + ", ".join(f"{v * 1e3:.1f}" for v in z_secs[1:])
+        + f" ms (median of the last 2 {z_ms:.1f} ms = {TRAIN_M / (z_ms / 1e3):.0f} "
+        f"training tokens/s); state initialized in {init_s * 1e3:.1f} ms; peak device "
+        f"memory {z_peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 18 wall time {wall:.1f} s on {card}")
+    out["zamba2_2_7b"] = {"losses": z_losses, "step_ms": z_ms,
+                          "secs": z_secs, "launches": z_launches,
+                          "launches_per_step": z_per_step,
+                          "peak_bytes": z_peak, "init_s": init_s}
+    out["wall_s"] = wall
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2169,6 +2445,14 @@ def main(argv=None) -> int:
                                                  torch.device("cuda"))
     per_kernel["ternary_cim_matmul"]["smollm_135m_train"].update(
         launches=training["launches"], launches_per_step=training["launches_per_step"])
+    serving["training_ssm"] = ssm_training = ssm_train_phase(
+        torch, tm, pm, card, torch.device("cuda"))
+    per_kernel["ternary_cim_matmul"]["mamba2_780m_train"].update(
+        launches=ssm_training["mamba2_780m"]["launches"],
+        launches_per_step=ssm_training["mamba2_780m"]["launches_per_step"])
+    per_kernel["ternary_cim_matmul"]["zamba2_2_7b_train"].update(
+        launches=ssm_training["zamba2_2_7b"]["launches"],
+        launches_per_step=ssm_training["zamba2_2_7b"]["launches_per_step"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -7,7 +7,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 3 --ckpt-dir /tmp/ckpt
 
-No mesh or sharding: the port has no tensor parallelism yet.
+Every token family trains here; encdec and vlm need frames or patches,
+which the token pipeline does not make (nor the reference's): train them
+through ``Trainer(batch_transform=...)``. No mesh or sharding: the port
+has no tensor parallelism yet.
 """
 from __future__ import annotations
 

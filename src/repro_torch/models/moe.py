@@ -23,6 +23,10 @@ expert stack does not fit the card (10 GB for one deepseek-v2 layer's
 as many as fit :data:`CHUNK_BYTES` of float64 weights, at least one
 (grok-1's one expert matrix is 1.6 GB in float64). The shared experts
 are an ordinary MLP of dense layers (kernel #1 on the card).
+
+Under autograd the expert weights train through :func:`_tern3`'s
+straight-through codes, as the reference's do; the products' backward
+is autograd's, in float64.
 """
 from __future__ import annotations
 
@@ -69,10 +73,13 @@ def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype, device,
 
 def _tern3(w: torch.Tensor) -> torch.Tensor:
     """Per-expert, per-out-channel ternarization of (E, K, N), the scale
-    folded into the ternary weight: the reference's value. Its STE is not
-    ported yet, so the moe family does not train (``train.train_step``
-    raises for it)."""
-    t, scale = tern.ternarize(w, axis=(1,))
+    folded into the ternary weight, with the reference's value-exact STE:
+    the codes from ``w.detach()``, ``t + (w - w.detach())`` where w needs
+    a gradient (exactly t forward, the identity backward), times the
+    detached scale."""
+    t, scale = tern.ternarize(w.detach(), axis=(1,))
+    if w.requires_grad and torch.is_grad_enabled():
+        t = t + (w - w.detach())
     return t * scale
 
 
@@ -81,7 +88,8 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor, qc: L.QuantConfig
     """x (E, C, K) against the expert stack w (E, K, N): (E, C, N) in x's
     dtype, the reference's ``emm`` (see the module docstring), over
     chunks of experts each ternarized and widened to float64 on its own
-    (ternarization is per expert, so a chunk's codes are the stack's)."""
+    (ternarization is per expert, so a chunk's codes are the stack's).
+    ``|w64|`` is taken out of place: ``p``'s backward keeps ``w64``."""
     e, k, n = w.shape
     step = max(1, CHUNK_BYTES // (8 * k * n))
     out = torch.empty((e, x.shape[1], n), dtype=x.dtype, device=x.device)
@@ -94,7 +102,7 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor, qc: L.QuantConfig
         if qc.mode not in ("cim", "cim_fused"):
             out[e0:e0 + step] = p
             continue
-        m = torch.matmul(xc.abs().to(torch.float64), w64.abs_()).to(x.dtype)
+        m = torch.matmul(xc.abs().to(torch.float64), w64.abs()).to(x.dtype)
         pf, mf = p.to(torch.float32), m.to(torch.float32)
         out[e0:e0 + step] = (torch.clamp((mf + pf) * 0.5, max=_CLAMP)
                              - torch.clamp((mf - pf) * 0.5, max=_CLAMP))
@@ -158,3 +166,17 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.n_shared_experts:
         out = out + L.mlp(params["shared"], xt, cfg.quant)
     return out.reshape(b, s, d)
+
+
+def router_aux_loss(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style), the reference's: E ·
+    Σ_e (share of tokens whose top-1 is e) · (mean gate of e), over x
+    (B, S, D) against the f32 router. ``train_step`` does not add it, as
+    the reference's does not."""
+    b, s, d = x.shape
+    logits = x.reshape(b * s, d).to(torch.float32) @ params["router"]
+    gates = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(gates, dim=-1)
+    me = torch.nn.functional.one_hot(top1, cfg.n_experts).to(torch.float32).mean(0)
+    pe = gates.mean(0)
+    return cfg.n_experts * torch.sum(me * pe)

@@ -79,11 +79,28 @@ def init_mamba2(generator: torch.Generator, cfg: ArchConfig, dtype, device,
             for k, v in params.items()}
 
 
+class _Softplus(torch.autograd.Function):
+    """:func:`softplus` with the reference's gradient: ``logaddexp``'s
+    jvp, g · exp(x − softplus(x)) = g · sigmoid(x), 0.5 at x == 0 (the
+    autograd of ``clamp(x, min=0)`` gives 1.0 there)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` computed as JAX does:
     max(x, 0) + log1p(exp(-|x|)) (``torch.nn.functional.softplus``
-    returns x above a threshold of 20 instead)."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    returns x above a threshold of 20 instead), with its gradient."""
+    return _Softplus.apply(x)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

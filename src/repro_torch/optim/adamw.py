@@ -17,6 +17,9 @@ import torch
 
 PyTree = Any
 
+# elements of a leaf that update() takes at once
+SLICE_ELEMS = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -64,21 +67,32 @@ def global_norm(tree: PyTree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _scaled(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.to(torch.float32) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads: PyTree, max_norm: float
                         ) -> Tuple[PyTree, torch.Tensor]:
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: _scaled(g, scale), grads), norm
 
 
 def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
            ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the inputs are not
-    modified."""
-    if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gnorm = global_norm(grads)
+    modified. The clip (:func:`clip_by_global_norm`'s rounding) and the
+    update run per leaf, a leaf of more than :data:`SLICE_ELEMS` elements
+    in slices along its first axis: the arithmetic is elementwise, so the
+    result is the same, and the f32 temporaries stay small beside the
+    two copies of the state (zamba2-2.7b's stacked ``w_in`` is 1.44 G
+    elements)."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip else None
     step = state.step + 1
     lr = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
     if cfg.schedule is not None:
@@ -88,13 +102,26 @@ def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
     bc1 = 1.0 - torch.pow(b1, sf)
     bc2 = 1.0 - torch.pow(b2, sf)
 
-    def leaf(p, g, m, v):
+    def part(p, g, m, v):
+        if scale is not None:
+            g = _scaled(g, scale)
         gf = g.to(torch.float32)
         m2 = b1 * m + (1 - b1) * gf
         v2 = b2 * v + (1 - b2) * gf * gf
         upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
         upd = upd + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * upd).to(p.dtype), m2, v2
+
+    def leaf(p, g, m, v):
+        if p.numel() <= SLICE_ELEMS or p.shape[0] == 1:
+            return part(p, g, m, v)
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        rows = max(1, SLICE_ELEMS // (p.numel() // p.shape[0]))
+        for i in range(0, p.shape[0], rows):
+            for o, t in zip(out, part(p[i:i + rows], g[i:i + rows], m[i:i + rows],
+                                      v[i:i + rows])):
+                o[i:i + rows] = t
+        return out
 
     out = tree_map(leaf, params, grads, state.mu, state.nu)
     pick = lambda i: tree_map(lambda t: t[i], out)

@@ -3,10 +3,11 @@
 ``train_step`` is one eager optimizer step: the loss, its gradients by
 autograd (through the STE codes and MAC of ``models.layers.dense``, each
 layer checkpointed under ``cfg.remat``), optional gradient compression,
-and the functional AdamW update. It takes the dense family only: the
-STE of the moe family's expert ternarization (``moe._tern3``) is not
-ported, and the other families' gradients are not yet held against the
-reference (ROADMAP, Queue A item 7).
+and the functional AdamW update. Every family trains: the moe experts
+through ``moe._tern3``'s straight-through codes, the SSM's ``dt``
+through ``ssm.softplus``'s reference gradient; encdec and vlm batches
+carry ``frames`` or ``patches`` beside the tokens. An unknown family
+raises in ``transformer.forward``.
 """
 from __future__ import annotations
 
@@ -24,22 +25,12 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 
 PyTree = Any
 
-TRAINABLE_FAMILIES = ("dense",)
-
 
 class TrainState(NamedTuple):
     params: PyTree
     opt: adamw.AdamWState
     generator: torch.Generator          # the int8 compression's noise
     residual: Optional[PyTree] = None   # error feedback of grad compression
-
-
-def _check_trainable(cfg: ArchConfig) -> None:
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"the port trains the {TRAINABLE_FAMILIES} families, not "
-            f"{cfg.family!r}: the STE of moe._tern3 and the other families' "
-            f"gradients are ROADMAP Queue A item 7")
 
 
 def init_train_state(cfg: ArchConfig, seed: int = 0,
@@ -78,7 +69,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step; ``state`` is not modified (the generator
     advances where int8 compression draws from it)."""
-    _check_trainable(cfg)
     params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
     loss, metrics = loss_fn(params, batch, cfg)
     found = iter(torch.autograd.grad(loss, list(tree_leaves(params))))
@@ -97,8 +87,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     grad_compression: Optional[str] = None):
     """The eager counterpart of the reference's ``make_jit_train_step``:
-    ``step(state, batch) -> (state, metrics)``. Raises for a family the
-    port does not train."""
-    _check_trainable(cfg)
+    ``step(state, batch) -> (state, metrics)``."""
     return functools.partial(train_step, cfg=cfg, opt_cfg=opt_cfg,
                              grad_compression=grad_compression)

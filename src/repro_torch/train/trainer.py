@@ -2,13 +2,19 @@
 
 Beyond calling the train step:
   * periodic async checkpoints (two-phase commit via ``train.checkpoint``),
-  * crash recovery: on any step failure, restore the last committed
-    checkpoint and replay from there (the data pipeline is seekable, so
-    every sample is used exactly once); a ``FailureInjector`` makes this
-    path deterministic for tests,
+  * crash recovery: on any step failure, let a checkpoint in flight
+    commit, restore the last committed checkpoint and replay from there
+    (the data pipeline is seekable, so every sample is used exactly
+    once); a ``FailureInjector`` makes this path deterministic for tests,
   * straggler detection: steps slower than ``straggler_factor`` x the
     trailing median are logged and counted,
   * a metrics log of every step.
+
+``run()`` steps under ``torch.use_deterministic_algorithms(True,
+warn_only=True)`` and restores the caller's setting after it: on the
+card the embedding's and cross entropy's backward otherwise use atomic
+adds, and a replayed step would not equal its first pass bit for bit,
+as the reference's replays do by construction.
 
 Single process on one device: the reference's elastic restore onto
 another mesh has no counterpart until the port has tensor parallelism.
@@ -133,6 +139,15 @@ class Trainer:
             self._pending_ckpt = None
 
     def run(self) -> List[Dict[str, float]]:
+        enabled = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return self._run()
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+
+    def _run(self) -> List[Dict[str, float]]:
         tc = self.train_cfg
         step = self.start_step
         durations: List[float] = []
@@ -142,10 +157,11 @@ class Trainer:
                 metrics = self._one_step(step)
             except Exception as e:  # node failure path
                 self.restarts += 1
+                # drain in-flight checkpoint IO first: callers tear down
+                # the directory after a raise, and the restore below must
+                # not depend on whether the last commit beat the failure
+                self._drain()
                 if self.restarts > tc.max_restarts or not tc.ckpt_dir:
-                    # drain in-flight checkpoint IO before propagating so
-                    # callers can tear down the directory safely
-                    self._drain()
                     raise
                 if ckpt.latest_step(tc.ckpt_dir) is not None:
                     step = self.restore()

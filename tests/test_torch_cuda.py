@@ -864,3 +864,107 @@ def test_cuda_dense_with_grad_params_captures_under_no_grad(cuda_device):
         got = step()
         assert tm.ternary_cim_matmul.launches - before == 1
         assert torch.equal(got, fn(x)), i
+
+
+FAMILY_ARCHS = ("mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b", "grok-1-314b",
+                "whisper-large-v3", "llava-next-34b")
+
+
+def _family_train(arch, device, remat=False, steps=1):
+    """``steps`` smoke f32 CiM train steps of ``arch`` (moe at capacity
+    factor 8.0: nothing drops) from seed-0 params made on the CPU and
+    moved to ``device``, with seeded frames or patches where the family
+    takes them; returns (losses, params, launches moved, cfg)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32", remat=remat)
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_capacity_factor=8.0)
+    params = adamw.tree_map(lambda p: p.to(device),
+                            T.init_params(cfg, seed=0, device="cpu"))
+    state = TrainState(params, adamw.init(params),
+                       torch.Generator(device=device).manual_seed(1), None)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    rng = np.random.default_rng(7)
+    losses = []
+    before = _launches()
+    for i in range(steps):
+        batch = pipe.batch(i)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (2, cfg.n_image_tokens, cfg.d_vision)).astype(np.float32)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    moved = tuple(a - b for a, b in zip(_launches(), before))
+    return losses, state.params, moved, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_train_step_matches_cpu(cuda_device, arch):
+    """One smoke f32 CiM train step of each non-dense family through #1 on
+    the card == the port on the CPU, TF32 off, at the dense family's
+    bounds (test_cuda_train_step_matches_cpu): the loss at rtol 1e-5, the
+    params at rtol 1e-4 with atol 1e-4 (a tenth of lr) and a mean
+    difference under 1e-8."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    losses, params, moved, _ = _family_train(arch, cuda_device)
+    want_losses, want_params, _, _ = _family_train(arch, torch.device("cpu"))
+    assert moved[0] > 0 and not any(moved[1:])
+    torch.testing.assert_close(losses, want_losses, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(params), tree_leaves(want_params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        assert float((a.cpu() - b).abs().mean()) < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_train_step_launches(cuda_device, arch):
+    """Under remat, #1 runs once per quantized dense layer in the forward
+    and once more for each one under a checkpointed layer (the decoder or
+    mamba layers; not whisper's encoder, zamba2's shared block or llava's
+    projector); no other MAC kernel; remat on and off give the same losses
+    bit for bit."""
+    losses, _, moved, cfg = _family_train(arch, cuda_device, remat=True, steps=2)
+    per_layer = {"ssm": 2, "hybrid": 2, "encdec": 11, "vlm": 7,
+                 "moe": (3 if cfg.mla else 4) + (3 if cfg.n_shared_experts else 0)}
+    under_remat = per_layer[cfg.family] * cfg.n_layers
+    other = {"hybrid": 7 * (cfg.n_layers // max(cfg.hybrid_attn_every, 1)),
+             "encdec": 7 * cfg.n_encoder_layers, "vlm": 1}.get(cfg.family, 0)
+    assert moved == (2 * (2 * under_remat + other), 0, 0, 0, 0)
+    plain, _, _, _ = _family_train(arch, cuda_device, remat=False, steps=2)
+    assert losses == plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "deepseek-v2-236b"])
+def test_cuda_trainer_replay_is_bit_equal(cuda_device, arch, tmp_path):
+    """A failure at step 3 restores the checkpoint at 2: step 2 replays
+    with its first pass's loss and grad norm bit for bit on the card. The
+    test does not turn deterministic mode on: Trainer.run() does, and
+    leaves it off again."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = get_config(arch, smoke=True)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    tr = Trainer(cfg, AdamWConfig(lr=1e-3), TrainConfig(
+        num_steps=4, ckpt_dir=str(tmp_path), ckpt_every=2, log_every=0), pipe,
+        failure_injector=FailureInjector([3]), device=cuda_device)
+    log = tr.run()
+    assert tr.restarts == 1 and [m["step"] for m in log] == [0, 1, 2, 2, 3]
+    assert (log[2]["loss"], log[2]["grad_norm"]) == (log[3]["loss"], log[3]["grad_norm"])
+    assert not torch.are_deterministic_algorithms_enabled()

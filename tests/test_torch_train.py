@@ -7,6 +7,7 @@ cross between the packages), the fault-tolerant Trainer, and the
 launcher on the CPU."""
 import os
 import tempfile
+import time
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +119,37 @@ class TestAdamW:
         jclipped, jnorm = jadamw.clip_by_global_norm({"a": jnp.full((10,), 100.0)}, 1.0)
         np.testing.assert_array_equal(clipped["a"].numpy(), np.asarray(jclipped["a"]))
         assert float(norm) == float(jnorm)
+
+    @pytest.mark.parametrize("grad_clip", [1.0, 0.0], ids=["clipped", "unclipped"])
+    def test_update_in_slices_is_bit_equal(self, grad_clip, monkeypatch):
+        """Leaves above SLICE_ELEMS update in slices along their first
+        axis: params, moments and norm bit-equal to the whole-leaf update
+        (and to clip_by_global_norm's rounding), bf16 and f32 leaves."""
+        from repro_torch.optim import adamw as tadamw
+
+        g = torch.Generator().manual_seed(3)
+        params = {"a": torch.randn((7, 5, 6), generator=g),
+                  "b": {"c": torch.randn((9, 4), generator=g).to(torch.bfloat16),
+                        "d": torch.randn((3,), generator=g)}}
+        grads = tadamw.tree_map(lambda p: (torch.randn(p.shape, generator=g) * 4).to(p.dtype),
+                                params)
+        state = init(params)
+        state = AdamWState(state.step + 2, tadamw.tree_map(lambda m: m + 0.01, state.mu),
+                           tadamw.tree_map(lambda v: v + 0.02, state.nu))
+        cfg = AdamWConfig(lr=1e-2, grad_clip=grad_clip)
+        whole = update(cfg, grads, state, params)
+        monkeypatch.setattr(tadamw, "SLICE_ELEMS", 8)
+        sliced = update(cfg, grads, state, params)
+        assert torch.equal(whole[2], sliced[2])
+        for x, y in ((whole[0], sliced[0]), (whole[1].mu, sliced[1].mu),
+                     (whole[1].nu, sliced[1].nu)):
+            for a, b in zip(tadamw.tree_leaves(x), tadamw.tree_leaves(y)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        if grad_clip:
+            clipped, _ = clip_by_global_norm(grads, grad_clip)
+            want = update(AdamWConfig(lr=1e-2, grad_clip=0.0), clipped, state, params)
+            for a, b in zip(tadamw.tree_leaves(want[0]), tadamw.tree_leaves(sliced[0])):
+                assert torch.equal(a, b)
 
     def test_schedule_shape(self):
         f = schedules.warmup_cosine(10, 100)
@@ -247,6 +279,26 @@ class TestTrainerFaultTolerance:
                 by_step.setdefault(m["step"], []).append(m["loss"])
             assert by_step[3][0] == by_step[3][1] and by_step[4][0] == by_step[4][1]
 
+    def test_failure_waits_for_the_checkpoint_in_flight(self, monkeypatch):
+        """A failure while the checkpoint at 2 is still committing resumes
+        from it, not from step 0: the restore does not depend on the
+        IO's timing (a commit that takes 0.5 s here)."""
+        inner = ckpt._EXECUTOR
+
+        class Slow:
+            def submit(self, fn):
+                return inner.submit(lambda: (time.sleep(0.5), fn())[1])
+
+        monkeypatch.setattr(ckpt, "_EXECUTOR", Slow())
+        cfg = small_cfg()
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, AdamWConfig(lr=1e-3),
+                         TrainConfig(num_steps=4, ckpt_dir=d, ckpt_every=2, log_every=0),
+                         make_pipe(cfg), failure_injector=FailureInjector([2]),
+                         device="cpu")
+            log = tr.run()
+        assert tr.restarts == 1 and [m["step"] for m in log] == [0, 1, 2, 3]
+
     def test_too_many_failures_raises(self):
         cfg = small_cfg()
         pipe = make_pipe(cfg)
@@ -285,6 +337,86 @@ class TestTrainerFaultTolerance:
                 assert torch.equal(x, y)
             log = t2.run()
             assert log[-1]["step"] == 5
+
+
+class TestTrainerFamilies:
+    """The Trainer beyond the dense family, and its deterministic mode."""
+
+    @staticmethod
+    def _det():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+
+    @pytest.mark.parametrize("setting", [(False, False), (True, False), (True, True)],
+                             ids=["off", "strict", "warn_only"])
+    def test_run_restores_the_callers_deterministic_setting(self, setting):
+        """Steps run under deterministic mode (warn only); run() leaves
+        the caller's setting as it found it, also when it raises."""
+        before = self._det()
+        torch.use_deterministic_algorithms(setting[0], warn_only=setting[1])
+        try:
+            cfg = small_cfg()
+            tr = Trainer(cfg, AdamWConfig(), TrainConfig(num_steps=2, log_every=0),
+                         make_pipe(cfg), device="cpu")
+            inner, seen = tr.step_fn, []
+            tr.step_fn = lambda state, batch: seen.append(self._det()) or inner(state, batch)
+            tr.run()
+            assert seen == [(True, True)] * 2 and self._det() == setting
+
+            def boom(state, batch):
+                raise RuntimeError("boom")
+
+            tr = Trainer(cfg, AdamWConfig(), TrainConfig(num_steps=1, log_every=0),
+                         make_pipe(cfg), device="cpu")
+            tr.step_fn = boom
+            with pytest.raises(RuntimeError, match="boom"):
+                tr.run()
+            assert self._det() == setting
+        finally:
+            torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+    @pytest.mark.parametrize("arch,key", [("whisper-large-v3", "frames"),
+                                          ("llava-next-34b", "patches")])
+    def test_batch_transform_supplies_frames_or_patches(self, arch, key):
+        """The token pipeline makes no frames or patches: encdec and vlm
+        train through ``batch_transform``; without it their forward
+        raises."""
+        cfg = get_config(arch, smoke=True)
+        shape = ((cfg.encoder_seq, cfg.d_model) if key == "frames"
+                 else (cfg.n_image_tokens, cfg.d_vision))
+
+        def add(batch):
+            rng = np.random.default_rng(int(batch["tokens"].sum()))
+            b = batch["tokens"].shape[0]
+            return dict(batch, **{key: rng.standard_normal((b,) + shape).astype(np.float32)})
+
+        pipe = make_pipe(cfg, seq=16, gb=2)
+        tr = Trainer(cfg, AdamWConfig(lr=1e-3), TrainConfig(num_steps=3, log_every=0),
+                     pipe, batch_transform=add, device="cpu")
+        first = ckpt.tree_flatten(tr.state.params)
+        log = tr.run()
+        assert [m["step"] for m in log] == [0, 1, 2]
+        assert all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in log)
+        assert any(not torch.equal(a, b) for a, b in
+                   zip(first, ckpt.tree_flatten(tr.state.params)))
+        tr = Trainer(cfg, AdamWConfig(), TrainConfig(num_steps=1, log_every=0), pipe,
+                     device="cpu")
+        with pytest.raises(ValueError, match=f"needs {key}"):
+            tr.run()
+
+    @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b"])
+    def test_failover_replays_bit_equal(self, arch):
+        """A failure at 3 resumes from the checkpoint at 2: step 2 replays
+        with its first pass's loss and grad norm."""
+        cfg = get_config(arch, smoke=True)
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, AdamWConfig(lr=1e-3),
+                         TrainConfig(num_steps=4, ckpt_dir=d, ckpt_every=2, log_every=0),
+                         make_pipe(cfg, seq=16, gb=2),
+                         failure_injector=FailureInjector([3]), device="cpu")
+            log = tr.run()
+        assert tr.restarts == 1 and [m["step"] for m in log] == [0, 1, 2, 2, 3]
+        assert (log[2]["loss"], log[2]["grad_norm"]) == (log[3]["loss"], log[3]["grad_norm"])
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +529,15 @@ def test_launcher_trains_on_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "device=cpu" in out and "[train] done" in out
     assert ckpt.latest_step(str(tmp_path)) == 3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v2-236b"])
+def test_launcher_trains_other_families_on_cpu(capsys, arch):
+    assert launch_train.main(["--smoke", "--device", "cpu", "--arch", arch, "--steps", "3",
+                              "--seq", "32", "--batch", "4"]) == 0
+    out = capsys.readouterr().out
+    assert f"[train] {arch}:" in out
+    assert "device=cpu" in out and "[train] done" in out
 
 
 def test_launcher_and_trainer_raise_without_cuda(monkeypatch):

@@ -1,8 +1,8 @@
 """Training against the JAX package: the STE wrappers, the gradients of
 ``dense`` under every mode and spec, ``loss_fn`` and its gradients, and
 three ``train_step``s at smollm-135m smoke size (f32), on the same seeded
-numpy inputs and bridged params; remat on == remat off; the families the
-port does not train."""
+numpy inputs and bridged params; remat on == remat off. The other
+families: test_torch_train_families.py."""
 import dataclasses
 
 import jax
@@ -34,8 +34,7 @@ from repro_torch.models.registry import get_config
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.train.train_step import (TrainState, init_train_state, loss_fn,
-                                          make_train_step, train_step)
+from repro_torch.train.train_step import TrainState, loss_fn, make_train_step
 
 STEPS = 3
 SEQ, BATCH = 32, 4
@@ -299,16 +298,6 @@ def test_remat_equals_no_remat_bit_for_bit(reference_runs, monkeypatch):
     a, b = _flat(results[False][0].params), _flat(results[True][0].params)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v2-236b"])
-def test_train_step_raises_for_other_families(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        make_train_step(cfg, adamw.AdamWConfig())
-    state = init_train_state(get_config("smollm-135m", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        train_step(state, {}, cfg, adamw.AdamWConfig())
 
 
 def test_forward_without_grad_ignores_remat():
