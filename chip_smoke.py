@@ -26,11 +26,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      the same function;
   3. serving: the port's ContinuousBatcher on full-size smollm-135m
      (seeded random weights, 4 slots, s_max 256, 8 requests), its decode
-     step one captured CUDA graph, with kernel #1's launch count = 210 x
-     (decode steps + prefill batches); the same requests through the
-     same batcher with the graph switched off (eager), whose tokens must
-     equal the captured ones; both decode-step medians, both tok/s and
-     the capture time; and one replayed and one eager decode step under
+     step one captured CUDA graph and its prefill one per bucket, with
+     kernel #1's launch count = 210 x (decode steps + prefill batches)
+     and 210 in every fill batch, every fill after a bucket's first a
+     replay; the same requests through the same batcher with its graphs
+     switched off (eager), whose tokens must equal the captured ones and
+     whose caches after the first fill must equal them bit for bit (every
+     batcher phase below checks the same); both decode-step medians, both
+     prefill times per fill batch, both tok/s, the capture times and the
+     pool bytes; and one replayed and one eager decode step under
      torch.profiler (device-busy time over the device rows, #1's, busy
      over the unprofiled median);
   4. token identity: the captured batcher against the port's
@@ -125,32 +129,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      "whisper_large_v3_prefill", "llava_next_34b", "llava_next_34b_prefill"
      in the kernels line);
  17. training: full-size smollm-135m (bf16, remat, the CiM spec)
-     through the port's Trainer for 20 steps at batch 8 x seq 128
+     through the port's Trainer, whose step is make_jit_train_step's
+     captured CUDA graph, for 20 steps at batch 8 x seq 128
      (seeded params, TokenPipeline seed 0, lr 3e-4 warmup_cosine(20, 20),
      checkpoints every 10 steps, a failure injected at step 15) under
      torch.use_deterministic_algorithms: losses and grad norms finite,
-     the loss falling (last 5 steps' mean below the first 5's), one
-     restart, the replayed steps 10-14 bit-equal to their first pass, #1
-     launched 420 times in every step (the forward's 210 dense layers and
-     remat's recompute) and no other MAC kernel; one step under exact/cuda
-     (#5 420 times); the eager step median and training tokens/s, the
-     checkpoint save time, the peak memory, a profiled step, and the
-     launcher's main() for 3 steps. The kernel phase bit-checks #1 and #5
-     at the training M in {1024, 1023} at the four (K, N) of its layers
-     and times one layer's 7 calls of #1 at M=1024 ("smollm_135m_train"
-     in the kernels line);
+     the loss falling (last 5 steps' mean below the first 5's), steps
+     0-4 bit-equal to 5 eager make_train_step steps from the same seed,
+     one restart, the replayed steps 10-14 bit-equal to their first
+     pass, #1 launched 420 times in every step through the replays (the
+     forward's 210 dense layers and remat's recompute) and no other MAC
+     kernel; one step under exact/cuda (#5 420 times); the captured and
+     eager step medians and training tokens/s, the capture time, the
+     checkpoint save time, the peak memory, a profiled replay (idle
+     share), and the launcher's main() for 3 steps. The kernel phase
+     bit-checks #1 and #5 at the training M in {1024, 1023} at the four
+     (K, N) of its layers and times one layer's 7 calls of #1 at M=1024
+     ("smollm_135m_train" in the kernels line);
  18. (run last) training the ssm and hybrid families: full-size
      mamba2-780m (bf16, remat, the CiM spec) through the Trainer as in
      phase 17 (20 steps, checkpoints every 10, a failure at 15), the
      phase leaving deterministic mode to Trainer.run(): losses and grad
      norms finite, the loss falling, steps 10-14 replayed bit-equal, #1
      launched 192 times in every step (96 forward + 96 remat) and no
-     other MAC kernel; one exact/cuda step (#5 192 times) and one under
-     mode "off" (its grad norm), the step median, tokens/s, peak memory
-     and a profiled step; then full-size
-     zamba2-2.7b: 3 steps of make_train_step, finite losses, #1 279 times
-     a step (171 + 108: only the mamba layers sit under remat), step ms
-     and peak memory. The kernel phase bit-checks #1 at M in {1024, 1023}
+     other MAC kernel, steps 0-4 bit-equal to 5 eager steps; one
+     exact/cuda step (#5 192 times) and one under mode "off" (its grad
+     norm), the captured and eager step medians, tokens/s, capture time,
+     peak memory and a profiled replay; then full-size zamba2-2.7b: 3
+     steps of make_jit_train_step, finite losses, #1 279 times a step
+     (171 + 108: only the mamba layers sit under remat), step ms, capture
+     time and peak memory. The kernel phase bit-checks #1 at M in {1024, 1023}
      at every (K, N) of phases 12 and 13 (#5 at mamba2's) and times one
      mamba2 and one zamba2 layer's calls at M=1024 ("mamba2_780m_train",
      "zamba2_2_7b_train" in the kernels line).
@@ -794,20 +802,41 @@ def four_requests(Request, vocab, seed=7):
             for i, n in enumerate(lengths)]
 
 
-def drive(torch, batcher, reqs):
-    """Run the batcher to completion; returns (seconds, decode-step ms)."""
+def drive(torch, batcher, reqs, fills=None, counter=None, after_first_fill=None):
+    """Run the batcher to completion; returns (seconds, decode-step ms).
+    Each fill runs on its own before its step (it ends in the fill's one
+    fetch), so it is timed alone: with a list ``fills``, each appends
+    (ms, whether it built a new bucket's prefill step, the launches of
+    ``counter()`` it moved). ``after_first_fill()`` runs after the first
+    fill, outside the timed window. A decode step in the iteration of a
+    fill is not in the step ms (the first one is the decode capture), as
+    when the fill ran inside the step."""
     for r in reqs:
         batcher.submit(r)
+    fill = batcher._fill_slots if batcher.fused else batcher._fill_slots_looped
     torch.cuda.synchronize()
-    step_ms = []
+    step_ms, aside = [], 0.0
     t0 = time.perf_counter()
     while batcher.queue or any(r is not None for r in batcher.slot_req):
         pb = batcher.prefill_batches
+        nb = len(getattr(batcher, "_prefill_steps", ()))
+        c0 = counter() if counter else None
+        ts = time.perf_counter()
+        fill()
+        filled = batcher.prefill_batches != pb
+        if filled and fills is not None:
+            fills.append(((time.perf_counter() - ts) * 1e3,
+                          len(getattr(batcher, "_prefill_steps", ())) != nb,
+                          counter() - c0 if counter else None))
+        if filled and pb == 0 and after_first_fill is not None:
+            ta = time.perf_counter()
+            after_first_fill()
+            aside += time.perf_counter() - ta
         ts = time.perf_counter()
         batcher.step()  # ends in the step's one host fetch
-        if batcher.prefill_batches == pb:
+        if not filled:
             step_ms.append((time.perf_counter() - ts) * 1e3)
-    return time.perf_counter() - t0, step_ms
+    return time.perf_counter() - t0 - aside, step_ms
 
 
 def profile_step(torch, step, top=6, drain=False, host=True):
@@ -897,17 +926,24 @@ def macs_per_step(cfg) -> int:
     return 2 * cfg.n_layers + 7 * shared
 
 
-def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
+def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label, fills=None,
+                  after_first_fill=None):
     """Drive ``batcher`` over ``reqs`` with every launch count at 0 just
     before; fail unless every request finished with tokens in range, one
     host sync per step, ``kernel`` launched macs_per_step x (decode steps
-    + prefill batches) and no other kernel launched, and every cache leaf
-    kept its storage. Returns (counts, stats, seconds, step ms)."""
+    + prefill batches) and macs_per_step in every fill batch, no other
+    kernel launched, and every cache leaf kept its storage. ``fills`` and
+    ``after_first_fill``: :func:`drive`'s. Returns (counts, stats,
+    seconds, step ms)."""
     from repro_torch.models import transformer as T
 
     ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
+    per_step = macs_per_step(batcher.cfg)
+    fills = [] if fills is None else fills
     reset_counts(tm, pm)
-    secs, step_ms = drive(torch, batcher, reqs)
+    secs, step_ms = drive(torch, batcher, reqs, fills=fills,
+                          counter=lambda: counts(tm, pm)[kernel],
+                          after_first_fill=after_first_fill)
     got = counts(tm, pm)
     st = batcher.stats()
     if not all(r.done for r in reqs):
@@ -915,12 +951,14 @@ def serve_counted(torch, tm, pm, batcher, reqs, vocab, kernel, label):
     if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
         fail(f"{label}: host_syncs {st}")
     steps = st["decode_steps"] + st["prefill_batches"]
-    per_step = macs_per_step(batcher.cfg)
     if [a.data_ptr() for a in T.cache_leaves(batcher.caches)] != ptrs:
         fail(f"{label}: a cache leaf changed its storage")
     if got[kernel] != per_step * steps:
         fail(f"{label}: {kernel} launched {got[kernel]} times, expected "
              f"{per_step} x {steps}")
+    if any(n != per_step for _, _, n in fills):
+        fail(f"{label}: {kernel} launches per fill batch {[n for _, _, n in fills]}, "
+             f"expected {per_step}")
     others = {k: v for k, v in got.items() if k != kernel and v}
     if others:
         fail(f"{label}: other kernels launched {others}")
@@ -939,16 +977,54 @@ def serving_line(reqs, st, secs, step_ms) -> str:
             f"batches, {st['host_syncs']} host syncs")
 
 
+def fmt_ms(value) -> str:
+    """A time in ms for a log line; "none" where nothing was timed."""
+    return "none" if value is None else f"{value:.2f} ms"
+
+
+def fill_numbers(fills) -> dict:
+    """:func:`drive`'s fill records: the median ms of the fills that
+    reused a bucket's step (replays, where captured), and of the fills
+    that built one (warm-up and capture, where captured)."""
+    again = [ms for ms, new, _ in fills if not new]
+    first = [ms for ms, new, _ in fills if new]
+    return {"prefill_ms": statistics.median(again) if again else None,
+            "first_fill_ms": statistics.median(first) if first else None,
+            "fills": len(fills), "buckets": len(first)}
+
+
+def prefill_graphs(batcher, label) -> dict:
+    """Fail unless every prefill step of a captured batcher holds a graph
+    and every fill after a bucket's first was a replay; returns the
+    prefill graphs' capture time, pool bytes and replays beside the
+    decode graph's."""
+    steps = [step for _, step in batcher._prefill_steps.values()]
+    replays = sum(step.replays for step in steps)
+    if not steps or any(step.graph is None for step in steps) or (
+            replays != batcher.prefill_batches - len(steps)):
+        fail(f"{label}: {len(steps)} prefill steps, graphs "
+             f"{[step.graph is not None for step in steps]}, {replays} replays over "
+             f"{batcher.prefill_batches} fills")
+    return {"prefill_capture_s": batcher.prefill_capture_seconds,
+            "prefill_pool_bytes": sum(step.pool_bytes for step in steps),
+            "prefill_graphs": len(steps), "prefill_replays": replays,
+            "decode_capture_s": batcher.capture_seconds,
+            "decode_pool_bytes": batcher._decode.pool_bytes}
+
+
 def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, dev,
                              cache_dtype=None, n_slots=4, s_max=256,
                              requests=lambda Request, vocab: make_requests(
                                  Request, vocab, seed=0)):
-    """Phase 3's (or 6's, 9's, 11's) serving: the same requests (phase
-    3's 8 by default) through a batcher whose decode step is one captured
-    CUDA graph (the main path, counted) and through one with the graph
-    switched off (eager); fails unless the step was captured and both
-    give the same tokens. Returns (counts of the captured run, stats, log
-    line, numbers)."""
+    """Phase 3's (or 6's, 9's, 11's, ...) serving: the same requests
+    (phase 3's 8 by default) through a batcher whose decode step and
+    per-bucket prefills are captured CUDA graphs (the main path, counted)
+    and through one with every graph switched off (eager); fails unless
+    the decode step and every bucket's prefill were captured, every fill
+    after a bucket's first replayed, both give the same tokens, and the
+    caches after the first fill are bit-equal. Returns (counts of the
+    captured run, stats, log line, numbers)."""
+    from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ContinuousBatcher, Request
 
     runs = {}
@@ -956,34 +1032,53 @@ def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, de
         batcher = ContinuousBatcher(params, cfg, n_slots=n_slots, s_max=s_max,
                                     exec_spec=spec, seed=0, device=dev,
                                     cache_dtype=cache_dtype)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         reqs = requests(Request, cfg.vocab)
         what = label if graphed else f"{label} (eager)"
-        got, st, secs, step_ms = serve_counted(torch, tm, pm, batcher, reqs, cfg.vocab,
-                                               kernel, what)
-        if graphed and (batcher._decode.graph is None or batcher.capture_seconds is None):
-            fail(f"{label}: the decode step was not captured")
-        runs[graphed] = (got, st, secs, step_ms, reqs, batcher.capture_seconds)
-        del batcher   # its graph's memory pool goes before the next batcher's
+        fills, first = [], []
+        got, st, secs, step_ms = serve_counted(
+            torch, tm, pm, batcher, reqs, cfg.vocab, kernel, what, fills=fills,
+            after_first_fill=lambda b=batcher: first.extend(
+                a.clone() for a in T.cache_leaves(b.caches)))
+        graphs = None
+        if graphed:
+            if batcher._decode.graph is None or batcher.capture_seconds is None:
+                fail(f"{label}: the decode step was not captured")
+            graphs = prefill_graphs(batcher, label)
+        runs[graphed] = (got, st, secs, step_ms, reqs, graphs, fills, first)
+        del batcher   # its graphs' memory pool goes before the next batcher's
     tokens = {g: [r.generated for r in runs[g][4]] for g in runs}
     if tokens[True] != tokens[False]:
         fail(f"{label}: captured tokens {tokens[True]} != eager {tokens[False]}")
-    got, st, secs, step_ms, reqs, capture_s = runs[True]
-    _, st_e, secs_e, step_ms_e, reqs_e, _ = runs[False]
+    if not all(torch.equal(a, b) for a, b in zip(runs[True][7], runs[False][7])):
+        fail(f"{label}: the caches after the first fill differ, captured and eager")
+    got, st, secs, step_ms, reqs, graphs, fills, _ = runs[True]
+    _, st_e, secs_e, step_ms_e, reqs_e, _, fills_e, _ = runs[False]
     toks = sum(len(r.generated) for r in reqs)
+    capture_s = graphs["decode_capture_s"] + graphs["prefill_capture_s"]
+    pf, pf_e = fill_numbers(fills), fill_numbers(fills_e)
     numbers = {"captured_step_ms": statistics.median(step_ms),
                "eager_step_ms": statistics.median(step_ms_e),
                "captured_tok_s": toks / secs, "eager_tok_s": toks / secs_e,
                "captured_tok_s_without_capture": toks / (secs - capture_s),
-               "capture_s": capture_s, "tokens": toks,
+               "capture_s": graphs["decode_capture_s"], "tokens": toks,
                "decode_steps": st["decode_steps"],
-               "prefill_batches": st["prefill_batches"]}
-    line = (f"captured: {serving_line(reqs, st, secs, step_ms)}; capture "
-            f"{capture_s:.3f} s (warm-up step included, not in the step median; "
-            f"{numbers['captured_tok_s_without_capture']:.1f} tok/s without it); "
-            f"eager (graph off): {serving_line(reqs_e, st_e, secs_e, step_ms_e)}; "
-            f"captured step {numbers['eager_step_ms'] / numbers['captured_step_ms']:.2f}x "
-            f"faster, tokens identical")
+               "prefill_batches": st["prefill_batches"],
+               "captured_prefill": pf, "eager_prefill": pf_e, **graphs}
+    line = (f"captured: {serving_line(reqs, st, secs, step_ms)}; decode capture "
+            f"{graphs['decode_capture_s']:.3f} s (warm-up step included, not in the "
+            f"step median; {graphs['decode_pool_bytes'] / 1e6:.1f} MB added to the "
+            f"batcher's graph pool), {graphs['prefill_graphs']} prefill graphs captured "
+            f"in {graphs['prefill_capture_s']:.3f} s ({graphs['prefill_pool_bytes'] / 1e6:.1f}"
+            f" MB added to the pool), {graphs['prefill_replays']} fills replayed "
+            f"({numbers['captured_tok_s_without_capture']:.1f} tok/s without the "
+            f"captures); prefill per fill batch {fmt_ms(pf['prefill_ms'])} median over "
+            f"the replays (first fill of a bucket {fmt_ms(pf['first_fill_ms'])}); "
+            f"eager (graphs off): {serving_line(reqs_e, st_e, secs_e, step_ms_e)}; "
+            f"prefill per fill batch {fmt_ms(pf_e['prefill_ms'])} (first of a bucket "
+            f"{fmt_ms(pf_e['first_fill_ms'])}); captured step "
+            f"{numbers['eager_step_ms'] / numbers['captured_step_ms']:.2f}x faster; "
+            f"tokens identical, caches after the first fill bit-equal")
     return got, st, line, numbers
 
 
@@ -1015,7 +1110,7 @@ def profile_line(torch, params, cfg, spec, mac, numbers, dev) -> dict:
                             (False, numbers["eager_step_ms"])):
         batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, exec_spec=spec,
                                     device=dev)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         for r in make_requests(Request, cfg.vocab, seed=3, n=4):
             batcher.submit(r)
         p = profile_step(torch, batcher.step)
@@ -1547,7 +1642,7 @@ def prefill_drops(torch, params, cfg, reqs, dev) -> dict:
         return block(p, x, c)
 
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=128, device=dev)
-    batcher._decode.graphed = False
+    batcher.graphed = False   # moe.route below counts in Python, eagerly
     for r in reqs:
         batcher.submit(r)
     moe.moe_block = counted
@@ -1962,6 +2057,59 @@ def zamba2_capacity(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def eager_reference(torch, cfg, opt, pipe, dev, n=5) -> dict:
+    """``n`` eager make_train_step steps from the Trainer's seed-0 state on
+    pipeline batches 0..n-1, under deterministic mode as Trainer.run()
+    sets it (and as it was after): the losses and grad norms that the
+    captured Trainer's first steps must equal bit for bit, the eager step
+    times (the first includes its warm-up) and the peak memory."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=0, device=dev)
+    step_fn = make_train_step(cfg, opt)
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {"losses": [], "grad_norms": [], "secs": []}
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+            state, m = step_fn(state, batch)
+            vals = torch.stack([m["loss"], m["grad_norm"]]).cpu().tolist()
+            out["secs"].append(time.perf_counter() - t0)
+            out["losses"].append(vals[0])
+            out["grad_norms"].append(vals[1])
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms"] = statistics.median(out["secs"][1:]) * 1e3
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_against_eager(log_, ref, label) -> None:
+    """Fail unless the captured Trainer's first len(ref) steps equal the
+    eager reference's losses and grad norms bit for bit."""
+    n = len(ref["losses"])
+    got = [(m["loss"], m["grad_norm"]) for m in log_[:n]]
+    want = list(zip(ref["losses"], ref["grad_norms"]))
+    if got != want:
+        fail(f"{label}: the captured steps 0-{n - 1} {got} != eager make_train_step's "
+             f"{want}")
+
+
+def graph_line(captured) -> str:
+    """A captured train step's capture time, pool bytes and replays."""
+    return (f"one CUDA graph (make_jit_train_step), captured in "
+            f"{captured.capture_seconds:.3f} s (warm-up step included), "
+            f"{captured.pool_bytes / 1e9:.3f} GB added to its pool, "
+            f"{captured.replays} replays")
+
+
 def train_phase(torch, tm, pm, card, dev) -> dict:
     """Phase 17: full-size smollm-135m (30 layers, d 576, vocab 49152,
     bf16, remat, the CiM spec: all its config's) trained from seed-0
@@ -1973,10 +2121,15 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
     5's, one restart, steps 10-14 replayed with the losses of their first
     pass (the phase runs under torch.use_deterministic_algorithms), #1
     launched 420 times in every step (210 dense layers, then remat's
-    recompute) and no other MAC kernel. Then one step under exact/cuda
-    (#5 420 times, loss finite), the step median and tokens/s, the
-    checkpoint save time, the peak memory, one profiled step, and the
-    launcher's main() for 3 steps on the card."""
+    recompute), counted through the replays, and no other MAC kernel. The
+    Trainer runs make_jit_train_step: the step is one captured CUDA
+    graph, and its first 5 losses and grad norms must equal 5 eager
+    make_train_step steps' from the same seed bit for bit (run first).
+    Then one step under exact/cuda (#5 420 times, loss finite), the
+    captured and eager step medians and tokens/s, the capture time, the
+    checkpoint save time, the peak memory, one profiled replay (device
+    busy, idle share), and the launcher's main() for 3 steps on the
+    card."""
     import tempfile
     import warnings
 
@@ -2003,6 +2156,8 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=0))
     opt = AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+    ref = eager_reference(torch, cfg, opt, pipe, dev)
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as ckpt_dir, \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2041,6 +2196,10 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
             torch.use_deterministic_algorithms(False)
     det_warnings = sorted({str(w.message).split(".")[0][:120] for w in caught
                            if "deterministic" in str(w.message)})
+    captured = inner.captured
+    if captured is None or captured.graph is None:
+        fail("training: the Trainer's step was not captured")
+    check_against_eager(log_, ref, "training")
     want = dict.fromkeys(got, 0)
     want["ternary_cim_matmul"] = per_step
     bad = [i for i, c in enumerate(per_call) if c != want]
@@ -2082,14 +2241,18 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
         f"{run_s:.1f} s ({TRAIN_STEPS} + {len(replayed)} replayed after the failure at "
         f"step {TRAIN_FAIL_AT}, restarts {restarts}); loss "
         + " ".join(f"{v:.4f}" for v in losses)
-        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; replayed steps "
-        f"{replayed} == their first pass (loss and grad norm, bit for bit); "
-        f"#1 launched {per_step} in each of the {len(per_call)} step calls "
-        f"({got['ternary_cim_matmul']} in all), no other MAC kernel; "
-        f"deterministic-mode warnings: {det_warnings or 'none'}")
-    log(f"training: eager step median {step_ms:.2f} ms (mean "
-        f"{statistics.fmean(secs) * 1e3:.2f}, first step "
-        f"{log_[0]['sec'] * 1e3:.1f} ms) = {tok_s:.0f} training tokens/s; checkpoint "
+        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; steps 0-4 == 5 "
+        f"eager make_train_step steps (loss and grad norm, bit for bit); replayed "
+        f"steps {replayed} == their first pass (bit for bit); #1 launched "
+        f"{per_step} in each of the {len(per_call)} step calls "
+        f"({got['ternary_cim_matmul']} in all, counted through the replays), no "
+        f"other MAC kernel; deterministic-mode warnings: {det_warnings or 'none'}")
+    log(f"training: {graph_line(captured)}; captured step median {step_ms:.2f} ms "
+        f"(mean {statistics.fmean(secs) * 1e3:.2f}, first step with the capture "
+        f"{log_[0]['sec'] * 1e3:.1f} ms) = {tok_s:.0f} training tokens/s; eager "
+        f"make_train_step median {ref['step_ms']:.2f} ms of steps 2-5 = "
+        f"{TRAIN_M / (ref['step_ms'] / 1e3):.0f} tokens/s, peak "
+        f"{ref['peak_bytes'] / 1e9:.2f} GB; checkpoint "
         f"save {save_block_s * 1e3:.1f} ms blocking (device-to-host) and "
         f"{save_s * 1e3:.1f} ms committed ({ckpt_bytes / 1e9:.3f} GB npz); peak device "
         f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) on {card}")
@@ -2113,10 +2276,10 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
     log(f"training: one step under exact/cuda: loss {nm_loss:.4f}, #5 launched "
         f"{per_step}, no other MAC kernel, {nm_ms:.1f} ms on {card}")
 
-    # one profiled step of the main path (the state is not modified)
-    step_fn = make_train_step(cfg, opt)
-    prof = profile_step(torch, lambda: step_fn(state, batch), drain=True, host=False)
-    log(f"training: one profiled step on {card}: " + busy_line(prof, step_ms))
+    # one profiled replay of the main path (three more steps on the state)
+    host_batch = {k: torch.from_numpy(v) for k, v in pipe.batch(TRAIN_STEPS).items()}
+    prof = profile_step(torch, lambda: inner(state, host_batch), drain=True, host=False)
+    log(f"training: one profiled replay on {card}: " + busy_line(prof, step_ms))
 
     # the launcher, in process, on the card
     t0 = time.perf_counter()
@@ -2126,10 +2289,12 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"training: the launcher (3 steps on cuda) in {cli_s:.1f} s; phase 17 wall "
         f"time {wall:.1f} s on {card}")
-    del trainer, state
+    numbers = {"capture_s": captured.capture_seconds, "pool_bytes": captured.pool_bytes,
+               "replays": captured.replays, "eager": ref}
+    del trainer, state, inner, counted, captured
     torch.cuda.empty_cache()
     return {"losses": losses, "replayed": [m["loss"] for m in again],
-            "restarts": restarts, "step_ms": step_ms, "tokens_per_s": tok_s,
+            "restarts": restarts, "step_ms": step_ms, "tokens_per_s": tok_s, **numbers,
             "launches": got["ternary_cim_matmul"], "launches_per_step": per_step,
             "save_blocking_s": save_block_s, "save_s": save_s, "ckpt_bytes": ckpt_bytes,
             "peak_bytes": peak, "nm_loss": nm_loss, "nm_ms": nm_ms,
@@ -2154,13 +2319,19 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
     finite, the last 5 steps' mean loss below the first 5's, one restart,
     steps 10-14 replayed bit-equal, #1 launched 2 x 96 = 192 times in
     every step (remat checkpoints each mamba layer) and no other MAC
-    kernel. Then one step under exact/cuda (#5 192 times) and the same
-    step under mode "off" (its grad norm beside the CiM ones), the step
-    median, training tokens/s and peak memory, one profiled step. Then
-    full-size zamba2-2.7b: 3 steps of make_train_step at the same batch,
-    finite losses, #1 171 + 2 x 54 = 279 times a step (only the mamba
-    layers sit under remat; the shared attention block does not, as in
-    the reference), the step median and peak memory."""
+    kernel, counted through the replays of the Trainer's captured step
+    (make_jit_train_step), whose first 5 losses and grad norms must equal
+    5 eager make_train_step steps' bit for bit. Then one step under
+    exact/cuda (#5 192 times) and the same step under mode "off" (its
+    grad norm beside the CiM ones), the captured and eager step medians,
+    training tokens/s, the capture time and peak memory, one profiled
+    replay. Then full-size zamba2-2.7b: 3 steps of make_jit_train_step
+    (one captured graph; its in-place AdamW holds one copy of the 19.4 GB
+    of f32 moments, where make_train_step's held two and peaked at 64-65
+    GB) at the same batch, finite losses, #1 171 + 2 x 54 = 279 times a
+    step (only the mamba layers sit under remat; the shared attention
+    block does not, as in the reference), the step times, capture time
+    and peak memory."""
     import tempfile
     import warnings
 
@@ -2169,7 +2340,8 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
     from repro_torch.models.registry import get_config
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.schedules import warmup_cosine
-    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.train_step import (init_train_state, make_jit_train_step,
+                                              make_train_step)
     from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
 
     def full_size(arch):
@@ -2190,6 +2362,8 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=0))
     opt = AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+    ref = eager_reference(torch, cfg, opt, pipe, dev)
+    torch.cuda.reset_peak_memory_stats()
     if torch.are_deterministic_algorithms_enabled():
         fail("mamba2 training: deterministic mode is on before the Trainer runs")
     with tempfile.TemporaryDirectory() as ckpt_dir, \
@@ -2220,6 +2394,10 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         fail("mamba2 training: Trainer.run() left deterministic mode on")
     det_warnings = sorted({str(w.message).split(".")[0][:120] for w in caught
                            if "deterministic" in str(w.message)})
+    captured = inner.captured
+    if captured is None or captured.graph is None:
+        fail("mamba2 training: the Trainer's step was not captured")
+    check_against_eager(log_, ref, "mamba2 training")
     want = dict.fromkeys(got, 0)
     want["ternary_cim_matmul"] = per_step
     bad = [i for i, c in enumerate(per_call) if c != want]
@@ -2261,22 +2439,25 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         f"{run_s:.1f} s ({TRAIN_STEPS} + {len(replayed)} replayed after the failure at "
         f"step {TRAIN_FAIL_AT}, restarts {trainer.restarts}); loss "
         + " ".join(f"{v:.4f}" for v in losses)
-        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; replayed steps "
-        f"{replayed} == their first pass (loss and grad norm, bit for bit) with "
-        f"deterministic mode set by Trainer.run() alone (off again after it); #1 "
-        f"launched {per_step} in each of the {len(per_call)} step calls "
-        f"({got['ternary_cim_matmul']} in all), no other MAC kernel; "
-        f"deterministic-mode warnings: {det_warnings or 'none'}")
-    log(f"mamba2 training: eager step median {step_ms:.2f} ms (mean "
-        f"{statistics.fmean(secs) * 1e3:.2f}, first step {log_[0]['sec'] * 1e3:.1f} "
-        f"ms) = {tok_s:.0f} training tokens/s; grad norms "
+        + f"; first 5 mean {head:.4f} -> last 5 mean {tail:.4f}; steps 0-4 == 5 "
+        f"eager make_train_step steps (loss and grad norm, bit for bit); replayed "
+        f"steps {replayed} == their first pass (bit for bit) with deterministic "
+        f"mode set by Trainer.run() alone (off again after it); #1 launched "
+        f"{per_step} in each of the {len(per_call)} step calls "
+        f"({got['ternary_cim_matmul']} in all, counted through the replays), no "
+        f"other MAC kernel; deterministic-mode warnings: {det_warnings or 'none'}")
+    log(f"mamba2 training: {graph_line(captured)}; captured step median "
+        f"{step_ms:.2f} ms (mean {statistics.fmean(secs) * 1e3:.2f}, first step with "
+        f"the capture {log_[0]['sec'] * 1e3:.1f} ms) = {tok_s:.0f} training "
+        f"tokens/s; eager make_train_step median {ref['step_ms']:.2f} ms of steps 2-5 "
+        f"= {TRAIN_M / (ref['step_ms'] / 1e3):.0f} tokens/s, peak "
+        f"{ref['peak_bytes'] / 1e9:.2f} GB; grad norms "
         + " ".join(f"{first[i]['grad_norm']:.3f}" for i in range(TRAIN_STEPS))
         + f"; checkpoints on disk at the end {ckpt_bytes / 1e9:.2f} GB; peak device "
         f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) on {card}")
 
     # one step under the near-memory baseline: every dense layer through #5
     state = trainer.state
-    del trainer
     batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(TRAIN_STEPS).items()}
     nm_cfg = cfg.replace(quant=dataclasses.replace(
         cfg.quant, exec_spec=CiMExecSpec(formulation="exact", backend="cuda")))
@@ -2303,10 +2484,13 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
              f"{off_norm}")
     log(f"mamba2 training: the same step under mode off: loss {off_loss:.4f}, grad norm "
         f"{off_norm:.3f} (under exact/cuda {float(nm['grad_norm']):.3f}), no MAC kernel")
-    step_fn = make_train_step(cfg, opt)
-    prof = profile_step(torch, lambda: step_fn(state, batch), drain=True, host=False)
-    log(f"mamba2 training: one profiled step on {card}: " + busy_line(prof, step_ms))
-    del state, nm_step, step_fn
+    host_batch = {k: torch.from_numpy(v) for k, v in pipe.batch(TRAIN_STEPS).items()}
+    prof = profile_step(torch, lambda: inner(state, host_batch), drain=True, host=False)
+    log(f"mamba2 training: one profiled replay on {card}: " + busy_line(prof, step_ms))
+    graph_numbers = {"capture_s": captured.capture_seconds,
+                     "pool_bytes": captured.pool_bytes, "replays": captured.replays,
+                     "eager": ref}
+    del trainer, state, nm_step, inner, counted, captured
     torch.cuda.empty_cache()
     out = {"mamba2_780m": {
         "losses": losses, "replayed": [m["loss"] for m in again], "restarts": 1,
@@ -2316,9 +2500,10 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         "ckpt_bytes": ckpt_bytes, "peak_bytes": peak, "nm_loss": nm_loss,
         "nm_ms": nm_ms, "nm_grad_norm": float(nm["grad_norm"]), "off_loss": off_loss,
         "off_grad_norm": off_norm, "profiled": profiled(prof),
-        "deterministic_warnings": det_warnings}}
+        "deterministic_warnings": det_warnings, **graph_numbers}}
 
-    # zamba2-2.7b: 3 steps of make_train_step
+    # zamba2-2.7b: 3 steps of make_jit_train_step (it fits the card: see
+    # the docstring)
     cfg = full_size("zamba2-2.7b")
     z_per_step = macs_per_step(cfg) + 2 * cfg.n_layers
     if z_per_step != 279:
@@ -2330,14 +2515,14 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
     init_s = time.perf_counter() - t0
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=0))
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_jit_train_step(cfg, opt)
     z_losses, z_secs, z_launches = [], [], 0
     for i in range(3):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+        batch = {k: torch.from_numpy(v) for k, v in pipe.batch(i).items()}
         reset_counts(tm, pm)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        loss, gnorm = torch.stack([metrics["loss"], metrics["grad_norm"]]).cpu().tolist()
         z_secs.append(time.perf_counter() - t0)
         z_got = counts(tm, pm)
         z_launches += z_got["ternary_cim_matmul"]
@@ -2350,8 +2535,13 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         z_losses.append(loss)
     z_peak = torch.cuda.max_memory_allocated()
     z_ms = statistics.median(z_secs[1:]) * 1e3
+    z_graph = step_fn.captured
+    if z_graph.graph is None or z_graph.replays != 2:
+        fail(f"zamba2 training: the step was not captured and replayed "
+             f"({z_graph.replays} replays)")
     log(f"training zamba2-2.7b (full size, bf16, remat, CiM spec; batch {TRAIN_BATCH} "
-        f"x seq {TRAIN_SEQ}) on {card}: 3 steps of make_train_step, loss "
+        f"x seq {TRAIN_SEQ}) on {card}: 3 steps of make_jit_train_step "
+        f"({graph_line(z_graph)}), loss "
         + " ".join(f"{v:.4f}" for v in z_losses)
         + f"; #1 launched {z_per_step} in each step (171 forward + 108 remat; "
         f"{z_launches} in all), no other MAC kernel; step {z_secs[0] * 1e3:.1f}, "
@@ -2359,14 +2549,15 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         + f" ms (median of the last 2 {z_ms:.1f} ms = {TRAIN_M / (z_ms / 1e3):.0f} "
         f"training tokens/s); state initialized in {init_s * 1e3:.1f} ms; peak device "
         f"memory {z_peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
-    del state, step_fn
+    z_numbers = {"capture_s": z_graph.capture_seconds, "pool_bytes": z_graph.pool_bytes}
+    del state, step_fn, z_graph
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     log(f"phase 18 wall time {wall:.1f} s on {card}")
     out["zamba2_2_7b"] = {"losses": z_losses, "step_ms": z_ms,
                           "secs": z_secs, "launches": z_launches,
                           "launches_per_step": z_per_step,
-                          "peak_bytes": z_peak, "init_s": init_s}
+                          "peak_bytes": z_peak, "init_s": init_s, **z_numbers}
     out["wall_s"] = wall
     return out
 

@@ -200,8 +200,11 @@ def _run_stack(params, x, cfg, positions, caches, index, start, enc=None):
     if cfg.remat and caches is None and torch.is_grad_enabled():
         # the reference's jax.checkpoint of the scanned block: each layer
         # keeps only its input, and the backward recomputes it (MACs
-        # included) through the same STE functions
-        block = functools.partial(checkpoint, apply_block, use_reentrant=False)
+        # included) through the same STE functions. The forward draws no
+        # random numbers, so there is no RNG state to save (saving it
+        # would read the generator inside a captured train step)
+        block = functools.partial(checkpoint, apply_block, use_reentrant=False,
+                                  preserve_rng_state=False)
     if cfg.family != "hybrid":
         for i in range(cfg.n_layers):
             x, _ = block(layer_params(params["blocks"], i), x, cfg, positions,

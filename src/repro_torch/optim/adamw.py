@@ -82,23 +82,18 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     return tree_map(lambda g: _scaled(g, scale), grads), norm
 
 
-def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
-           ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm); the inputs are not
-    modified. The clip (:func:`clip_by_global_norm`'s rounding) and the
-    update run per leaf, a leaf of more than :data:`SLICE_ELEMS` elements
-    in slices along its first axis: the arithmetic is elementwise, so the
-    result is the same, and the f32 temporaries stay small beside the
-    two copies of the state (zamba2-2.7b's stacked ``w_in`` is 1.44 G
-    elements)."""
+def _rule(cfg: AdamWConfig, grads: PyTree, step: torch.Tensor):
+    """(grad_norm, part): ``part(p, g, m, v) -> (p2, m2, v2)``, the clip
+    (:func:`clip_by_global_norm`'s rounding) and the update of one leaf
+    or slice at the new ``step``. The lr is made on the device from the
+    step (a host-to-device copy would stop a graph capture)."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip else None
-    step = state.step + 1
-    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
+    sf = step.to(torch.float32)
+    lr = torch.full_like(sf, cfg.lr)
     if cfg.schedule is not None:
         lr = lr * cfg.schedule(step)
     b1, b2 = cfg.b1, cfg.b2
-    sf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, sf)
     bc2 = 1.0 - torch.pow(b2, sf)
 
@@ -112,17 +107,59 @@ def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
         upd = upd + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * upd).to(p.dtype), m2, v2
 
+    return gnorm, part
+
+
+def _slices(p: torch.Tensor):
+    """The slices along the first axis that a leaf is updated in: the
+    whole leaf up to :data:`SLICE_ELEMS` elements."""
+    if p.numel() <= SLICE_ELEMS or p.shape[0] == 1:
+        return [slice(None)]
+    rows = max(1, SLICE_ELEMS // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
+def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
+           ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm); the inputs are not
+    modified. The clip (:func:`clip_by_global_norm`'s rounding) and the
+    update run per leaf, a leaf of more than :data:`SLICE_ELEMS` elements
+    in slices along its first axis: the arithmetic is elementwise, so the
+    result is the same, and the f32 temporaries stay small beside the
+    two copies of the state (zamba2-2.7b's stacked ``w_in`` is 1.44 G
+    elements). The plain version of :func:`update_`."""
+    step = state.step + 1
+    gnorm, part = _rule(cfg, grads, step)
+
     def leaf(p, g, m, v):
-        if p.numel() <= SLICE_ELEMS or p.shape[0] == 1:
+        cuts = _slices(p)
+        if len(cuts) == 1:
             return part(p, g, m, v)
         out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
-        rows = max(1, SLICE_ELEMS // (p.numel() // p.shape[0]))
-        for i in range(0, p.shape[0], rows):
-            for o, t in zip(out, part(p[i:i + rows], g[i:i + rows], m[i:i + rows],
-                                      v[i:i + rows])):
-                o[i:i + rows] = t
+        for sl in cuts:
+            for o, t in zip(out, part(p[sl], g[sl], m[sl], v[sl])):
+                o[sl] = t
         return out
 
     out = tree_map(leaf, params, grads, state.mu, state.nu)
     pick = lambda i: tree_map(lambda t: t[i], out)
     return pick(0), AdamWState(step, pick(1), pick(2)), gnorm
+
+
+def update_(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
+            ) -> torch.Tensor:
+    """:func:`update` in place: the params, ``mu``, ``nu`` and ``step``
+    keep their storage (a captured train step holds it) and take the
+    values :func:`update` returns, bit for bit (the same arithmetic per
+    leaf and per slice). Returns the grad norm. One copy of the state
+    fewer than :func:`update` at the peak."""
+    state.step.add_(1)
+    gnorm, part = _rule(cfg, grads, state.step)
+
+    def leaf(p, g, m, v):
+        for sl in _slices(p):
+            for o, t in zip((p, m, v), part(p[sl], g[sl], m[sl], v[sl])):
+                o[sl] = t
+
+    tree_map(leaf, params, grads, state.mu, state.nu)
+    return gnorm

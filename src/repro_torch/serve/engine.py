@@ -6,9 +6,9 @@ sequences are replaced from the queue at once. One batched
 ragged-position ``decode_step`` serves every slot per step; newly
 assigned slots prefill together in one left-padded, pow2-bucketed batch;
 sampling runs on the device and the host fetches one small token vector
-per step (``host_syncs``). On the card the decode step runs as one
-captured CUDA graph (``serve.graph``), the counterpart of the
-reference's jitted step; prefill runs eagerly. ``fused=False`` serves
+per step (``host_syncs``). On the card the decode step and the prefill
+of each bucket run as captured CUDA graphs (``serve.graph``), the
+counterparts of the reference's jitted steps. ``fused=False`` serves
 the reference's per-slot loop instead, the measured baseline of the old
 formulation. The caches are KV or MLA caches (bf16 or quantized,
 ``cache_dtype``), SSM caches, or hybrid's pair of them, walked leaf by
@@ -229,24 +229,34 @@ class ContinuousBatcher:
     an ``(n_slots,)`` position vector; newly assigned slots prefill
     together, left-padded (prompts right-aligned, a per-row ``start``
     masks the pad dead zone for the slot's lifetime) to a power-of-two
-    length, against fresh caches that are merged into the filled rows.
-    Sampling runs on the device: one host fetch per step
-    (``host_syncs``).
+    length, against fresh caches that are merged into the filled rows
+    under a fill mask (the reference's ``pf``). Sampling runs on the
+    device: one host fetch per step and per fill batch (``host_syncs``).
 
     On a CUDA device the decode step is one captured CUDA graph of
     :func:`fused_decode_fn` (``serve.graph.CapturedStep``), captured at
     the first decode step and replayed at every later one: per step the
     host copies the tokens, positions and starts from pinned buffers into
     the graph's static tensors, replays it, and fetches the tokens. The
-    caches (KV, MLA, SSM, or hybrid's pair of them; every leaf has its slots
-    on axis 1) keep their storage for the batcher's life (prefill writes
-    the filled rows into them in place). Sampling is part of the graph:
-    at ``temperature > 0`` the batcher's generator is registered with it,
-    so a replay draws what the eager step would and prefill's eager draws
-    continue the same sequence (the warm-up is the first step itself, so
-    nothing is drawn twice). Prefill runs eagerly, one batch per fill.
-    ``capture_seconds`` is the capture's wall time (None before it, and
-    on the CPU, where the same step runs eagerly).
+    prefill is one captured graph per bucket (and per exact length where
+    the bucket would reach ``s_max``), built at that bucket's first fill
+    (its warm-up) and replayed at every later one: the host copies the
+    left-padded tokens, the starts and the fill mask from pinned buffers
+    into its static tensors; the graph resets the fresh caches (allocated
+    once per batcher), prefills every row against them at index 0,
+    samples each row's first token, and merges the filled rows into
+    ``self.caches`` in place. The caches (KV, MLA, SSM, or hybrid's pair
+    of them; every leaf has its slots on axis 1) keep their storage for
+    the batcher's life. The batcher's graphs share one memory pool.
+    Sampling is part of the graphs: at ``temperature > 0`` the batcher's
+    generator is registered with every one of them, so a replay draws
+    what the eager call would and prefill and decode draws continue one
+    sequence (each graph's warm-up is its first call itself, so nothing
+    is drawn twice). ``capture_seconds`` is the decode capture's wall
+    time and ``prefill_capture_seconds`` the prefill captures' sum (None
+    before them, and on the CPU, where the same functions run eagerly on
+    the same static tensors). ``graphed = False`` switches every graph
+    off (the eager yardstick).
 
     ``prepare_weights=True`` runs ``quant.prepare.prepare_for_spec`` once:
     the model serves folded ternary weights (``pre_quantized``), and for
@@ -356,17 +366,50 @@ class ContinuousBatcher:
         self._decode = None
         if not fused:
             return
+        self._pool = torch.cuda.graph_pool_handle() if pinned else None
+        self._generators = (self._generator,) if self.temperature else ()
         step = fused_decode_fn(cfg, self.temperature)
         params, caches, generator = self.params, self.caches, self._generator
         self._decode = CapturedStep(
             lambda tokens, positions, start: step(
                 params, tokens, caches, positions, start, generator)[0],
             [h.to(dev, copy=True) for h in self._host_inputs], dev,
-            generators=(generator,) if self.temperature else ())
+            generators=self._generators, pool=self._pool)
+        # the prefill's fresh caches, reset from a one-row template in
+        # every prefill; its inputs: the starts and the fill mask (host
+        # buffers and their static copies, shared by every bucket's graph),
+        # and per bucket the left-padded tokens (_prefill_steps)
+        self._fresh = T.init_caches(cfg, n_slots, s_max, device=dev)
+        self._fresh_row = T.init_caches(cfg, 1, s_max, device=dev)
+        self._fill_host = (
+            torch.zeros((n_slots,), dtype=torch.int64, pin_memory=pinned),
+            torch.zeros((n_slots,), dtype=torch.bool, pin_memory=pinned))
+        self._fill_static = tuple(h.to(dev, copy=True) for h in self._fill_host)
+        self._prefill_steps: Dict[int, tuple] = {}
 
     @property
     def capture_seconds(self) -> Optional[float]:
         return None if self._decode is None else self._decode.capture_seconds
+
+    @property
+    def prefill_capture_seconds(self) -> Optional[float]:
+        """The summed wall time of the prefill graphs' warm-ups and
+        captures (None before the first)."""
+        times = [step.capture_seconds for _, step in self._prefill_steps.values()
+                 if step.capture_seconds is not None]
+        return sum(times) if times else None
+
+    @property
+    def graphed(self) -> bool:
+        return self._decode is not None and self._decode.graphed
+
+    @graphed.setter
+    def graphed(self, on: bool) -> None:
+        """Switch the decode graph and every prefill graph, built or yet
+        to be built, on or off (off: the same functions run eagerly)."""
+        self._decode.graphed = on
+        for _, step in self._prefill_steps.values():
+            step.graphed = on
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         # called between steps, after the previous step's fetch: the
@@ -374,19 +417,37 @@ class ContinuousBatcher:
         return torch.from_numpy(arr).to(self.device)
 
     def _prefill(self, tokens, start, fill):
-        """Prefill all n_slots rows against fresh caches in the
-        ``cache_dtype`` layout (dummy rows compute garbage), then copy the
-        filled rows of every cache leaf in place: the caches keep their
-        storage, which a captured step holds."""
-        cfg, n = self.cfg, self.n_slots
-        fresh = T.init_caches(cfg, n, self.s_max, device=self.device)
-        logits, fresh = T.decode_step(self.params, tokens, fresh, 0, cfg,
+        """The reference's ``pf``: reset the fresh caches to the
+        ``cache_dtype`` layout's initial values, prefill all n_slots rows
+        against them at index 0 (dummy rows compute garbage), sample each
+        row's first token, and merge the filled rows (``fill``, a bool
+        per slot) into every cache leaf in place: the caches keep their
+        storage, which the graphs hold."""
+        fresh = self._fresh
+        for leaf, row in zip(T.cache_leaves(fresh), T.cache_leaves(self._fresh_row)):
+            leaf.copy_(row.expand_as(leaf))
+        logits, fresh = T.decode_step(self.params, tokens, fresh, 0, self.cfg,
                                       start=start)
         # left-padding: the last column is every row's last real token
         toks = sample(logits[:, -1:, :], self._generator, self.temperature)[:, 0]
         for old, new in zip(T.cache_leaves(self.caches), T.cache_leaves(fresh)):
-            old.index_copy_(1, fill, new.index_select(1, fill))
+            mask = fill.view((1, -1) + (1,) * (old.dim() - 2))
+            torch.where(mask, new, old, out=old)
         return toks
+
+    def _prefill_step(self, s_pad: int):
+        """The prefill graph of a ``s_pad``-token bucket and the pinned
+        host buffer of its tokens, made at the bucket's first fill."""
+        if s_pad not in self._prefill_steps:
+            host = torch.zeros((self.n_slots, s_pad), dtype=torch.int64,
+                               pin_memory=self.device.type == "cuda")
+            step = CapturedStep(self._prefill,
+                                (host.to(self.device, copy=True),) + self._fill_static,
+                                self.device, generators=self._generators,
+                                pool=self._pool)
+            step.graphed = self._decode.graphed
+            self._prefill_steps[s_pad] = (host, step)
+        return self._prefill_steps[s_pad]
 
     def _fill_slots(self):
         newly = []
@@ -401,16 +462,18 @@ class ContinuousBatcher:
         if s_pad >= self.s_max:
             # don't let the bucket make a servable prompt unservable
             s_pad = max_len
-        tokens = np.zeros((self.n_slots, s_pad), np.int64)
-        start = np.zeros((self.n_slots,), np.int64)
+        host, step = self._prefill_step(s_pad)
+        tokens, start, fill = (h.numpy() for h in (host,) + self._fill_host)
+        tokens[:], start[:], fill[:] = 0, 0, False
         for s in newly:
             prompt = self.slot_req[s].prompt
             pad = s_pad - len(prompt)
             tokens[s, pad:] = prompt
             start[s] = pad
-        toks = self._prefill(self._to_device(tokens), self._to_device(start),
-                             self._to_device(np.asarray(newly, np.int64)))
-        toks = toks.cpu().numpy()  # the one fetch of this fill batch
+            fill[s] = True
+        for static, h in zip(step.inputs, (host,) + self._fill_host):
+            static.copy_(h, non_blocking=True)
+        toks = step().cpu().numpy()  # the one fetch of this fill batch
         self.host_syncs += 1
         self.prefill_batches += 1
         for s in newly:

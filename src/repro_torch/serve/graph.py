@@ -19,6 +19,14 @@ cannot be captured raises; it never runs eagerly instead. On the CPU,
 which has no graphs, every call runs ``fn`` eagerly on the same static
 tensors.
 
+Steps of one owner may share a memory pool (``pool``, from
+``torch.cuda.graph_pool_handle()``): a later capture then reuses the
+blocks that an earlier one freed (its temporaries) instead of holding a
+pool of its own. That is safe because the graphs replay one at a time on
+the owner's stream, each keeps its static output alive, and the owner
+reads a step's output before it replays another step of the pool (whose
+temporaries may lie where that output lies).
+
 The kernel wrappers' ``launches`` counters tick when a wrapper launches
 its kernel; during a capture they tick though nothing runs. A capture
 takes back what moved during it, and each replay adds it again, so the
@@ -26,6 +34,7 @@ counts stay launches on the device.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -50,22 +59,29 @@ def _add_launches(moved: Dict[Callable, int], sign: int = 1) -> None:
 class CapturedStep:
     """``fn`` over the static tensors ``inputs``: a captured CUDA graph on
     a CUDA ``device``, eager on the CPU (see the module docstring);
-    ``generators`` are the CUDA generators ``fn`` draws from.
-    ``capture_seconds`` is the wall time of the warm-up and the capture
-    (None until then); ``captured_launches`` maps each kernel wrapper to
-    the launches one replay makes."""
+    ``generators`` are the CUDA generators ``fn`` draws from; ``pool``
+    a graph pool shared with the owner's other steps (None: a private
+    one). ``capture_seconds`` is the wall time of the warm-up and the
+    capture (None until then); ``pool_bytes`` the device memory that the
+    capture added to the reserved pools (None until then);
+    ``captured_launches`` maps each kernel wrapper to the launches one
+    replay makes; ``replays`` counts the calls that replayed the graph."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
-                 device: torch.device, generators: Sequence[torch.Generator] = ()):
+                 device: torch.device, generators: Sequence[torch.Generator] = (),
+                 pool: Optional[tuple] = None):
         self.fn = fn
         self.inputs = tuple(inputs)
         self.generators = tuple(generators)
         self.device = torch.device(device)
+        self.pool = pool
         self.graphed = self.device.type == "cuda"
         self.graph = None
         self.output = None
         self.capture_seconds: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
         self.captured_launches: Dict[Callable, int] = {}
+        self.replays = 0
 
     def __call__(self):
         if not self.graphed:
@@ -73,6 +89,7 @@ class CapturedStep:
         if self.graph is None:
             return self._capture()
         self.graph.replay()
+        self.replays += 1
         _add_launches(self.captured_launches)
         return self.output
 
@@ -104,6 +121,19 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         for generator in self.generators:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, stream=self._stream):
-            self.output = self.fn(*self.inputs)
+        # a graph that the garbage collector frees during the capture
+        # (an unreachable owner's) would destroy itself in the middle of
+        # it, which ends the capture: collect first, and not during it
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
+                # read after the context has emptied the allocator's cache
+                reserved = torch.cuda.memory_reserved(self.device)
+                self.output = self.fn(*self.inputs)
+            self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        finally:
+            if enabled:
+                gc.enable()
         return graph

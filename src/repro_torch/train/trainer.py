@@ -1,6 +1,10 @@
 """Fault-tolerant training loop (port of ``repro/train/trainer.py``).
 
-Beyond calling the train step:
+The step is ``make_jit_train_step``'s, as the reference's Trainer runs
+its jitted step: on the card one captured CUDA graph, replayed every
+step, that updates the state in place. So the Trainer keeps one state
+storage for its life: a restore and a restart from a fresh state copy
+into it. Beyond calling the train step:
   * periodic async checkpoints (two-phase commit via ``train.checkpoint``),
   * crash recovery: on any step failure, let a checkpoint in flight
     commit, restore the last committed checkpoint and replay from there
@@ -14,7 +18,8 @@ Beyond calling the train step:
 warn_only=True)`` and restores the caller's setting after it: on the
 card the embedding's and cross entropy's backward otherwise use atomic
 adds, and a replayed step would not equal its first pass bit for bit,
-as the reference's replays do by construction.
+as the reference's replays do by construction. The capture, at the
+first step, runs under it too.
 
 Single process on one device: the reference's elastic restore onto
 another mesh has no counterpart until the port has tensor parallelism.
@@ -33,7 +38,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.train_step import TrainState, init_train_state, make_train_step
+from repro_torch.train.train_step import TrainState, init_train_state, make_jit_train_step
+
+
+def _copy_state(dst: TrainState, src: TrainState) -> None:
+    """Copy ``src``'s values into ``dst``'s tensors and generator in
+    place: ``dst`` keeps its storage, which a captured step holds."""
+    for d, v in zip(ckpt.tree_flatten(dst), ckpt.tree_flatten(src)):
+        if isinstance(d, torch.Generator):
+            d.set_state(v.get_state())
+        else:
+            d.copy_(v)
 
 
 @dataclasses.dataclass
@@ -82,8 +97,8 @@ class Trainer:
         self.failure_injector = failure_injector
         self.batch_transform = batch_transform
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(cfg, opt_cfg,
-                                       grad_compression=train_cfg.grad_compression)
+        self.step_fn = make_jit_train_step(cfg, opt_cfg,
+                                           grad_compression=train_cfg.grad_compression)
         self.state: TrainState = self._fresh_state()
         self.start_step = 0
         self.metrics_log: List[Dict[str, float]] = []
@@ -115,8 +130,9 @@ class Trainer:
         if self._pending_ckpt is not None:
             self._pending_ckpt.result()  # never read a mid-commit checkpoint
             self._pending_ckpt = None
-        self.state, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state,
-                                        device=self.device)
+        restored, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state,
+                                      device="cpu")
+        _copy_state(self.state, restored)
         self.start_step = step
         return step
 
@@ -126,12 +142,14 @@ class Trainer:
         batch = self.pipeline.batch(step)
         if self.batch_transform:
             batch = self.batch_transform(batch)
-        batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                 for k, v in batch.items()}
+        # host tensors: the step copies them into its static inputs
+        batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
         if self.failure_injector:
             self.failure_injector.maybe_fail(step)
         self.state, metrics = self.step_fn(self.state, batch)
-        return {k: float(v) for k, v in metrics.items()}
+        names = sorted(metrics)
+        values = torch.stack([metrics[k].to(torch.float32) for k in names]).cpu()
+        return dict(zip(names, values.tolist()))  # one host transfer
 
     def _drain(self):
         if self._pending_ckpt is not None:
@@ -166,7 +184,7 @@ class Trainer:
                 if ckpt.latest_step(tc.ckpt_dir) is not None:
                     step = self.restore()
                 else:  # failure before the first checkpoint: restart from 0
-                    self.state = self._fresh_state()
+                    _copy_state(self.state, self._fresh_state())
                     step = 0
                 print(f"[trainer] recovered from failure ({e}); resuming at step {step}")
                 continue

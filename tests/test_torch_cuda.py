@@ -383,7 +383,7 @@ def test_cuda_captured_step_matches_eager(cuda_device, spec, act_scale):
     for graphed in (True, False):
         batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, exec_spec=spec,
                                     device=cuda_device)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         before = kernel.launches
         got[graphed] = _serve(batcher)
         st = batcher.stats()
@@ -417,7 +417,7 @@ def test_cuda_captured_step_sampled_matches_eager(cuda_device):
     for graphed in (True, False):
         batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, temperature=0.9,
                                     seed=7, device=cuda_device)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         got[graphed] = _serve(batcher)
     assert got[True] == got[False]
 
@@ -505,7 +505,7 @@ def test_cuda_quant_cache_captured_matches_eager(cuda_device, cache_dtype):
     for graphed in (True, False):
         batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32,
                                     cache_dtype=cache_dtype, device=cuda_device)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         ptrs = [leaf.data_ptr() for leaf in batcher.caches]
         before = tm.ternary_cim_matmul.launches
         got[graphed] = _serve(batcher)
@@ -566,14 +566,15 @@ def test_cuda_cim_kernel_bit_exact_at_ssm_widths(cuda_device, k, n):
 
 
 def _macs_per_step(cfg):
-    """#1 launches per decode step or prefill batch: 7 per dense layer, 2
+    """#1 launches per decode step or prefill batch: 7 per decoder layer
+    (the batcher serves whisper without cross attention), 2
     per mamba layer (w_in, w_out), 7 per application of zamba2's shared
     block; per moe layer the attention's projections (3 MLA, 4 GQA) and
     the shared experts' MLP (3) where there is one (the routed experts
     are plain products)."""
     if cfg.family == "moe":
         return ((3 if cfg.mla else 4) + (3 if cfg.n_shared_experts else 0)) * cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "encdec", "vlm"):
         return 7 * cfg.n_layers
     return 2 * cfg.n_layers + (7 * (cfg.n_layers // cfg.hybrid_attn_every)
                                if cfg.family == "hybrid" else 0)
@@ -593,7 +594,7 @@ def test_cuda_ssm_captured_step_matches_generate(cuda_device, arch):
     got = {}
     for graphed in (True, False):
         batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=32, device=cuda_device)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
         before = tm.ternary_cim_matmul.launches
         got[graphed] = _serve(batcher, n=7)
@@ -668,7 +669,7 @@ def test_cuda_moe_captured_step_matches_generate(cuda_device, arch, cache_dtype)
     got = {}
     for graphed in (True, False):
         batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=32, device=cuda_device)
-        batcher._decode.graphed = graphed
+        batcher.graphed = graphed
         ptrs = [a.data_ptr() for a in T.cache_leaves(batcher.caches)]
         before = _launches()
         got[graphed] = _serve(batcher, n=7)
@@ -950,8 +951,9 @@ def test_cuda_family_train_step_launches(cuda_device, arch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "deepseek-v2-236b"])
 def test_cuda_trainer_replay_is_bit_equal(cuda_device, arch, tmp_path):
-    """A failure at step 3 restores the checkpoint at 2: step 2 replays
-    with its first pass's loss and grad norm bit for bit on the card. The
+    """A failure at step 3 restores the checkpoint at 2 into the captured
+    step's state: step 2 replays with its first pass's loss and grad norm
+    bit for bit on the card. The
     test does not turn deterministic mode on: Trainer.run() does, and
     leaves it off again."""
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -968,3 +970,144 @@ def test_cuda_trainer_replay_is_bit_equal(cuda_device, arch, tmp_path):
     assert tr.restarts == 1 and [m["step"] for m in log] == [0, 1, 2, 2, 3]
     assert (log[2]["loss"], log[2]["grad_norm"]) == (log[3]["loss"], log[3]["grad_norm"])
     assert not torch.are_deterministic_algorithms_enabled()
+    # every step after the first was a replay of the captured step
+    assert tr.step_fn.captured.graph is not None and tr.step_fn.captured.replays == 4
+
+
+# ---------------------------------------------------------------------------
+# the captured prefill and train step
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("smollm-135m", "mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b",
+               "grok-1-314b", "whisper-large-v3", "llava-next-34b")
+
+
+def _prefill_replays(batcher):
+    return sum(step.replays for _, step in batcher._prefill_steps.values())
+
+
+def _family_cfg(arch):
+    """A smoke config; moe at the capacity factor at which nothing drops."""
+    cfg = get_config(arch, smoke=True)
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_cuda_captured_prefill_matches_eager(cuda_device, arch, temperature):
+    """Every family the batcher serves: with its prefill and decode
+    graphs on, the tokens and the caches after the first fill and at the
+    end equal the same batcher's with both graphs off, bit for bit (at
+    temperature > 0 the generator registered with every graph); every
+    fill after a bucket's first is a replay; #1 launches per fill and
+    step are unchanged."""
+    cfg = _family_cfg(arch)
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    runs = {}
+    for graphed in (True, False):
+        batcher = ContinuousBatcher(params, cfg, n_slots=3, s_max=32, seed=7,
+                                    temperature=temperature, device=cuda_device)
+        batcher.graphed = graphed
+        reqs = [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 6)],
+                        max_new=2 + i % 4) for i in range(9)]
+        for r in reqs:
+            batcher.submit(r)
+        before = _launches()
+        batcher.step()
+        first = [a.clone() for a in T.cache_leaves(batcher.caches)]
+        batcher.run()
+        st = batcher.stats()
+        moved = [a - b for a, b in zip(_launches(), before)]
+        assert moved == [_macs_per_step(cfg) * (st["decode_steps"] + st["prefill_batches"]),
+                         0, 0, 0, 0]
+        assert st["host_syncs"] == st["decode_steps"] + st["prefill_batches"]
+        steps = [step for _, step in batcher._prefill_steps.values()]
+        assert all((step.graph is not None) == graphed for step in steps)
+        if graphed:
+            assert _prefill_replays(batcher) == st["prefill_batches"] - len(steps) > 0
+            assert batcher.prefill_capture_seconds > 0
+        runs[graphed] = ([r.generated for r in reqs], first,
+                         list(T.cache_leaves(batcher.caches)))
+    assert runs[True][0] == runs[False][0]
+    for i in (1, 2):
+        for a, b in zip(runs[True][i], runs[False][i]):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_fill_allocates_nothing(cuda_device):
+    """A fill that replays its bucket's graph allocates no device memory
+    (the fresh caches, static inputs and outputs were all made before),
+    and the decode graph's replays neither."""
+    cfg, params = _smoke_model(cuda_device)
+    batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32, device=cuda_device)
+    for i in range(4):
+        batcher.submit(Request(i, [3 + i, 4, 5], max_new=3))
+    while batcher.queue:
+        batcher.step()
+    batcher.run()
+    for i in range(2):
+        batcher.submit(Request(4 + i, [7, 8 + i], max_new=3))
+    torch.cuda.synchronize()
+    replays = _prefill_replays(batcher)
+    before = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    batcher.run()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] == before
+    assert _prefill_replays(batcher) == replays + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,compression", [
+    ("smollm-135m", None), ("smollm-135m", "int8"), ("mamba2-780m", None),
+    ("zamba2-2.7b", None), ("deepseek-v2-236b", None)])
+def test_cuda_captured_train_step_matches_eager(cuda_device, arch, compression):
+    """make_jit_train_step on the card (one graph: loss, autograd under
+    remat, compression, in-place AdamW) == make_train_step over 5 steps
+    bit for bit (losses, grad norms, params, moments), under
+    deterministic mode as the Trainer runs it; #1 launches per step
+    unchanged through the replays; a call on another state raises."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import (init_train_state, make_jit_train_step,
+                                              make_train_step)
+
+    cfg = _family_cfg(arch)
+    opt = adamw.AdamWConfig(lr=1e-3)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    batches = [{k: torch.from_numpy(v) for k, v in pipe.batch(i).items()} for i in range(5)]
+    enabled = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for captured in (True, False):
+            state = init_train_state(cfg, seed=0, grad_compression=compression,
+                                     device=cuda_device)
+            step = (make_jit_train_step if captured else make_train_step)(
+                cfg, opt, grad_compression=compression)
+            before = _launches()
+            metrics = []
+            for b in batches:
+                state, m = step(state, {k: v.to(cuda_device) for k, v in b.items()})
+                metrics.append({k: float(v) for k, v in m.items()})
+            moved = [a - b for a, b in zip(_launches(), before)]
+            runs[captured] = (metrics, ckpt.tree_flatten(state), moved)
+            if captured:
+                assert step.captured.graph is not None and step.captured.replays == 4
+                other = init_train_state(cfg, seed=0, grad_compression=compression,
+                                         device=cuda_device)
+                with pytest.raises(ValueError, match="bound to the state storage"):
+                    step(other, batches[0])
+    finally:
+        torch.use_deterministic_algorithms(enabled)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][2] == runs[False][2] and runs[True][2][0] > 0
+    for a, b in zip(runs[True][1], runs[False][1]):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b)
+        else:
+            assert torch.equal(a.get_state(), b.get_state())

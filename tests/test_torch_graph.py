@@ -151,6 +151,7 @@ def test_replay_adds_the_launches_seen_at_capture(monkeypatch, replays):
     got = {fn: fn.launches for fn in graph.launch_counted()}
     assert got == {fn: (1 + replays) * step.captured_launches.get(fn, 0)
                    for fn in graph.launch_counted()}
+    assert step.replays == replays
 
 
 def test_failed_capture_raises_and_restores_counters(monkeypatch):
@@ -167,3 +168,47 @@ def test_failed_capture_raises_and_restores_counters(monkeypatch):
         step()
     assert step.graph is None
     assert tm.ternary_cim_matmul.launches == 14       # the warm-up's only
+
+
+def test_capture_runs_with_the_collector_off(monkeypatch):
+    """A capture collects garbage first and keeps the collector off until
+    it ends (a graph freed by the collector mid-capture would end the
+    capture), then restores it, also when the capture raises; the pool
+    bytes are what the capture added to the reserved memory."""
+    import contextlib
+    import gc
+
+    class Graph:
+        def register_generator_state(self, generator):
+            pass
+
+    reserved = iter([100, 164, 200])
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: next(reserved))
+    seen = []
+
+    class Step(graph.CapturedStep):
+        def _warm_up(self):
+            self._stream = None
+            return self.fn(*self.inputs)
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x + 1
+
+    def failing(x):
+        if not gc.isenabled():
+            raise RuntimeError("capture invalidated")
+        return x + 1
+
+    assert gc.isenabled()
+    step = Step(fn, [torch.zeros(2)], "cpu")
+    step.graphed = True
+    step()
+    assert seen == [True, False] and gc.isenabled() and step.pool_bytes == 64
+    again = Step(failing, [torch.zeros(2)], "cpu")
+    again.graphed = True
+    with pytest.raises(RuntimeError, match="capture invalidated"):
+        again()
+    assert gc.isenabled() and again.graph is None

@@ -393,7 +393,8 @@ class TestTrainerFamilies:
         pipe = make_pipe(cfg, seq=16, gb=2)
         tr = Trainer(cfg, AdamWConfig(lr=1e-3), TrainConfig(num_steps=3, log_every=0),
                      pipe, batch_transform=add, device="cpu")
-        first = ckpt.tree_flatten(tr.state.params)
+        # the step updates the params in place: keep copies of the first
+        first = [a.clone() for a in ckpt.tree_flatten(tr.state.params)]
         log = tr.run()
         assert [m["step"] for m in log] == [0, 1, 2]
         assert all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in log)

@@ -35,6 +35,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.train.train_step import TrainState, loss_fn, make_train_step
+from repro_torch.train.train_step import make_jit_train_step as make_captured_step
 
 STEPS = 3
 SEQ, BATCH = 32, 4
@@ -236,10 +237,10 @@ def test_loss_fn_and_grads_match_jax(reference_runs, mode):
         np.testing.assert_allclose(grads[k], run["grads"][k], err_msg=k, **tol)
 
 
-def _port_train(run, tcfg, steps=STEPS):
-    state = TrainState(run["tparams"], adamw.init(run["tparams"]),
-                          torch.Generator().manual_seed(1), None)
-    step_fn = make_train_step(tcfg, adamw.AdamWConfig(
+def _port_train(run, tcfg, steps=STEPS, make_step=make_train_step):
+    params = tree_map(torch.clone, run["tparams"])
+    state = TrainState(params, adamw.init(params), torch.Generator().manual_seed(1), None)
+    step_fn = make_step(tcfg, adamw.AdamWConfig(
         lr=1e-3, schedule=warmup_cosine(2, STEPS)))
     losses, norms = [], []
     for _, tb in run["batches"][:steps]:
@@ -273,6 +274,20 @@ def test_train_steps_match_jax(reference_runs, mode):
     else:
         np.testing.assert_allclose(losses, run["losses"], rtol=1e-3)
     assert int(state.opt.step) == STEPS
+
+
+def test_jit_train_steps_match_jax(reference_runs):
+    """Two steps of make_jit_train_step (in place; eager on the CPU)
+    under "cim" against the reference's jitted steps, at
+    test_train_steps_match_jax's CiM bound (losses at rtol 1e-3), and
+    bit-equal to make_train_step's."""
+    run = reference_runs["cim"]
+    _, tcfg = _cfgs("cim")
+    state, losses, norms = _port_train(run, tcfg, steps=2, make_step=make_captured_step)
+    np.testing.assert_allclose(losses, run["losses"][:2], rtol=1e-3)
+    _, want_losses, want_norms = _port_train(run, tcfg, steps=2)
+    assert (losses, norms) == (want_losses, want_norms)
+    assert int(state.opt.step) == 2
 
 
 def test_remat_equals_no_remat_bit_for_bit(reference_runs, monkeypatch):
