@@ -146,7 +146,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      bit-checks #1 and #5 at the training M in {1024, 1023} at the four
      (K, N) of its layers and times one layer's 7 calls of #1 at M=1024
      ("smollm_135m_train" in the kernels line);
- 18. (run last) training the ssm and hybrid families: full-size
+ 18. training the ssm and hybrid families: full-size
      mamba2-780m (bf16, remat, the CiM spec) through the Trainer as in
      phase 17 (20 steps, checkpoints every 10, a failure at 15), the
      phase leaving deterministic mode to Trainer.run(): losses and grad
@@ -161,7 +161,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      time and peak memory. The kernel phase bit-checks #1 at M in {1024, 1023}
      at every (K, N) of phases 12 and 13 (#5 at mamba2's) and times one
      mamba2 and one zamba2 layer's calls at M=1024 ("mamba2_780m_train",
-     "zamba2_2_7b_train" in the kernels line).
+     "zamba2_2_7b_train" in the kernels line);
+ 19. (run last) the front door: full-size smollm-135m (per_row,
+     blocked/cuda: #1 on every dense layer) behind the port's FrontDoor,
+     2 replicas x 4 slots, s_max 256, both on the one card (their steps
+     serialized by the device's lock), on 127.0.0.1 port 0, over real
+     TCP, HTTP and WebSocket, built by the launcher's build_frontdoor:
+     (a) phase 3's 8 requests streamed concurrently, each == the port's
+     generate(); (b) one request cancelled after 2 tokens while another
+     streams: the survivor exact, the cancelled one a greedy prefix; (c)
+     a one-shot POST /v1/generate exact; (d) 12 requests at once (6
+     WebSocket, 6 HTTP) against a queue limit of 4: at least one
+     queue_full and one HTTP 429, the served ones exact; (e) /stats counts
+     the completed, cancelled and rejected requests and reads in_flight 0,
+     every replica has host_syncs == decode_steps + prefill_batches and
+     replayed its decode graph, and #1 launched 210 x the decode steps and
+     fill batches summed over the replicas (counts at 0 before (a)), no
+     other kernel; then a warm pass of (a)'s requests after
+     tracker.reset(): TTFT, per-token latency, queue wait and e2e at p50
+     and p99 and goodput; (f) the same traffic through a door with a
+     Profiler on a file, read back: one serve.decode_step event per decode
+     step, one serve.prefill per fill batch, one frontdoor.request per
+     request, tokens == (a)'s, the replayed steps' wall_us median beside
+     phase 3's captured step median; (g) the launcher's
+     main(["--serve-http", "--selftest", "--replicas", "2", "--port",
+     "0"]) at full size.
 It then prints the card line, a JSON line of per-kernel numbers, and
 last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -2567,6 +2591,269 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the front door (HTTP + WebSocket) over two replicas
+# ---------------------------------------------------------------------------
+
+# two replicas of phase 3's batcher behind the front door; the burst of
+# (d) is 12 requests at once against an admission cap of 4
+DOOR_REPLICAS, DOOR_SLOTS, DOOR_S_MAX = 2, 4, 256
+BURST, BURST_LIMIT = 12, 4
+
+
+def door_args(**kw):
+    """The launcher's parsed arguments for ``launch.serve.build_frontdoor``:
+    its defaults, phase 19's shape, and ``kw``."""
+    ns = dict(slots=DOOR_SLOTS, s_max=DOOR_S_MAX, temperature=0.0, seed=0,
+              loop_decode=False, prepare_weights=False, profile=None,
+              replicas=DOOR_REPLICAS, pace_us=0.0, queue_limit=64,
+              host="127.0.0.1", port=0)
+    ns.update(kw)
+    return argparse.Namespace(**ns)
+
+
+def fmt_s(value) -> str:
+    """A time in s for a log line; "none" where nothing was timed."""
+    return "none" if value is None else f"{value:.3f} s"
+
+
+def pct_line(block) -> str:
+    """p50/p99 of an SLO aggregate of /stats, in ms."""
+    return f"p50 {block['p50'] / 1e3:.2f} / p99 {block['p99'] / 1e3:.2f} ms (n {block['n']})"
+
+
+def door_replicas(door, label) -> list:
+    """Fail unless every replica of ``door`` kept one host sync per step
+    and fill batch and replayed its decode graph; returns each replica's
+    stats with its capture times."""
+    out = []
+    for w in door.router.workers:
+        b = w.batcher
+        st = b.stats()
+        if st["host_syncs"] != st["decode_steps"] + st["prefill_batches"]:
+            fail(f"{label}: replica {w.name} host_syncs {st}")
+        if b._decode.graph is None or b._decode.replays <= 0:
+            fail(f"{label}: replica {w.name}'s decode graph was not captured and "
+                 f"replayed ({b._decode.replays} replays)")
+        out.append(dict(st, name=w.name, decode_replays=b._decode.replays,
+                        decode_capture_s=b.capture_seconds,
+                        prefill_capture_s=b.prefill_capture_seconds,
+                        prefill_graphs=len(b._prefill_steps)))
+    return out
+
+
+def frontdoor_phase(torch, tm, pm, card, dev, phase3_step_ms) -> dict:
+    """Phase 19: full-size smollm-135m (per_row, blocked/cuda: #1 on every
+    dense layer) behind the front door, 2 replicas x 4 slots on the one
+    card, over real TCP, HTTP and WebSocket (see the module docstring)."""
+    import asyncio
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.profile import read_trace
+    from repro_torch.serve.engine import Request, generate
+    from repro_torch.serve.frontdoor import WSClient, http_json
+
+    t_phase = time.perf_counter()
+    cfg = get_config("smollm-135m")
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    spec = api.CiMExecSpec("blocked", "cuda")
+    params = T.init_params(cfg, seed=0, device=dev)
+    reqs = [(r.prompt, r.max_new) for r in make_requests(Request, cfg.vocab, seed=0)]
+    t0 = time.perf_counter()
+    want = [generate(params, [p], cfg, max_new=m, s_max=DOOR_S_MAX, exec_spec=spec,
+                     device=dev)[0].tolist() for p, m in reqs]
+    generate_s = time.perf_counter() - t0
+
+    def check(ok, what):
+        if not ok:
+            fail(f"front door: {what}")
+
+    async def stream_all(door):
+        conns = [await WSClient.connect(door.host, door.port) for _ in reqs]
+        res = await asyncio.gather(*[ws.generate(p, m) for ws, (p, m) in zip(conns, reqs)])
+        for ws in conns:
+            await ws.close()
+        return [r["tokens"] for r in res]
+
+    async def oneshot(door, i):
+        return await http_json(door.host, door.port, "POST", "/v1/generate",
+                               {"prompt": reqs[i][0], "max_new": reqs[i][1]})
+
+    async def main_traffic(door):
+        out = {}
+        # (a) phase 3's 8 requests streamed concurrently
+        out["a"] = await stream_all(door)
+        # (b) a cancel after 2 tokens while another request streams
+        w1 = await WSClient.connect(door.host, door.port)
+        w2 = await WSClient.connect(door.host, door.port)
+        out["victim"], out["survivor"] = await asyncio.gather(
+            w1.generate(reqs[0][0], DOOR_S_MAX - 16, cancel_after=2),
+            w2.generate(*reqs[1]))
+        await w1.close()
+        await w2.close()
+        # (c) one-shot POST
+        out["oneshot"] = await oneshot(door, 2)
+        # (d) 12 requests at once, 6 over WebSocket and 6 over HTTP,
+        # against an admission cap of 4
+        door.router.queue_limit = BURST_LIMIT
+        conns = [await WSClient.connect(door.host, door.port) for _ in range(BURST // 2)]
+
+        async def ws_one(ws, i):
+            try:
+                return ("ws", i, (await ws.generate(*reqs[i]))["tokens"])
+            except RuntimeError as e:
+                return ("ws", i, getattr(e, "payload", {}).get("error"))
+
+        async def http_one(i):
+            status, body = await oneshot(door, i)
+            return ("http", i, body["tokens"] if status == 200 else status)
+
+        out["burst"] = await asyncio.gather(
+            *[ws_one(ws, 2 * j % len(reqs)) for j, ws in enumerate(conns)],
+            *[http_one((2 * j + 1) % len(reqs)) for j in range(BURST // 2)])
+        for ws in conns:
+            await ws.close()
+        door.router.queue_limit = 64
+        _, out["stats"] = await http_json(door.host, door.port, "GET", "/stats")
+        # the SLOs of a warm pass: (a)'s requests again, every graph built
+        door.tracker.reset()
+        out["warm"] = await stream_all(door)
+        _, out["warm_stats"] = await http_json(door.host, door.port, "GET", "/stats")
+        return out
+
+    async def run(args, body):
+        door, profiler = launch.build_frontdoor(args, cfg, params, spec, dev)
+        await door.start()
+        try:
+            out = await body(door)
+        finally:
+            await door.stop()
+            if profiler is not None:
+                profiler.close()
+        for w in door.router.workers:
+            check(w.load == 0, f"replica {w.name} still has load")
+        return door, out
+
+    # (a)-(e): the main path, counted from 0
+    torch.cuda.synchronize()
+    reset_counts(tm, pm)
+    t0 = time.perf_counter()
+    door, out = asyncio.run(run(door_args(), main_traffic))
+    door_s = time.perf_counter() - t0
+    got = counts(tm, pm)
+    check(out["a"] == want, f"streams != generate(): {out['a']} vs {want}")
+    check(out["warm"] == want, "the warm pass's streams != generate()")
+    victim, survivor = out["victim"], out["survivor"]
+    check(survivor["tokens"] == want[1] and not survivor["done"]["cancelled"],
+          f"survivor {survivor}")
+    ref0 = want[0]
+    if len(victim["tokens"]) > len(ref0):
+        ref0 = generate(params, [reqs[0][0]], cfg, max_new=len(victim["tokens"]),
+                        s_max=DOOR_S_MAX, exec_spec=spec, device=dev)[0].tolist()
+    check(victim["done"]["cancelled"] and 2 <= len(victim["tokens"]) < DOOR_S_MAX - 16
+          and victim["tokens"] == ref0[:len(victim["tokens"])], f"cancelled {victim}")
+    status, body = out["oneshot"]
+    check(status == 200 and body["tokens"] == want[2], f"one-shot {status} {body}")
+    served = [(kind, i, r) for kind, i, r in out["burst"] if isinstance(r, list)]
+    ws_full = sum(kind == "ws" and r == "queue_full" for kind, _, r in out["burst"])
+    http_429 = sum(kind == "http" and r == 429 for kind, _, r in out["burst"])
+    check(ws_full >= 1 and http_429 >= 1 and len(served) + ws_full + http_429 == BURST
+          and len(served) <= BURST_LIMIT, f"burst {out['burst']}")
+    check(all(r == want[i] for _, i, r in served), "a burst request's tokens != generate()")
+    stats = out["stats"]
+    reqs_block = stats["slo"]["requests"]
+    check(reqs_block["completed"] == len(reqs) + 2 + len(served)
+          and reqs_block["cancelled"] == 1 and reqs_block["rejected"] == ws_full + http_429
+          and stats["router"]["in_flight"] == 0, f"/stats {reqs_block} {stats['router']}")
+    replicas = door_replicas(door, "front door")
+    steps = sum(r["decode_steps"] + r["prefill_batches"] for r in replicas)
+    per_step = macs_per_step(cfg)
+    check(got["ternary_cim_matmul"] == per_step * steps,
+          f"#1 launched {got['ternary_cim_matmul']} times, expected {per_step} x {steps}")
+    check(not {k: v for k, v in got.items() if k != "ternary_cim_matmul" and v},
+          f"other kernels launched {got}")
+    warm = out["warm_stats"]["slo"]
+    del door
+    log(f"front door, full-size smollm-135m (per_row, blocked/cuda), {DOOR_REPLICAS} "
+        f"replicas x {DOOR_SLOTS} slots, s_max {DOOR_S_MAX}, on {card}: (a) 8 "
+        f"concurrent WebSocket streams == generate() ({sum(map(len, want))} tokens; "
+        f"generate() took {generate_s:.1f} s eagerly); (b) cancelled after "
+        f"{len(victim['tokens'])} tokens (a greedy prefix), survivor exact; (c) one-shot "
+        f"POST exact; (d) burst of {BURST} at queue-limit {BURST_LIMIT}: {len(served)} "
+        f"served exact, {ws_full} queue_full over WebSocket, {http_429} HTTP 429; (e) "
+        f"/stats {reqs_block}, in_flight 0; #1 launched {got['ternary_cim_matmul']} = "
+        f"{per_step} x {steps} (decode steps + fill batches over both replicas), no other "
+        f"kernel; replicas "
+        + "; ".join(f"{r['name']}: {r['decode_steps']} decode steps ({r['decode_replays']} "
+                    f"replays), {r['prefill_batches']} fills, {r['host_syncs']} host syncs, "
+                    f"decode capture {fmt_s(r['decode_capture_s'])}, {r['prefill_graphs']} "
+                    f"prefill graphs in {fmt_s(r['prefill_capture_s'])}" for r in replicas)
+        + f"; traffic (a)-(d) and the warm pass {door_s:.1f} s")
+    log(f"front door SLOs of the warm pass (8 concurrent streams, every graph built; "
+        f"/stats after tracker.reset()) on {card}: TTFT {pct_line(warm['slo_us']['ttft'])}; "
+        f"per-token latency {pct_line(warm['slo_us']['tok_latency'])}; queue wait "
+        f"{pct_line(warm['slo_us']['queue_wait'])}; e2e {pct_line(warm['slo_us']['e2e'])}; "
+        f"goodput {warm['goodput_tok_s']:.1f} tok/s ({warm['tokens_out']} tokens in "
+        f"{warm['uptime_s']:.3f} s)")
+
+    # (f) the same traffic with a profiler on a file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "door.jsonl")
+        reset_counts(tm, pm)
+        pdoor, pout = asyncio.run(run(door_args(profile=path), stream_all))
+        events = read_trace(path)
+    pgot = counts(tm, pm)
+    check(pout == want, "the profiled run's streams != the unprofiled run's")
+    preplicas = door_replicas(pdoor, "profiled front door")
+    kinds = {k: [e for e in events if e.entry_point == k]
+             for k in ("serve.decode_step", "serve.prefill", "frontdoor.request")}
+    check(len(kinds["serve.decode_step"]) == sum(r["decode_steps"] for r in preplicas)
+          and len(kinds["serve.prefill"]) == sum(r["prefill_batches"] for r in preplicas)
+          and len(kinds["frontdoor.request"]) == len(reqs)
+          and len(events) == sum(map(len, kinds.values())),
+          f"trace events {[(k, len(v)) for k, v in kinds.items()]} against {preplicas}")
+    psteps = sum(r["decode_steps"] + r["prefill_batches"] for r in preplicas)
+    check(pgot["ternary_cim_matmul"] == per_step * psteps,
+          f"profiled: #1 launched {pgot['ternary_cim_matmul']}, expected {per_step} x {psteps}")
+    # a replica's step 0 is its decode capture; the rest are replays
+    replays = [e for e in kinds["serve.decode_step"] if e.meta["step"] > 0]
+    replay_us = [e.wall_us for e in replays]
+    prefill_us = [e.wall_us for e in kinds["serve.prefill"]]
+    replay_ms = statistics.median(replay_us) / 1e3
+    dispatch_ms = statistics.median(e.dispatch_us for e in replays) / 1e3
+    del pdoor
+    log(f"profiled front door (same traffic, one Profiler on a JSON-lines file) on {card}: "
+        f"{len(events)} events read back = {len(kinds['serve.decode_step'])} decode steps "
+        f"+ {len(kinds['serve.prefill'])} fills + {len(reqs)} requests; tokens == the "
+        f"unprofiled run's; #1 {pgot['ternary_cim_matmul']} = {per_step} x {psteps}; "
+        f"replayed decode step wall_us median {replay_ms:.2f} ms (n {len(replay_us)}; "
+        f"dispatch median {dispatch_ms:.2f} ms) beside phase 3's captured step median {phase3_step_ms:.2f} ms; fill wall_us "
+        f"median {statistics.median(prefill_us) / 1e3:.2f} ms (n {len(prefill_us)}, first "
+        f"fills of a bucket included)")
+
+    # (g) the launcher's own selftest at full size
+    t0 = time.perf_counter()
+    rc = launch.main(["--serve-http", "--selftest", "--replicas", "2", "--port", "0"])
+    check(rc == 0, f"the launcher's --selftest returned {rc}")
+    selftest_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"launcher: main(['--serve-http', '--selftest', '--replicas', '2', '--port', "
+        f"'0']) at full size returned 0 in {selftest_s:.1f} s; phase 19 wall time "
+        f"{wall:.1f} s on {card}")
+    return {"launches": got["ternary_cim_matmul"], "launches_per_step": per_step,
+            "replicas": replicas, "stats": stats, "warm": warm,
+            "profiled": {"replicas": preplicas, "decode_replay_ms": replay_ms,
+                         "decode_wall_us": replay_us, "prefill_wall_us": prefill_us,
+                         "events": len(events)},
+            "phase3_step_ms": phase3_step_ms, "generate_s": generate_s,
+            "traffic_s": door_s, "selftest_s": selftest_s, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2644,6 +2931,8 @@ def main(argv=None) -> int:
     per_kernel["ternary_cim_matmul"]["zamba2_2_7b_train"].update(
         launches=ssm_training["zamba2_2_7b"]["launches"],
         launches_per_step=ssm_training["zamba2_2_7b"]["launches_per_step"])
+    serving["frontdoor"] = frontdoor_phase(
+        torch, tm, pm, card, torch.device("cuda"), serving["cim"]["captured_step_ms"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

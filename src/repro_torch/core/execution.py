@@ -29,15 +29,25 @@ The tile tables of the JAX package are kept for
 to the JAX ones. The CUDA kernels keep their K loop inside one block and
 choose their own M tile by :func:`shape_class`.
 
+With a profiler installed (``profile.set_profiler``), every eager
+``execute``/``execute_packed`` call is timed into it, with the
+reference's meta (m, k, n, macs, weight_bytes); calls inside a batcher
+or serve step (:func:`no_kernel_events`, the counterpart of the
+reference's jitted steps, where no call records) and calls while the
+current stream captures a graph record nothing.
+
 Not ported yet: ``execute_tp`` /
-``execute_packed_tp``, autotune (``nbuf`` of the stream tiles stays the
-table's 2) and the profiler sink.
+``execute_packed_tp`` and autotune (``nbuf`` of the stream tiles stays
+the table's 2).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
+import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -232,6 +242,63 @@ def canonical_plane_layout(spec: CiMExecSpec, device=None) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# Profiler sink (repro_torch.profile.trace)
+# ---------------------------------------------------------------------------
+
+#: installed by repro_torch.profile.trace.set_profiler; None = profiling
+#: off, which costs one None comparison per call
+_PROFILE_SINK: Optional[Callable] = None
+#: ``.off`` is set inside a batcher or serve step, per thread: the front
+#: door's replicas step in threads of their own
+_STEP = threading.local()
+
+
+def set_profile_sink(sink: Optional[Callable]) -> None:
+    """Install (or, with None, remove) the kernel-event sink that eager
+    ``execute``/``execute_packed`` calls report their wall times to.
+    Wired by :func:`repro_torch.profile.trace.set_profiler`: use that."""
+    global _PROFILE_SINK
+    _PROFILE_SINK = sink
+
+
+@contextlib.contextmanager
+def no_kernel_events():
+    """No ``execute`` call in this thread records while inside: a
+    batcher or serve step, the counterpart of the reference's jitted
+    steps, under whose trace no call is timed."""
+    prev = getattr(_STEP, "off", False)
+    _STEP.off = True
+    try:
+        yield
+    finally:
+        _STEP.off = prev
+
+
+def _profiled_call(entry: str, spec: CiMExecSpec, x: torch.Tensor, m: int,
+                   k: int, n: int, weight_bytes: int, thunk: Callable):
+    """Run ``thunk()``; with a sink installed, outside a step and outside
+    a capture (a sync there would invalidate it), time it to the device's
+    completion and emit one kernel event."""
+    sink = _PROFILE_SINK
+    cuda = x.device.type == "cuda"
+    if (sink is None or getattr(_STEP, "off", False)
+            or (cuda and torch.cuda.is_current_stream_capturing())):
+        return thunk()
+    t0 = time.perf_counter()
+    out = thunk()
+    t1 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    t2 = time.perf_counter()
+    sink(entry_point=entry, exec_spec=spec.name, shape_class=shape_class(m),
+         mesh=None, wall_us=(t2 - t0) * 1e6, dispatch_us=(t1 - t0) * 1e6,
+         meta={"m": int(m), "k": int(k), "n": int(n),
+               "macs": int(m) * int(k) * int(n),
+               "weight_bytes": int(weight_bytes)})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The shared execution shim
 # ---------------------------------------------------------------------------
 
@@ -322,10 +389,11 @@ def execute(spec: CiMExecSpec, x_t: torch.Tensor, w_t: torch.Tensor, *,
     """
     spec = spec.resolve(x_t.device)
     clean = dataclasses.replace(spec, error_prob=0.0)
-    if torch.is_grad_enabled() and (x_t.requires_grad or w_t.requires_grad):
-        out = _SteExecute.apply(clean, x_t, w_t)
-    else:
-        out = _forward(clean, x_t, w_t)
+    ste = torch.is_grad_enabled() and (x_t.requires_grad or w_t.requires_grad)
+    k, n = x_t.shape[-1], w_t.shape[-1]
+    out = _profiled_call("execution.execute", clean, x_t, math.prod(x_t.shape[:-1]),
+                         k, n, k * n * w_t.element_size(),
+                         lambda: (_SteExecute.apply if ste else _forward)(clean, x_t, w_t))
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
 
 
@@ -388,7 +456,13 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
         n_out = w_pos.shape[-1]
         w = tern.interleave_planes(w_pos, w_neg) if stream else (w_pos, w_neg)
     clean = dataclasses.replace(spec, error_prob=0.0)
-    out = _packed_forward(clean, x_t, w, n_out)
+    if stream:
+        k_dim, weight_bytes = w.shape[-2] * 4, w.numel()
+    else:
+        k_dim, weight_bytes = w[0].shape[0] * 8, w[0].numel() + w[1].numel()
+    out = _profiled_call("execution.execute_packed", clean, x_t,
+                         math.prod(x_t.shape[:-1]), k_dim, n_out, weight_bytes,
+                         lambda: _packed_forward(clean, x_t, w, n_out))
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
 
 

@@ -22,8 +22,23 @@ them in the stream kernel's layout 1). On the card the decode step runs
 as one captured CUDA graph; its capture time is printed on its own line.
 ``--loop-decode`` serves the per-slot loop baseline instead (greedy,
 eager). The KV cache follows the config's ``quant.cache_dtype`` (the
-reference's CLI has no flag for it). Not ported yet: ``--tp``,
-``--serve-http`` and ``--profile``.
+reference's CLI has no flag for it). ``--profile TRACE.jsonl`` records
+one trace event per decode step, fill batch and weight preparation
+(``repro_torch.profile``), in the one-shot run and under the front door.
+
+``--serve-http`` starts the async front door instead of the one-shot
+batch run (``repro_torch.serve.frontdoor``): an HTTP + WebSocket server
+streaming tokens per request, with ``--replicas N`` batchers behind a
+least-loaded router and bounded admission (``--queue-limit``, 429 over
+it). Every replica runs on the one ``--device``; on the card they step
+one at a time under the device's lock. ``--selftest`` runs the front
+door against itself — stream one request, cancel a second mid-stream,
+check ``/stats``, shut down — and exits::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --serve-http --replicas 2 --selftest
+
+Not ported yet: ``--tp`` and ``--compress-tp``.
 """
 from __future__ import annotations
 
@@ -72,6 +87,32 @@ def main(argv=None) -> int:
                     help="fold ternarization into weights offline")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for a CPU host)")
+    ap.add_argument("--profile", default=None, metavar="TRACE.jsonl",
+                    help="record per-step timing events (serve.prefill / "
+                         "serve.decode_step / serve.prepare, and "
+                         "frontdoor.request under --serve-http) to a "
+                         "JSON-lines trace file")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="start the async HTTP/WebSocket front door instead "
+                         "of the one-shot batch run; serves until interrupted")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="batcher replicas behind the front-door router, all "
+                         "on --device")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8471,
+                    help="front-door TCP port (0 = ephemeral)")
+    ap.add_argument("--queue-limit", type=int, default=64,
+                    help="admission cap: total in-flight requests across "
+                         "replicas; over it, new requests get 429")
+    ap.add_argument("--pace-us", type=float, default=0.0, dest="pace_us",
+                    help="modeled per-step device latency in microseconds, "
+                         "slept off-GIL in each replica's worker thread after "
+                         "its step (0 = off)")
+    ap.add_argument("--selftest", action="store_true",
+                    help="front-door smoke: start --serve-http on an "
+                         "ephemeral port, stream one request, cancel a "
+                         "second mid-stream, check /stats, shut down "
+                         "cleanly, exit 0")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -85,10 +126,17 @@ def main(argv=None) -> int:
     exec_spec = parse_exec_spec(args.exec_spec) if args.exec_spec else None
     if args.prepare_weights and exec_spec is None:
         ap.error("--prepare-weights requires --exec-spec")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.selftest:
+        args.serve_http = True
+        args.port = 0  # ephemeral: the selftest races no other listener
+    if args.serve_http:
+        return _serve_http_main(args, cfg, params, exec_spec, device)
     batcher = ContinuousBatcher(
         params, cfg, n_slots=args.slots, s_max=args.s_max, exec_spec=exec_spec,
         temperature=args.temperature, seed=args.seed, fused=not args.loop_decode,
-        prepare_weights=args.prepare_weights, device=device)
+        prepare_weights=args.prepare_weights, device=device, profile=args.profile)
     reqs = [
         Request(i, [1 + (i * 7 + j) % (cfg.vocab - 1) for j in range(1 + i % 4)],
                 max_new=2 + i % args.max_new)
@@ -119,9 +167,124 @@ def main(argv=None) -> int:
               f"on {where}")
     else:
         print(f"[serve] decode step not captured: it runs eagerly on {where}")
+    if args.profile:
+        print(f"[serve] profile: {len(batcher.profiler.events)} trace events "
+              f"-> {args.profile}")
     if not all(r.done for r in reqs):
         raise RuntimeError("some requests did not finish")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# --serve-http: the async front door (repro_torch.serve.frontdoor)
+# ---------------------------------------------------------------------------
+
+
+def build_frontdoor(args, cfg, params, exec_spec, device):
+    """(FrontDoor, profiler) for the parsed args: ``args.replicas``
+    batchers on ``device``, one router, one tracker, and one profiler
+    shared by every replica and the tracker when ``args.profile`` is
+    set (it appends per event, so their events interleave in one
+    file)."""
+    from repro_torch.serve.frontdoor import (
+        EngineWorker,
+        FrontDoor,
+        ReplicaRouter,
+        SLOTracker,
+    )
+
+    profiler = None
+    if args.profile:
+        from repro_torch.profile.trace import Profiler
+
+        profiler = Profiler(args.profile)
+    batchers = [
+        ContinuousBatcher(
+            params, cfg, n_slots=args.slots, s_max=args.s_max,
+            exec_spec=exec_spec, temperature=args.temperature, seed=args.seed,
+            fused=not args.loop_decode, prepare_weights=args.prepare_weights,
+            device=device, profile=profiler)
+        for _ in range(args.replicas)
+    ]
+    tracker = SLOTracker(profiler=profiler, exec_spec=batchers[0].spec_tag)
+    workers = [EngineWorker(f"r{i}", b, tracker, pace_us=args.pace_us)
+               for i, b in enumerate(batchers)]
+    router = ReplicaRouter(workers, queue_limit=args.queue_limit)
+    return FrontDoor(router, tracker, host=args.host, port=args.port), profiler
+
+
+async def _selftest_session(door) -> None:
+    """The front-door smoke: one full streamed request, one cancelled
+    mid-stream, /stats agrees, nothing left in flight."""
+    from repro_torch.serve.frontdoor.client import WSClient, http_json
+
+    def check(ok: bool, what) -> None:
+        if not ok:
+            raise RuntimeError(f"selftest failed: {what}")
+
+    host, port = door.host, door.port
+    ws = await WSClient.connect(host, port)
+    full = await ws.generate([1, 2, 3], max_new=6)
+    check(len(full["tokens"]) == 6 and full["done"]["cancelled"] is False, full)
+    part = await ws.generate([4, 5], max_new=32, cancel_after=2)
+    check(part["done"]["cancelled"] is True and 2 <= len(part["tokens"]) < 32, part)
+    await ws.close()
+    status, stats = await http_json(host, port, "GET", "/stats")
+    check(status == 200, (status, stats))
+    reqs = stats["slo"]["requests"]
+    check(reqs["completed"] == 1 and reqs["cancelled"] == 1, reqs)
+    check(stats["router"]["in_flight"] == 0, stats["router"])
+    for r in stats["router"]["replicas"]:
+        check(r["host_syncs"] == r["decode_steps"] + r["prefill_batches"], r)
+    print(f"[serve] selftest: streamed {len(full['tokens'])} tokens, "
+          f"cancelled after {len(part['tokens'])}, /stats consistent")
+
+
+async def _serve_http_async(args, cfg, params, exec_spec, device) -> int:
+    import asyncio
+    import signal
+
+    door, profiler = build_frontdoor(args, cfg, params, exec_spec, device)
+    host, port = await door.start()
+    n_rep = args.replicas
+    print(f"[serve] front door on http://{host}:{port} "
+          f"({n_rep} replica{'s' if n_rep != 1 else ''} on {device}, "
+          f"queue-limit {args.queue_limit}) — "
+          "routes: /healthz /stats /v1/generate /v1/stream", flush=True)
+    try:
+        if args.selftest:
+            await _selftest_session(door)
+        else:
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                try:
+                    loop.add_signal_handler(sig, stop.set)
+                except NotImplementedError:
+                    pass  # non-unix event loops: rely on KeyboardInterrupt
+            await stop.wait()
+            print("[serve] draining...")
+    finally:
+        await door.stop()
+        if profiler is not None:
+            profiler.close()
+    loaded = [w.name for w in door.router.workers if w.load]
+    if loaded:
+        raise RuntimeError(f"replicas {loaded} still have load after stop")
+    if profiler is not None:
+        print(f"[serve] profile: {len(profiler.events)} trace events -> {args.profile}")
+    print("[serve] clean shutdown" + (" — selftest ok" if args.selftest else ""))
+    return 0
+
+
+def _serve_http_main(args, cfg, params, exec_spec, device) -> int:
+    import asyncio
+
+    try:
+        return asyncio.run(_serve_http_async(args, cfg, params, exec_spec, device))
+    except KeyboardInterrupt:
+        print("[serve] interrupted")
+        return 130
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ specific to a family (the moe family's routing is inside its step).
 single-step entry points; they, ``prefill`` and ``generate`` take
 encdec's encoder output ``enc``, which the batcher does not (as in the
 reference, the batcher serves whisper as its decoder without cross
-attention, and llava as its token stream). Not ported yet: TP and the
-profiler hooks.
+attention, and llava as its token stream). ``ContinuousBatcher(profile=)``
+records one trace event per decode step, per fill batch and per weight
+preparation (``repro_torch.profile``). Not ported yet: TP.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.execution import CiMExecSpec, get_backend
+from repro_torch.core.execution import CiMExecSpec, get_backend, no_kernel_events
 from repro_torch.models import transformer as T
 from repro_torch.serve.graph import CapturedStep
 
@@ -103,13 +104,15 @@ def make_jit_serve_step(cfg: ArchConfig):
     caches), and a graph is bound to the params and caches of its first
     call and to the shape and dtype of its ``enc``: a call with others
     raises. The logits returned are a copy of the graph's output. On the
-    CPU (no graphs) every call is :func:`serve_step`."""
+    CPU (no graphs) every call is :func:`serve_step`. No call records a
+    kernel event (``core.execution.no_kernel_events``)."""
     steps: Dict[tuple, tuple] = {}
 
     def f(params, tokens, caches, index, start=None, enc=None):
         if tokens.device.type != "cuda":
-            return serve_step(params, tokens, caches, index, cfg, start=start,
-                              enc=enc)
+            with no_kernel_events():
+                return serve_step(params, tokens, caches, index, cfg, start=start,
+                                  enc=enc)
         b, s = tokens.shape
         if not torch.is_tensor(index):
             index = torch.full((b,), int(index), dtype=torch.int64,
@@ -298,6 +301,19 @@ class ContinuousBatcher:
     place; the host fetches each active slot's token on its own (one
     host sync per active slot). It runs eagerly, with no graph.
 
+    ``profile`` (a ``repro_torch.profile.Profiler``, or a path that the
+    batcher opens one on and closes at the end of :meth:`run`) times
+    every call of a fused step, as the reference times its jitted ones:
+    one ``serve.decode_step`` event per decode step (meta: arch, step,
+    occupancy and n_slots, read before the step changes the slots), one
+    ``serve.prefill`` per fill batch (meta: arch, the prompts as (rid,
+    length, max_new), s_pad, filled) and one ``serve.prepare`` for
+    ``prepare_weights``. The wrapper goes around the call of the
+    captured step, so a replay is timed, and a graph's first call, its
+    warm-up and capture, as the reference's first call is its compile.
+    With ``profile=None`` the batcher holds no wrapper. The looped
+    baseline is not timed (the reference's neither).
+
     Runs on ``device`` (default ``cuda``; raises without CUDA unless
     ``device="cpu"``).
     """
@@ -306,8 +322,18 @@ class ContinuousBatcher:
                  s_max: int = 128, exec_spec: Optional[CiMExecSpec] = None,
                  temperature: float = 0.0, seed: int = 0, fused: bool = True,
                  prepare_weights: bool = False, device: DeviceLike = None,
-                 cache_dtype: Optional[str] = None):
+                 cache_dtype: Optional[str] = None, profile=None):
         self.device = dev = resolve_device(device)
+        self.profiler = None
+        self._owns_profiler = False
+        if profile is not None:
+            from repro_torch.profile.trace import Profiler
+
+            if isinstance(profile, Profiler):
+                self.profiler = profile
+            else:
+                self.profiler = Profiler(profile)
+                self._owns_profiler = True
         if not fused and temperature != 0.0:
             raise ValueError(
                 "temperature sampling is only implemented for the fused "
@@ -321,7 +347,10 @@ class ContinuousBatcher:
         if prepare_weights:
             from repro_torch.quant.prepare import prepare_for_spec
 
-            prepared = prepare_for_spec(params, exec_spec)
+            prepare = self._timed(
+                lambda: prepare_for_spec(params, exec_spec), "serve.prepare",
+                exec_spec=exec_spec.name, shape_class="prepare")
+            prepared = prepare()
             if exec_spec.packing == "bitplane_u8":
                 params, self.packed = prepared
                 # the in-model dense path serves the folded ternary weights;
@@ -375,6 +404,13 @@ class ContinuousBatcher:
                 params, tokens, caches, positions, start, generator)[0],
             [h.to(dev, copy=True) for h in self._host_inputs], dev,
             generators=self._generators, pool=self._pool)
+        # read at record time, before _step changes the slots: occupancy
+        # is the number of rows this step decoded for
+        self._run_decode = self._timed(
+            self._decode, "serve.decode_step", meta_fn=lambda: {
+                "arch": self.cfg.name, "step": self.decode_steps,
+                "occupancy": sum(r is not None for r in self.slot_req),
+                "n_slots": self.n_slots})
         # the prefill's fresh caches, reset from a one-row template in
         # every prefill; its inputs: the starts and the fill mask (host
         # buffers and their static copies, shared by every bucket's graph),
@@ -386,6 +422,24 @@ class ContinuousBatcher:
             torch.zeros((n_slots,), dtype=torch.bool, pin_memory=pinned))
         self._fill_static = tuple(h.to(dev, copy=True) for h in self._fill_host)
         self._prefill_steps: Dict[int, tuple] = {}
+
+    def _timed(self, fn, entry_point: str, exec_spec: Optional[str] = None,
+               shape_class: str = "decode", meta_fn=None):
+        """``fn`` wrapped by ``profile.trace.wrap_step`` for this
+        batcher's profiler: ``fn`` itself when there is none."""
+        if self.profiler is None:
+            return fn
+        from repro_torch.profile.trace import wrap_step
+
+        return wrap_step(fn, self.profiler, entry_point,
+                         exec_spec=exec_spec or self.spec_tag,
+                         shape_class=shape_class, meta_fn=meta_fn)
+
+    @property
+    def spec_tag(self) -> str:
+        """The trace events' exec_spec: the spec's name, or "mode:<quant mode>"."""
+        spec = self.cfg.quant.exec_spec
+        return spec.name if spec is not None else f"mode:{self.cfg.quant.mode}"
 
     @property
     def capture_seconds(self) -> Optional[float]:
@@ -473,7 +527,15 @@ class ContinuousBatcher:
             fill[s] = True
         for static, h in zip(step.inputs, (host,) + self._fill_host):
             static.copy_(h, non_blocking=True)
-        toks = step().cpu().numpy()  # the one fetch of this fill batch
+        run = step
+        if self.profiler is not None:
+            meta = {"arch": self.cfg.name,
+                    "prompts": [(self.slot_req[s].rid, len(self.slot_req[s].prompt),
+                                 self.slot_req[s].max_new) for s in newly],
+                    "s_pad": s_pad, "filled": len(newly)}
+            run = self._timed(step, "serve.prefill", shape_class="prefill",
+                              meta_fn=lambda: meta)
+        toks = run().cpu().numpy()  # the one fetch of this fill batch
         self.host_syncs += 1
         self.prefill_batches += 1
         for s in newly:
@@ -507,7 +569,7 @@ class ContinuousBatcher:
     def _step(self, active) -> int:
         for static, host in zip(self._decode.inputs, self._host_inputs):
             static.copy_(host, non_blocking=True)
-        toks = self._decode()
+        toks = self._run_decode()
         self.decode_steps += 1
         toks = toks.cpu().numpy()  # the single fetch of this step
         self.host_syncs += 1
@@ -555,6 +617,11 @@ class ContinuousBatcher:
     def submit(self, req: Request):
         if not req.prompt:
             raise ValueError("empty prompt: serving needs at least one prompt token")
+        bad = [t for t in req.prompt if not 0 <= t < self.cfg.vocab]
+        if bad:
+            # an out-of-range index would fail inside a step on the card
+            raise ValueError(f"prompt token ids {bad[:4]} outside the "
+                             f"vocabulary [0, {self.cfg.vocab})")
         if len(req.prompt) >= self.s_max:
             raise ValueError(
                 f"prompt length {len(req.prompt)} does not fit a cache of "
@@ -582,12 +649,14 @@ class ContinuousBatcher:
         return False
 
     def step(self) -> int:
-        """One decode step over all active slots; returns #active."""
-        (self._fill_slots if self.fused else self._fill_slots_looped)()
-        active = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
-        if not active:
-            return 0
-        return (self._step if self.fused else self._step_looped)(active)
+        """One decode step over all active slots; returns #active. No
+        ``execute`` call inside records a kernel event."""
+        with no_kernel_events():
+            (self._fill_slots if self.fused else self._fill_slots_looped)()
+            active = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
+            if not active:
+                return 0
+            return (self._step if self.fused else self._step_looped)(active)
 
     def stats(self) -> Dict[str, int]:
         return {
@@ -597,5 +666,11 @@ class ContinuousBatcher:
         }
 
     def run(self) -> None:
-        while self.queue or any(r is not None for r in self.slot_req):
-            self.step()
+        try:
+            while self.queue or any(r is not None for r in self.slot_req):
+                self.step()
+        finally:
+            if self._owns_profiler:
+                # the batcher opened the trace file (profile=<path>); the
+                # profiler flushes per event, so the file is whole
+                self.profiler.close()

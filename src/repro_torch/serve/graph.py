@@ -27,6 +27,11 @@ the owner's stream, each keeps its static output alive, and the owner
 reads a step's output before it replays another step of the pool (whose
 temporaries may lie where that output lies).
 
+No ``execute`` call inside a step (its warm-up, its capture or an
+eager run) records a kernel event for the profiler
+(``core.execution.no_kernel_events``): the reference times no call
+under a jit trace.
+
 The kernel wrappers' ``launches`` counters tick when a wrapper launches
 its kernel; during a capture they tick though nothing runs. A capture
 takes back what moved during it, and each replay adds it again, so the
@@ -39,6 +44,8 @@ import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+
+from repro_torch.core.execution import no_kernel_events
 
 
 def launch_counted():
@@ -85,9 +92,11 @@ class CapturedStep:
 
     def __call__(self):
         if not self.graphed:
-            return self.fn(*self.inputs)
+            with no_kernel_events():
+                return self.fn(*self.inputs)
         if self.graph is None:
-            return self._capture()
+            with no_kernel_events():
+                return self._capture()
         self.graph.replay()
         self.replays += 1
         _add_launches(self.captured_launches)

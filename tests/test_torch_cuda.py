@@ -1111,3 +1111,123 @@ def test_cuda_captured_train_step_matches_eager(cuda_device, arch, compression):
             assert torch.equal(a, b)
         else:
             assert torch.equal(a.get_state(), b.get_state())
+
+
+# ---------------------------------------------------------------------------
+# The front door and the profiler on the card
+# ---------------------------------------------------------------------------
+
+
+def _front_door_requests(n=8):
+    return [([1 + (i * 7 + j) % 250 for j in range(1 + i % 5)], 3 + i % 4)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_two_replicas_through_the_front_door(cuda_device):
+    """Two replicas of the smoke model on one card behind the front door:
+    each captures its decode step and its prefill buckets while the other
+    steps, under the device's one lock, so no capture is invalidated and
+    #1's process-wide count is exact: 7 x layers x (decode steps + prefill
+    batches) summed over the replicas; every stream == generate() (per_row),
+    one host sync per step and fill batch, and both replicas replayed."""
+    import asyncio
+
+    from repro_torch.serve.frontdoor import (EngineWorker, FrontDoor, ReplicaRouter,
+                                             SLOTracker, WSClient)
+
+    cfg, params = _smoke_model(cuda_device, "per_row")
+    reqs = _front_door_requests()
+
+    async def scenario():
+        tracker = SLOTracker()
+        workers = [EngineWorker(f"r{i}", ContinuousBatcher(
+            params, cfg, n_slots=2, s_max=32, device=cuda_device), tracker)
+            for i in range(2)]
+        door = FrontDoor(ReplicaRouter(workers), tracker)
+        await door.start()
+        try:
+            conns = [await WSClient.connect(door.host, door.port) for _ in reqs]
+            results = await asyncio.gather(*[
+                ws.generate(p, m) for ws, (p, m) in zip(conns, reqs)])
+            for ws in conns:
+                await ws.close()
+        finally:
+            await door.stop()
+        return results, workers
+
+    torch.cuda.synchronize()
+    before = tm.ternary_cim_matmul.launches
+    results, workers = asyncio.run(scenario())
+    moved = tm.ternary_cim_matmul.launches - before
+    assert workers[0]._lock is workers[1]._lock
+    steps = 0
+    for w in workers:
+        b = w.batcher
+        st = b.stats()
+        assert st["host_syncs"] == st["decode_steps"] + st["prefill_batches"] > 0
+        assert b._decode.graph is not None and b._decode.replays > 0
+        assert all(step.graph is not None for _, step in b._prefill_steps.values())
+        steps += st["decode_steps"] + st["prefill_batches"]
+    assert moved == _macs_per_step(cfg) * steps
+    for res, (p, m) in zip(results, reqs):
+        want = generate(params, [p], cfg, max_new=m, s_max=32,
+                        device=cuda_device)[0].tolist()
+        assert res["tokens"] == want, p
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_batcher_one_event_per_call(cuda_device):
+    """A profiled batcher on the card: one serve.decode_step event per
+    decode step (every one after the first a replay) and one
+    serve.prefill per fill batch, wall >= dispatch; its tokens and host
+    syncs equal the unprofiled batcher's."""
+    from repro_torch.profile import Profiler
+
+    cfg, params = _smoke_model(cuda_device)
+    runs = {}
+    for profiled in (False, True):
+        prof = Profiler() if profiled else None
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=32,
+                                    device=cuda_device, profile=prof)
+        runs[profiled] = (_serve(batcher, n=7), batcher.stats(), batcher, prof)
+    assert runs[True][0] == runs[False][0] and runs[True][1] == runs[False][1]
+    _, st, batcher, prof = runs[True]
+    decode = [e for e in prof.events if e.entry_point == "serve.decode_step"]
+    prefill = [e for e in prof.events if e.entry_point == "serve.prefill"]
+    assert len(decode) == st["decode_steps"] == batcher._decode.replays + 1
+    assert len(prefill) == st["prefill_batches"] == sum(
+        1 + step.replays for _, step in batcher._prefill_steps.values())
+    assert len(prof.events) == len(decode) + len(prefill)
+    assert all(0 <= e.dispatch_us <= e.wall_us for e in prof.events)
+    assert runs[False][2]._run_decode is runs[False][2]._decode
+
+
+@pytest.mark.cuda
+def test_cuda_sink_silent_during_capture(cuda_device):
+    """With a profiler installed, an eager execute on the card records
+    one event; the same call captured into a graph records nothing (a
+    sync there would invalidate the capture), and the graph replays."""
+    from repro_torch.core.execution import execute
+    from repro_torch.profile import Profiler, set_profiler
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randint(-1, 2, (4, 576), generator=g, device=cuda_device).float()
+    w = torch.randint(-1, 2, (576, 192), generator=g, device=cuda_device).float()
+    spec = CiMExecSpec("blocked", "cuda")
+    prof = Profiler()
+    prev = set_profiler(prof)
+    try:
+        eager = execute(spec, x, w)
+        assert len(prof.events) == 1 and prof.events[0].meta["m"] == 4
+        side = torch.cuda.Stream(cuda_device)
+        side.wait_stream(torch.cuda.current_stream(cuda_device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = execute(spec, x, w)
+        assert len(prof.events) == 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    finally:
+        set_profiler(prev)

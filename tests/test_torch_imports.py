@@ -37,7 +37,11 @@ def test_scan_sees_the_package():
             "starcoder2_7b.py", "starcoder2_15b.py", "yi_34b.py", "ssm.py",
             "mamba2_780m.py", "zamba2_2_7b.py", "moe.py", "deepseek_v2_236b.py",
             "grok_1_314b.py", "whisper_large_v3.py", "llava_next_34b.py",
-            "adamw.py", "trainer.py", "checkpoint.py", "pipeline.py"} <= names
+            "adamw.py", "trainer.py", "checkpoint.py", "pipeline.py",
+            "trace.py", "protocol.py", "slo.py", "client.py", "worker.py",
+            "router.py", "server.py"} <= names
+    dirs = {p.parent.name for p in PORT_FILES}
+    assert {"profile", "frontdoor"} <= dirs
 
 
 @pytest.fixture
