@@ -162,7 +162,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      at every (K, N) of phases 12 and 13 (#5 at mamba2's) and times one
      mamba2 and one zamba2 layer's calls at M=1024 ("mamba2_780m_train",
      "zamba2_2_7b_train" in the kernels line);
- 19. (run last) the front door: full-size smollm-135m (per_row,
+ 19. the front door: full-size smollm-135m (per_row,
      blocked/cuda: #1 on every dense layer) behind the port's FrontDoor,
      2 replicas x 4 slots, s_max 256, both on the one card (their steps
      serialized by the device's lock), on 127.0.0.1 port 0, over real
@@ -185,9 +185,33 @@ Phases, each fatal on failure (exit code 1, no result line):
      request, tokens == (a)'s, the replayed steps' wall_us median beside
      phase 3's captured step median; (g) the launcher's
      main(["--serve-http", "--selftest", "--replicas", "2", "--port",
-     "0"]) at full size.
-It then prints the card line, a JSON line of per-kernel numbers, and
-last the result line. Without CUDA, or without ``src/repro_torch`` beside
+     "0"]) at full size;
+ 20. (run last) the hardware model and the calibrate -> replay loop:
+     (a) eager execute / execute_packed calls under the profiler at
+     smollm-135m's 4 layer (K, N) and M in {1, 2, 4, 8} and {64, 128, 512,
+     1024}, a warm-up and 5 timed calls each, through blocked/cuda (#1),
+     exact/cuda (#5), blocked/cuda/bitplane_u8 (#2 at decode M, #4 above)
+     and blocked/cuda_stream/bitplane_u8 (#3, #4 above) on stored planes,
+     fitted by profile.calibrate (fixed_us, us_per_mmac, us_per_mb,
+     residual_pct per kernel and shape class); (b) phase 3's 8 requests
+     through a profiled captured batcher of full-size smollm-135m (its
+     tokens == phase 3's), the engine fit with the kernel model of (a),
+     and a holdout run of 4 other requests replayed through simulate:
+     decode steps, fills and tokens equal the holdout's, and the p50 step
+     within 25% of the measured one; (c) hw.project of a 4-row decode of
+     smollm-135m on each paper technology x CiM-I/CiM-II with the table:
+     the analytic CiM time beside the fitted kernels' time, and the
+     holdout replayed with its MACs in 8T-SRAM CiM-I arrays; (d) the tile
+     sweep: autotune of blocked/cuda and exact/cuda at (4, 576, 1536) and
+     (1024, 576, 1536) and of blocked/cuda_stream/bitplane_u8 at the
+     first, every candidate grid bit-equal to the plain version and
+     launched as installed, the winners against launch_plan's grid, the
+     winners installed again from a calibration table without timing, a
+     batcher captured with them giving phase 3's tokens, the cache
+     cleared.
+It then prints a JSON line of phase 20's fits, replay error,
+projections and winners, the card line, a JSON line of per-kernel
+numbers, and last the result line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -1086,6 +1110,7 @@ def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, de
                "captured_tok_s": toks / secs, "eager_tok_s": toks / secs_e,
                "captured_tok_s_without_capture": toks / (secs - capture_s),
                "capture_s": graphs["decode_capture_s"], "tokens": toks,
+               "generated": tokens[True],
                "decode_steps": st["decode_steps"],
                "prefill_batches": st["prefill_batches"],
                "captured_prefill": pf, "eager_prefill": pf_e, **graphs}
@@ -2854,6 +2879,271 @@ def frontdoor_phase(torch, tm, pm, card, dev, phase3_step_ms) -> dict:
             "traffic_s": door_s, "selftest_s": selftest_s, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the hardware model and the calibrate -> replay loop
+# ---------------------------------------------------------------------------
+
+# the M of the calibration sweep: the decode class, then the prefill class
+CALIB_M = (1, 2, 4, 8, 64, 128, 512, 1024)
+CALIB_REPEATS = 5
+# one smollm-135m layer's distinct (K, N)
+CALIB_SHAPES = tuple(dict.fromkeys((k, n) for _, k, n in LAYER_SHAPES))
+# the tile sweep's shapes: smollm-135m's gate/up at decode and training M
+SWEEP_SHAPES = ((4, 576, 1536), (1024, 576, 1536))
+# the reference's full-size bound on the replayed p50 decode step
+# (benchmarks/bench_calibrate.py ERROR_BOUND_PCT["full"])
+REPLAY_BOUND_PCT = 25.0
+# which kernel a (spec, shape class) fit times
+FIT_KERNELS = {"blocked/cuda/none": ("#1", "#1"), "exact/cuda/none": ("#5", "#5"),
+               "blocked/cuda/bitplane_u8": ("#2", "#4"),
+               "blocked/cuda_stream/bitplane_u8": ("#3", "#4")}
+
+
+def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
+    """Phase 20: (a) eager calls of the four served specs under the
+    profiler at smollm-135m's layer shapes and decode / prefill M, fitted
+    by ``profile.calibrate``; (b) the engine fit on a profiled captured
+    batcher (phase 3's requests), replayed against a holdout run (4 other
+    requests): exact step, fill and token counts, p50 step within
+    REPLAY_BOUND_PCT; (c) ``hw.project`` of a 4-row decode on the paper's
+    arrays beside the fitted kernels, and the holdout replayed with the
+    MACs in 8T-SRAM CiM-I arrays; (d) the tile sweep of #1, #5 and #3,
+    every candidate bit-equal to the plain version, the winners installed
+    again from a calibration table, a new captured batcher with them
+    installed giving phase 3's tokens."""
+    import types
+
+    from repro_torch import hw
+    from repro_torch import profile as P
+    from repro_torch.core import execution as X
+    from repro_torch.core import ternary as tern
+    from repro_torch.kernels import plan as kp
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import ShapeCell, get_config
+    from repro_torch.quant.prepare import _canonicalize_packed
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    X.clear_tile_cache()
+    specs = {name: X.CiMExecSpec(*name.split("/")) for name in FIT_KERNELS}
+
+    # (a) the kernel sweep, with the profiler on
+    prof = P.Profiler()
+    g = torch.Generator(device=dev).manual_seed(20)
+    for k, n in CALIB_SHAPES:
+        w = torch.randint(-1, 2, (k, n), generator=g, device=dev).to(torch.bfloat16)
+        p1, p2 = tern.pack_ternary(w.to(torch.int8), axis=0)
+        one = torch.ones(n, device=dev)
+        stored = {name: _canonicalize_packed({"w": (p1, p2, one)}, spec, dev)["w"]
+                  for name, spec in specs.items() if spec.packing == "bitplane_u8"}
+        for m in CALIB_M:
+            x = torch.randint(-1, 2, (m, k), generator=g, device=dev).to(torch.bfloat16)
+            for name, spec in specs.items():
+                if name in stored:
+                    call = (lambda s=spec, pl=stored[name], a=x: X.execute_packed(s, a, pl))
+                else:
+                    call = (lambda s=spec, a=x, b=w: X.execute(s, a, b))
+                call()  # warm-up, not recorded
+                prev = P.set_profiler(prof)
+                try:
+                    for _ in range(CALIB_REPEATS):
+                        call()
+                finally:
+                    P.set_profiler(prev)
+    kernel_events = list(prof.events)
+    want = len(CALIB_SHAPES) * len(CALIB_M) * len(specs) * CALIB_REPEATS
+    if len(kernel_events) != want:
+        fail(f"calibration: {len(kernel_events)} kernel events, expected {want}")
+    kernel_table = P.calibrate(kernel_events, backend="cuda",
+                               default_spec="blocked/cuda/none")
+    keys = {f"{s}|{c}" for s in FIT_KERNELS for c in ("decode", "prefill")}
+    if set(kernel_table.kernels) != keys:
+        fail(f"calibration: kernel fits {sorted(kernel_table.kernels)}")
+    fits = {}
+    for key, fit in sorted(kernel_table.kernels.items()):
+        spec_name, cls = key.split("|")
+        kernel = FIT_KERNELS[spec_name][cls == "prefill"]
+        values = (fit.fixed_us, fit.us_per_mmac, fit.us_per_mb, fit.residual_pct)
+        if not all(math.isfinite(v) and v >= 0 for v in values) or fit.n_events != (
+                len(CALIB_SHAPES) * 4 * CALIB_REPEATS):
+            fail(f"calibration: fit {key} {fit}")
+        fits[key] = dict(dataclasses.asdict(fit), kernel=kernel)
+        log(f"calibration fit {kernel} ({key}, {fit.n_events} eager calls at M "
+            f"{[m for m in CALIB_M if (m <= 8) == (cls == 'decode')]}, K,N "
+            f"{list(CALIB_SHAPES)}) on {card}: fixed_us {fit.fixed_us}, us_per_mmac "
+            f"{fit.us_per_mmac}, us_per_mb {fit.us_per_mb} ({fit.bytes_per_weight} B "
+            f"a weight), residual_pct {fit.residual_pct}")
+
+    # (b) the engine fit and the holdout replay
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, seed=0, device=dev)
+    cfgs = {cfg.name: cfg}
+    kernel_model = P.make_kernel_model(kernel_table, cfgs)
+
+    def serve(reqs, label):
+        sprof = P.Profiler()
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0,
+                                    device=dev, profile=sprof)
+        for r in reqs:
+            batcher.submit(r)
+        batcher.run()
+        if batcher._decode.graph is None:
+            fail(f"calibration {label}: the decode step was not captured")
+        if not all(r.done for r in reqs):
+            fail(f"calibration {label}: not every request finished")
+        return batcher, sprof.events, [list(r.generated) for r in reqs]
+
+    _, fit_events, fit_tokens = serve(make_requests(Request, cfg.vocab, seed=0), "fit run")
+    if fit_tokens != phase3_tokens:
+        fail(f"calibration: the profiled fit run's tokens {fit_tokens} != phase 3's")
+    table = dataclasses.replace(kernel_table,
+                                engines=P.fit_engines(fit_events, kernel_model))
+    engine = table.engine_fit(cfg.name)
+    hold_b, hold_events, hold_tokens = serve(four_requests(Request, cfg.vocab), "holdout")
+    reqs = P.requests_from_trace(hold_events)
+    pred = P.simulate(table, cfg.name, reqs, n_slots=4, s_max=256,
+                      kernel_model=kernel_model)
+    cmp = P.compare_to_measured(pred, hold_events)
+    tokens = sum(len(t) for t in hold_tokens)
+    counts_ok = (pred["decode_steps"] == hold_b.decode_steps == cmp["measured_steps"]
+                 and pred["prefill_batches"] == hold_b.prefill_batches
+                 and pred["tokens"] == tokens)
+    share = kernel_model(cfg.name, 4)
+    log(f"calibration replay on {card}: engine fit (phase 3's 8 requests, "
+        f"{engine.n_decode} decode steps, {engine.n_prefill} fills): decode_fixed_us "
+        f"{engine.decode_fixed_us}, prefill_us {engine.prefill_us}, residual_pct "
+        f"{engine.residual_pct}; the kernel model's share of a 4-slot step "
+        f"{share:.1f} us (210 eager-fitted #1 calls) beside the fit run's measured "
+        f"median step {statistics.median(e.wall_us for e in fit_events if e.entry_point == 'serve.decode_step'):.1f} us; "
+        f"holdout (4 requests): predicted {pred['decode_steps']} decode steps, "
+        f"{pred['prefill_batches']} fills, {pred['tokens']} tokens against measured "
+        f"{hold_b.decode_steps}, {hold_b.prefill_batches}, {tokens}; p50 step "
+        f"predicted {cmp['predicted_p50_us']} us, measured {cmp['measured_p50_us']} us: "
+        f"error {cmp['p50_error_pct']}% (bound {REPLAY_BOUND_PCT}%); tok/s predicted "
+        f"{cmp['predicted_tok_s']}, measured {cmp['measured_tok_s']} (event time, "
+        f"captures included)")
+    if not counts_ok:
+        fail(f"calibration: replayed counts {pred['decode_steps']}, "
+             f"{pred['prefill_batches']}, {pred['tokens']} != the holdout's "
+             f"{hold_b.decode_steps}, {hold_b.prefill_batches}, {tokens}")
+    if not cmp["p50_error_pct"] <= REPLAY_BOUND_PCT:
+        fail(f"calibration: replayed p50 error {cmp['p50_error_pct']}% > "
+             f"{REPLAY_BOUND_PCT}%: {cmp}")
+
+    # (c) the paper's arrays against the card
+    cell = ShapeCell("decode_b4", "decode", 256, 4)
+    projections = {}
+    for tech in hw.PAPER_TECHNOLOGIES:
+        for design in ("CiM-I", "CiM-II"):
+            r = hw.project(cfg, cell, hw.ArraySpec(technology=tech, design=design),
+                           calibration=table)
+            cal = r["calibrated"]
+            if not (r["time_ns"] > 0 and cal["time_us"] > 0
+                    and math.isfinite(cal["cim_speedup_vs_host"])):
+                fail(f"calibration: projection {tech}/{design} {r}")
+            projections[f"{tech}/{design}"] = {
+                "time_ns": r["time_ns"], "tok_s": r["tok_s"],
+                "energy_pj": r["energy_pj"],
+                "iso_capacity_speedup": r["iso_capacity"]["speedup"],
+                "calibrated_time_us": cal["time_us"], "calibrated_tok_s": cal["tok_s"],
+                "cim_speedup_vs_host": cal["cim_speedup_vs_host"]}
+            log(f"projection smollm-135m decode, batch 4, {tech}/{design}: analytic CiM "
+                f"{r['time_ns']:.1f} ns a forward ({r['tok_s']:.0f} tok/s, "
+                f"{r['iso_capacity']['speedup']:.2f}x the iso-capacity NM); the fitted "
+                f"kernels on {card}: {cal['time_us']:.1f} us ({cal['tok_s']:.0f} tok/s); "
+                f"cim_speedup_vs_host {cal['cim_speedup_vs_host']:.1f}")
+    array_model = P.make_array_kernel_model(
+        cfgs, hw.ArraySpec(technology="8T-SRAM", design="CiM-I"))
+    apred = P.simulate(table, cfg.name, reqs, n_slots=4, s_max=256,
+                       kernel_model=array_model)
+    if (apred["decode_steps"], apred["tokens"]) != (pred["decode_steps"], pred["tokens"]):
+        fail(f"calibration: the array replay's counts {apred}")
+    log(f"holdout replayed with its MACs in 8T-SRAM/CiM-I arrays (the fitted "
+        f"per-step fixed cost kept): {apred['tok_s']} tok/s, p50 step "
+        f"{apred['p50_step_us']} us; with the fitted kernels {pred['tok_s']} tok/s, "
+        f"p50 {pred['p50_step_us']} us; the array share of a 4-slot step "
+        f"{array_model(cfg.name, 4):.2f} us against {share:.1f} us")
+
+    # (d) the tile sweep
+    sweep_specs = ((specs["blocked/cuda/none"], SWEEP_SHAPES),
+                   (specs["exact/cuda/none"], SWEEP_SHAPES),
+                   (specs["blocked/cuda_stream/bitplane_u8"], SWEEP_SHAPES[:1]))
+    sms = kp.device_sms(dev)
+    winners, sweep = {}, {}
+    for spec, shapes in sweep_specs:
+        report = X.autotune(spec, shapes=shapes, repeats=CALIB_REPEATS)
+        for m, k, n in shapes:
+            cls = X.shape_class(m)
+            x = torch.randint(-1, 2, (m, k), generator=g, device=dev).to(torch.int8)
+            w = torch.randint(-1, 2, (k, n), generator=g, device=dev).to(torch.int8)
+            if spec.packing == "bitplane_u8":
+                p1, p2 = tern.pack_ternary(w, axis=0)
+                plain = pm.packed_matmul_plain(x, p1, p2, n_out=n)
+                run = lambda: X.execute_packed(spec, x.float(), p1, p2)  # noqa: E731
+                wrapper = pm.packed_cim_matmul_decode_stream
+            else:
+                plain = (tm.ternary_cim_matmul_plain(x, w) if spec.formulation == "blocked"
+                         else tm.exact_matmul_plain(x, w))
+                run = lambda: X.execute(spec, x.float(), w.float())  # noqa: E731
+                wrapper = (tm.ternary_cim_matmul if spec.formulation == "blocked"
+                           else tm.ternary_exact_matmul)
+            for tiles in X.tile_candidates(spec, cls, k):
+                X.autotune(spec, calibration=types.SimpleNamespace(
+                    tile_winners={spec.name: {cls: tiles}}))
+                if not torch.equal(run(), plain):
+                    fail(f"tile sweep: {spec.name} at {(m, k, n)} on grid {tiles} "
+                         f"differs from the plain version")
+                if (wrapper.last_plan.rows, wrapper.last_plan.cluster) != tiles[:2]:
+                    fail(f"tile sweep: {spec.name} launched {wrapper.last_plan}, "
+                         f"installed {tiles}")
+            entry = report[cls]
+            winners.setdefault(spec.name, {})[cls] = entry["tiles"]
+            sweep[f"{spec.name}|{cls}"] = {
+                "shape": [m, k, n], "winner": list(entry["tiles"]), "us": entry["us"],
+                "default": list(entry["default"]), "default_us": entry["default_us"],
+                "candidates": entry["candidates"]}
+            log(f"tile sweep {spec.name} at (M, K, N) = {(m, k, n)} on {card}: winner "
+                f"{entry['tiles']} {entry['us']} us a call, launch_plan's "
+                f"{entry['default']} {entry['default_us']} us "
+                f"({entry['default_us'] / entry['us']:.3f}x); every candidate (us): "
+                f"{entry['candidates']}; all {len(entry['candidates'])} bit-equal to "
+                f"the plain version")
+    X.clear_tile_cache()
+    table = dataclasses.replace(table, tile_winners=winners)
+    for spec, shapes in sweep_specs:
+        report = X.autotune(spec, calibration=table)
+        for m, k, n in shapes:
+            cls = X.shape_class(m)
+            got = report[cls]
+            if got["tiles"] != tuple(winners[spec.name][cls]) or got["us"] is not None:
+                fail(f"tile sweep: calibration installed {got} for {spec.name}/{cls}")
+            want = kp.tuned_plan(m, k, n, sms, winner=winners[spec.name][cls],
+                                 rows=8 if spec.packing == "bitplane_u8" else None)
+            if X.kernel_plan(spec, m, k, n, sms, rows=want.rows) != want:
+                fail(f"tile sweep: {spec.name}/{cls} plan after install")
+    tuned = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev)
+    treqs = make_requests(Request, cfg.vocab, seed=0)
+    for r in treqs:
+        tuned.submit(r)
+    tuned.run()
+    tuned_tokens = [list(r.generated) for r in treqs]
+    if tuned._decode.graph is None or tuned_tokens != phase3_tokens:
+        fail("tile sweep: a batcher captured with the winners installed does not "
+             "give phase 3's tokens")
+    X.clear_tile_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"tile sweep: winners {winners} installed again from a calibration table "
+        f"without timing; a batcher captured with them gives phase 3's tokens; "
+        f"cache cleared. Phase 20 wall time {wall:.1f} s on {card}")
+    return {"fits": fits, "engine": dataclasses.asdict(engine),
+            "kernel_share_us_at_4": share, "replay": cmp,
+            "predicted": {k: v for k, v in pred.items() if k != "graph"},
+            "array_replay": {k: v for k, v in apred.items() if k != "graph"},
+            "projections": projections, "winners": {s: {c: list(t) for c, t in v.items()}
+                                                    for s, v in winners.items()},
+            "sweep": sweep, "table": table.to_json(), "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2933,6 +3223,8 @@ def main(argv=None) -> int:
         launches_per_step=ssm_training["zamba2_2_7b"]["launches_per_step"])
     serving["frontdoor"] = frontdoor_phase(
         torch, tm, pm, card, torch.device("cuda"), serving["cim"]["captured_step_ms"])
+    calibration = calibration_phase(torch, tm, pm, card, torch.device("cuda"),
+                                    serving["cim"]["generated"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2953,8 +3245,10 @@ def main(argv=None) -> int:
                 k: v["m"] for k, v in per_kernel.items()}, prefill={
                 k: {f: v[f] for f in v if f.startswith("prefill")}
                 for k, v in per_kernel.items() if v["prefill_ms"] is not None},
-                sass=sass, serving=serving,
+                sass=sass, serving=serving, calibration=calibration,
                 **extra), f, indent=1)
+    print(json.dumps({"calibration": {k: calibration[k] for k in (
+        "fits", "engine", "replay", "projections", "winners")}}), flush=True)
     print(card, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,22 @@
 """``repro_torch.api`` — the port's public API: declarative execution of
-the signed-ternary MAC (what it computes, and how), the stored-plane
-format, and the serving engine.
+the signed-ternary MAC (what it computes, and how), declarative hardware
+(what it would cost on the paper's arrays), the stored-plane format, and
+the serving engine.
 
     from repro_torch import api
 
     spec = api.CiMExecSpec(formulation="blocked", backend="auto")
     out = api.execute(spec, x_t, w_t)
 
-New kernels land via ``register_backend``. The wrappers of the five
-hand-written kernels are re-exported here, as the JAX package's
-``kernels`` re-exports its Pallas kernels. The hardware cost models of
-``repro.api`` (``repro.hw``) are not ported yet.
+    arr = api.ArraySpec(technology="3T-FEMFET", design="CiM-I")
+    api.spec_cost_summary(spec, array=arr)          # cost on that array
+    api.project("yi-34b", "decode_32k", arr)        # system projection
+
+New kernels land via ``register_backend``; new memory technologies and
+array designs via ``register_technology`` / ``register_design``. The
+wrappers of the five hand-written kernels are re-exported here, as the
+JAX package's ``kernels`` re-exports its Pallas kernels; ``autotune``
+sweeps their launch grids.
 """
 from repro_torch.core.execution import (  # noqa: F401
     BACKENDS,
@@ -21,16 +27,40 @@ from repro_torch.core.execution import (  # noqa: F401
     SHAPE_CLASSES,
     BackendEntry,
     CiMExecSpec,
+    autotune,
     canonical_plane_layout,
+    clear_tile_cache,
     execute,
     execute_packed,
     get_backend,
+    kernel_plan,
     register_backend,
     registered_specs,
+    set_shape_class_override,
     shape_class,
+    spec_array_cost,
+    spec_cost_summary,
+    spec_design,
+    tile_candidates,
     tiles_for,
 )
 from repro_torch.core.ternary import PackedPlanes  # noqa: F401
+from repro_torch.hw import (  # noqa: F401
+    ArrayCost,
+    ArraySpec,
+    DesignMetrics,
+    DesignSpec,
+    MacroSpec,
+    TechnologySpec,
+    array_cost,
+    design_claims,
+    designs,
+    parse_array_spec,
+    project,
+    register_design,
+    register_technology,
+    technologies,
+)
 from repro_torch.kernels.packed_mac import (  # noqa: F401
     packed_cim_matmul,
     packed_cim_matmul_decode,

@@ -26,8 +26,19 @@ operands rather than running its plain version there.
 The tile tables of the JAX package are kept for
 :func:`tiles_for` and the canonical stored-plane layout
 (:func:`canonical_plane_layout`), so prepared planes are byte-identical
-to the JAX ones. The CUDA kernels keep their K loop inside one block and
-choose their own M tile by :func:`shape_class`.
+to the JAX ones, and a tile sweep never moves them. What the port tunes
+is the CUDA kernels' launch grid (``kernels/plan.py``): :func:`autotune`
+times the grids the compiled instances accept (:func:`tile_candidates`:
+``(rows, cluster)``, and ``(rows, cluster, nbuf)`` for ``cuda_stream``)
+and caches a winner per (registry key, block, shape class), which every
+later eager call of that spec and class launches with
+(:func:`kernel_plan`); with no winner cached every kernel launches on
+``launch_plan``'s grid. :func:`set_shape_class_override` chooses the class
+whose winner or default grid applies, never which kernel runs.
+
+The hardware model's bridge (:func:`spec_design`,
+:func:`spec_array_cost`, :func:`spec_cost_summary`) binds a spec to a
+``repro_torch.hw.ArraySpec``.
 
 With a profiler installed (``profile.set_profiler``), every eager
 ``execute``/``execute_packed`` call is timed into it, with the
@@ -36,15 +47,14 @@ or serve step (:func:`no_kernel_events`, the counterpart of the
 reference's jitted steps, where no call records) and calls while the
 current stream captures a graph record nothing.
 
-Not ported yet: ``execute_tp`` /
-``execute_packed_tp`` and autotune (``nbuf`` of the stream tiles stays
-the table's 2).
+Not ported yet: ``execute_tp`` / ``execute_packed_tp``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import gc
 import math
 import threading
 import time
@@ -54,8 +64,10 @@ import torch
 
 from repro_torch.core import ternary as tern
 from repro_torch.kernels import DECODE_M_MAX, ref
+from repro_torch.kernels import plan as kplan
 from repro_torch.kernels.packed_mac import (
     STREAM_ALIGN,
+    STREAM_NBUF,
     packed_cim_matmul,
     packed_cim_matmul_decode,
     packed_cim_matmul_decode_stream,
@@ -206,21 +218,107 @@ def registered_specs() -> Iterator[CiMExecSpec]:
 
 SHAPE_CLASSES = ("decode", "prefill")
 
+# tile-sweep winners: {(registry_key, block, shape_class): (rows, cluster)
+# or (rows, cluster, nbuf)}, the launch grids of kernels/plan.py
+_TILE_CACHE: Dict[Tuple, Tuple[int, ...]] = {}
+
+# benchmark/test lever: force every call into one shape class (None = off)
+_CLASS_OVERRIDE: Optional[str] = None
+
+# Guards _TILE_CACHE and _CLASS_OVERRIDE: the front door drives several
+# batchers from threads of their own, and the override's read-compose-
+# lookup and its context manager's restore are not atomic without it
+_DISPATCH_LOCK = threading.Lock()
+
 
 def shape_class(m: int) -> str:
     """"decode" for M <= DECODE_M_MAX, else "prefill"."""
     return "decode" if m <= DECODE_M_MAX else "prefill"
 
 
+class _ShapeClassOverride:
+    """Handle returned by :func:`set_shape_class_override`. The override
+    is installed at construction; used as a context manager, the handle
+    restores the previous value on exit, so ``with
+    set_shape_class_override("prefill"): ...`` is exception-safe, while
+    the imperative call (later ``set_shape_class_override(None)``) works
+    too."""
+
+    def __init__(self, prev: Optional[str]):
+        self._prev = prev
+
+    def __enter__(self) -> "_ShapeClassOverride":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        set_shape_class_override(self._prev)
+        return False
+
+
+def set_shape_class_override(cls: Optional[str]) -> _ShapeClassOverride:
+    """Force the shape class of every call regardless of M (None restores
+    the M-derived class), as the reference's does: the class whose tile
+    table entry :func:`tiles_for` answers with, whose sweep winner or
+    default grid the kernels launch on (:func:`kernel_plan`), and that
+    kernel events record. It never changes which kernel runs: #2 and #4
+    (and #3's prefill delegate) are still chosen by M, where the
+    reference's override also reroutes its packed kernels through their M
+    tile. Affects eager calls and new captures only. Returns a context
+    manager restoring the previous override on exit. Thread-safe."""
+    global _CLASS_OVERRIDE
+    if cls is not None and cls not in SHAPE_CLASSES:
+        raise ValueError(f"unknown shape class {cls!r} (use {SHAPE_CLASSES})")
+    with _DISPATCH_LOCK:
+        prev = _CLASS_OVERRIDE
+        _CLASS_OVERRIDE = cls
+    return _ShapeClassOverride(prev)
+
+
+def clear_tile_cache() -> None:
+    """Drop every tile-sweep winner (tests, re-tuning): every kernel
+    launches on ``launch_plan``'s grid again. Thread-safe."""
+    with _DISPATCH_LOCK:
+        _TILE_CACHE.clear()
+
+
 def tiles_for(spec: CiMExecSpec, m: int, k: int, n: int,
               device=None) -> Optional[Tuple[int, ...]]:
     """The (bm, bk, bn) tiles of the registry entry's table for an
     (M, K) x (K, N) call — (bm, bk, bn, nbuf) for ``cuda_stream``; None
-    for untiled (torch) backends."""
+    for untiled (torch) backends. Under :func:`set_shape_class_override`
+    the table answers for the forced class (a representative M of it).
+    The tile sweep's winners are launch grids, not these tiles: see
+    :func:`kernel_plan`."""
     entry = _REGISTRY.get(spec.resolve(device).registry_key)
     if entry is None or entry.tiles is None:
         return None
+    with _DISPATCH_LOCK:
+        cls = _CLASS_OVERRIDE or shape_class(m)
+    if cls != shape_class(m):
+        m = DECODE_M_MAX if cls == "decode" else 128
     return entry.tiles(m, k, n)
+
+
+def _grid_choice(spec: CiMExecSpec, m: int
+                 ) -> Tuple[Optional[Tuple[int, ...]], Optional[str]]:
+    """(cached winner, forced class) for a call of ``m`` rows: the winner
+    of the forced class when there is one, else of M's class."""
+    with _DISPATCH_LOCK:
+        cls = _CLASS_OVERRIDE or shape_class(m)
+        return _TILE_CACHE.get((spec.registry_key, spec.block, cls)), _CLASS_OVERRIDE
+
+
+def kernel_plan(spec: CiMExecSpec, m: int, k: int, n: int,
+                sms: int = kplan.H100_SMS, *,
+                rows: Optional[int] = None) -> kplan.LaunchPlan:
+    """The grid a kernel of ``spec`` launches on for an (M, K) x (K, N)
+    call on a card of ``sms`` SMs: the cached winner of the call's shape
+    class, else that class's ``launch_plan`` rule (``plan.tuned_plan``);
+    ``rows`` is the kernel's own M tile where it has one (#2, #3: 8).
+    With no winner cached and no override it is ``launch_plan(m, k, n,
+    sms)``."""
+    winner, forced = _grid_choice(spec.resolve(), m)
+    return kplan.tuned_plan(m, k, n, sms, winner=winner, cls=forced, rows=rows)
 
 
 def canonical_plane_layout(spec: CiMExecSpec, device=None) -> Tuple[int, int]:
@@ -290,7 +388,8 @@ def _profiled_call(entry: str, spec: CiMExecSpec, x: torch.Tensor, m: int,
     if cuda:
         torch.cuda.synchronize(x.device)
     t2 = time.perf_counter()
-    sink(entry_point=entry, exec_spec=spec.name, shape_class=shape_class(m),
+    sink(entry_point=entry, exec_spec=spec.name,
+         shape_class=_CLASS_OVERRIDE or shape_class(m),
          mesh=None, wall_us=(t2 - t0) * 1e6, dispatch_us=(t1 - t0) * 1e6,
          meta={"m": int(m), "k": int(k), "n": int(n),
                "macs": int(m) * int(k) * int(n),
@@ -555,20 +654,41 @@ def _codes(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int8).contiguous()
 
 
-def _blocked_cuda(x2, w, spec):
+def _grid(spec, x2, n: int, winner=None, rows: Optional[int] = None):
+    """(plan, winner) of a kernel call on CUDA ``x2`` against ``n``
+    columns: on ``winner`` (autotune's timed candidate), else as
+    :func:`kernel_plan` says for this card (``launch_plan``'s grid when
+    nothing is cached or forced). (None, None) for CPU operands, which
+    take the plain versions."""
+    if x2.device.type != "cuda":
+        return None, None
+    m, k = x2.shape
+    forced = None
+    if winner is None:
+        winner, forced = _grid_choice(spec, m)
+    plan = kplan.tuned_plan(m, k, n, kplan.device_sms(x2.device),
+                            winner=winner, cls=forced, rows=rows)
+    return plan, winner
+
+
+def _blocked_cuda(x2, w, spec, winner=None):
+    plan, _ = _grid(spec, x2, w.shape[1], winner)
     return ternary_cim_matmul(_codes(x2), _codes(w), block=spec.block,
-                              adc_max=spec.adc_max)
+                              adc_max=spec.adc_max, plan=plan)
 
 
-def _exact_cuda(x2, w, spec):
-    return ternary_exact_matmul(_codes(x2), _codes(w))
+def _exact_cuda(x2, w, spec, winner=None):
+    plan, _ = _grid(spec, x2, w.shape[1], winner)
+    return ternary_exact_matmul(_codes(x2), _codes(w), plan=plan)
 
 
-def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int):
+def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int,
+                       winner=None):
     """The MAC from (rows, N) planes. torch backends pad x and the planes
     to whole blocks and run the oracle; kernel backends hand the logical
     extents to the decode kernel (M tile <= DECODE_M_MAX, int32) or the
-    prefill kernel (f32), which zero-extend K themselves."""
+    prefill kernel (f32), which zero-extend K themselves, chosen by M
+    whatever the shape-class override says, on ``spec``'s grid."""
     m = x2.shape[0]
     if spec.backend == "torch":
         mult = math.lcm(spec.block, 8)
@@ -581,24 +701,30 @@ def _packed_planes_mac(x2, w_pos, w_neg, spec, cim: bool, n_out: int):
         return out[:, :n_out]
     kw = dict(n_out=n_out, block=spec.block, adc_max=spec.adc_max, cim=cim)
     if shape_class(m) == "decode":
-        return packed_cim_matmul_decode(_codes(x2), w_pos, w_neg, **kw).to(torch.float32)
-    return packed_cim_matmul(_codes(x2), w_pos, w_neg, **kw)
+        plan, _ = _grid(spec, x2, n_out, winner, rows=DECODE_M_MAX)
+        return packed_cim_matmul_decode(_codes(x2), w_pos, w_neg, plan=plan,
+                                        **kw).to(torch.float32)
+    plan, _ = _grid(spec, x2, n_out, winner)
+    return packed_cim_matmul(_codes(x2), w_pos, w_neg, plan=plan, **kw)
 
 
-def _packed_stream_mac(x2, w_int, spec, cim: bool, n_out: int):
+def _packed_stream_mac(x2, w_int, spec, cim: bool, n_out: int, winner=None):
     """The MAC from ONE (K/4, N) plane-interleaved array (layout 1).
     Decode-class M takes the streaming kernel (columns padded to its
     16-byte copies, a no-op on canonical planes), with the ring depth of
-    the tile table; prefill-class M de-interleaves (strided views, no
-    pad) and takes the prefill packed kernel, as the reference does."""
+    the winner or the tile table; prefill-class M de-interleaves (strided
+    views, no pad) and takes the prefill packed kernel, as the reference
+    does, on this spec's grid."""
     m = x2.shape[0]
     if shape_class(m) == "prefill":
         return _packed_planes_mac(x2, *tern.deinterleave_planes(w_int), spec,
-                                  cim, n_out)
-    nbuf = _packed_stream_tiles(m, x2.shape[1], w_int.shape[1])[3]
+                                  cim, n_out, winner)
+    plan, winner = _grid(spec, x2, n_out, winner, rows=DECODE_M_MAX)
+    nbuf = (winner[2] if winner is not None
+            else _packed_stream_tiles(m, x2.shape[1], w_int.shape[1])[3])
     out = packed_cim_matmul_decode_stream(
         _codes(x2), ref.pad_axis(w_int, STREAM_ALIGN, 1), n_out=n_out,
-        block=spec.block, adc_max=spec.adc_max, cim=cim, nbuf=nbuf)
+        block=spec.block, adc_max=spec.adc_max, cim=cim, nbuf=nbuf, plan=plan)
     return out.to(torch.float32)
 
 
@@ -641,3 +767,260 @@ register_backend("exact/cuda_stream/bitplane_u8",
 register_backend("blocked/cuda_stream/bitplane_u8",
                  functools.partial(_packed_stream, cim=True), clamps=True,
                  tiles=_packed_stream_tiles)
+
+
+# ---------------------------------------------------------------------------
+# The tile sweep: launch grids of the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def tile_candidates(spec: CiMExecSpec, cls: str,
+                    k: Optional[int] = None) -> Tuple[Tuple[int, ...], ...]:
+    """The launch grids :func:`autotune` sweeps for ``spec``'s kernel in
+    shape class ``cls``: what the compiled instances of ``tile_kernel``
+    accept. ``(rows, cluster)`` with rows in {8, 32} and cluster in {1, 2,
+    4, 8}; the decode kernels #2 and #3 (packed specs at decode) have only
+    the 8-row tile; ``cuda_stream`` adds the ring depth, ``(rows, cluster,
+    nbuf)`` with nbuf in {2, 3} at decode (#3) and 2 at prefill, where #4
+    has no ring to set. With ``k``, clusters are bounded as
+    ``launch_plan`` bounds them (no rank without a 16-row block). Raises
+    for untiled (torch) backends."""
+    spec = spec.resolve()
+    if get_backend(spec).tiles is None:
+        raise ValueError(f"{spec.name} has no launch grid to tune")
+    if cls not in SHAPE_CLASSES:
+        raise ValueError(f"unknown shape class {cls!r} (use {SHAPE_CLASSES})")
+    decode = cls == "decode"
+    rows = ((DECODE_M_MAX,) if spec.packing == "bitplane_u8" and decode
+            else kplan.TILE_ROWS)
+    clusters = tuple(c for c in kplan.CLUSTERS
+                     if k is None or kplan.bounded_cluster(c, k) == c)
+    if spec.backend == "cuda_stream":
+        nbufs = STREAM_NBUF if decode else (2,)
+        return tuple((r, c, b) for r in rows for c in clusters for b in nbufs)
+    return tuple((r, c) for r in rows for c in clusters)
+
+
+def _grid_key(tiles: Tuple[int, ...]) -> str:
+    return "x".join(map(str, tiles))
+
+
+def _sweep_inputs(spec: CiMExecSpec, m: int, k: int, n: int, device):
+    """Seeded ternary x (M, K) int8 and the backend call of ``spec`` on a
+    (K, N) weight for one grid, as ``execute`` / ``execute_packed`` make
+    it: stored planes for packed specs (layout 1 for ``cuda_stream``)."""
+    gen = torch.Generator(device=device).manual_seed(m * 1000003 + k * 1009 + n)
+    x = torch.randint(-1, 2, (m, k), generator=gen, device=device).to(torch.int8)
+    w = torch.randint(-1, 2, (k, n), generator=gen, device=device).to(torch.int8)
+    if spec.packing == "bitplane_u8":
+        w_pos, w_neg = tern.pack_ternary(w, axis=0)
+        if spec.backend == "cuda_stream":
+            w_int = tern.interleave_planes(w_pos, w_neg)
+            return lambda winner: _packed_stream_mac(x, w_int, spec, spec.clamps,
+                                                     n, winner)
+        return lambda winner: _packed_planes_mac(x, w_pos, w_neg, spec,
+                                                 spec.clamps, n, winner)
+    fn = get_backend(spec).fn
+    return lambda winner: fn(x, w, spec, winner=winner)
+
+
+def _time_us(run: Callable, tiles: Tuple[int, ...], repeats: int, device,
+             calls: int = 20) -> float:
+    """Device microseconds of one ``run(tiles)``: a warm-up call outside
+    the clock, then ``calls`` calls captured in one CUDA graph, replayed
+    ``repeats`` times between two CUDA events after a synchronize; the
+    minimum over the replays, per call. A graph times the launches back to
+    back, without the host's dispatch between them. The collector is off
+    during the capture, as ``serve.graph.CapturedStep`` keeps it."""
+    run(tiles)
+    torch.cuda.synchronize(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                run(tiles)
+    finally:
+        if enabled:
+            gc.enable()
+    graph.replay()
+    best = math.inf
+    for _ in range(max(1, repeats)):
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) * 1e3 / calls)
+    return best
+
+
+def _install(spec: CiMExecSpec, cls: str, tiles: Tuple[int, ...]) -> None:
+    with _DISPATCH_LOCK:
+        _TILE_CACHE[(spec.registry_key, spec.block, cls)] = tiles
+
+
+def autotune(
+    spec: CiMExecSpec,
+    shapes: Tuple[Tuple[int, int, int], ...] = ((4, 1024, 512), (256, 1024, 512)),
+    *,
+    candidates: Optional[Dict[str, Tuple[Tuple[int, ...], ...]]] = None,
+    repeats: int = 3,
+    calibration=None,
+) -> Dict[str, Dict]:
+    """Time the launch grids of ``spec``'s kernel (:func:`tile_candidates`,
+    or ``candidates[cls]``) on one (M, K, N) per shape class and cache the
+    winners: every later eager ``execute`` / ``execute_packed`` of that
+    spec and class launches on them (:func:`kernel_plan`). A winner
+    installed after a ``CapturedStep`` was captured does not change that
+    graph: it affects eager calls and new captures only. The output never
+    depends on the grid (every partial is an integer).
+
+    Timing runs on CUDA on seeded ternary operands (stored planes for
+    packed specs), per candidate: one warm-up call outside the clock, then
+    20 calls captured in one CUDA graph and replayed ``repeats`` times
+    between two CUDA events after a synchronize; the minimum per call
+    counts (:func:`_time_us`; the weight stays in the L2 cache). Run it
+    before serving: the capture needs the device to itself. Candidates
+    outside the kernel's grid are skipped, as the reference skips invalid
+    tiles.
+
+    With ``calibration=`` (a ``repro_torch.profile.CalibrationTable``, or
+    any object with a ``tile_winners`` mapping) nothing is timed: the
+    table's winners for ``spec`` are validated against the port's grid
+    and installed; a Pallas tile triple, a shape class it does not know,
+    or a table without winners for ``spec`` raises ``ValueError``.
+
+    Returns ``{shape_class: {"tiles": winner, "us": best_us, "candidates":
+    {"RxC[xB]": us}, "default": launch_plan's grid, "default_us": its
+    time}}``. Raises for untiled (torch) backends, as the reference's
+    ``jnp`` ones do."""
+    spec = spec.resolve()
+    entry = get_backend(spec)
+    if entry.tiles is None:
+        raise ValueError(
+            f"{spec.name} has no launch grid to autotune (torch backends run "
+            f"plain PyTorch; only the cuda kernels tune)")
+    if calibration is not None:
+        winners = dict(getattr(calibration, "tile_winners", {}) or {})
+        per_spec = winners.get(spec.name)
+        if not per_spec:
+            raise ValueError(
+                f"calibration table has no tile winners for {spec.name} "
+                f"(known: {sorted(winners)})")
+        report = {}
+        for cls, tiles in sorted(per_spec.items()):
+            if cls not in SHAPE_CLASSES:
+                raise ValueError(f"unknown shape class {cls!r} in calibration")
+            tiles = tuple(int(t) for t in tiles)
+            if tiles not in tile_candidates(spec, cls):
+                raise ValueError(
+                    f"calibrated grid {tiles} invalid for {spec.name}/{cls} "
+                    f"(the port's grids: {tile_candidates(spec, cls)})")
+            _install(spec, cls, tiles)
+            report[cls] = {"tiles": tiles, "us": None, "candidates": {},
+                           "source": "calibration"}
+        return report
+    if not torch.cuda.is_available():
+        raise RuntimeError("autotune times the kernels on the card: CUDA is "
+                           "not available")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = kplan.device_sms(dev)
+    report: Dict[str, Dict] = {}
+    for m, k, n in shapes:
+        cls = shape_class(m)
+        run = _sweep_inputs(spec, m, k, n, dev)
+        grid = tile_candidates(spec, cls, k)
+        cands = (candidates or {}).get(cls, grid)
+        timings: Dict[str, float] = {}
+        best = None
+        for tiles in cands:
+            tiles = tuple(int(t) for t in tiles)
+            if tiles not in grid:
+                continue
+            timings[_grid_key(tiles)] = round(_time_us(run, tiles, repeats, dev), 2)
+            if best is None or timings[_grid_key(tiles)] < timings[_grid_key(best)]:
+                best = tiles
+        if best is None:
+            raise ValueError(f"no valid launch grid for {spec.name}/{cls}")
+        _install(spec, cls, best)
+        default = kplan.launch_plan(m, k, n, sms)
+        default = (default.rows, default.cluster) + (
+            (entry.tiles(m, k, n)[3],) if spec.backend == "cuda_stream" else ())
+        report[cls] = {"tiles": best, "us": timings[_grid_key(best)],
+                       "candidates": timings, "default": default,
+                       "default_us": timings.get(_grid_key(default))}
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Spec -> hardware-model mapping (paper Section V / repro_torch.hw)
+# ---------------------------------------------------------------------------
+
+
+def spec_design(spec: CiMExecSpec) -> str:
+    """Map an execution spec onto the registered array designs. "exact"
+    is the near-memory baseline; every CiM formulation — including
+    "fused", the kernel's cost stand-in, which the port registers as
+    non-clamping — executes on a SiTe array, flavor choosing the design
+    through the ``repro_torch.hw`` design registry. Unknown (plugged-in)
+    formulations fall back on whether they clamp."""
+    if spec.formulation == "exact":
+        return "NM"
+    if spec.formulation in FORMULATIONS or spec.clamps:
+        from repro_torch.hw import design_for_flavor
+
+        return design_for_flavor(spec.flavor)
+    return "NM"
+
+
+def _bind_array(spec: CiMExecSpec, tech, array):
+    """Bind an execution spec to a concrete ArraySpec: the ArraySpec
+    supplies technology and geometry, the *execution* spec decides the
+    design (an "exact" spec costs as the NM baseline of that array no
+    matter how the ArraySpec was labelled). Without an array, a
+    default-geometry array on ``tech`` (default 8T-SRAM). ``tech`` and
+    ``array`` are mutually exclusive."""
+    from repro_torch import hw
+
+    design = spec_design(spec)
+    if array is None:
+        return hw.ArraySpec(technology=tech or "8T-SRAM", design=design)
+    if tech is not None:
+        raise ValueError(
+            f"pass either tech= or array=, not both (array already "
+            f"names technology {array.technology!r}, got tech={tech!r})")
+    return array.with_design(design)
+
+
+def spec_array_cost(spec: CiMExecSpec, tech=None, array=None):
+    """Absolute array-level cost (latency/energy/area) of executing this
+    spec on the bound array (:func:`_bind_array`): the bridge from the
+    execution API to the hardware model (``repro_torch.hw``)."""
+    from repro_torch import hw
+
+    return hw.array_cost(_bind_array(spec, tech, array))
+
+
+def spec_cost_summary(spec: CiMExecSpec, tech=None, array=None) -> Dict[str, object]:
+    """JSON-ready per-MAC-pass cost summary of ``spec`` on the bound
+    array (the binding of :func:`spec_array_cost`): technology / design
+    names plus the pass latency, energy, and relative area."""
+    from repro_torch import hw
+
+    bound = _bind_array(spec, tech, array)
+    cost = hw.array_cost(bound)
+    return {
+        "tech": cost.tech,
+        "design": cost.design,
+        "array": bound.name,
+        "mac_pass_ns": cost.mac_pass_ns,
+        "mac_pass_pj": cost.mac_pass_pj,
+        "macro_area_vs_nm": cost.macro_area,
+    }

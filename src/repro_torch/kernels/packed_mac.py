@@ -19,10 +19,12 @@ K <= 8*rows (missing columns are zero, which is inert). ``n_out`` keeps
 only the first logical columns of canonically padded planes. For a CUDA
 tensor each wrapper launches its kernel (or raises); for a CPU tensor it
 runs the plain version. Each wrapper's ``launches`` attribute counts its
-kernel launches. All three kernels are instances of the tile template of
+kernel launches, and ``last_plan`` holds the grid of its last launch. All
+three kernels are instances of the tile template of
 ``csrc/ternary_tile.cuh`` and take their grid from
 :func:`repro_torch.kernels.plan.launch_plan` at x's K and the logical
-columns.
+columns, unless the caller passes ``plan=`` (the execution layer does, for
+a tile-sweep winner); #2 and #3 read only its cluster (their M tile is 8).
 """
 from __future__ import annotations
 
@@ -96,13 +98,13 @@ def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim,
                    plan: Optional[LaunchPlan] = None):
     """Launch #2 into a new int32 (M <= 8, n_out) on ``plan`` (default:
     the card's :func:`device_plan` at x's K and ``n_out``; its 8-row tile
-    is the kernel's own); returns (out, whether a kernel was launched).
-    A launch that CUDA refuses raises."""
+    is the kernel's own); returns (out, the plan launched, None when
+    nothing was). A launch that CUDA refuses raises."""
     _planes_ok(x, w_pos, w_neg)
     m, kx = x.shape
     out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
     if m == 0 or n_out == 0:
-        return out, False
+        return out, None
     with torch.cuda.device(x.device):
         if plan is None:
             plan = device_plan(m, kx, n_out)
@@ -111,19 +113,20 @@ def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim,
             w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
             w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
             int(adc_max), int(cim), plan.cluster, _build.stream_ptr(x.device))
-    return out, True
+    return out, plan
 
 
 def _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim,
                     plan: Optional[LaunchPlan] = None):
     """Launch #4 into a new f32 (M, n_out) on ``plan`` (default: the
     card's :func:`device_plan` at x's K and ``n_out``); returns (out,
-    whether a kernel was launched). A launch that CUDA refuses raises."""
+    the plan launched, None when nothing was). A launch that CUDA refuses
+    raises."""
     _planes_ok(x, w_pos, w_neg)
     m, kx = x.shape
     out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
     if m == 0 or n_out == 0:
-        return out, False
+        return out, None
     with torch.cuda.device(x.device):
         if plan is None:
             plan = device_plan(m, kx, n_out)
@@ -133,7 +136,7 @@ def _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim,
             w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
             int(adc_max), int(cim), plan.rows, plan.cluster,
             _build.stream_ptr(x.device))
-    return out, True
+    return out, plan
 
 
 def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
@@ -141,8 +144,10 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
                              n_out: Optional[int] = None,
                              block: int = DEFAULT_BLOCK,
                              adc_max: int = DEFAULT_ADC_MAX,
-                             cim: bool = True) -> torch.Tensor:
-    """Decode-class packed MAC: x (M <= 8, K) int8 -> int32 (M, n_out)."""
+                             cim: bool = True,
+                             plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+    """Decode-class packed MAC: x (M <= 8, K) int8 -> int32 (M, n_out).
+    ``plan``: the grid on the card (default :func:`device_plan`)."""
     n_out = _check(x, w_pos, w_neg, n_out)
     if x.shape[0] > DECODE_M_MAX:
         raise ValueError(f"decode kernel takes M <= {DECODE_M_MAX}, "
@@ -151,9 +156,10 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
         return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim).to(torch.int32)
     _cuda_ok(x, block)
-    out, launched = _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim)
-    if launched:
+    out, used = _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim, plan)
+    if used is not None:
         packed_cim_matmul_decode.launches += 1
+        packed_cim_matmul_decode.last_plan = used
     return out
 
 
@@ -161,16 +167,19 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
                       w_neg: torch.Tensor, *, n_out: Optional[int] = None,
                       block: int = DEFAULT_BLOCK,
                       adc_max: int = DEFAULT_ADC_MAX,
-                      cim: bool = True) -> torch.Tensor:
-    """Prefill-class packed MAC: x (M, K) int8 -> f32 (M, n_out)."""
+                      cim: bool = True,
+                      plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+    """Prefill-class packed MAC: x (M, K) int8 -> f32 (M, n_out).
+    ``plan``: the grid on the card (default :func:`device_plan`)."""
     n_out = _check(x, w_pos, w_neg, n_out)
     if x.device.type == "cpu":
         return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
-    out, launched = _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim)
-    if launched:
+    out, used = _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim, plan)
+    if used is not None:
         packed_cim_matmul.launches += 1
+        packed_cim_matmul.last_plan = used
     return out
 
 
@@ -189,7 +198,8 @@ def _launch_stream(x, w_int, n_out, adc_max, cim, nbuf,
                    plan: Optional[LaunchPlan] = None):
     """Launch #3 into a new int32 (M, n_out) on ``plan`` (default: the
     card's :func:`device_plan` at x's K and ``n_out``); returns (out,
-    whether a kernel was launched). Only 16-byte copies are compiled: an
+    the plan launched, None when nothing was). Only 16-byte copies are
+    compiled: an
     array whose pointer, row stride or width is not a multiple of 16
     bytes raises, and x whose K or pointer is not is first copied,
     zero-extended, into one that is. A launch that CUDA refuses raises."""
@@ -202,7 +212,7 @@ def _launch_stream(x, w_int, n_out, adc_max, cim, nbuf,
     m, kx = x.shape
     out = torch.empty((m, n_out), dtype=torch.int32, device=x.device)
     if m == 0 or n_out == 0:
-        return out, False
+        return out, None
     if kx % STREAM_ALIGN or x.data_ptr() % STREAM_ALIGN:
         x = pad_axis(x, STREAM_ALIGN, 1).clone()  # zero columns are inert
     with torch.cuda.device(x.device):
@@ -213,7 +223,7 @@ def _launch_stream(x, w_int, n_out, adc_max, cim, nbuf,
             out.data_ptr(), m, x.shape[1], w_int.shape[0], w_int.stride(0),
             n_out, int(adc_max), int(cim), int(nbuf), plan.cluster,
             _build.stream_ptr(x.device))
-    return out, True
+    return out, plan
 
 
 def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
@@ -221,9 +231,12 @@ def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
                                     block: int = DEFAULT_BLOCK,
                                     adc_max: int = DEFAULT_ADC_MAX,
                                     cim: bool = True,
-                                    nbuf: int = 2) -> torch.Tensor:
+                                    nbuf: int = 2,
+                                    plan: Optional[LaunchPlan] = None
+                                    ) -> torch.Tensor:
     """Streaming decode-class packed MAC: x (M <= 8, K) int8 and ONE
-    (K/4, N) uint8 plane-interleaved array -> int32 (M, n_out)."""
+    (K/4, N) uint8 plane-interleaved array -> int32 (M, n_out). ``plan``:
+    the grid on the card (default :func:`device_plan`)."""
     if nbuf not in STREAM_NBUF:
         raise ValueError(f"buffer depth {nbuf} not in {{2, 3}}")
     if block != DEFAULT_BLOCK:
@@ -240,12 +253,16 @@ def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
         return stream_matmul_plain(x, w_int, n_out=n_out, block=block,
                                    adc_max=adc_max, cim=cim).to(torch.int32)
     _cuda_ok(x, block)
-    out, launched = _launch_stream(x, w_int, n_out, adc_max, cim, nbuf)
-    if launched:
+    out, used = _launch_stream(x, w_int, n_out, adc_max, cim, nbuf, plan)
+    if used is not None:
         packed_cim_matmul_decode_stream.launches += 1
+        packed_cim_matmul_decode_stream.last_plan = used
     return out
 
 
 packed_cim_matmul_decode.launches = 0
 packed_cim_matmul.launches = 0
 packed_cim_matmul_decode_stream.launches = 0
+packed_cim_matmul_decode.last_plan = None
+packed_cim_matmul.last_plan = None
+packed_cim_matmul_decode_stream.last_plan = None

@@ -9,10 +9,12 @@ and their plain PyTorch versions.
 
 For a CUDA tensor each wrapper launches its kernel (or raises); for a CPU
 tensor it runs the plain version. Each wrapper's ``launches`` attribute
-counts its kernel launches and nothing else. Both kernels take their grid
-from :func:`repro_torch.kernels.plan.launch_plan`: 16-column tiles, and K
+counts its kernel launches and nothing else, and ``last_plan`` holds the
+grid of its last launch. Both kernels take their grid from
+:func:`repro_torch.kernels.plan.launch_plan` (16-column tiles, and K
 split at 16-row block boundaries across a thread-block cluster of up to 8
-blocks, enough for the grid to fill the card's SMs.
+blocks, enough for the grid to fill the card's SMs) unless the caller
+passes ``plan=`` (the execution layer does, for a tile-sweep winner).
 """
 from __future__ import annotations
 
@@ -75,11 +77,12 @@ def _check_codes(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
-                  plan: Optional[LaunchPlan] = None) -> Tuple[torch.Tensor, bool]:
+                  plan: Optional[LaunchPlan] = None
+                  ) -> Tuple[torch.Tensor, Optional[LaunchPlan]]:
     """Launch the dense-code kernel ``fn`` on CUDA operands into a new f32
     (M, N) output, on ``plan`` (default: the card's :func:`device_plan`);
-    returns (out, whether a kernel was launched). A launch that CUDA
-    refuses raises."""
+    returns (out, the plan launched, None when nothing was). A launch
+    that CUDA refuses raises."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -88,7 +91,7 @@ def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
-        return out, False
+        return out, None
     with torch.cuda.device(x.device):
         if plan is None:
             plan = device_plan(m, k, n)
@@ -97,37 +100,44 @@ def _launch_codes(fn: str, x: torch.Tensor, w: torch.Tensor, *extra: int,
                              f"extents or its grid of {plan.grid}")
         _build.launch(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                       *extra, plan.rows, plan.cluster, _build.stream_ptr(x.device))
-    return out, True
+    return out, plan
 
 
 def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
                        block: int = DEFAULT_BLOCK,
-                       adc_max: int = DEFAULT_ADC_MAX) -> torch.Tensor:
+                       adc_max: int = DEFAULT_ADC_MAX,
+                       plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """Clamped CiM MAC. x (M, K) and w (K, N) int8 codes in {-1, 0, 1},
-    contiguous, on one device; any M, K, N. Returns f32 (M, N)."""
+    contiguous, on one device; any M, K, N. Returns f32 (M, N). ``plan``:
+    the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
     if x.device.type == "cpu":
         return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
     if block != DEFAULT_BLOCK:
         raise ValueError(f"the CUDA kernel implements block=16, got {block}")
-    out, launched = _launch_codes("ternary_cim_mac", x, w, int(adc_max))
-    if launched:
+    out, used = _launch_codes("ternary_cim_mac", x, w, int(adc_max), plan=plan)
+    if used is not None:
         ternary_cim_matmul.launches += 1
+        ternary_cim_matmul.last_plan = used
     return out
 
 
-def ternary_exact_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def ternary_exact_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                         plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """Exact ternary dot (no clamp). x (M, K) and w (K, N) int8 codes in
     {-1, 0, 1}, contiguous, on one device; any M, K, N. Returns f32
-    (M, N)."""
+    (M, N). ``plan``: the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
     if x.device.type == "cpu":
         return exact_matmul_plain(x, w)
-    out, launched = _launch_codes("ternary_exact_mac", x, w)
-    if launched:
+    out, used = _launch_codes("ternary_exact_mac", x, w, plan=plan)
+    if used is not None:
         ternary_exact_matmul.launches += 1
+        ternary_exact_matmul.last_plan = used
     return out
 
 
 ternary_cim_matmul.launches = 0
 ternary_exact_matmul.launches = 0
+ternary_cim_matmul.last_plan = None
+ternary_exact_matmul.last_plan = None

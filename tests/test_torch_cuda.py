@@ -1231,3 +1231,133 @@ def test_cuda_sink_silent_during_capture(cuda_device):
         assert torch.equal(out, eager)
     finally:
         set_profiler(prev)
+
+
+# ---------------------------------------------------------------------------
+# The tile sweep and the calibration sweep on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def clean_sweep():
+    from repro_torch.core import execution as X
+
+    X.clear_tile_cache()
+    yield X
+    X.clear_tile_cache()
+    X.set_shape_class_override(None)
+
+
+def _winners(spec, cls, tiles):
+    from repro_torch.profile import CalibrationTable
+
+    return CalibrationTable(1, "cuda", spec.name, {},
+                            tile_winners={spec.name: {cls: tuple(tiles)}})
+
+
+SWEEP_SHAPES = [(4, 576, 1536), (200, 576, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["blocked/cuda/none", "exact/cuda/none"])
+def test_cuda_autotune_every_candidate_bit_exact(cuda_device, clean_sweep, name):
+    """autotune of #1 and #5 at a decode and a prefill shape: every
+    candidate grid, installed and run through execute, equals the plain
+    version bit for bit, and the kernel launched on that grid."""
+    X = clean_sweep
+    f, b, p = name.split("/")
+    spec = CiMExecSpec(f, b, p)
+    kernel = tm.ternary_cim_matmul if f == "blocked" else tm.ternary_exact_matmul
+    report = X.autotune(spec, shapes=SWEEP_SHAPES, repeats=2)
+    for m, k, n in SWEEP_SHAPES:
+        cls = X.shape_class(m)
+        entry = report[cls]
+        assert set(entry["candidates"]) == {
+            "x".join(map(str, t)) for t in X.tile_candidates(spec, cls, k)}
+        assert entry["us"] == min(entry["candidates"].values()) > 0
+        assert entry["default_us"] == entry["candidates"][
+            "x".join(map(str, entry["default"]))]
+        g = torch.Generator(device=cuda_device).manual_seed(m + n)
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device).float()
+        w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device).float()
+        xc, wc = x.to(torch.int8), w.to(torch.int8)
+        plain = (tm.ternary_cim_matmul_plain(xc, wc) if f == "blocked"
+                 else tm.exact_matmul_plain(xc, wc))
+        for tiles in X.tile_candidates(spec, cls, k):
+            X.autotune(spec, calibration=_winners(spec, cls, tiles))
+            assert torch.equal(X.execute(spec, x, w), plain), tiles
+            assert kernel.last_plan == X.kernel_plan(spec, m, k, n,
+                                                     X.kplan.device_sms(cuda_device))
+            assert (kernel.last_plan.rows, kernel.last_plan.cluster) == tiles
+
+
+@pytest.mark.cuda
+def test_cuda_winner_reaches_the_kernel_and_clear_restores(cuda_device, clean_sweep):
+    """A cached winner changes the launched grid and not the output, for
+    #1 and for #2 / #3 through execute_packed; clear_tile_cache brings
+    back launch_plan's grid."""
+    from repro_torch.kernels import plan as kp
+
+    X = clean_sweep
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randint(-1, 2, (4, 576), generator=g, device=cuda_device).float()
+    w = torch.randint(-1, 2, (576, 1536), generator=g, device=cuda_device).float()
+    default = kp.device_plan(4, 576, 1536)
+    spec = CiMExecSpec("blocked", "cuda")
+    before = X.execute(spec, x, w)
+    assert tm.ternary_cim_matmul.last_plan == default
+    other = (32, 1 if default.cluster != 1 else 2)
+    X.autotune(spec, calibration=_winners(spec, "decode", other))
+    assert torch.equal(X.execute(spec, x, w), before)
+    assert tm.ternary_cim_matmul.last_plan != default
+    assert (tm.ternary_cim_matmul.last_plan.rows,
+            tm.ternary_cim_matmul.last_plan.cluster) == other
+    X.clear_tile_cache()
+    X.execute(spec, x, w)
+    assert tm.ternary_cim_matmul.last_plan == default
+    # the stored-plane decode kernels: the winner's cluster (and ring depth)
+    w8 = w.to(torch.int8)
+    p1, p2 = pack_ternary(w8, axis=0)
+    packed = CiMExecSpec("blocked", "cuda", "bitplane_u8")
+    stream = CiMExecSpec("blocked", "cuda_stream", "bitplane_u8")
+    want = X.execute_packed(packed, x, p1, p2)
+    cluster = 1 if default.cluster != 1 else 2
+    X.autotune(packed, calibration=_winners(packed, "decode", (8, cluster)))
+    X.autotune(stream, calibration=_winners(stream, "decode", (8, cluster, 3)))
+    assert torch.equal(X.execute_packed(packed, x, p1, p2), want)
+    assert pm.packed_cim_matmul_decode.last_plan.cluster == cluster
+    assert torch.equal(X.execute_packed(stream, x, p1, p2), want)
+    assert pm.packed_cim_matmul_decode_stream.last_plan.cluster == cluster
+    assert pm.packed_cim_matmul_decode_stream.last_plan.rows == 8
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_sweep_calibrates_both_classes(cuda_device, clean_sweep):
+    """Eager execute calls with a profiler installed, at decode and
+    prefill M: calibrate fits #1 in both shape classes with per-call
+    fixed costs above 0 and the events' meta."""
+    from repro_torch.profile import Profiler, calibrate, set_profiler
+
+    X = clean_sweep
+    spec = CiMExecSpec("blocked", "cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    prof = Profiler()
+    shapes = [(m, k, n) for m in (1, 4, 8, 64, 512) for k, n in ((576, 576), (576, 1536),
+                                                                  (1536, 576))]
+    for m, k, n in shapes:
+        x = torch.randint(-1, 2, (m, k), generator=g, device=cuda_device).float()
+        w = torch.randint(-1, 2, (k, n), generator=g, device=cuda_device).float()
+        X.execute(spec, x, w)  # warm-up, not recorded
+        prev = set_profiler(prof)
+        try:
+            for _ in range(2):
+                X.execute(spec, x, w)
+        finally:
+            set_profiler(prev)
+    assert len(prof.events) == 2 * len(shapes)
+    table = calibrate(prof.events, backend="cuda")
+    assert set(table.kernels) == {"blocked/cuda/none|decode", "blocked/cuda/none|prefill"}
+    for fit in table.kernels.values():
+        # the events count the weight as passed: f32 here
+        assert fit.fixed_us > 0 and fit.bytes_per_weight == 4.0
+    assert table.kernels["blocked/cuda/none|decode"].n_events == 18

@@ -106,9 +106,9 @@ def test_dense_gives_cuda_backends_int8_weight_codes(monkeypatch):
     seen = []
     real = execution.ternary_exact_matmul
 
-    def spy(x, w):
+    def spy(x, w, **kw):
         seen.append((x.dtype, w.dtype))
-        return real(x, w)
+        return real(x, w, **kw)
 
     monkeypatch.setattr(execution, "ternary_exact_matmul", spy)
     rng = np.random.default_rng(4)

@@ -39,9 +39,12 @@ def test_scan_sees_the_package():
             "grok_1_314b.py", "whisper_large_v3.py", "llava_next_34b.py",
             "adamw.py", "trainer.py", "checkpoint.py", "pipeline.py",
             "trace.py", "protocol.py", "slo.py", "client.py", "worker.py",
-            "router.py", "server.py"} <= names
+            "router.py", "server.py", "registry.py", "array.py", "macro.py",
+            "dnn_suite.py", "workload.py", "cost_model.py", "accelerator.py",
+            "site_cim.py", "calibrate.py", "replay.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "hw" / "registry.py" in PORT_FILES
     dirs = {p.parent.name for p in PORT_FILES}
-    assert {"profile", "frontdoor"} <= dirs
+    assert {"profile", "frontdoor", "hw"} <= dirs
 
 
 @pytest.fixture
