@@ -186,7 +186,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      phase 3's captured step median; (g) the launcher's
      main(["--serve-http", "--selftest", "--replicas", "2", "--port",
      "0"]) at full size;
- 20. (run last) the hardware model and the calibrate -> replay loop:
+ 20. the hardware model and the calibrate -> replay loop:
      (a) eager execute / execute_packed calls under the profiler at
      smollm-135m's 4 layer (K, N) and M in {1, 2, 4, 8} and {64, 128, 512,
      1024}, a warm-up and 5 timed calls each, through blocked/cuda (#1),
@@ -209,9 +209,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      winners installed again from a calibration table without timing, a
      batcher captured with them giving phase 3's tokens, the cache
      cleared.
+ 21. (run last) tensor-parallel serving: launch.mesh.spawn_tp starts 3
+     gloo ranks, every one on cuda:0 (the kernels already built); each
+     probes which collectives gloo takes on CUDA tensors, then serves
+     full-size smollm-135m on its shard (3 heads and 1 kv head, d_ff 512,
+     vocab 16384) over phase 3's requests, eagerly, with the launch
+     counts at 0 just before: tokens == phase 3's, #1 launched 210 x
+     (steps + fills) in the rank, the row-parallel K shards (wo 192,
+     w_down 512) whole blocks; the same under compress_tp (its greedy
+     prefix against the exact path is printed), with one MAX all-reduce
+     more per row-parallel layer and forward, and every row-parallel MAC
+     of its first fill and step within ranks * amax/127 * 1.5 of the
+     exact sum of the same partials and not equal to it; execute_tp through #1 at
+     wo's and w_down's shapes (M 1, 4, 64, 128) and execute_packed_tp
+     through #2/#4 and #3/#4 at (576, 1536) and (1536, 576) (M 4, 128),
+     each bit-equal to execute / execute_packed on the same operands. A
+     rank's failure or a run past TP_TIMEOUT_S fails the script; the
+     eager TP step median is printed beside phase 3's eager step.
 It then prints a JSON line of phase 20's fits, replay error,
 projections and winners, the card line, a JSON line of per-kernel
-numbers, and last the result line. Without CUDA, or without ``src/repro_torch`` beside
+numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
+served path, #2-#4 in its execute_packed_tp calls), and last the result
+line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -3144,6 +3163,316 @@ def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
             "sweep": sweep, "table": table.to_json(), "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: tensor-parallel serving over 3 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_DEGREE = 3
+# smollm-135m's row-parallel layers at tp=3: (name, K, N); each rank's K
+# shard (192, 512) must be whole 16-row blocks
+TP_ROW_SHAPES = (("wo", 576, 576), ("w_down", 1536, 576))
+TP_ROW_M = (1, 4, 64, 128)
+# the stored planes split over N: gate/up and down; #2 at M 4, #4 at 128,
+# #3 (cuda_stream) at 4 (its prefill delegate #4 at 128)
+TP_PLANE_SHAPES = ((576, 1536), (1536, 576))
+TP_PLANE_M = (4, 128)
+TP_TIMEOUT_S = 400.0
+# the collectives gloo was asked to run on CUDA tensors
+GLOO_PROBES = ("all_reduce sum f32", "all_reduce sum bf16", "all_reduce sum int32",
+               "all_reduce max f32", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single")
+
+
+def gloo_probe(torch, mesh, dev) -> dict:
+    """Which collectives gloo takes on CUDA tensors here: each probe's
+    result checked against its expected value, or the error it raised."""
+    import torch.distributed as dist
+
+    n, r, g = mesh.size, mesh.rank, mesh.group
+    out = {}
+
+    def ones(dtype=torch.float32, k=4):
+        return torch.full((k,), float(r + 1), device=dev).to(dtype)
+
+    def run(name):
+        want_sum = float(n * (n + 1) // 2)
+        if name.startswith("all_reduce"):
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                     "int32": torch.int32}[name.split()[-1]]
+            x = ones(dtype)
+            op = dist.ReduceOp.MAX if " max " in name else dist.ReduceOp.SUM
+            dist.all_reduce(x, op=op, group=g)
+            return bool((x.float() == (n if op == dist.ReduceOp.MAX else want_sum)).all())
+        if name == "broadcast":
+            x = ones()
+            dist.broadcast(x, src=0, group=g)
+            return bool((x == 1).all())
+        if name == "all_gather":
+            parts = [torch.empty(4, device=dev) for _ in range(n)]
+            dist.all_gather(parts, ones(), group=g)
+            return all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+        if name == "all_gather_into_tensor":
+            o = torch.empty(4 * n, device=dev)
+            dist.all_gather_into_tensor(o, ones(), group=g)
+            return bool((o.view(n, 4)[:, 0] == torch.arange(1, n + 1, device=dev)).all())
+        if name == "reduce_scatter_tensor":
+            o = torch.empty(4, device=dev)
+            dist.reduce_scatter_tensor(o, ones(k=4 * n), group=g)
+            return bool((o == want_sum).all())
+        o = torch.empty(n, device=dev)
+        dist.all_to_all_single(o, ones(k=n), group=g)
+        return bool((o == torch.arange(1, n + 1, device=dev)).all())
+
+    for name in GLOO_PROBES:
+        try:
+            out[name] = "ok" if run(name) else "wrong result"
+        except RuntimeError as e:   # a collective gloo refuses on CUDA tensors
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+        dist.barrier(group=g)
+    return out
+
+
+def tp_compressed_layers(torch, params, cfg, mesh, dev) -> list:
+    """The first fill and decode step of a ``compress_tp`` batcher on
+    phase 3's requests, every row-parallel MAC (``layers.
+    execute_row_shard``) also run exact on the same operands: per call,
+    (went compressed, max |compressed - exact|, the bound ranks *
+    amax/127 * 1.5 with amax the shared scale's, bit-equal)."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    real_row, real_psum = layers.execute_row_shard, C.compressed_psum_int8
+    amax, calls = [], []
+
+    def psum(x, group, generator):
+        amax.append(float(C.all_reduce(x.abs().amax().reshape(1), group, op="max")))
+        return real_psum(x, group, generator)
+
+    def row(spec, x_t, w_rows, mesh, *, compressed=False, generator=None):
+        got = real_row(spec, x_t, w_rows, mesh, compressed=compressed,
+                       generator=generator)
+        exact = real_row(spec, x_t, w_rows, mesh)
+        bound = mesh.size * amax.pop() / 127.0 * 1.5 if compressed else 0.0
+        calls.append((compressed, float((got - exact).abs().max()), bound,
+                      torch.equal(got, exact)))
+        return got
+
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev,
+                                mesh=mesh, compress_tp=True)
+    for r in make_requests(Request, cfg.vocab, seed=0):
+        batcher.submit(r)
+    layers.execute_row_shard, C.compressed_psum_int8 = row, psum
+    try:
+        batcher.step()
+    finally:
+        layers.execute_row_shard, C.compressed_psum_int8 = real_row, real_psum
+    st = batcher.stats()
+    return calls, st["decode_steps"] + st["prefill_batches"]
+
+
+def tp_rank(mesh, phase3_tokens) -> dict:
+    """Phase 21 on one rank (``launch.mesh.spawn_tp`` runs it on each):
+    the gloo probe; full-size smollm-135m served eagerly on the rank's
+    shard over phase 3's requests, with the launch counts at 0 just
+    before, tokens == phase 3's, #1 launched 210 x (steps + fills) and
+    the row-parallel K shards whole blocks; the same under
+    ``compress_tp``, with one MAX all-reduce more per row-parallel layer
+    and every row-parallel MAC of its first fill and step within its
+    bound of the exact sum (:func:`tp_compressed_layers`); ``execute_tp`` through #1 and ``execute_packed_tp``
+    through #2/#4 and #3/#4, each bit-equal to ``execute`` /
+    ``execute_packed`` on the same operands. Raises on any failure
+    (``spawn_tp`` then ends every rank and raises)."""
+    import torch
+
+    from repro_torch.core import execution as X
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import packed_mac as pm
+    from repro_torch.kernels import ternary_mac as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.quant.prepare import prepare_for_spec
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"phase 21 rank {mesh.rank}: {what}")
+
+    dev = torch.device("cuda", 0)
+    out = {"gloo": gloo_probe(torch, mesh, dev)}
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, seed=0, device=dev)
+    per_step = macs_per_step(cfg)
+    runs = {}
+    for compress in (False, True):
+        batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0,
+                                    device=dev, mesh=mesh, compress_tp=compress)
+        check(not batcher.graphed, "a TP batcher's steps must run eagerly")
+        reqs = make_requests(Request, cfg.vocab, seed=0)
+        fills = []
+        reset_counts(tm, pm)
+        C.reset_counts()
+        secs, step_ms = drive(torch, batcher, reqs, fills=fills,
+                              counter=lambda: counts(tm, pm)["ternary_cim_matmul"])
+        got, st = counts(tm, pm), batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        check(all(r.done for r in reqs), "not every request finished")
+        check(got["ternary_cim_matmul"] == per_step * steps
+              and all(n == per_step for _, _, n in fills)
+              and not any(v for k, v in got.items() if k != "ternary_cim_matmul"),
+              f"launches {got} over {steps} steps and fills {fills}")
+        runs[compress] = {
+            "tokens": [r.generated for r in reqs], "stats": st, "secs": secs,
+            "step_ms": step_ms, "fill_ms": [ms for ms, _, _ in fills],
+            "launches": got["ternary_cim_matmul"], "steps": steps, "per_step": per_step,
+            "collectives": dict(C.COUNTS)}
+        if not compress:
+            blocks = batcher.params["blocks"]
+            out["row_shards"] = {name: tuple(blocks[part][name].w.shape[-2:])
+                                 for part, name in (("attn", "wo"), ("mlp", "w_down"))}
+            out["local_heads"] = (batcher.cfg.n_heads, batcher.cfg.n_kv_heads)
+            out["cache_shape"] = tuple(batcher.caches.k.shape)
+        del batcher
+    check(runs[False]["tokens"] == phase3_tokens,
+          f"TP tokens {runs[False]['tokens']} != phase 3's {phase3_tokens}")
+    check(all(k % 16 == 0 for k, _ in out["row_shards"].values()),
+          f"row-parallel K shards {out['row_shards']} are not whole blocks")
+    out["serve"], out["compressed"] = runs[False], runs[True]
+    # the compressed path: one MAX all-reduce (the shared scale) more per
+    # row-parallel layer and forward than the exact path, the same gathers;
+    # every row-parallel MAC of a fill and a step within its bound of the
+    # exact sum of the same partials, and not bit-equal to it
+    ex, co = runs[False], runs[True]
+    check(co["steps"] == ex["steps"]
+          and co["collectives"]["all_reduce"]
+          == ex["collectives"]["all_reduce"] + 2 * cfg.n_layers * co["steps"]
+          and co["collectives"]["all_gather"] == ex["collectives"]["all_gather"],
+          f"compressed collectives {co['collectives']} against exact "
+          f"{ex['collectives']} over {co['steps']} steps and fills")
+    calls, fwd = tp_compressed_layers(torch, params, cfg, mesh, dev)
+    check(fwd >= 2 and len(calls) == 2 * cfg.n_layers * fwd
+          and all(c and err <= bound and not same for c, err, bound, same in calls),
+          f"compressed row-parallel MACs over {fwd} forwards: {calls}")
+    out["compressed_layers"] = {
+        "calls": len(calls), "forwards": fwd,
+        "max_err_over_bound": max(err / bound for _, err, bound, _ in calls)}
+
+    # the explicit TP functions, bit-equal to one device's on the same
+    # operands; only the TP calls' launches are counted
+    g = torch.Generator(device=dev).manual_seed(21)
+    launched = dict.fromkeys(KERNELS, 0)
+
+    def tp_call(fn):
+        before = counts(tm, pm)
+        got = fn()
+        for k, v in counts(tm, pm).items():
+            launched[k] += v - before[k]
+        return got
+
+    rows = []
+    spec = X.CiMExecSpec("blocked", "cuda")
+    for name, k, n in TP_ROW_SHAPES:
+        w = torch.randint(-1, 2, (k, n), generator=g, device=dev).to(torch.bfloat16)
+        for m in TP_ROW_M:
+            x = torch.randint(-1, 2, (m, k), generator=g, device=dev).to(torch.float32)
+            got = tp_call(lambda: X.execute_tp(spec, x, w, mesh))
+            check(torch.equal(got, X.execute(spec, x, w)),
+                  f"execute_tp {name} M={m} differs")
+            rows.append(f"{name} M={m}")
+    explicit_tp = dict(launched)
+    launched.update(dict.fromkeys(KERNELS, 0))
+    planes_checked = []
+    for name in ("blocked/cuda/bitplane_u8", "blocked/cuda_stream/bitplane_u8"):
+        pspec = X.CiMExecSpec(*name.split("/"))
+        for k, n in TP_PLANE_SHAPES:
+            w = {"wq": torch.randint(-1, 2, (k, n), generator=g, device=dev).to(torch.bfloat16)}
+            shard = prepare_for_spec(w, pspec, mesh=mesh)[1]["wq"]
+            whole = prepare_for_spec(w, pspec)[1]["wq"]
+            for m in TP_PLANE_M:
+                x = torch.randint(-1, 2, (m, k), generator=g, device=dev).to(torch.float32)
+                got = tp_call(lambda: X.execute_packed_tp(pspec, x, shard, mesh))
+                check(torch.equal(got, X.execute_packed(pspec, x, whole)),
+                      f"execute_packed_tp {name} ({k}, {n}) M={m} differs")
+                planes_checked.append(f"{name.split('/')[1]} ({k}, {n}) M={m}")
+    check(launched["packed_cim_matmul_decode"] and launched["packed_cim_matmul"]
+          and launched["packed_cim_matmul_decode_stream"]
+          and explicit_tp["ternary_cim_matmul"] == len(rows),
+          f"TP calls launched {explicit_tp}, {launched}")
+    out["explicit"] = {"execute_tp": rows, "execute_packed_tp": planes_checked,
+                       "launches_tp": explicit_tp, "launches_packed": dict(launched)}
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_phase(torch, card, phase3) -> dict:
+    """Phase 21: full-size smollm-135m served over TP_DEGREE gloo ranks on
+    the one card (``launch.mesh.spawn_tp``, every rank on cuda:0, the
+    kernels already built by phase 1), phase 3's requests, eager (gloo's
+    collectives cannot be captured); tokens == phase 3's, #1 launched in
+    every rank 210 x (steps + fills), the row-parallel K shards whole
+    blocks; the compressed path's greedy-prefix agreement with the exact
+    one; the explicit TP functions through #1-#4, bit-equal. A rank's
+    failure or a run past TP_TIMEOUT_S fails the script. The eager TP
+    step is timed beside phase 3's eager single-device step: three ranks
+    share one card, so it is a record, not a speed-up."""
+    from repro_torch.launch.mesh import spawn_tp
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()   # the ranks' memory comes from the same card
+    try:
+        out = spawn_tp(tp_rank, TP_DEGREE, phase3["generated"], timeout=TP_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tensor-parallel serving: {e}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("tp: gloo on CUDA tensors: " + "; ".join(f"{k}: {v}" for k, v in out["gloo"].items()))
+    exact, comp = out["serve"], out["compressed"]
+    prefix = [next((i for i, (a, b) in enumerate(zip(c, e)) if a != b), len(e))
+              for c, e in zip(comp["tokens"], exact["tokens"])]
+    out["compressed_prefix"] = prefix
+    tp_ms = statistics.median(exact["step_ms"])
+    out["numbers"] = {
+        "tp_eager_step_ms": tp_ms,
+        "tp_compressed_eager_step_ms": statistics.median(comp["step_ms"]),
+        "single_eager_step_ms": phase3["eager_step_ms"],
+        "single_captured_step_ms": phase3["captured_step_ms"],
+        "tp_fill_ms": statistics.median(exact["fill_ms"]),
+        "tp_tok_s": sum(map(len, exact["tokens"])) / exact["secs"],
+        "collectives_per_step": {k: v / exact["steps"]
+                                 for k, v in exact["collectives"].items()}}
+    num = out["numbers"]
+    log(f"tp: full-size smollm-135m over {TP_DEGREE} gloo ranks on {card} "
+        f"(heads {out['local_heads'][0]}, kv heads {out['local_heads'][1]} a rank; "
+        f"cache leaf {out['cache_shape']}; row-parallel K shards {out['row_shards']}): "
+        f"tokens == phase 3's for all {len(exact['tokens'])} requests; "
+        f"{exact['stats']['decode_steps']} decode steps, "
+        f"{exact['stats']['prefill_batches']} fills, {exact['stats']['host_syncs']} host "
+        f"syncs; #1 launched {exact['launches']} = {exact['per_step']} x {exact['steps']} "
+        f"in rank 0 (and "
+        f"checked in every rank); eager TP step {tp_ms:.2f} ms median against phase 3's "
+        f"eager single-device step {phase3['eager_step_ms']:.2f} ms (captured "
+        f"{phase3['captured_step_ms']:.2f} ms); fill {num['tp_fill_ms']:.2f} ms median; "
+        f"{num['tp_tok_s']:.1f} tok/s; collectives per step or fill "
+        f"{num['collectives_per_step']}")
+    log(f"tp: --compress-tp: {sum(map(len, comp['tokens']))} tokens, greedy prefix "
+        f"shared with the exact path per request {prefix} (of "
+        f"{[len(t) for t in exact['tokens']]}); step {num['tp_compressed_eager_step_ms']:.2f}"
+        f" ms median; {comp['collectives']} collectives (one MAX all-reduce a "
+        f"row-parallel layer more than the exact path's {exact['collectives']}); "
+        f"its {out['compressed_layers']['calls']} row-parallel MACs over "
+        f"{out['compressed_layers']['forwards']} forwards each within its bound of the "
+        f"exact sum and not equal to it, largest error / bound "
+        f"{out['compressed_layers']['max_err_over_bound']:.4f}")
+    ex = out["explicit"]
+    log(f"tp: execute_tp == execute bit for bit through #1 at {ex['execute_tp']} "
+        f"(launches {ex['launches_tp']}); execute_packed_tp == execute_packed through "
+        f"#2/#4 and #3/#4 at {ex['execute_packed_tp']} (launches {ex['launches_packed']}); "
+        f"phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3225,6 +3554,7 @@ def main(argv=None) -> int:
         torch, tm, pm, card, torch.device("cuda"), serving["cim"]["captured_step_ms"])
     calibration = calibration_phase(torch, tm, pm, card, torch.device("cuda"),
                                     serving["cim"]["generated"])
+    serving["tp"] = tp = tp_phase(torch, card, serving["cim"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3235,6 +3565,8 @@ def main(argv=None) -> int:
             "ms": pk["ms"], "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
             "prefill_ms": pk["prefill_ms"],
+            "tp_launches": (tp["serve"]["launches"] if name == "ternary_cim_matmul"
+                            else tp["explicit"]["launches_packed"][name]),
             **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}

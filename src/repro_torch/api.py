@@ -12,7 +12,10 @@ the serving engine.
     api.spec_cost_summary(spec, array=arr)          # cost on that array
     api.project("yi-34b", "decode_32k", arr)        # system projection
 
-New kernels land via ``register_backend``; new memory technologies and
+Tensor-parallel execution over a ``launch.mesh.TPMesh`` (one process
+per rank): ``execute_tp`` (row-parallel) and ``execute_packed_tp``
+(column-parallel over stored planes). New kernels land via
+``register_backend``; new memory technologies and
 array designs via ``register_technology`` / ``register_design``. The
 wrappers of the five hand-written kernels are re-exported here, as the
 JAX package's ``kernels`` re-exports its Pallas kernels; ``autotune``
@@ -32,6 +35,8 @@ from repro_torch.core.execution import (  # noqa: F401
     clear_tile_cache,
     execute,
     execute_packed,
+    execute_packed_tp,
+    execute_tp,
     get_backend,
     kernel_plan,
     register_backend,

@@ -47,7 +47,10 @@ or serve step (:func:`no_kernel_events`, the counterpart of the
 reference's jitted steps, where no call records) and calls while the
 current stream captures a graph record nothing.
 
-Not ported yet: ``execute_tp`` / ``execute_packed_tp``.
+Tensor parallelism: :func:`execute_tp` (row-parallel, K split in whole
+blocks, an exact sum of integer-count partials) and
+:func:`execute_packed_tp` (column-parallel over N-sharded stored planes,
+a gather) run on every rank of a ``launch.mesh.TPMesh``.
 """
 from __future__ import annotations
 
@@ -61,8 +64,10 @@ import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import ternary as tern
+from repro_torch.dist import collectives
 from repro_torch.kernels import DECODE_M_MAX, ref
 from repro_torch.kernels import plan as kplan
 from repro_torch.kernels.packed_mac import (
@@ -543,6 +548,10 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
             raise ValueError(
                 f"plane/input shape mismatch: x K={x_t.shape[-1]}, logical "
                 f"plane K={planes.k}")
+        if planes.shards != 1:
+            raise ValueError(
+                f"a column shard (1 of {planes.shards}) of stored planes: run "
+                f"it through execute_packed_tp on its mesh")
         n_out = planes.n
         w = planes.interleaved() if stream else planes.planes()
     else:
@@ -563,6 +572,150 @@ def execute_packed(spec: CiMExecSpec, x_t: torch.Tensor, w_pos,
                          math.prod(x_t.shape[:-1]), k_dim, n_out, weight_bytes,
                          lambda: _packed_forward(clean, x_t, w, n_out))
     return _apply_sense_channel(spec, out, x_t.shape[-1], generator)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel execution (explicit collectives over a gloo group)
+# ---------------------------------------------------------------------------
+
+
+def _check_axis(mesh, axis_name: str) -> int:
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no {axis_name!r} axis")
+    return int(mesh.shape[axis_name])
+
+
+def _tp_stream(k: int, n: int, rank: int, device) -> torch.Generator:
+    """The idempotent default rounding stream of a compressed
+    :func:`execute_tp`: a pure function of the operand shape and the
+    rank (the reference folds the shape into key 0 and splits it per
+    shard)."""
+    salt = (k * 1000003 + n * 8191) % (1 << 30)
+    return torch.Generator(device=device).manual_seed(salt * 4096 + rank)
+
+
+def execute_tp(spec: CiMExecSpec, x_t: torch.Tensor, w_t: torch.Tensor, mesh, *,
+               axis_name: str = "model", compressed: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Row-parallel ternary MAC over ``mesh``'s ranks (one process each,
+    ``launch.mesh``): called on every rank with the whole ``x_t`` (...,
+    K) and the whole ``w_t`` (K, N).
+
+    K is zero-padded to ``spec.block * tp`` so every rank holds whole
+    blocks: the per-block ADC clamp never straddles two ranks, each
+    rank's partial (the registered backend on its K slice: #1 on the
+    card under ``blocked/cuda``) is integer event counts, and
+    ``dist.collectives.tp_allreduce`` sums them exactly: bit-identical
+    to :func:`execute` for every built-in formulation.
+
+    ``compressed=True`` sums through the int8-compressed collective;
+    ``generator`` is this rank's rounding stream, and without one the
+    stream is a pure function of the operand shape and the rank, so
+    identical calls round identically (the reference's idempotent
+    default; pass a fresh generator per call for unbiased noise).
+    Inference only: no gradient is defined."""
+    if spec.resolve(x_t.device).packing != "none":
+        raise ValueError(
+            "execute_tp splits the contraction dim; packed (K-major 2-bit) "
+            "planes shard over N instead: use execute_packed_tp")
+    tp = _check_axis(mesh, axis_name)
+    return execute_row_shard(spec, x_t, row_split(w_t, spec.block, tp, mesh.rank),
+                             mesh, compressed=compressed, generator=generator)
+
+
+def row_split(t: torch.Tensor, block: int, tp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s rows of dim -2 of ``t``, K zero-padded to whole
+    blocks on every rank (``block * tp``)."""
+    k = t.shape[-2]
+    pad = -(-k // (block * tp)) * block * tp - k
+    if pad:
+        t = F.pad(t, (0, 0, 0, pad))
+    rows = t.shape[-2] // tp
+    return t[..., rank * rows:(rank + 1) * rows, :].clone()
+
+
+def row_shard_input(x: torch.Tensor, k_local: int, mesh) -> torch.Tensor:
+    """Rank's slice of a whole row-parallel input (..., K): K zero-padded
+    to ``k_local * size``, then the rank's ``k_local`` columns."""
+    kp = k_local * mesh.size
+    if kp != x.shape[-1]:
+        x = F.pad(x, (0, kp - x.shape[-1]))
+    return x[..., mesh.rank * k_local:(mesh.rank + 1) * k_local]
+
+
+def check_tp_spec(spec: CiMExecSpec) -> None:
+    """TP runs serve with no sensing-error channel: its draws would
+    depend on the split (``execute``/``execute_packed`` drive it)."""
+    if spec.error_prob > 0.0:
+        raise ValueError(
+            "tensor-parallel execution is the serving path; drive the "
+            "sensing-error channel through execute/execute_packed "
+            "(error_prob=0 here)")
+
+
+def execute_row_shard(spec: CiMExecSpec, x_t: torch.Tensor, w_rows: torch.Tensor,
+                      mesh, *, compressed: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """This rank's half of :func:`execute_tp`: ``w_rows`` is already its
+    rows of the weight, K padded to ``spec.block * tp`` and split in whole
+    blocks (:func:`row_split`, a ``dist.sharding.WeightShard``'s)."""
+    check_tp_spec(spec)
+    spec = spec.resolve(x_t.device)
+    entry = get_backend(spec, x_t.device)
+    lead, k, n = tuple(x_t.shape[:-1]), x_t.shape[-1], w_rows.shape[-1]
+    x_loc = row_shard_input(x_t.reshape(-1, k), w_rows.shape[-2], mesh)
+    part = entry.fn(x_loc, w_rows, spec)
+    if compressed and generator is None:
+        generator = _tp_stream(k, n, mesh.rank, x_t.device)
+    out = collectives.tp_allreduce(part.to(torch.float32), mesh.group,
+                                   generator=generator, compressed=compressed)
+    return out.reshape(lead + (n,)).to(x_t.dtype)
+
+
+def execute_packed_tp(spec: CiMExecSpec, x_t: torch.Tensor, planes, mesh, *,
+                      axis_name: str = "model") -> torch.Tensor:
+    """Column-parallel packed MAC over N-sharded stored planes: the TP
+    twin of :func:`execute_packed`. ``planes`` is one layer's 2-D
+    :class:`~repro_torch.core.ternary.PackedPlanes`, whole (its padded N
+    must divide the axis) or this rank's column shard
+    (``quant.prepare.prepare_for_spec(mesh=)`` stores those). Each rank
+    runs the packed kernel on its columns (#2 at decode M, #4 above; #3
+    under ``cuda_stream`` at decode M) and the shards are gathered over
+    the ranks (a copy). The contraction never splits, so the result is
+    bit-identical to :func:`execute_packed`."""
+    spec = spec.resolve(x_t.device)
+    if spec.packing != "bitplane_u8":
+        raise ValueError("execute_packed_tp requires packing='bitplane_u8'")
+    check_tp_spec(spec)
+    if spec.formulation not in ("exact", "blocked"):
+        raise ValueError(
+            f"packed kernels implement exact|blocked, not {spec.formulation!r}")
+    if not isinstance(planes, tern.PackedPlanes):
+        raise ValueError("execute_packed_tp consumes stored PackedPlanes")
+    if planes.pos.dim() != 2:
+        raise ValueError(
+            f"stacked planes {tuple(planes.pos.shape)}: slice one layer first "
+            f"(PackedPlanes.layer(i))")
+    if x_t.shape[-1] != planes.k:
+        raise ValueError(
+            f"plane/input shape mismatch: x K={x_t.shape[-1]}, logical plane "
+            f"K={planes.k}")
+    tp = _check_axis(mesh, axis_name)
+    if planes.shards == 1:
+        n_pad = int(planes.pos.shape[-1])
+        if n_pad % tp != 0:
+            raise ValueError(
+                f"padded plane N={n_pad} does not divide the {axis_name!r} "
+                f"axis ({tp} ranks): re-prepare with the mesh "
+                f"(quant.prepare.prepare_for_spec(mesh=...))")
+        planes = planes.column_shard(mesh.rank, tp)
+    elif planes.shards != tp:
+        raise ValueError(f"planes split {planes.shards} ways on a {tp}-rank axis")
+    w = planes.interleaved() if spec.backend == "cuda_stream" else planes.planes()
+    lead, k = tuple(x_t.shape[:-1]), x_t.shape[-1]
+    local = _packed_forward(spec, x_t.reshape(-1, k), w, planes.pos.shape[-1])
+    out = collectives.all_gather(local, mesh.group, dim=-1)[:, :planes.n]
+    return out.reshape(lead + (planes.n,)).to(x_t.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -192,6 +192,9 @@ class PackedPlanes:
     ``layout_version`` selects the storage ordering (``PLANE_LAYOUT_*``).
     Iterating yields ``(pos, neg, scale)`` in the legacy view. Stacked
     (L, K/8, N) planes are sliced per layer with :meth:`layer`.
+    ``shards`` > 1 marks one rank's column shard under a TP mesh
+    (:meth:`column_shard`): the planes hold 1/``shards`` of the padded
+    columns, while ``k``, ``n`` and ``scale`` stay the whole weight's.
     """
 
     pos: torch.Tensor
@@ -200,6 +203,7 @@ class PackedPlanes:
     k: int
     n: int
     layout_version: int = PLANE_LAYOUT_LEGACY
+    shards: int = 1
 
     def __iter__(self):
         return iter(self.planes() + (self.scale,))
@@ -225,4 +229,19 @@ class PackedPlanes:
         return PackedPlanes(
             pos=self.pos[i], neg=self.neg[i], scale=self.scale[i],
             k=self.k, n=self.n, layout_version=self.layout_version,
+            shards=self.shards,
         )
+
+    def column_shard(self, rank: int, size: int) -> "PackedPlanes":
+        """Rank ``rank``'s of ``size`` equal column shards of whole planes
+        (contiguous copies; the padded N must divide ``size``)."""
+        if self.shards != 1:
+            raise ValueError(f"already a column shard (of {self.shards})")
+        n_pad = self.pos.shape[-1]
+        if n_pad % size:
+            raise ValueError(f"padded plane N={n_pad} does not split {size} ways")
+        cols = slice(rank * n_pad // size, (rank + 1) * n_pad // size)
+        return PackedPlanes(
+            pos=self.pos[..., cols].contiguous(), neg=self.neg[..., cols].contiguous(),
+            scale=self.scale, k=self.k, n=self.n,
+            layout_version=self.layout_version, shards=size)

@@ -1,0 +1,110 @@
+"""Explicit collectives over a ``torch.distributed`` process group (port
+of ``repro/dist/collectives.py``).
+
+The reference names its collectives inside ``shard_map`` programs; here
+each rank is a process of a gloo group (``launch.mesh``), and every
+cross-rank reduction of the port goes through this module:
+
+  * :func:`all_reduce` and :func:`all_gather`, the exact primitives of
+    tensor-parallel serving (the gather is a copy, so exact for every
+    dtype);
+  * :func:`tp_allreduce`, the row-parallel partial-sum reduction, exact
+    or through :func:`compressed_psum_int8` (a shared scale from a MAX
+    all-reduce of the local amax, stochastic rounding from an explicit
+    ``torch.Generator``, an int32 sum, the f32 decode);
+  * :func:`mean_grads_int8`, the same primitive as a data-parallel
+    gradient mean.
+
+gloo drives its collectives from the host: a CUDA tensor is copied to
+host memory, reduced there and copied back (the wire), so no collective
+can sit inside a captured CUDA graph. On the H100 with torch 2.11, gloo
+took CUDA tensors in all_reduce (sum over f32, bf16, f16, f64, int8,
+int32, int64; MAX, MIN, PRODUCT over f32), broadcast, reduce, all_gather,
+all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single and
+barrier. As in the reference, the compressed payload is summed in int32:
+its values lie on the int8 grid, its bytes are f32's.
+
+:data:`COUNTS` counts the collectives this process ran, by name: a test
+reads how many a step takes.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+#: collectives run by this process, by name ("all_reduce", "all_gather")
+COUNTS: collections.Counter = collections.Counter()
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``group`` ("sum" | "max"), out of place. The
+    sum is exact where the rank partials add exactly (integer counts, or
+    one nonzero contributor per element)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    dist.all_reduce(out, op=red, group=group)
+    COUNTS["all_reduce"] += 1
+    return out
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (each
+    rank's ``x`` of one shape). A copy: bit-exact for every dtype."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    COUNTS["all_gather"] += 1
+    return torch.cat(parts, dim=dim)
+
+
+def compressed_psum_int8(x: torch.Tensor, group,
+                         generator: torch.Generator) -> torch.Tensor:
+    """Int8-compressed sum of ``x`` over ``group``, decoded to f32.
+
+    All ranks agree on one scale (a MAX all-reduce of the local amax),
+    quantize with unbiased stochastic rounding (uniform noise in [-0.5,
+    0.5) from ``generator``, the rank's own stream), and sum the payload
+    in int32 (sums of int8 over any realistic group fit). Error per
+    element: at most one rounding step, ``amax/127``, per rank."""
+    xf = x.to(torch.float32)
+    amax = all_reduce(xf.abs().amax().reshape(1), group, op="max")
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    noise = torch.rand(x.shape, generator=generator, device=x.device,
+                       dtype=torch.float32) - 0.5
+    q = torch.clamp(torch.round(xf / scale + noise), -127, 127)
+    total = all_reduce(q.to(torch.int32), group)
+    return total.to(torch.float32) * scale
+
+
+def tp_allreduce(x: torch.Tensor, group, *,
+                 generator: Optional[torch.Generator] = None,
+                 compressed: bool = False) -> torch.Tensor:
+    """Tensor-parallel partial-sum all-reduce: the sum of the ranks'
+    row-parallel partials. ``compressed=False`` is the exact sum (for the
+    CiM formulations the partials are integer ADC event counts, so the
+    f32 sum is exact and TP serving stays bit-identical);
+    ``compressed=True`` goes through :func:`compressed_psum_int8` and
+    needs the ``generator`` of its stochastic rounding."""
+    if not compressed:
+        return all_reduce(x, group)
+    if generator is None:
+        raise ValueError("compressed tp_allreduce needs a torch.Generator "
+                         "(stochastic-rounding stream)")
+    return compressed_psum_int8(x, group, generator)
+
+
+def mean_grads_int8(grad: torch.Tensor, group,
+                    generator: torch.Generator) -> torch.Tensor:
+    """The mean of the ranks' ``grad`` over ``group`` with an int8 wire
+    format (each rank passes its own gradient and rounding stream);
+    returns the f32 mean on every rank. The reference's
+    ``mean_grads_int8(mesh, grads, keys)`` takes the stacked shards of
+    one program instead."""
+    return compressed_psum_int8(grad, group, generator) / dist.get_world_size(group)

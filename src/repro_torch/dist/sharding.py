@@ -1,0 +1,366 @@
+"""Which leaf splits over the "model" axis, and each rank's shard of it
+(port of ``repro/dist/sharding.py``).
+
+``param_specs`` / ``_leaf_spec`` are the reference's rule: attention
+projections and MLP weights split column-parallel (``_COL_TP``: the
+output dim) or row-parallel (``_ROW_TP``: the contraction dim), the
+embedding over its vocabulary, norms and small leaves stay replicated,
+and a dim splits only where the axis size divides it. A spec is a tuple
+of axis names or None per dim, the counterpart of a ``PartitionSpec``.
+
+The reference hands its specs to GSPMD, which inserts the collectives.
+The port runs one process per rank (``launch.mesh``), so
+:func:`shard_params` cuts each rank's shard out of the whole (bridged or
+seeded) parameters, and the model calls the collectives itself
+(``dist.collectives``) where a shard meets them: a row-parallel
+:func:`~repro_torch.models.layers.dense` gathers its input and sums its
+partials, the embedding sums its masked lookups, and the logits are
+gathered over the vocabulary. Two rules differ from GSPMD's:
+
+  * **q/k/v/o split on whole heads and whole GQA groups.** Where
+    ``n_heads`` or ``n_kv_heads`` does not divide by the mesh size,
+    attention stays replicated on every rank while the MLP and the
+    vocabulary still split, so every degree is correct, as in the
+    reference. Each rank then runs the model at its own widths
+    (:func:`local_config`: its heads).
+  * **The KV cache splits by the kv heads a rank owns**
+    (:func:`cache_specs`), not over the sequence dim as the reference's
+    ``cache_specs`` chooses: attention stays head-local, and each rank
+    makes only its own cache.
+
+A quantized shard holds the ternary codes and per-output-channel scales
+of the whole weight, computed once at placement by the very function the
+single-device step calls (``layers._weight_codes``) on the same layer
+view, then sliced (:class:`WeightShard`): a statistic over the split
+dim (the row-parallel weights' K) is the single-device one bit for bit.
+
+The reference's ``shard_act`` and ``use_mesh`` have no counterpart:
+activation constraints and a mesh context steer a partitioner, and here
+every shard and every collective is explicit, so there is nothing for
+them to do.
+
+Only the dense family splits yet (ROADMAP Queue A item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.execution import row_split
+from repro_torch.dist import collectives
+from repro_torch.quant.prepare import _map_tree
+
+PyTree = Any
+Spec = Tuple[Optional[str], ...]
+
+# column-parallel (shard the output-channel / last dim over "model")
+_COL_TP = {
+    "wq", "wk", "wv", "w_uk", "w_uv", "w_dkv", "w_in",
+    "w_gate", "w_up", "unembed", "projector",
+}
+# row-parallel (shard the contraction dim over "model")
+_ROW_TP = {"wo", "w_out", "w_down"}
+# MoE expert weights: shard the expert dim over "model"
+_EXPERT_TP = {"w_gate", "w_up", "w_down"}
+_ATTN = {"wq", "wk", "wv", "wo"}
+
+# leaves below this size are never FSDP-sharded (gather overhead > savings)
+FSDP_MIN_SIZE = 1 << 20
+
+#: the families whose params shard_params splits
+TP_FAMILIES = ("dense",)
+
+
+def _axis_size(axis, axis_sizes: Optional[Dict[str, int]]) -> int:
+    if axis_sizes is None:
+        return 1
+    size = 1
+    for a in axis if isinstance(axis, tuple) else (axis,):
+        size *= int(axis_sizes.get(a, 1))
+    return size
+
+
+def _divides(dim: int, axis, axis_sizes: Optional[Dict[str, int]]) -> bool:
+    """True when sharding ``dim`` over ``axis`` is legal (with no
+    ``axis_sizes`` the mesh is unknown: the logical axis is emitted)."""
+    if axis_sizes is None:
+        return True
+    size = _axis_size(axis, axis_sizes)
+    return size >= 1 and dim % size == 0
+
+
+def _is_stacked(segs: List[str]) -> bool:
+    """Stacked-layer leaves carry the layer dim first."""
+    return segs[0] in ("blocks", "enc_blocks") and not (
+        len(segs) > 1 and segs[1].isdigit())
+
+
+def _leaf_spec(path: str, leaf, axis_sizes: Optional[Dict[str, int]]) -> List:
+    segs = path.split("/")
+    name = segs[-1]
+    parent = segs[-2] if len(segs) > 1 else ""
+    ndim = len(leaf.shape)
+    spec: List = [None] * ndim
+
+    # norms / biases / vectors: replicated
+    if ndim < 2 or name.startswith("ln") or name in (
+        "final_norm", "enc_norm", "router", "conv_w", "conv_b", "dt_bias",
+        "enc_pos",
+    ):
+        return spec
+
+    if parent == "moe" and name in _EXPERT_TP and ndim >= 3:
+        e_dim = ndim - 3
+        if _divides(leaf.shape[e_dim], "model", axis_sizes):
+            spec[e_dim] = "model"
+        return spec
+
+    if name == "embed":
+        if _divides(leaf.shape[0], "model", axis_sizes):
+            spec[0] = "model"
+        return spec
+
+    if name in _COL_TP:
+        if _divides(leaf.shape[-1], "model", axis_sizes):
+            spec[-1] = "model"
+        return spec
+
+    if name in _ROW_TP:
+        if _divides(leaf.shape[-2], "model", axis_sizes):
+            spec[-2] = "model"
+        return spec
+
+    return spec
+
+
+def param_specs(params: PyTree, fsdp: bool = False,
+                axis_sizes: Optional[Dict[str, int]] = None) -> PyTree:
+    """Spec tree matching ``params`` (one entry per dim of each leaf).
+    ``fsdp=True`` additionally spreads large weights over the "data" axis
+    wherever a free dim divides (the port trains on one rank yet)."""
+
+    def f(path, leaf):
+        spec = _leaf_spec(path, leaf, axis_sizes)
+        if fsdp and axis_sizes and math.prod(leaf.shape) >= FSDP_MIN_SIZE:
+            if "data" not in spec:
+                start = 1 if _is_stacked(path.split("/")) else 0
+                for i in range(start, len(spec)):
+                    if spec[i] is None and _divides(leaf.shape[i], "data", axis_sizes):
+                        spec[i] = "data"
+                        break
+        return tuple(spec)
+
+    return _map_tree(params, f)
+
+
+def model_axis_size(mesh=None) -> int:
+    """The size of ``mesh``'s "model" axis; 1 without a mesh."""
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def attention_splits(cfg, tp: int) -> bool:
+    """q/k/v/o split over ``tp`` ranks only on whole heads and whole GQA
+    groups: both head counts must divide."""
+    return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+
+
+def cache_specs(caches, mesh, batch: int) -> List[Spec]:
+    """Specs of the decode caches of a TP batcher, one per leaf in
+    ``transformer.cache_leaves`` order (the port's rule): a KV leaf (L, B,
+    S, H_kv, Dh) splits its kv heads (dim 3) over "model" where attention
+    splits, and batch goes over "data" (size 1 here); scale leaves (L, B,
+    S) of a quantized cache stay whole over heads. Give it the whole config's caches
+    (``init_caches(cfg, ...)``); a rank makes only its shard
+    (``init_caches(local_config(cfg, mesh), ...)``)."""
+    from repro_torch.models import transformer as T
+
+    msize = model_axis_size(mesh)
+
+    def f(leaf):
+        spec: List = [None] * leaf.dim()
+        if leaf.dim() >= 2 and leaf.shape[1] == batch:
+            spec[1] = "data"
+        if leaf.dim() == 5 and leaf.shape[3] % msize == 0:
+            spec[3] = "model"
+        return tuple(spec)
+
+    return [f(leaf) for leaf in T.cache_leaves(caches)]
+
+
+def packed_specs(packed: Dict[str, Any],
+                 axis_sizes: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """Specs for a ``quant.prepare`` packed dict: every plane shards its
+    output-channel dim N over "model" (planes are packed 2-bit along K,
+    so a K split would tear bytes apart) where N divides; scales stay
+    whole. Entries are ``{"pos": spec, "neg": spec, "scale": spec}``."""
+
+    def leaf_spec(t):
+        spec: List = [None] * t.dim()
+        if t.dim() >= 2 and _divides(t.shape[-1], "model", axis_sizes):
+            spec[-1] = "model"
+        return tuple(spec)
+
+    return {path: {"pos": leaf_spec(p.pos), "neg": leaf_spec(p.neg),
+                   "scale": tuple([None] * p.scale.dim())}
+            for path, p in packed.items()}
+
+
+def replica_device_groups(replicas: int, tp: int,
+                          devices: Optional[List[torch.device]] = None
+                          ) -> List[List[torch.device]]:
+    """Partition ``devices`` (default: every visible CUDA device) into
+    ``replicas`` disjoint groups of ``tp``: the rows of a ``(replicas,
+    tp)`` grid, replication on the grid's "data" rows, each replica's TP
+    on its "model" columns. Groups are disjoint, so replicas never
+    contend for a device."""
+    if replicas < 1 or tp < 1:
+        raise ValueError(f"need replicas >= 1 and tp >= 1, got "
+                         f"replicas={replicas} tp={tp}")
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    need = replicas * tp
+    if len(devices) < need:
+        raise ValueError(f"{replicas} replicas x tp={tp} needs {need} devices "
+                         f"but only {len(devices)} are visible")
+    return [list(devices[r * tp:(r + 1) * tp]) for r in range(replicas)]
+
+
+# ---------------------------------------------------------------------------
+# A rank's shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightShard:
+    """One rank's part of a split dense weight, stacked (L, ..) or one
+    layer's. ``kind`` "col": ``w`` holds this rank's output columns;
+    "row": its contraction rows, K padded to ``block * size`` and split
+    in whole blocks (``k`` is the whole K). ``w`` holds the whole
+    weight's ternary codes (in the weight's dtype) and ``scale`` its
+    per-output-channel scale, for this rank's columns (row-parallel:
+    every column)."""
+
+    w: torch.Tensor
+    scale: torch.Tensor
+    kind: str
+    k: int
+    mesh: Any
+
+    def __getitem__(self, i) -> "WeightShard":
+        """Layer ``i``'s shard of a stacked one (``layer_params``)."""
+        return dataclasses.replace(
+            self, w=self.w[i], scale=self.scale[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """One rank's rows of the embedding (``vocab_dim`` 0, (V, D)) or
+    columns of the unembedding (``vocab_dim`` 1, (D, V)): token ids
+    ``[offset, offset + n)``."""
+
+    table: torch.Tensor
+    offset: int
+    vocab_dim: int
+    mesh: Any
+
+    def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of ``tokens``: the rank's rows, zero elsewhere
+        (exact zeros, not a product), summed over the ranks: each element
+        has one nonzero contributor, so the sum is exact."""
+        n = self.table.shape[0]
+        local = tokens - self.offset
+        inside = (local >= 0) & (local < n)
+        rows = self.table[local.clamp(0, n - 1)]
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return collectives.all_reduce(rows, self.mesh.group)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain unembedding of ``x`` (B, S, D): the rank's vocabulary
+        columns accumulated in float64 and rounded to x's dtype, as the
+        single-device ``_logits``, then gathered over the vocabulary in
+        that dtype (a copy), so a greedy argmax breaks ties on the same
+        index."""
+        table = self.table.T if self.vocab_dim == 0 else self.table
+        local = (x.to(torch.float64) @ table.to(torch.float64)).to(x.dtype)
+        return collectives.all_gather(local, self.mesh.group, dim=-1)
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {cfg.family!r} family is not "
+            f"ported yet (ROADMAP Queue A item 6; only {TP_FAMILIES} split)")
+
+
+def local_config(cfg, mesh):
+    """``cfg`` at one rank's widths: its heads (and kv heads) where
+    attention splits, else ``cfg`` itself. The vocabulary and d_model
+    stay whole (the residual stream and the logits are whole on every
+    rank)."""
+    _check_family(cfg)
+    tp = model_axis_size(mesh)
+    if tp == 1 or not attention_splits(cfg, tp):
+        return cfg
+    return cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                       head_dim=cfg.resolved_head_dim)
+
+
+def _col_split(t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+    cols = t.shape[-1] // tp
+    return t[..., rank * cols:(rank + 1) * cols].clone()
+
+
+def _codes(w: torch.Tensor, qc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole weight's (codes, scale), layer by layer for a stack: the
+    single-device step's ``_weight_codes`` call on the same layer view."""
+    from repro_torch.models.layers import _weight_codes
+
+    if w.dim() == 2:
+        return _weight_codes(w, qc)
+    parts = [_weight_codes(w[i], qc) for i in range(w.shape[0])]
+    return (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+
+
+def shard_params(params: PyTree, cfg, mesh) -> PyTree:
+    """This rank's parameters from the whole ones (seeded, or bridged
+    from the JAX package): split leaves become :class:`WeightShard`s
+    (attention only on whole heads, :func:`attention_splits`), the
+    embedding and unembedding :class:`VocabShard`s where the vocabulary
+    divides, everything else stays as it is (replicated). ``cfg`` is the
+    serving config, in a quantized mode (its ``quant`` makes the codes)."""
+    _check_family(cfg)
+    tp = model_axis_size(mesh)
+    if tp == 1:
+        return params
+    rank, qc = mesh.rank, cfg.quant
+    if qc.mode == "off":
+        raise NotImplementedError(
+            "tensor-parallel serving splits the ternary MAC; mode 'off' "
+            "under a mesh is not ported (serve a quantized mode)")
+    sizes = {"data": 1, "model": tp}
+    attn = attention_splits(cfg, tp)
+
+    def place(path, leaf, spec):
+        name = path.split("/")[-1]
+        if "model" not in spec or (name in _ATTN and not attn):
+            return leaf
+        if name == "embed":
+            n = leaf.shape[0] // tp
+            return VocabShard(leaf[rank * n:(rank + 1) * n].clone(), rank * n, 0, mesh)
+        if name == "unembed":
+            n = leaf.shape[-1] // tp
+            return VocabShard(_col_split(leaf, tp, rank), rank * n, 1, mesh)
+        kind = "col" if spec[-1] == "model" else "row"
+        w, scale = _codes(leaf, qc)
+        if kind == "col":
+            w, scale = _col_split(w, tp, rank), _col_split(scale, tp, rank)
+        else:
+            w = row_split(w, qc.block, tp, rank)
+        return WeightShard(w, scale, kind, leaf.shape[-2], mesh)
+
+    with torch.no_grad():
+        return _map_tree(params, lambda path, leaf: place(
+            path, leaf, tuple(_leaf_spec(path, leaf, sizes))))

@@ -6,11 +6,16 @@ All sources compile in parallel (one ``nvcc`` each, started together) at
 first use. Libraries are keyed by a hash of their source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edited source or header
 rebuilds and an unchanged one is reused. The build
-directory is ``build/repro_torch`` at the root of the checkout.
+directory is ``build/repro_torch`` at the root of the checkout. A build
+holds an exclusive lock on ``build/repro_torch/build.lock`` (``flock``),
+so processes that start at once (the ranks of a TP group) build each
+source once: the others wait and then find the libraries.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -67,17 +72,47 @@ def _target(src: Path) -> Path:
     return build_dir() / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory's lock file, held by
+    this process until the block ends (the kernel releases it if the
+    process dies)."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with open(build_dir() / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` whose library is missing, all in
     parallel; returns ``{stem: library path}``. Raises with the compiler
-    output when a build fails."""
+    output when a build fails. Safe for several processes at once (the
+    build lock)."""
     sources = sorted(CSRC.glob("*.cu"))
     targets = {src.stem: _target(src) for src in sources}
-    todo = [src for src in sources if not targets[src.stem].exists()]
     t0 = time.perf_counter()
+    if all(t.exists() for t in targets.values()):
+        return _report(t0, [], targets, [])
+    with _build_lock():
+        return _build(sources, targets, t0)
+
+
+def _report(t0: float, todo, targets, logs) -> Dict[str, Path]:
+    last_build.clear()
+    last_build.update(seconds=time.perf_counter() - t0,
+                      built=[s.name for s in todo],
+                      libraries={k: str(v) for k, v in targets.items()},
+                      log="\n".join(logs))
+    return targets
+
+
+def _build(sources, targets, t0: float) -> Dict[str, Path]:
+    todo = [src for src in sources if not targets[src.stem].exists()]
     logs: List[str] = []
     if todo:
-        build_dir().mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs = []
         for src in todo:
@@ -97,12 +132,7 @@ def build_all() -> Dict[str, Path]:
                 os.replace(tmp, targets[src.stem])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    last_build.clear()
-    last_build.update(seconds=time.perf_counter() - t0,
-                      built=[s.name for s in todo],
-                      libraries={k: str(v) for k, v in targets.items()},
-                      log="\n".join(logs))
-    return targets
+    return _report(t0, todo, targets, logs)
 
 
 def library(stem: str) -> ctypes.CDLL:

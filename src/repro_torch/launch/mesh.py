@@ -1,0 +1,203 @@
+"""Tensor-parallel meshes over ``torch.distributed`` (port of
+``repro/launch/mesh.py``).
+
+The reference's mesh is a grid of devices that one program shards over.
+Here a :class:`TPMesh` is one rank's view of a gloo process group: the
+group, this process's rank and the group's size, under the reference's
+axis names ``("data", "model")`` (data 1, model ``size``). Each rank is a
+process of its own: :func:`spawn_tp` starts ``tp`` of them and runs a
+function on each, and :func:`make_tp_mesh` sets up or joins the group
+from inside one.
+
+The backend is gloo on the CPU and on the card alike: NCCL refuses two
+ranks on one GPU, and on one H100 the ranks share ``cuda:0``. Nothing
+here picks a device; the function a rank runs does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_mod
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+AXIS_NAMES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPMesh:
+    """One rank's view of a tensor-parallel group: the gloo ``group``
+    (``None`` for a replica this process is not in, see
+    :func:`make_replica_meshes`), this process's ``rank`` in it, its
+    ``size``, the global ``ranks`` it spans, and the axis names."""
+
+    group: Any
+    rank: int
+    size: int
+    ranks: Tuple[int, ...] = ()
+    axis_names: Tuple[str, ...] = AXIS_NAMES
+
+    @property
+    def shape(self) -> dict:
+        return {"data": 1, "model": self.size}
+
+
+def _timeout(seconds: float) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds)
+
+
+def make_tp_mesh(tp: int, *, rank: Optional[int] = None,
+                 init_method: Optional[str] = None,
+                 timeout: float = 600.0) -> TPMesh:
+    """The calling rank's mesh of a ``tp``-rank gloo group. Joins the
+    default group if this process has one (its size must be ``tp``);
+    else initializes it: at ``init_method`` (a ``file://`` or ``tcp://``
+    store) as ``rank``, from the environment (``env://``: RANK,
+    MASTER_ADDR, MASTER_PORT) when neither is given, and for ``tp == 1``
+    on an in-memory store. ``timeout`` bounds every collective."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if not dist.is_initialized():
+        if tp == 1 and init_method is None:
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1, timeout=_timeout(timeout))
+        else:
+            if rank is None:
+                rank = int(os.environ["RANK"])
+            dist.init_process_group("gloo", init_method=init_method or "env://",
+                                    rank=rank, world_size=tp,
+                                    timeout=_timeout(timeout))
+    world = dist.get_world_size()
+    if world != tp:
+        raise ValueError(f"tp={tp} but this process's group has {world} ranks")
+    return TPMesh(dist.group.WORLD, dist.get_rank(), tp, tuple(range(tp)))
+
+
+def make_replica_meshes(replicas: int, tp: int) -> List[TPMesh]:
+    """One ``tp``-rank mesh per replica, the rows of the ``(replicas,
+    tp)`` grid of ranks (:func:`repro_torch.dist.sharding.
+    replica_device_groups` places them on devices). Every rank of a
+    ``replicas * tp``-rank default group calls it (each subgroup is made
+    by all ranks); a mesh whose row the caller is not in has
+    ``group=None`` and ``rank=-1``."""
+    if replicas < 1 or tp < 1:
+        raise ValueError(f"need replicas >= 1 and tp >= 1, got "
+                         f"replicas={replicas} tp={tp}")
+    world = dist.get_world_size()
+    if world != replicas * tp:
+        raise ValueError(f"{replicas} replicas x tp={tp} need {replicas * tp} "
+                         f"ranks, the group has {world}")
+    me = dist.get_rank()
+    meshes = []
+    for r in range(replicas):
+        ranks = tuple(range(r * tp, (r + 1) * tp))
+        group = dist.new_group(list(ranks), backend="gloo")
+        inside = me in ranks
+        meshes.append(TPMesh(group if inside else None,
+                             ranks.index(me) if inside else -1, tp, ranks))
+    return meshes
+
+
+# ---------------------------------------------------------------------------
+# Spawning the ranks
+# ---------------------------------------------------------------------------
+
+
+def _to_host(obj):
+    """Tensors in a rank's result -> numpy arrays (a tensor sent through a
+    queue would be shared memory that dies with its rank)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _rank_main(rank: int, tp: int, store: str, fn: Callable, args: Sequence,
+               results, timeout: float, threads: int) -> None:
+    torch.set_num_threads(threads)
+    try:
+        mesh = make_tp_mesh(tp, rank=rank, init_method=store, timeout=timeout)
+        try:
+            out = fn(mesh, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", _to_host(out) if rank == 0 else None))
+    except BaseException:  # reported to the parent, which fails the run
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def spawn_tp(fn: Callable, tp: int, *args, timeout: float = 600.0,
+             threads: Optional[int] = None):
+    """Run ``fn(mesh, *args)`` on ``tp`` new processes, one per rank of a
+    gloo group, and return rank 0's result (tensors in it come back as
+    numpy arrays). ``fn`` and ``args`` are pickled: ``fn`` must be a
+    module-level function. The group meets at a ``file://`` store in a
+    temporary directory (no port to collide with other groups on the
+    host); ``threads`` sets each rank's torch threads (default: half the
+    host's cores over the ranks; intra-op threads that outnumber the
+    cores spin against the other ranks' collectives).
+
+    Every rank must finish within ``timeout`` seconds, which also bounds
+    each collective: a rank that raises, dies or overruns ends every
+    rank (killed) and raises here, RuntimeError or TimeoutError."""
+    if threads is None:
+        threads = max(1, (os.cpu_count() or 1) // (2 * tp))
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="tp-store-") as tmp:
+        store = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, tp, store, fn, args, results, timeout,
+                                   threads))
+                 for r in range(tp)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        done, failure = {}, None
+        try:
+            while len(done) < tp and failure is None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"tp={tp} ranks did not finish within {timeout:.0f} s "
+                        f"(finished: {sorted(done)})")
+                try:
+                    rank, status, payload = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in done and not p.is_alive()]
+                    if dead:
+                        # a rank that died without reporting (killed, crashed);
+                        # give a report in flight a moment to arrive first
+                        try:
+                            rank, status, payload = results.get(timeout=2.0)
+                        except queue_mod.Empty:
+                            failure = (f"rank {dead[0]} exited with code "
+                                       f"{procs[dead[0]].exitcode} and no report")
+                            break
+                    else:
+                        continue
+                if status == "ok":
+                    done[rank] = payload
+                else:
+                    failure = f"rank {rank} failed:\n{payload}"
+        finally:
+            for p in procs:
+                if failure is not None or len(done) < tp:
+                    p.kill()
+                p.join(timeout=30)
+            results.close()
+        if failure is not None:
+            raise RuntimeError(failure)
+    return done[0]

@@ -38,7 +38,18 @@ check ``/stats``, shut down — and exits::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --serve-http --replicas 2 --selftest
 
-Not ported yet: ``--tp`` and ``--compress-tp``.
+``--tp N`` serves tensor-parallel over N ranks (``launch.mesh.spawn_tp``:
+N processes of one gloo group, all on ``--device``: on one card they
+share it): every rank builds the same seeded params and requests, keeps
+its shard (``ContinuousBatcher(mesh=)``, dense family), and the parent
+prints rank 0's report; the steps run eagerly (gloo's collectives cannot
+be captured). ``--compress-tp`` sums the row-parallel partials through
+the int8-compressed collective::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --tp 2
+    python -m repro_torch.launch.serve --tp 3              # on the card
+
+The front door's ``--tp`` (a mesh per replica) is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +64,10 @@ from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import ternarize_params
 from repro_torch.serve.engine import ContinuousBatcher, Request
+
+#: seconds the ``--tp`` ranks may take before they are killed and the run
+#: fails (each collective is also bounded by the group's timeout)
+TP_TIMEOUT_S = 1800.0
 
 
 def parse_exec_spec(text: str) -> CiMExecSpec:
@@ -108,6 +123,13 @@ def main(argv=None) -> int:
                     help="modeled per-step device latency in microseconds, "
                          "slept off-GIL in each replica's worker thread after "
                          "its step (0 = off)")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor-parallel degree: serve over N ranks (gloo "
+                         "processes on --device, each holding its shard)")
+    ap.add_argument("--compress-tp", action="store_true",
+                    help="sum the row-parallel partials through the "
+                         "int8-compressed collective (requires --tp > 1 and a "
+                         "quantized mode)")
     ap.add_argument("--selftest", action="store_true",
                     help="front-door smoke: start --serve-http on an "
                          "ephemeral port, stream one request, cancel a "
@@ -116,6 +138,35 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.prepare_weights and not args.exec_spec:
+        ap.error("--prepare-weights requires --exec-spec")
+    if args.compress_tp and args.tp <= 1:
+        ap.error("--compress-tp requires --tp > 1")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.selftest:
+        args.serve_http = True
+        args.port = 0  # ephemeral: the selftest races no other listener
+    if args.serve_http and args.tp > 1:
+        ap.error("--serve-http with --tp > 1 is not ported yet")
+    if args.tp > 1:
+        from repro_torch.launch.mesh import spawn_tp
+
+        for line in spawn_tp(_serve_rank, args.tp, args, timeout=TP_TIMEOUT_S):
+            print(line)
+        return 0
+    cfg, params, exec_spec = _model(args, device)
+    if args.serve_http:
+        return _serve_http_main(args, cfg, params, exec_spec, device)
+    for line in serve_once(args, cfg, params, exec_spec, device):
+        print(line)
+    return 0
+
+
+def _model(args, device):
+    """(cfg, seeded params, exec spec) of the parsed args."""
     cfg = get_config(args.arch, smoke=args.smoke)
     params = T.init_params(cfg, seed=args.seed, device=device)
     if args.pre_quantize:
@@ -123,20 +174,26 @@ def main(argv=None) -> int:
 
         params = ternarize_params(params)
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, pre_quantized=True))
-    exec_spec = parse_exec_spec(args.exec_spec) if args.exec_spec else None
-    if args.prepare_weights and exec_spec is None:
-        ap.error("--prepare-weights requires --exec-spec")
-    if args.replicas < 1:
-        ap.error("--replicas must be >= 1")
-    if args.selftest:
-        args.serve_http = True
-        args.port = 0  # ephemeral: the selftest races no other listener
-    if args.serve_http:
-        return _serve_http_main(args, cfg, params, exec_spec, device)
+    return cfg, params, parse_exec_spec(args.exec_spec) if args.exec_spec else None
+
+
+def _serve_rank(mesh, args):
+    """One ``--tp`` rank: the whole seeded model, its shard served; rank
+    0's report lines come back to the parent."""
+    device = resolve_device(args.device)
+    cfg, params, exec_spec = _model(args, device)
+    lines = serve_once(args, cfg, params, exec_spec, device, mesh)
+    return lines if mesh.rank == 0 else None
+
+
+def serve_once(args, cfg, params, exec_spec, device, mesh=None):
+    """The one-shot batch run of the parsed args; returns its report
+    lines (raises if a request did not finish)."""
     batcher = ContinuousBatcher(
         params, cfg, n_slots=args.slots, s_max=args.s_max, exec_spec=exec_spec,
         temperature=args.temperature, seed=args.seed, fused=not args.loop_decode,
-        prepare_weights=args.prepare_weights, device=device, profile=args.profile)
+        prepare_weights=args.prepare_weights, device=device, profile=args.profile,
+        mesh=mesh, compress_tp=args.compress_tp)
     reqs = [
         Request(i, [1 + (i * 7 + j) % (cfg.vocab - 1) for j in range(1 + i % 4)],
                 max_new=2 + i % args.max_new)
@@ -153,26 +210,31 @@ def main(argv=None) -> int:
     stats = batcher.stats()
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"[serve] {len(reqs)} requests, {toks} tokens, {dt:.3f}s "
-          f"({toks / max(dt, 1e-9):.1f} tok/s on {where}), "
-          f"{stats['decode_steps']} decode steps, "
-          f"{stats['prefill_batches']} prefill batches, "
-          f"{stats['host_syncs']} host syncs")
+    if mesh is not None:
+        where += (f", tp={mesh.size}" + (" int8-compressed" if args.compress_tp
+                                         else "") + " rank 0")
+    lines = [f"[serve] {len(reqs)} requests, {toks} tokens, {dt:.3f}s "
+             f"({toks / max(dt, 1e-9):.1f} tok/s on {where}), "
+             f"{stats['decode_steps']} decode steps, "
+             f"{stats['prefill_batches']} prefill batches, "
+             f"{stats['host_syncs']} host syncs"]
     if batcher.capture_seconds is not None:
-        print(f"[serve] decode step captured as one CUDA graph in "
-              f"{batcher.capture_seconds:.3f}s (warm-up included; part of "
-              f"the {dt:.3f}s above)")
+        lines.append(f"[serve] decode step captured as one CUDA graph in "
+                     f"{batcher.capture_seconds:.3f}s (warm-up included; part of "
+                     f"the {dt:.3f}s above)")
     elif args.loop_decode:
-        print(f"[serve] decode step is the per-slot loop baseline, run eagerly "
-              f"on {where}")
+        lines.append(f"[serve] decode step is the per-slot loop baseline, run "
+                     f"eagerly on {where}")
     else:
-        print(f"[serve] decode step not captured: it runs eagerly on {where}")
+        lines.append(f"[serve] decode step not captured: it runs eagerly on {where}")
+    if mesh is not None:
+        lines += [f"[serve] request {r.rid}: {r.generated}" for r in reqs]
     if args.profile:
-        print(f"[serve] profile: {len(batcher.profiler.events)} trace events "
-              f"-> {args.profile}")
+        lines.append(f"[serve] profile: {len(batcher.profiler.events)} trace "
+                     f"events -> {args.profile}")
     if not all(r.done for r in reqs):
         raise RuntimeError("some requests did not finish")
-    return 0
+    return lines
 
 
 # ---------------------------------------------------------------------------

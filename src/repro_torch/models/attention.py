@@ -343,13 +343,16 @@ def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
     :class:`QuantKVCache` — and attention runs against the whole cache;
     ``start`` marks each row's first valid slot. Without a cache,
     attention is causal over x, chunked under ``cfg.attn_chunk`` when it
-    divides S. Returns (out, cache)."""
+    divides S. Returns (out, cache). On a rank of a TP mesh ``cfg`` gives
+    the rank's heads (``dist.sharding.local_config``) and the weights
+    are its shards: q/k/v column-parallel, o row-parallel, attention
+    head-local over the kv heads (and cache) the rank owns."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qc = cfg.quant
-    q = L.dense(x, params["wq"], qc).reshape(b, s, h, hd)
-    k = L.dense(x, params["wk"], qc).reshape(b, s, hkv, hd)
-    v = L.dense(x, params["wv"], qc).reshape(b, s, hkv, hd)
+    q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, hd)
+    k = L.dense(x, params["wk"], qc, tp="col").reshape(b, s, hkv, hd)
+    v = L.dense(x, params["wv"], qc, tp="col").reshape(b, s, hkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
@@ -375,7 +378,7 @@ def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
             out = _sdpa(q, cache.k, cache.v, causal_offset=cache_index,
                         length=length, start=start)
     out = out.reshape(b, s, h * hd)
-    return L.dense(out, params["wo"], qc), cache
+    return L.dense(out, params["wo"], qc, tp="row"), cache
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import ternary as tern
-from repro_torch.core.execution import CiMExecSpec, execute as exec_mac
+from repro_torch.core.execution import CiMExecSpec, check_tp_spec, execute_row_shard
+from repro_torch.core.execution import execute as exec_mac
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import VocabShard, WeightShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +52,11 @@ class QuantConfig:
       dtype; "int8" stores symmetric int8 codes and "ternary" TWN codes
       nibble-packed two per byte, each with one f32 scale per (row,
       position) (``attention.QuantKVCache``).
+    tp_reduce: how a row-parallel dense layer sums its partials under a
+      TP mesh (``dist.sharding.WeightShard``): "none" the exact sum,
+      "int8" the int8-compressed collective
+      (``dist.collectives.compressed_psum_int8``, quantization-level
+      error, inference only; the batcher sets it under ``compress_tp``).
     """
     mode: str = "off"
     block: int = 16
@@ -59,6 +67,7 @@ class QuantConfig:
     threshold_factor: float = tern.TWN_THRESHOLD_FACTOR
     exec_spec: Optional[CiMExecSpec] = None
     pre_quantized: bool = False
+    tp_reduce: str = "none"      # none | int8
     cache_dtype: str = "bf16"
 
     def __post_init__(self):
@@ -67,9 +76,15 @@ class QuantConfig:
         if self.cache_dtype not in ("bf16", "int8", "ternary"):
             raise ValueError(
                 f"unknown cache_dtype {self.cache_dtype!r} (bf16 | int8 | ternary)")
+        if self.tp_reduce not in ("none", "int8"):
+            raise ValueError(f"unknown tp_reduce {self.tp_reduce!r}")
         if self.act_scale not in ("per_tensor", "per_row"):
             raise ValueError(
                 f"unknown act_scale {self.act_scale!r} (per_tensor | per_row)")
+        if self.tp_reduce != "none" and self.mode == "off":
+            raise ValueError(
+                "tp_reduce compresses the quantized dense path's TP "
+                "all-reduce; mode='off' runs no ternary MAC to compress")
         if self.mode == "off" and self.exec_spec is not None:
             raise ValueError(
                 "exec_spec has no effect with mode='off'; pick a quantized "
@@ -129,7 +144,8 @@ def accum_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
           bias: Optional[torch.Tensor] = None,
-          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+          generator: Optional[torch.Generator] = None,
+          tp: str = "none") -> torch.Tensor:
     """The mode-switched linear layer. x: (..., K), w: (K, N).
 
     Clamping specs receive the activation codes in f32, as the reference
@@ -138,18 +154,47 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
     ``exact/jnp``, and the STE backward's accumulation dtype). The kernel
     backends cast the codes to int8 inside the MAC: one byte per weight
     into the kernel. Gradients reach x and w straight through the codes
-    and the MAC (see the module docstring)."""
+    and the MAC (see the module docstring).
+
+    ``tp`` marks how the layer parallelizes under a TP mesh, as the
+    reference marks it: "col" (the output dim splits: q/k/v, gate, up),
+    "row" (the contraction dim splits: o, down) or "none". It takes
+    effect where ``w`` is a rank's :class:`~repro_torch.dist.sharding.
+    WeightShard` (quantized modes, inference only): the shard holds its
+    part of the whole weight's codes and scale, so a column's statistic
+    is the single-device one. A row shard's input arrives split over K
+    (the previous column-parallel layer's output) and is gathered first
+    (a copy), so the activation statistic (per tensor or per row) is
+    taken over the whole row as on one device; its MAC is
+    ``execution.execute_row_shard`` (the rank's half of ``execute_tp``),
+    whose integer-count partials are summed exactly on the raw MAC
+    output, before the cast and the scale fold (int8-compressed under
+    ``qc.tp_reduce``). A whole weight runs as on one device."""
+    shard = isinstance(w, WeightShard)
+    if shard:
+        if w.kind != tp:
+            raise ValueError(f"a {w.kind}-parallel weight shard at a tp={tp!r} call site")
+        if w.kind == "row" and x.shape[-1] != w.k:
+            x = collectives.all_gather(x, w.mesh.group, dim=-1)
     if qc.mode == "off":
         out = x @ w.to(x.dtype)
     else:
-        w_t, sw = _weight_codes(w, qc)
+        w_t, sw = (w.w, w.scale) if shard else _weight_codes(w, qc)
         if qc.quantize_activations:
             axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None
             x_t, sx = _ste_codes(x, axis, qc.threshold_factor)
         else:
             x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
         spec = qc.resolved_spec()
-        if spec.resolve(x.device).clamps:
+        if shard:
+            check_tp_spec(spec)
+        if shard and w.kind == "row":
+            # the partials in f32 for every spec: integer counts, summed
+            # exactly, rounded to x's dtype once below (as one device's
+            # accumulation rounds once)
+            out = execute_row_shard(spec, x_t.to(torch.float32), w_t, w.mesh,
+                                    compressed=qc.tp_reduce == "int8")
+        elif spec.resolve(x.device).clamps:
             out = exec_mac(spec, x_t.to(torch.float32), w_t, generator=generator)
         else:
             out = exec_mac(spec, x_t.to(x.dtype), w_t.to(x.dtype),
@@ -195,6 +240,11 @@ def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` (V, D) for ``tokens``; a rank's vocabulary
+    shard (``dist.sharding.VocabShard``) looks up its rows and sums the
+    ranks' lookups."""
+    if isinstance(table, VocabShard):
+        return table.lookup(tokens)
     return table[tokens]
 
 
@@ -250,6 +300,6 @@ def init_mlp(generator: torch.Generator, d: int, f: int, dtype, device,
 
 
 def mlp(params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
-    g = dense(x, params["w_gate"], qc)
-    u = dense(x, params["w_up"], qc)
-    return dense(swiglu(g, u), params["w_down"], qc)
+    g = dense(x, params["w_gate"], qc, tp="col")
+    u = dense(x, params["w_up"], qc, tp="col")
+    return dense(swiglu(g, u), params["w_down"], qc, tp="row")

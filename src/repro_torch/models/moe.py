@@ -1,5 +1,6 @@
 """Token-choice top-k Mixture-of-Experts, deepseek-v2 / grok-1 style (port
-of ``repro/models/moe.py``, one routing group: the port has no mesh).
+of ``repro/models/moe.py``, one routing group: the port's TP mesh
+splits the dense family only yet).
 
 Dispatch is the reference's capacity-buffer formulation: each (token,
 expert) assignment takes the next free row of its expert's ``cap`` rows

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import VocabShard
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -229,7 +230,14 @@ def _run_stack(params, x, cfg, positions, caches, index, start, enc=None):
 def _logits(params, x: torch.Tensor, cfg: ArchConfig,
             qc: L.QuantConfig) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"])
-    table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if isinstance(table, VocabShard):
+        if qc.mode != "off":
+            raise NotImplementedError(
+                "a quantized unembedding over a vocabulary shard is not ported "
+                "(the decode step's unembedding is plain)")
+        return table.logits(x)
+    table = table.T if cfg.tie_embeddings else table
     if qc.mode != "off":
         return L.dense(x, table, qc)
     # the plain unembedding accumulates in float64, rounded once to the

@@ -93,15 +93,18 @@ def pack_params(params: PyTree, factor: float = tern.TWN_THRESHOLD_FACTOR
 
 
 def _canonicalize_packed(packed: Dict[str, Tuple], spec: CiMExecSpec,
-                         device=None) -> Dict[str, tern.PackedPlanes]:
+                         device=None, tp: int = 1) -> Dict[str, tern.PackedPlanes]:
     """Pad each (p1, p2, scale) entry to the canonical kernel layout for
     ``spec``: plane rows to the tile K granularity, columns to the tile N
     granularity. Pad cells are (0, 0) pairs — weight 0, inert — and the
     logical (K, N) ride on the :class:`PackedPlanes`. Specs resolving to
     ``cuda_stream`` store the planes interleaved (layout 1: one
     (..., K/4, N) array, the ordering the stream kernel copies a K tile
-    from in one run), as the reference does under ``pallas_stream``."""
+    from in one run), as the reference does under ``pallas_stream``. For a ``tp``-rank mesh
+    the columns pad to ``tp`` times the tile N granularity, so each
+    rank's column shard is whole tiles."""
     k_mult, n_mult = canonical_plane_layout(spec, device)
+    n_mult *= tp
     stream = spec.resolve(device).backend == "cuda_stream"
     rows = k_mult // 8
     out: Dict[str, tern.PackedPlanes] = {}
@@ -120,7 +123,7 @@ def _canonicalize_packed(packed: Dict[str, Tuple], spec: CiMExecSpec,
 
 
 def prepare_for_spec(params: PyTree, spec: CiMExecSpec,
-                     factor: float = tern.TWN_THRESHOLD_FACTOR):
+                     factor: float = tern.TWN_THRESHOLD_FACTOR, mesh=None):
     """Offline surgery matched to the serving execution spec.
 
     packing="none"        -> ternarize + fold scales; returns params.
@@ -130,9 +133,23 @@ def prepare_for_spec(params: PyTree, spec: CiMExecSpec,
                              :class:`PackedPlanes` (layout 1 for
                              ``cuda_stream`` specs, else layout 0).
     The canonical layout is resolved on the params' device.
+
+    ``mesh`` (a ``launch.mesh.TPMesh``): each rank keeps only its column
+    shard of every plane (``PackedPlanes.column_shard``, the
+    ``dist.sharding.packed_specs`` split over N; the padded N is a
+    multiple of ``tp`` tiles, which the guard of
+    ``execution.execute_packed_tp`` needs). The surgery itself runs on
+    the whole weights (per-channel thresholds need the full K column),
+    and the folded params come back whole: ``dist.sharding.shard_params``
+    places them, as it needs the config's heads.
     """
+    tp = 1 if mesh is None else int(mesh.shape.get("model", 1))
     if spec.packing == "bitplane_u8":
         prepared, packed = pack_params(params, factor=factor)
         device = tree_paths(params)[0][1].device
-        return prepared, _canonicalize_packed(packed, spec, device)
+        packed = _canonicalize_packed(packed, spec, device, tp)
+        if tp > 1:
+            packed = {path: p.column_shard(mesh.rank, tp)
+                      for path, p in packed.items()}
+        return prepared, packed
     return ternarize_params(params, factor=factor)

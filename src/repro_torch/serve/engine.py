@@ -20,7 +20,9 @@ encdec's encoder output ``enc``, which the batcher does not (as in the
 reference, the batcher serves whisper as its decoder without cross
 attention, and llava as its token stream). ``ContinuousBatcher(profile=)``
 records one trace event per decode step, per fill batch and per weight
-preparation (``repro_torch.profile``). Not ported yet: TP.
+preparation (``repro_torch.profile``). ``ContinuousBatcher(mesh=)``
+serves tensor-parallel: each rank of a ``launch.mesh.TPMesh`` runs the
+same batcher on its shard (dense family), eagerly.
 """
 from __future__ import annotations
 
@@ -301,6 +303,24 @@ class ContinuousBatcher:
     place; the host fetches each active slot's token on its own (one
     host sync per active slot). It runs eagerly, with no graph.
 
+    ``mesh`` (a ``launch.mesh.TPMesh``) serves tensor-parallel: every
+    rank of the mesh builds this batcher from the same whole params, the
+    same requests and the same seed, and keeps its shard
+    (``dist.sharding.shard_params``: q/k/v, gate and up column-parallel,
+    o and down row-parallel, the vocabulary split; ``self.cfg`` is the
+    rank's config, ``local_config``) and its kv heads' caches. The ranks
+    meet in the model's collectives (``dist.collectives``): they compute
+    the same logits and sample the same tokens, so each rank's
+    ``generated`` and ``stats()`` equal the single-device batcher's
+    (dense family; other families raise ``NotImplementedError``). gloo
+    runs its collectives from the host, and a captured CUDA graph cannot
+    hold one, so under a mesh the decode and prefill steps run eagerly
+    (``graphed`` stays False); capturing the segments between
+    collectives is later work. ``compress_tp=True`` (quantized modes,
+    unpacked specs; needs the mesh) sums the row-parallel partials
+    through the int8-compressed collective (``QuantConfig.tp_reduce``):
+    quantization-level error, the exact sum is the default.
+
     ``profile`` (a ``repro_torch.profile.Profiler``, or a path that the
     batcher opens one on and closes at the end of :meth:`run`) times
     every call of a fused step, as the reference times its jitted ones:
@@ -322,7 +342,16 @@ class ContinuousBatcher:
                  s_max: int = 128, exec_spec: Optional[CiMExecSpec] = None,
                  temperature: float = 0.0, seed: int = 0, fused: bool = True,
                  prepare_weights: bool = False, device: DeviceLike = None,
-                 cache_dtype: Optional[str] = None, profile=None):
+                 cache_dtype: Optional[str] = None, profile=None, mesh=None,
+                 compress_tp: bool = False):
+        if mesh is not None and "model" not in mesh.axis_names:
+            raise ValueError(
+                f"TP serving shards over a 'model' mesh axis; got axes "
+                f"{mesh.axis_names} (use launch.mesh.make_tp_mesh)")
+        if compress_tp and mesh is None:
+            raise ValueError("compress_tp=True requires a mesh (TP serving)")
+        self.mesh = mesh
+        self._mesh_dict = None if mesh is None else dict(mesh.shape)
         self.device = dev = resolve_device(device)
         self.profiler = None
         self._owns_profiler = False
@@ -348,7 +377,7 @@ class ContinuousBatcher:
             from repro_torch.quant.prepare import prepare_for_spec
 
             prepare = self._timed(
-                lambda: prepare_for_spec(params, exec_spec), "serve.prepare",
+                lambda: prepare_for_spec(params, exec_spec, mesh=mesh), "serve.prepare",
                 exec_spec=exec_spec.name, shape_class="prepare")
             prepared = prepare()
             if exec_spec.packing == "bitplane_u8":
@@ -372,6 +401,24 @@ class ContinuousBatcher:
             # validated by QuantConfig.__post_init__
             self.cfg = cfg = cfg.replace(
                 quant=dataclasses.replace(cfg.quant, cache_dtype=cache_dtype))
+        if compress_tp:
+            if cfg.quant.mode == "off":
+                raise ValueError(
+                    "compress_tp compresses the quantized dense path's TP "
+                    "all-reduce; serve a quantized mode (or an exec_spec) to use it")
+            spec_now = cfg.quant.exec_spec
+            if spec_now is not None and spec_now.packing != "none":
+                raise ValueError(
+                    f"compress_tp cannot engage under packing={spec_now.packing!r}: "
+                    "use prepare_weights=True (which folds the packing offline "
+                    "and serves the dense path unpacked) or an unpacked spec")
+            self.cfg = cfg = cfg.replace(
+                quant=dataclasses.replace(cfg.quant, tp_reduce="int8"))
+        if mesh is not None:
+            from repro_torch.dist.sharding import local_config, shard_params
+
+            params = shard_params(params, cfg, mesh)
+            self.cfg = cfg = local_config(cfg, mesh)
         self.params = params
         self.fused = fused
         self.n_slots = n_slots
@@ -404,6 +451,8 @@ class ContinuousBatcher:
                 params, tokens, caches, positions, start, generator)[0],
             [h.to(dev, copy=True) for h in self._host_inputs], dev,
             generators=self._generators, pool=self._pool)
+        # gloo's collectives run from the host: no graph can hold them
+        self._decode.graphed = self._decode.graphed and mesh is None
         # read at record time, before _step changes the slots: occupancy
         # is the number of rows this step decoded for
         self._run_decode = self._timed(
@@ -433,7 +482,8 @@ class ContinuousBatcher:
 
         return wrap_step(fn, self.profiler, entry_point,
                          exec_spec=exec_spec or self.spec_tag,
-                         shape_class=shape_class, meta_fn=meta_fn)
+                         shape_class=shape_class, mesh=self._mesh_dict,
+                         meta_fn=meta_fn)
 
     @property
     def spec_tag(self) -> str:
@@ -460,7 +510,11 @@ class ContinuousBatcher:
     @graphed.setter
     def graphed(self, on: bool) -> None:
         """Switch the decode graph and every prefill graph, built or yet
-        to be built, on or off (off: the same functions run eagerly)."""
+        to be built, on or off (off: the same functions run eagerly). A
+        TP batcher's steps stay eager."""
+        if on and self.mesh is not None:
+            raise ValueError("a TP batcher's steps run eagerly: gloo's "
+                             "collectives cannot be captured in a CUDA graph")
         self._decode.graphed = on
         for _, step in self._prefill_steps.values():
             step.graphed = on

@@ -3,8 +3,9 @@
 
 Fans front-door requests across N :class:`EngineWorker` replicas —
 each an independent :class:`~repro_torch.serve.engine.ContinuousBatcher`
-(TP, and with it a replica's own device mesh, is not ported: every
-replica here runs on one device, as the reference's do at tp=1).
+(every replica here runs on one device, as the reference's do at tp=1;
+a TP mesh per replica, ``launch.mesh.make_replica_meshes``, is not wired
+into the front door yet).
 
 Policy, deliberately boring:
 

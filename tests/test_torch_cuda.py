@@ -11,10 +11,12 @@ import dataclasses
 import pytest
 import torch
 
+import torch_tp_ranks as R
 from repro_torch.core.execution import CiMExecSpec
 from repro_torch.core.ternary import deinterleave_planes, interleave_planes, pack_ternary
 from repro_torch.kernels import packed_mac as pm
 from repro_torch.kernels import ternary_mac as tm
+from repro_torch.launch.mesh import spawn_tp
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config
 from repro_torch.serve.engine import (ContinuousBatcher, Request, generate,
@@ -1361,3 +1363,41 @@ def test_cuda_profiled_sweep_calibrates_both_classes(cuda_device, clean_sweep):
         # the events count the weight as passed: f32 here
         assert fit.fixed_us > 0 and fit.bytes_per_weight == 4.0
     assert table.kernels["blocked/cuda/none|decode"].n_events == 18
+
+
+@pytest.mark.cuda
+def test_cuda_tp_functions_bit_equal(cuda_device):
+    """execute_tp through #1 and #5, execute_packed_tp through #2/#4 and
+    #3/#4, on 2 gloo ranks sharing cuda:0, at smollm-135m's widths and
+    M in {1, 4, 8, 128}: bit-equal to execute / execute_packed."""
+    checks, launched = spawn_tp(R.cuda_tp_functions, 2, timeout=600.0)
+    bad = [name for name, ok in checks.items() if not ok]
+    assert not bad, bad
+    assert len(checks) == 2 * 4 * 2 + 2 * 4 * 2
+    assert all(launched[name] > 0 for name in (
+        "ternary_cim_matmul", "ternary_exact_matmul", "packed_cim_matmul_decode",
+        "packed_cim_matmul", "packed_cim_matmul_decode_stream")), launched
+
+
+@pytest.mark.cuda
+def test_cuda_tp_batcher_matches_captured_single_device(cuda_device):
+    """Full-size smollm-135m over 3 gloo ranks on the one card (3 heads
+    and 1 kv head a rank, d_ff 512, vocab 16384): the tokens and stats of
+    the captured single-device batcher; #1 launched 210 per step or fill
+    in the rank."""
+    cfg = get_config("smollm-135m")
+    requests = [([5, 17, 33], 6), ([2], 9), ([7, 1, 8, 2, 8, 1, 8], 5), ([40], 7),
+                ([11, 12], 4)]
+    params = T.init_params(cfg, seed=0, device=cuda_device)
+    single = ContinuousBatcher(params, cfg, n_slots=4, s_max=64, device=cuda_device)
+    reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(requests)]
+    for r in reqs:
+        single.submit(r)
+    single.run()
+    assert single.graphed
+    del single, params
+    torch.cuda.empty_cache()
+    toks, stats, launches = spawn_tp(R.cuda_tp_serve, 3, requests, timeout=600.0)
+    assert toks == [r.generated for r in reqs]
+    assert stats["host_syncs"] == stats["decode_steps"] + stats["prefill_batches"]
+    assert launches == 210 * (stats["decode_steps"] + stats["prefill_batches"])

@@ -11,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the card-only tests run where JAX is not installed, so they are held to
 # the same rule
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "torch_tp_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,10 +42,11 @@ def test_scan_sees_the_package():
             "trace.py", "protocol.py", "slo.py", "client.py", "worker.py",
             "router.py", "server.py", "registry.py", "array.py", "macro.py",
             "dnn_suite.py", "workload.py", "cost_model.py", "accelerator.py",
-            "site_cim.py", "calibrate.py", "replay.py"} <= names
+            "site_cim.py", "calibrate.py", "replay.py", "sharding.py",
+            "collectives.py", "mesh.py", "torch_tp_ranks.py"} <= names
     assert ROOT / "src" / "repro_torch" / "hw" / "registry.py" in PORT_FILES
     dirs = {p.parent.name for p in PORT_FILES}
-    assert {"profile", "frontdoor", "hw"} <= dirs
+    assert {"profile", "frontdoor", "hw", "dist"} <= dirs
 
 
 @pytest.fixture
