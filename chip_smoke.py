@@ -89,7 +89,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      16, 64} and times it at one mamba2 and one zamba2 layer's two calls
      ("mamba2_780m", "zamba2_2_7b" in the kernels line);
  14. the moe family at full width, depth cut: deepseek-v2-236b (MLA, 160
-     experts top-6 with 2 shared; 4 of its 60 layers) and grok-1-314b (GQA,
+     experts top-6 with 2 shared; 2 of its 60 layers) and grok-1-314b (GQA,
      8 experts top-2; 2 of its 64 layers), seeded random weights, the
      published widths checked against the config: 4 requests (4 slots,
      s_max 128, 1-16 prompt tokens, 8 new) captured and eager (tokens
@@ -209,7 +209,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      winners installed again from a calibration table without timing, a
      batcher captured with them giving phase 3's tokens, the cache
      cleared.
- 21. (run last) tensor-parallel serving: launch.mesh.spawn_tp starts 3
+ 21. tensor-parallel serving: launch.mesh.spawn_tp starts 3
      gloo ranks, every one on cuda:0 (the kernels already built); each
      probes which collectives gloo takes on CUDA tensors, then serves
      full-size smollm-135m on its shard (3 heads and 1 kv head, d_ff 512,
@@ -223,13 +223,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      exact sum of the same partials and not equal to it; execute_tp through #1 at
      wo's and w_down's shapes (M 1, 4, 64, 128) and execute_packed_tp
      through #2/#4 and #3/#4 at (576, 1536) and (1536, 576) (M 4, 128),
-     each bit-equal to execute / execute_packed on the same operands. A
-     rank's failure or a run past TP_TIMEOUT_S fails the script; the
-     eager TP step median is printed beside phase 3's eager step.
+     each bit-equal to execute / execute_packed on the same operands; and,
+     on phase 3's requests through an exact TP batcher whose every fill
+     also runs the compressed forward on copies of its fresh caches, each
+     request's first-token top-2 logit margin beside the compressed
+     logits' error there, and per row-parallel layer one rounding step
+     (amax/127) over the median |partial|. A rank's failure or a run past
+     TP_TIMEOUT_S fails the script; the eager TP step median is printed
+     beside phase 3's eager step.
+ 22. (run last) the other families over 2 gloo ranks on cuda:0:
+     full-size mamba2-780m and zamba2-2.7b and deepseek-v2-236b at full
+     width and 2 of 60 layers, first served single-device (eager) on
+     phase 3's requests, then in every rank, each rank making the seeded
+     tree on the card in turn, holding it on the host and moving only its
+     shard (whole SSM heads, MLA heads with the latent whole, whole
+     experts): tokens == the single device's, #1 launched macs_per_step x
+     (steps + fills) and macs_per_step in every fill, a decode step's
+     collectives at 2 slots those of each step and fill at 4 slots;
+     mamba2-780m in mode "off"
+     with its greedy prefix and largest first-fill logit difference
+     against the single device printed; the eager TP step beside the
+     eager single-device step, per family.
 It then prints a JSON line of phase 20's fits, replay error,
 projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
-served path, #2-#4 in its execute_packed_tp calls), and last the result
+served path, #2-#4 in its execute_packed_tp calls; ``tp_family_launches``:
+#1's in rank 0 per arch of phase 22), and last the result
 line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
 """
@@ -1675,7 +1694,7 @@ CUT_ARCHS = {
                     v_head_dim=128, n_experts=160, n_shared_experts=2, top_k=6,
                     expert_d_ff=1536, vocab=102400, tie_embeddings=False,
                     moe_capacity_factor=1.25),
-        layers=4, cache_bytes={"bf16": 589_824, "int8": 299_008, "ternary": 151_552},
+        layers=2, cache_bytes={"bf16": 294_912, "int8": 149_504, "ternary": 75_776},
         served=("bf16", "int8")),
     "grok-1-314b": dict(
         fields=dict(n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8, mla=False,
@@ -2919,9 +2938,11 @@ FIT_KERNELS = {"blocked/cuda/none": ("#1", "#1"), "exact/cuda/none": ("#5", "#5"
 
 
 def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
-    """Phase 20: (a) eager calls of the four served specs under the
-    profiler at smollm-135m's layer shapes and decode / prefill M, fitted
-    by ``profile.calibrate``; (b) the engine fit on a profiled captured
+    """Phase 20: (a) calls of the four served specs under the profiler
+    at smollm-135m's layer shapes and decode / prefill M, each timed as
+    the device time of a CUDA-graph replay (``graph_kernel_events``: the
+    captured step it predicts pays no host dispatch), fitted by
+    ``profile.calibrate``; (b) the engine fit on a profiled captured
     batcher (phase 3's requests), replayed against a holdout run (4 other
     requests): exact step, fill and token counts, p50 step within
     REPLAY_BOUND_PCT; (c) ``hw.project`` of a 4-row decode on the paper's
@@ -2965,8 +2986,9 @@ def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
                 call()  # warm-up, not recorded
                 prev = P.set_profiler(prof)
                 try:
-                    for _ in range(CALIB_REPEATS):
-                        call()
+                    with X.graph_kernel_events():
+                        for _ in range(CALIB_REPEATS):
+                            call()
                 finally:
                     P.set_profiler(prev)
     kernel_events = list(prof.events)
@@ -2987,7 +3009,7 @@ def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
                 len(CALIB_SHAPES) * 4 * CALIB_REPEATS):
             fail(f"calibration: fit {key} {fit}")
         fits[key] = dict(dataclasses.asdict(fit), kernel=kernel)
-        log(f"calibration fit {kernel} ({key}, {fit.n_events} eager calls at M "
+        log(f"calibration fit {kernel} ({key}, {fit.n_events} graph-timed calls at M "
             f"{[m for m in CALIB_M if (m <= 8) == (cls == 'decode')]}, K,N "
             f"{list(CALIB_SHAPES)}) on {card}: fixed_us {fit.fixed_us}, us_per_mmac "
             f"{fit.us_per_mmac}, us_per_mb {fit.us_per_mb} ({fit.bytes_per_weight} B "
@@ -3032,7 +3054,7 @@ def calibration_phase(torch, tm, pm, card, dev, phase3_tokens) -> dict:
         f"{engine.n_decode} decode steps, {engine.n_prefill} fills): decode_fixed_us "
         f"{engine.decode_fixed_us}, prefill_us {engine.prefill_us}, residual_pct "
         f"{engine.residual_pct}; the kernel model's share of a 4-slot step "
-        f"{share:.1f} us (210 eager-fitted #1 calls) beside the fit run's measured "
+        f"{share:.1f} us (210 graph-fitted #1 calls) beside the fit run's measured "
         f"median step {statistics.median(e.wall_us for e in fit_events if e.entry_point == 'serve.decode_step'):.1f} us; "
         f"holdout (4 requests): predicted {pred['decode_steps']} decode steps, "
         f"{pred['prefill_batches']} fills, {pred['tokens']} tokens against measured "
@@ -3237,7 +3259,8 @@ def tp_compressed_layers(torch, params, cfg, mesh, dev) -> list:
     phase 3's requests, every row-parallel MAC (``layers.
     execute_row_shard``) also run exact on the same operands: per call,
     (went compressed, max |compressed - exact|, the bound ranks *
-    amax/127 * 1.5 with amax the shared scale's, bit-equal)."""
+    amax/127 * 1.5 with amax the shared scale's, bit-equal, one rounding
+    step amax/127 over the median |partial| of this rank)."""
     from repro_torch.dist import collectives as C
     from repro_torch.models import layers
     from repro_torch.serve.engine import ContinuousBatcher, Request
@@ -3246,16 +3269,18 @@ def tp_compressed_layers(torch, params, cfg, mesh, dev) -> list:
     amax, calls = [], []
 
     def psum(x, group, generator):
-        amax.append(float(C.all_reduce(x.abs().amax().reshape(1), group, op="max")))
+        top = float(C.all_reduce(x.abs().amax().reshape(1), group, op="max"))
+        # one rounding step against the typical size of this rank's partials
+        amax.append((top, top / 127.0 / max(float(x.abs().median()), 1e-30)))
         return real_psum(x, group, generator)
 
     def row(spec, x_t, w_rows, mesh, *, compressed=False, generator=None):
         got = real_row(spec, x_t, w_rows, mesh, compressed=compressed,
                        generator=generator)
         exact = real_row(spec, x_t, w_rows, mesh)
-        bound = mesh.size * amax.pop() / 127.0 * 1.5 if compressed else 0.0
-        calls.append((compressed, float((got - exact).abs().max()), bound,
-                      torch.equal(got, exact)))
+        top, ratio = amax.pop() if compressed else (0.0, 0.0)
+        calls.append((compressed, float((got - exact).abs().max()),
+                      mesh.size * top / 127.0 * 1.5, torch.equal(got, exact), ratio))
         return got
 
     batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev,
@@ -3351,11 +3376,15 @@ def tp_rank(mesh, phase3_tokens) -> dict:
           f"{ex['collectives']} over {co['steps']} steps and fills")
     calls, fwd = tp_compressed_layers(torch, params, cfg, mesh, dev)
     check(fwd >= 2 and len(calls) == 2 * cfg.n_layers * fwd
-          and all(c and err <= bound and not same for c, err, bound, same in calls),
+          and all(c and err <= bound and not same for c, err, bound, same, _ in calls),
           f"compressed row-parallel MACs over {fwd} forwards: {calls}")
     out["compressed_layers"] = {
         "calls": len(calls), "forwards": fwd,
-        "max_err_over_bound": max(err / bound for _, err, bound, _ in calls)}
+        "max_err_over_bound": max(err / bound for _, err, bound, _, _ in calls),
+        # per row-parallel layer (wo and w_down alternate in each layer)
+        "step_over_median": {kind: [c[4] for c in calls[i::2]]
+                             for i, kind in enumerate(("wo", "w_down"))}}
+    out["first_token"] = tp_first_token_margins(torch, params, cfg, mesh, dev)
 
     # the explicit TP functions, bit-equal to one device's on the same
     # operands; only the TP calls' launches are counted
@@ -3465,11 +3494,310 @@ def tp_phase(torch, card, phase3) -> dict:
         f"{out['compressed_layers']['forwards']} forwards each within its bound of the "
         f"exact sum and not equal to it, largest error / bound "
         f"{out['compressed_layers']['max_err_over_bound']:.4f}")
+    ratios = out["compressed_layers"]["step_over_median"]
+    first = out["first_token"]
+    margins = [m for _, m, _, _ in first]
+    out["numbers"]["first_token"] = {
+        "margins": margins, "compressed_errors": [e for _, _, e, _ in first],
+        "argmax_moved": [moved for _, _, _, moved in first],
+        "step_over_median": {k: (min(v), statistics.median(v), max(v))
+                             for k, v in ratios.items()}}
+    log(f"tp: --compress-tp at each request's first token (rid, exact top-2 logit "
+        f"margin, max |compressed - exact| logit, argmax moved): "
+        + "; ".join(f"{rid} {m:.4g} {e:.4g} {moved}" for rid, m, e, moved in first)
+        + f"; one rounding step amax/127 over the median |partial| of a rank, "
+        f"(min, median, max) over the first fill's and step's layers: "
+        + "; ".join(f"{k} ({min(v):.3g}, {statistics.median(v):.3g}, {max(v):.3g})"
+                    for k, v in ratios.items()))
     ex = out["explicit"]
     log(f"tp: execute_tp == execute bit for bit through #1 at {ex['execute_tp']} "
         f"(launches {ex['launches_tp']}); execute_packed_tp == execute_packed through "
         f"#2/#4 and #3/#4 at {ex['execute_packed_tp']} (launches {ex['launches_packed']}); "
         f"phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def tp_first_token_margins(torch, params, cfg, mesh, dev) -> list:
+    """Why ``--compress-tp`` parts at the first token: phase 3's requests
+    through an exact TP batcher, up to its last fill, whose every fill
+    also runs, on copies of the fresh caches, the compressed forward of
+    the same inputs. Per request, at the fill that samples its first
+    token: the exact logits' top-2 margin, the compressed logits' largest
+    difference from them, and whether the argmax moved. Returns [(rid,
+    margin, error, moved)]."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, seed=0, device=dev,
+                                mesh=mesh)
+    comp_cfg = batcher.cfg.replace(quant=dataclasses.replace(batcher.cfg.quant,
+                                                             tp_reduce="int8"))
+    real, out = T.decode_step, []
+
+    def step(params_, tokens, caches, index, cfg_, start=None, enc=None):
+        if isinstance(index, int) and index == 0:   # a fill: the fresh caches
+            copies = T.map_caches(lambda leaf: leaf.clone(), caches)
+            comp = real(params_, tokens, copies, 0, comp_cfg, start=start)[0][:, -1]
+            exact, caches = real(params_, tokens, caches, 0, cfg_, start=start)
+            fill = batcher._fill_host[1].numpy()
+            for s, req in enumerate(batcher.slot_req):
+                if fill[s] and req is not None:
+                    top2 = exact[s, -1].float().topk(2).values
+                    out.append((req.rid, float(top2[0] - top2[1]),
+                                float((comp[s].float() - exact[s, -1].float()).abs().max()),
+                                int(comp[s].argmax()) != int(exact[s, -1].argmax())))
+            return exact, caches
+        return real(params_, tokens, caches, index, cfg_, start=start, enc=enc)
+
+    for r in make_requests(Request, cfg.vocab, seed=0):
+        batcher.submit(r)
+    T.decode_step = step
+    try:
+        while batcher.queue:     # every request's first token is a fill's
+            batcher.step()
+    finally:
+        T.decode_step = real
+    return sorted(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the ssm, hybrid and moe families over 2 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_FAMILY_DEGREE = 2
+# arch -> layers served (None: full depth); deepseek-v2 at full width and
+# 2 of its 60 layers (two ranks' host trees of ~17 GB each)
+TP_FAMILY_ARCHS = {"mamba2-780m": None, "zamba2-2.7b": None, "deepseek-v2-236b": 2}
+TP_FAMILY_TIMEOUT_S = 600.0
+
+
+def tp_family_cfg(arch, mode="cim"):
+    from repro_torch.models.layers import QuantConfig
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(arch)
+    if TP_FAMILY_ARCHS[arch]:
+        cfg = cfg.replace(n_layers=TP_FAMILY_ARCHS[arch])
+    return cfg.replace(quant=QuantConfig(mode="off")) if mode == "off" else cfg
+
+
+def first_fill_logits(torch, params, cfg, dev, mesh=None):
+    """Phase 3's first 4 prompts left-padded into one batch and prefilled
+    through ``decode_step`` on a batcher's params and caches (the rank's
+    shard under ``mesh``): the last column's logits (4, V) as float32."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    prompts = [r.prompt for r in make_requests(Request, cfg.vocab, seed=0)[:4]]
+    batcher = ContinuousBatcher(params, cfg, n_slots=4, s_max=256, device=dev, mesh=mesh)
+    s_pad = max(map(len, prompts))
+    tokens = torch.zeros((4, s_pad), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, s_pad - len(p):] = torch.tensor(p)
+    start = torch.tensor([s_pad - len(p) for p in prompts])
+    with torch.no_grad():
+        logits, _ = T.decode_step(batcher.params, tokens.to(dev), batcher.caches, 0,
+                                  batcher.cfg, start=start.to(dev))
+    return logits[:, -1].float().cpu()
+
+
+def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
+    """Phase 22 on one rank: per arch of TP_FAMILY_ARCHS, the whole seeded
+    tree made on the card one rank at a time and held on the host, the
+    rank's shard cut there and moved (``ContinuousBatcher(mesh=)``); phase
+    3's requests served eagerly with the launch counts at 0 just before:
+    tokens == the single device's, #1 launched macs_per_step x (steps +
+    fills) and macs_per_step in every fill; the collectives of a decode
+    step at 2 slots, times the steps and fills, equal to the 4-slot run's;
+    mamba2-780m also in mode "off" (tokens
+    and the first fill's logits, held by the parent). Raises on any
+    failure."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import packed_mac as pm
+    from repro_torch.kernels import ternary_mac as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"phase 22 rank {mesh.rank}: {what}")
+
+    dev = torch.device(dev_name, 0) if dev_name == "cuda" else torch.device(dev_name)
+    out = {}
+    for arch in TP_FAMILY_ARCHS:
+        cfg = tp_family_cfg(arch)
+        for turn in range(mesh.size):
+            # one rank at a time makes the whole tree on the card and keeps
+            # it on the host: never two whole copies on the card at once
+            if turn == mesh.rank:
+                card = T.init_params(cfg, seed=0, device=dev)
+                host = _host_tree(card)
+                del card
+                _free(torch)
+            dist.barrier(group=mesh.group)
+        per_step = macs_per_step(cfg)
+        batcher = ContinuousBatcher(host, cfg, n_slots=4, s_max=256, seed=0, device=dev,
+                                    mesh=mesh)
+        check(not batcher.graphed, f"{arch}: a TP batcher's steps must run eagerly")
+        reqs = make_requests(Request, cfg.vocab, seed=0)
+        fills = []
+        reset_counts(tm, pm)
+        C.reset_counts()
+        secs, step_ms = drive(torch, batcher, reqs, fills=fills,
+                              counter=lambda: counts(tm, pm)["ternary_cim_matmul"])
+        got, st = counts(tm, pm), batcher.stats()
+        steps = st["decode_steps"] + st["prefill_batches"]
+        tokens = [r.generated for r in reqs]
+        check(tokens == singles[arch]["tokens"],
+              f"{arch}: TP tokens {tokens} != the single device's {singles[arch]['tokens']}")
+        check(got["ternary_cim_matmul"] == per_step * steps
+              and all(n == per_step for _, _, n in fills)
+              and not any(v for k, v in got.items() if k != "ternary_cim_matmul"),
+              f"{arch}: launches {got} over {steps} steps and fills {fills}")
+        rec = {"tokens": tokens, "stats": st, "secs": secs, "step_ms": step_ms,
+               "fill_ms": [ms for ms, _, _ in fills], "launches": got["ternary_cim_matmul"],
+               "steps": steps, "per_step": per_step, "collectives": dict(C.COUNTS),
+               "local": {k: getattr(batcher.cfg, k) for k in (
+                   ("n_heads",) if cfg.family == "moe" else ("ssm_n_heads", "ssm_d_inner")
+                   + (("n_heads",) if cfg.family == "hybrid" else ()))},
+               "cache_shapes": [tuple(leaf.shape) for leaf in T.cache_leaves(batcher.caches)]}
+        del batcher
+        _free(torch)
+        # a decode step at 2 slots runs the collectives of every step and
+        # fill of the 4-slot run (their totals over its forwards)
+        b = ContinuousBatcher(host, cfg, n_slots=2, s_max=256, seed=0, device=dev,
+                              mesh=mesh)
+        for i in range(2):
+            b.submit(Request(i, [1 + i, 2], max_new=4))
+        b.step()                     # the fill and the first decode step
+        C.reset_counts()
+        b.step()                     # a decode step alone
+        two = dict(C.COUNTS)
+        del b
+        _free(torch)
+        check(rec["collectives"] == {k: v * steps for k, v in two.items()},
+              f"{arch}: a 2-slot decode step's collectives {two} against the 4-slot "
+              f"run's {rec['collectives']} over {steps} steps and fills")
+        rec["step_collectives"] = two
+        if arch == "mamba2-780m":
+            off = tp_family_cfg(arch, "off")
+            b = ContinuousBatcher(host, off, n_slots=4, s_max=256, seed=0, device=dev,
+                                  mesh=mesh)
+            reqs = make_requests(Request, cfg.vocab, seed=0)
+            secs_off, step_ms_off = drive(torch, b, reqs)
+            rec["off"] = {"tokens": [r.generated for r in reqs], "secs": secs_off,
+                          "step_ms": step_ms_off,
+                          "logits": first_fill_logits(torch, host, off, dev, mesh)}
+            del b
+            _free(torch)
+        out[arch] = rec
+        del host
+        _free(torch)
+    return out
+
+
+def _free(torch) -> None:
+    """Free what a dropped batcher held now: its steps' closures make a
+    reference cycle, which only the collector breaks."""
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _host_tree(tree):
+    return {k: _host_tree(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def tp_family_phase(torch, card, dev) -> dict:
+    """Phase 22: full-size mamba2-780m and zamba2-2.7b and full-width
+    deepseek-v2-236b (2 of 60 layers) served over TP_FAMILY_DEGREE gloo
+    ranks on the one card (``tp_family_rank``), phase 3's requests,
+    eager; first the same requests single-device, eager, on the same
+    seeded weights (and mamba2-780m in mode "off", with its first fill's
+    logits). A rank's failure or a run past TP_FAMILY_TIMEOUT_S fails the
+    script. The eager TP step is printed beside the eager single-device
+    step: two ranks share one card, so it is a record, not a speed-up."""
+    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    singles = {}
+    for arch in TP_FAMILY_ARCHS:
+        cfg = tp_family_cfg(arch)
+        params = T.init_params(cfg, seed=0, device=dev)
+        modes = ("cim", "off") if arch == "mamba2-780m" else ("cim",)
+        for mode in modes:
+            mcfg = tp_family_cfg(arch, mode)
+            batcher = ContinuousBatcher(params, mcfg, n_slots=4, s_max=256, seed=0,
+                                        device=dev)
+            batcher.graphed = False
+            reqs = make_requests(Request, cfg.vocab, seed=0)
+            secs, step_ms = drive(torch, batcher, reqs)
+            rec = {"tokens": [r.generated for r in reqs], "secs": secs, "step_ms": step_ms,
+                   "stats": batcher.stats()}
+            del batcher
+            _free(torch)
+            if mode == "off":
+                rec["logits"] = first_fill_logits(torch, params, mcfg, dev)
+                singles[arch]["off"] = rec
+            else:
+                singles[arch] = rec
+        del params
+        _free(torch)
+    try:
+        out = spawn_tp(tp_family_rank, TP_FAMILY_DEGREE,
+                       {a: {"tokens": s["tokens"]} for a, s in singles.items()},
+                       dev.type, timeout=TP_FAMILY_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tensor-parallel serving of the other families: {e}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    numbers = {}
+    for arch in TP_FAMILY_ARCHS:
+        tp, one = out[arch], singles[arch]
+        tp_ms, one_ms = statistics.median(tp["step_ms"]), statistics.median(one["step_ms"])
+        numbers[arch] = {"tp_eager_step_ms": tp_ms, "single_eager_step_ms": one_ms,
+                         "tp_fill_ms": statistics.median(tp["fill_ms"]),
+                         "tp_tok_s": sum(map(len, tp["tokens"])) / tp["secs"],
+                         "collectives_per_step": {k: v / tp["steps"]
+                                                  for k, v in tp["collectives"].items()},
+                         "step_collectives": tp["step_collectives"]}
+        log(f"tp families: {arch} ({tp_family_cfg(arch).n_layers} layers) over "
+            f"{TP_FAMILY_DEGREE} gloo ranks on {card} (a rank's widths {tp['local']}; "
+            f"cache leaves {tp['cache_shapes']}): tokens == the single device's for all "
+            f"{len(tp['tokens'])} requests; {tp['stats']['decode_steps']} decode steps, "
+            f"{tp['stats']['prefill_batches']} fills; #1 launched {tp['launches']} = "
+            f"{tp['per_step']} x {tp['steps']} in rank 0 (and checked in every rank); "
+            f"eager TP step {tp_ms:.2f} ms median against the eager single-device step "
+            f"{one_ms:.2f} ms; fill {numbers[arch]['tp_fill_ms']:.2f} ms median; "
+            f"{numbers[arch]['tp_tok_s']:.1f} tok/s; collectives per step or fill "
+            f"{numbers[arch]['collectives_per_step']}; a decode step's at 2 slots "
+            f"{tp['step_collectives']}, the same")
+    off_tp, off_one = out["mamba2-780m"]["off"], singles["mamba2-780m"]["off"]
+    prefix = [next((i for i, (a, b) in enumerate(zip(t, o)) if a != b), len(o))
+              for t, o in zip(off_tp["tokens"], off_one["tokens"])]
+    logit_diff = float((torch.as_tensor(off_tp["logits"]) - off_one["logits"]).abs().max())
+    numbers["mamba2-780m"]["off"] = {
+        "greedy_prefix": prefix, "max_logit_diff": logit_diff,
+        "tp_eager_step_ms": statistics.median(off_tp["step_ms"]),
+        "single_eager_step_ms": statistics.median(off_one["step_ms"])}
+    log(f"tp families: mamba2-780m mode \"off\" over {TP_FAMILY_DEGREE} ranks: greedy "
+        f"prefix with the single device per request {prefix} (of "
+        f"{[len(t) for t in off_one['tokens']]}); first fill's logits differ by at most "
+        f"{logit_diff:.6g}; eager TP step {numbers['mamba2-780m']['off']['tp_eager_step_ms']:.2f}"
+        f" ms against {numbers['mamba2-780m']['off']['single_eager_step_ms']:.2f} ms; "
+        f"phase wall time {out['wall_s']:.1f} s")
+    out["numbers"] = numbers
+    for arch in TP_FAMILY_ARCHS:
+        out[arch].pop("off", None)
     return out
 
 
@@ -3555,6 +3883,8 @@ def main(argv=None) -> int:
     calibration = calibration_phase(torch, tm, pm, card, torch.device("cuda"),
                                     serving["cim"]["generated"])
     serving["tp"] = tp = tp_phase(torch, card, serving["cim"])
+    serving["tp_families"] = tp_families = tp_family_phase(torch, card,
+                                                           torch.device("cuda"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3567,6 +3897,9 @@ def main(argv=None) -> int:
             "prefill_ms": pk["prefill_ms"],
             "tp_launches": (tp["serve"]["launches"] if name == "ternary_cim_matmul"
                             else tp["explicit"]["launches_packed"][name]),
+            "tp_family_launches": ({arch: tp_families[arch]["launches"]
+                                    for arch in TP_FAMILY_ARCHS}
+                                   if name == "ternary_cim_matmul" else None),
             **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}

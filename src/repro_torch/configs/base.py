@@ -132,3 +132,20 @@ class ArchConfig:
             return full
         per_expert = 3 * self.d_model * self.expert_d_ff * self.n_layers
         return int(full - per_expert * (self.n_experts - self.top_k))
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ArchConfig):
+    """One tensor-parallel rank's view of a config
+    (``dist.sharding.local_config``): every field of the whole config at
+    the rank's widths, plus the explicit ``ssm_tp``, the number of ranks
+    that share each mamba layer. It divides ``ssm_d_inner`` and so
+    ``ssm_n_heads``, which a registry config derives from ``d_model``
+    (whole on every rank): the rank's mamba blocks and SSM caches take
+    their widths from it."""
+
+    ssm_tp: int = 1
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model // self.ssm_tp

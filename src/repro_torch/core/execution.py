@@ -45,7 +45,9 @@ With a profiler installed (``profile.set_profiler``), every eager
 reference's meta (m, k, n, macs, weight_bytes); calls inside a batcher
 or serve step (:func:`no_kernel_events`, the counterpart of the
 reference's jitted steps, where no call records) and calls while the
-current stream captures a graph record nothing.
+current stream captures a graph record nothing. Inside
+:func:`graph_kernel_events` a call on the card is timed as a captured
+step runs it: device time of a CUDA-graph replay, no host dispatch.
 
 Tensor parallelism: :func:`execute_tp` (row-parallel, K split in whole
 blocks, an exact sum of integer-count partials) and
@@ -377,28 +379,73 @@ def no_kernel_events():
         _STEP.off = prev
 
 
+@contextlib.contextmanager
+def graph_kernel_events(copies: int = 4):
+    """Inside, a recorded ``execute`` call on the card is timed as a
+    captured serve step runs it: after the eager call that gives the
+    result, the call is captured ``copies`` times back to back in one
+    CUDA graph, and the event's ``wall_us`` is one replay's device time
+    (CUDA events) over ``copies``, with no host dispatch in it (meta
+    ``"timing": "graph"``). Eager timing charges each call the host's
+    dispatch and sync, which a replayed step does not pay. CPU calls are
+    timed eagerly as outside."""
+    prev = getattr(_STEP, "graph_copies", 0)
+    _STEP.graph_copies = int(copies)
+    try:
+        yield
+    finally:
+        _STEP.graph_copies = prev
+
+
+def _graph_us(thunk: Callable, copies: int) -> float:
+    """Device microseconds a call of ``thunk`` takes, replayed from one
+    CUDA graph that holds ``copies`` calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        thunk()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            thunk()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) * 1e3 / copies
+
+
 def _profiled_call(entry: str, spec: CiMExecSpec, x: torch.Tensor, m: int,
                    k: int, n: int, weight_bytes: int, thunk: Callable):
     """Run ``thunk()``; with a sink installed, outside a step and outside
     a capture (a sync there would invalidate it), time it to the device's
-    completion and emit one kernel event."""
+    completion, or as a graph replay inside :func:`graph_kernel_events`,
+    and emit one kernel event."""
     sink = _PROFILE_SINK
     cuda = x.device.type == "cuda"
     if (sink is None or getattr(_STEP, "off", False)
             or (cuda and torch.cuda.is_current_stream_capturing())):
         return thunk()
+    meta = {"m": int(m), "k": int(k), "n": int(n),
+            "macs": int(m) * int(k) * int(n), "weight_bytes": int(weight_bytes)}
+    copies = getattr(_STEP, "graph_copies", 0)
     t0 = time.perf_counter()
     out = thunk()
     t1 = time.perf_counter()
     if cuda:
         torch.cuda.synchronize(x.device)
     t2 = time.perf_counter()
+    wall_us = (t2 - t0) * 1e6
+    if cuda and copies:
+        wall_us = _graph_us(thunk, copies)
+        meta["timing"] = "graph"
     sink(entry_point=entry, exec_spec=spec.name,
          shape_class=_CLASS_OVERRIDE or shape_class(m),
-         mesh=None, wall_us=(t2 - t0) * 1e6, dispatch_us=(t1 - t0) * 1e6,
-         meta={"m": int(m), "k": int(k), "n": int(n),
-               "macs": int(m) * int(k) * int(n),
-               "weight_bytes": int(weight_bytes)})
+         mesh=None, wall_us=wall_us, dispatch_us=(t1 - t0) * 1e6, meta=meta)
     return out
 
 

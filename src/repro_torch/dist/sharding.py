@@ -34,12 +34,48 @@ single-device step calls (``layers._weight_codes``) on the same layer
 view, then sliced (:class:`WeightShard`): a statistic over the split
 dim (the row-parallel weights' K) is the single-device one bit for bit.
 
+The other families' rules, where the port differs from GSPMD's:
+
+  * **mamba layers split on whole SSM heads** (:func:`mamba_splits`).
+    The fused ``w_in`` has the columns ``[z (di) | x (di) | B (g·n) | C
+    (g·n) | dt (h)]``, which a contiguous column split would cut across;
+    a rank takes, by an index set of the whole weight's columns
+    (:func:`mamba_columns`), its heads' z, x and dt columns and the B
+    and C columns of its groups (all of them when there is one group,
+    as in every config), the matching channels of ``conv_w``/``conv_b``
+    (depthwise: the slice is exact) and its heads of ``A_log``, ``D``
+    and ``dt_bias``. The scan runs head-local; the gated norm is a
+    statistic over the whole ``d_inner``, so the block gathers its input
+    first (a copy) and runs it whole, and ``w_out`` is row-parallel. The
+    rank's SSM widths come from its config: :func:`local_config` returns
+    a ``configs.base.RankConfig``, whose explicit ``ssm_tp`` field divides
+    ``ssm_d_inner`` (and so ``ssm_n_heads``); the conv and state caches
+    it makes are the rank's channels and heads.
+  * **MLA splits ``wq``, ``w_uk``, ``w_uv`` and ``wo`` on whole heads;
+    ``w_dkv`` stays replicated** (the reference's ``_COL_TP`` splits
+    it): its output feeds ``kv_norm``, a statistic over the latent, and
+    the latent cache is whole on every rank (every head reads it).
+    ``w_uk``/``w_uv`` are plain contractions outside ``dense``, so their
+    shards are plain column slices.
+  * **A rank owns ``n_experts / tp`` whole experts** (the reference's
+    ``_EXPERT_TP`` rule, :class:`ExpertShard`): each expert's
+    ternarization statistic is its whole weight's. Routing, capacity and
+    drops are computed from the replicated activations on every rank;
+    a rank runs its experts' rows of the capacity buffer, the outputs
+    are gathered over the expert dim (a copy), and every rank combines
+    them in the single-device order. The shared experts split as the
+    dense MLP. The reference's grouped dispatch (one routing group per
+    data shard) waits for a data axis.
+
+Mode "off" splits the same weights as float slices (no codes): a column
+shard is ``x @ w``, a row shard computes its partial in float32, sums
+the partials in float32 and rounds once. encdec and vlm do not split
+yet (ROADMAP Queue A item 2.6).
+
 The reference's ``shard_act`` and ``use_mesh`` have no counterpart:
 activation constraints and a mesh context steer a partitioner, and here
 every shard and every collective is explicit, so there is nothing for
 them to do.
-
-Only the dense family splits yet (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -71,7 +107,10 @@ _ATTN = {"wq", "wk", "wv", "wo"}
 FSDP_MIN_SIZE = 1 << 20
 
 #: the families whose params shard_params splits
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+# the mamba leaves a rank takes its heads' (or channels') part of
+_MAMBA_HEADS = {"A_log", "D", "dt_bias"}
+_MAMBA_CHANNELS = {"conv_w", "conv_b"}
 
 
 def _axis_size(axis, axis_sizes: Optional[Dict[str, int]]) -> int:
@@ -167,27 +206,105 @@ def attention_splits(cfg, tp: int) -> bool:
     return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
 
 
-def cache_specs(caches, mesh, batch: int) -> List[Spec]:
-    """Specs of the decode caches of a TP batcher, one per leaf in
-    ``transformer.cache_leaves`` order (the port's rule): a KV leaf (L, B,
-    S, H_kv, Dh) splits its kv heads (dim 3) over "model" where attention
-    splits, and batch goes over "data" (size 1 here); scale leaves (L, B,
-    S) of a quantized cache stay whole over heads. Give it the whole config's caches
-    (``init_caches(cfg, ...)``); a rank makes only its shard
-    (``init_caches(local_config(cfg, mesh), ...)``)."""
-    from repro_torch.models import transformer as T
+def mamba_splits(cfg, tp: int) -> bool:
+    """A mamba layer splits over ``tp`` ranks on whole SSM heads, its B
+    and C on whole groups (or whole on every rank where there is one
+    group); else it stays replicated."""
+    g = cfg.ssm_n_groups
+    return (cfg.family in ("ssm", "hybrid") and cfg.ssm_n_heads % tp == 0
+            and (g == 1 or g % tp == 0))
 
-    msize = model_axis_size(mesh)
 
-    def f(leaf):
-        spec: List = [None] * leaf.dim()
+def mamba_columns(cfg, tp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s index sets into a whole mamba layer (``cfg`` the
+    whole config): ``"w_in"``, its columns of the fused in-projection
+    ``[z (di) | x (di) | B (g·n) | C (g·n) | dt (h)]``; ``"conv"``, its
+    channels of ``[x (di) | B (g·n) | C (g·n)]``; ``"heads"``, its heads.
+    Each in the rank-local layout the block splits (z, x, B, C, dt)."""
+    di, h, n, g = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_n_groups
+    hl = h // tp
+    dil = hl * cfg.ssm_head_dim
+    gl = g // tp if g % tp == 0 else g
+    g0 = rank * gl if g % tp == 0 else 0
+    r = lambda start, size: torch.arange(start, start + size)
+    x_ch = r(rank * dil, dil)
+    b_ch, c_ch = r(g0 * n, gl * n), r(g * n + g0 * n, gl * n)
+    heads = r(rank * hl, hl)
+    return {"w_in": torch.cat([x_ch, di + x_ch, 2 * di + b_ch, 2 * di + c_ch,
+                               2 * di + 2 * g * n + heads]),
+            "conv": torch.cat([x_ch, di + b_ch, di + c_ch]),
+            "heads": heads}
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {cfg.family!r} family is not "
+            f"ported yet (ROADMAP Queue A item 2.6; {TP_FAMILIES} split)")
+
+
+def local_config(cfg, mesh):
+    """``cfg`` at one rank's widths: its heads (and kv heads) where
+    attention splits, its SSM heads (a ``configs.base.RankConfig``
+    with ``ssm_tp``, and its groups where they split) where mamba splits,
+    else ``cfg`` itself. The vocabulary, d_model, the experts and MLA's
+    latent stay whole (the residual stream, the logits, the routing and
+    the latent cache are whole on every rank)."""
+    _check_family(cfg)
+    tp = model_axis_size(mesh)
+    if tp == 1:
+        return cfg
+    if attention_splits(cfg, tp) and cfg.family != "ssm":
+        cfg = cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                          head_dim=cfg.resolved_head_dim)
+    if mamba_splits(cfg, tp):
+        from repro_torch.configs.base import ArchConfig, RankConfig
+
+        g = cfg.ssm_n_groups
+        fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ArchConfig)}
+        cfg = RankConfig(**dict(fields, ssm_n_groups=g // tp if g % tp == 0 else g),
+                         ssm_tp=tp)
+    return cfg
+
+
+def _cache_leaf_specs(node, batch: int, heads: bool, mamba: bool) -> List[Spec]:
+    from repro_torch.models import attention as A
+    from repro_torch.models.ssm import SSMCache
+
+    def spec(leaf, split_dim=None):
+        out: List = [None] * leaf.dim()
         if leaf.dim() >= 2 and leaf.shape[1] == batch:
-            spec[1] = "data"
-        if leaf.dim() == 5 and leaf.shape[3] % msize == 0:
-            spec[3] = "model"
-        return tuple(spec)
+            out[1] = "data"
+        if split_dim is not None:
+            out[split_dim] = "model"
+        return tuple(out)
 
-    return [f(leaf) for leaf in T.cache_leaves(caches)]
+    if isinstance(node, SSMCache):
+        return [spec(node.conv, 3 if mamba else None),
+                spec(node.state, 2 if mamba else None)]
+    if isinstance(node, (A.KVCache, A.QuantKVCache)):
+        return [spec(leaf, 3 if heads and leaf.dim() == 5 else None) for leaf in node]
+    if isinstance(node, (A.MLACache, A.QuantMLACache)):
+        return [spec(leaf) for leaf in node]
+    return [s for part in node for s in _cache_leaf_specs(part, batch, heads, mamba)]
+
+
+def cache_specs(caches, mesh, batch: int, cfg) -> List[Spec]:
+    """Specs of the decode caches of a TP batcher, one per leaf in
+    ``transformer.cache_leaves`` order (the port's rule), for the whole
+    config ``cfg``'s caches (``init_caches(cfg, ...)``); a rank makes
+    only its shard (``init_caches(local_config(cfg, mesh), ...)``).
+    Batch goes over "data" (size 1 here). Over "model": a KV leaf (L, B,
+    S, H_kv, Dh) splits its kv heads (dim 3) where attention splits
+    (scale leaves (L, B, S) of a quantized cache stay whole over heads);
+    an SSM conv window (L, B, W-1, C) its channels (dim 3: the rank's x
+    channels, with the B and C channels of its groups, all of them for
+    one group) and an SSM state (L, B, H, P, N) its heads (dim 2) where
+    mamba splits; an MLA latent cache stays whole on every rank (every
+    head reads the latent)."""
+    tp = model_axis_size(mesh)
+    return _cache_leaf_specs(caches, batch, tp > 1 and attention_splits(cfg, tp),
+                             tp > 1 and mamba_splits(cfg, tp))
 
 
 def packed_specs(packed: Dict[str, Any],
@@ -236,15 +353,18 @@ def replica_device_groups(replicas: int, tp: int,
 @dataclasses.dataclass(frozen=True)
 class WeightShard:
     """One rank's part of a split dense weight, stacked (L, ..) or one
-    layer's. ``kind`` "col": ``w`` holds this rank's output columns;
-    "row": its contraction rows, K padded to ``block * size`` and split
-    in whole blocks (``k`` is the whole K). ``w`` holds the whole
-    weight's ternary codes (in the weight's dtype) and ``scale`` its
-    per-output-channel scale, for this rank's columns (row-parallel:
-    every column)."""
+    layer's. ``kind`` "col": ``w`` holds this rank's output columns (a
+    contiguous slice, or a mamba ``w_in``'s index set); "row": its
+    contraction rows (``k`` is the whole K). In a quantized mode ``w``
+    holds the whole weight's ternary codes (in the weight's dtype) and
+    ``scale`` its per-output-channel scale, for this rank's columns
+    (row-parallel: every column), and a row shard's K is padded to
+    ``block * size`` and split in whole blocks. In mode "off" ``w`` is
+    the float weight's slice (a row shard's K split evenly) and
+    ``scale`` is None."""
 
     w: torch.Tensor
-    scale: torch.Tensor
+    scale: Optional[torch.Tensor]
     kind: str
     k: int
     mesh: Any
@@ -252,7 +372,22 @@ class WeightShard:
     def __getitem__(self, i) -> "WeightShard":
         """Layer ``i``'s shard of a stacked one (``layer_params``)."""
         return dataclasses.replace(
-            self, w=self.w[i], scale=self.scale[i])
+            self, w=self.w[i], scale=None if self.scale is None else self.scale[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """One rank's whole experts of a MoE expert stack (``w_gate``,
+    ``w_up`` or ``w_down``, (L, E_local, K, N) or one layer's): experts
+    ``[first, first + E_local)`` as float weights; ``moe._tern3``
+    ternarizes each expert from its own whole weight, as on one device."""
+
+    w: torch.Tensor
+    first: int
+    mesh: Any
+
+    def __getitem__(self, i) -> "ExpertShard":
+        return dataclasses.replace(self, w=self.w[i])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,78 +423,97 @@ class VocabShard:
         return collectives.all_gather(local, self.mesh.group, dim=-1)
 
 
-def _check_family(cfg) -> None:
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor-parallel serving of the {cfg.family!r} family is not "
-            f"ported yet (ROADMAP Queue A item 6; only {TP_FAMILIES} split)")
-
-
-def local_config(cfg, mesh):
-    """``cfg`` at one rank's widths: its heads (and kv heads) where
-    attention splits, else ``cfg`` itself. The vocabulary and d_model
-    stay whole (the residual stream and the logits are whole on every
-    rank)."""
-    _check_family(cfg)
-    tp = model_axis_size(mesh)
-    if tp == 1 or not attention_splits(cfg, tp):
-        return cfg
-    return cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                       head_dim=cfg.resolved_head_dim)
-
-
 def _col_split(t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
     cols = t.shape[-1] // tp
     return t[..., rank * cols:(rank + 1) * cols].clone()
 
 
-def _codes(w: torch.Tensor, qc) -> Tuple[torch.Tensor, torch.Tensor]:
+def _codes(w: torch.Tensor, qc, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole weight's (codes, scale), layer by layer for a stack: the
-    single-device step's ``_weight_codes`` call on the same layer view."""
+    single-device step's ``_weight_codes`` call on the same layer view,
+    on ``device`` (one layer moved there at a time; default: w's own)."""
     from repro_torch.models.layers import _weight_codes
 
     if w.dim() == 2:
-        return _weight_codes(w, qc)
-    parts = [_weight_codes(w[i], qc) for i in range(w.shape[0])]
+        return _weight_codes(w.to(device), qc)
+    parts = [_weight_codes(w[i].to(device), qc) for i in range(w.shape[0])]
     return (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
 
 
-def shard_params(params: PyTree, cfg, mesh) -> PyTree:
+def shard_params(params: PyTree, cfg, mesh, device=None) -> PyTree:
     """This rank's parameters from the whole ones (seeded, or bridged
-    from the JAX package): split leaves become :class:`WeightShard`s
-    (attention only on whole heads, :func:`attention_splits`), the
-    embedding and unembedding :class:`VocabShard`s where the vocabulary
-    divides, everything else stays as it is (replicated). ``cfg`` is the
-    serving config, in a quantized mode (its ``quant`` makes the codes)."""
+    from the JAX package), by the rules of the module docstring: split
+    dense leaves become :class:`WeightShard`s (attention only on whole
+    heads, :func:`attention_splits`; mamba on whole SSM heads by index
+    sets, :func:`mamba_splits`), the expert stacks :class:`ExpertShard`s,
+    MLA's ``w_uk``/``w_uv`` and mamba's conv and head vectors plain
+    slices, the embedding and unembedding :class:`VocabShard`s where the
+    vocabulary divides; everything else (MLA's ``w_dkv``, norms, the
+    router) stays as it is (replicated). ``cfg`` is the serving config:
+    in a quantized mode its ``quant`` makes the codes, in mode "off" the
+    shards are float slices. ``device`` (default: where the params are)
+    is where the shards go: a whole tree on the host is cut there and
+    only this rank's shard moves, each weight's codes computed on
+    ``device`` from its whole layer (one layer moved at a time), as the
+    step there computes them."""
     _check_family(cfg)
     tp = model_axis_size(mesh)
     if tp == 1:
         return params
     rank, qc = mesh.rank, cfg.quant
-    if qc.mode == "off":
-        raise NotImplementedError(
-            "tensor-parallel serving splits the ternary MAC; mode 'off' "
-            "under a mesh is not ported (serve a quantized mode)")
     sizes = {"data": 1, "model": tp}
-    attn = attention_splits(cfg, tp)
+    to = (lambda t: t) if device is None else (lambda t: t.to(device))
+    attn, mamba = attention_splits(cfg, tp), mamba_splits(cfg, tp)
+    cols = mamba_columns(cfg, tp, rank) if mamba else None
+
+    def weight(leaf, kind, index=None):
+        if qc.mode == "off":
+            w, scale = leaf, None
+        else:
+            w, scale = _codes(leaf, qc, device)
+        if kind == "row":
+            # a float shard splits K evenly; codes split in whole blocks
+            w = row_split(w, 1 if scale is None else qc.block, tp, rank)
+        elif index is not None:
+            w, scale = w[..., index], None if scale is None else scale[..., index]
+        else:
+            w = _col_split(w, tp, rank)
+            scale = None if scale is None else _col_split(scale, tp, rank)
+        return WeightShard(to(w).contiguous(),
+                           None if scale is None else scale.contiguous(), kind,
+                           leaf.shape[-2], mesh)
+
+    def place_mamba(name, leaf):
+        if name in _MAMBA_HEADS:
+            return to(leaf[..., cols["heads"]].contiguous())
+        if name in _MAMBA_CHANNELS:
+            return to(leaf[..., cols["conv"]].contiguous())
+        if name == "w_in":
+            return weight(leaf, "col", cols["w_in"])
+        if name == "w_out":
+            return weight(leaf, "row")
+        return to(leaf)
 
     def place(path, leaf, spec):
-        name = path.split("/")[-1]
-        if "model" not in spec or (name in _ATTN and not attn):
-            return leaf
+        segs = path.split("/")
+        name = segs[-1]
+        if "mamba" in segs:
+            return place_mamba(name, leaf) if mamba else to(leaf)
+        if "model" not in spec or (name in _ATTN and not attn) or name == "w_dkv":
+            return to(leaf)
         if name == "embed":
             n = leaf.shape[0] // tp
-            return VocabShard(leaf[rank * n:(rank + 1) * n].clone(), rank * n, 0, mesh)
+            return VocabShard(to(leaf[rank * n:(rank + 1) * n].clone()), rank * n, 0, mesh)
         if name == "unembed":
             n = leaf.shape[-1] // tp
-            return VocabShard(_col_split(leaf, tp, rank), rank * n, 1, mesh)
-        kind = "col" if spec[-1] == "model" else "row"
-        w, scale = _codes(leaf, qc)
-        if kind == "col":
-            w, scale = _col_split(w, tp, rank), _col_split(scale, tp, rank)
-        else:
-            w = row_split(w, qc.block, tp, rank)
-        return WeightShard(w, scale, kind, leaf.shape[-2], mesh)
+            return VocabShard(to(_col_split(leaf, tp, rank)), rank * n, 1, mesh)
+        if name in ("w_uk", "w_uv"):
+            return to(_col_split(leaf, tp, rank) if attn else leaf)
+        if len(segs) > 1 and segs[-2] == "moe" and name in _EXPERT_TP:
+            e_dim = leaf.dim() - 3
+            n = leaf.shape[e_dim] // tp
+            return ExpertShard(to(leaf.narrow(e_dim, rank * n, n).clone()), rank * n, mesh)
+        return weight(leaf, "col" if spec[-1] == "model" else "row")
 
     with torch.no_grad():
         return _map_tree(params, lambda path, leaf: place(

@@ -41,13 +41,17 @@ check ``/stats``, shut down — and exits::
 ``--tp N`` serves tensor-parallel over N ranks (``launch.mesh.spawn_tp``:
 N processes of one gloo group, all on ``--device``: on one card they
 share it): every rank builds the same seeded params and requests, keeps
-its shard (``ContinuousBatcher(mesh=)``, dense family), and the parent
-prints rank 0's report; the steps run eagerly (gloo's collectives cannot
+its shard (``ContinuousBatcher(mesh=)``: the dense, ssm, hybrid and moe
+families; encdec and vlm are refused before any rank starts), and the
+parent prints rank 0's report; the steps run eagerly (gloo's collectives cannot
 be captured). ``--compress-tp`` sums the row-parallel partials through
 the int8-compressed collective::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --tp 2 \\
+        --arch mamba2-780m
     python -m repro_torch.launch.serve --tp 3              # on the card
+    python -m repro_torch.launch.serve --tp 2 --arch zamba2-2.7b
 
 The front door's ``--tp`` (a mesh per replica) is not ported yet.
 """
@@ -152,7 +156,13 @@ def main(argv=None) -> int:
     if args.serve_http and args.tp > 1:
         ap.error("--serve-http with --tp > 1 is not ported yet")
     if args.tp > 1:
+        from repro_torch.dist.sharding import TP_FAMILIES
         from repro_torch.launch.mesh import spawn_tp
+
+        family = get_config(args.arch, smoke=args.smoke).family
+        if family not in TP_FAMILIES:
+            ap.error(f"--tp: the {family!r} family does not split yet "
+                     f"(ROADMAP Queue A item 2.6; {', '.join(TP_FAMILIES)} do)")
 
         for line in spawn_tp(_serve_rank, args.tp, args, timeout=TP_TIMEOUT_S):
             print(line)

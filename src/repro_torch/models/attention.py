@@ -418,12 +418,17 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig,
     ``wo`` are dense layers (the ternary/CiM modes apply: kernel #1 on
     the card); ``w_uk`` and ``w_uv`` are plain contractions, as in the
     reference. The contractions accumulate in float64 and round to x's
-    dtype where the reference rounds (``layers.accum_einsum``)."""
+    dtype where the reference rounds (``layers.accum_einsum``).
+
+    On a rank of a TP mesh ``cfg`` gives the rank's heads
+    (``dist.sharding.local_config``): ``wq`` is its column shard,
+    ``w_uk``/``w_uv`` its heads' columns, ``wo`` row-parallel; ``w_dkv``,
+    ``kv_norm`` and the latent cache are whole on every rank."""
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     qc, dt = cfg.quant, x.dtype
-    q = L.dense(x, params["wq"], qc).reshape(b, s, h, dn + dr)
+    q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
     dkv = L.dense(x, params["w_dkv"], qc)
@@ -480,7 +485,7 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig,
     lat = L.accum_einsum("bhqk,bkr->bqhr", probs.to(dt), ckv_c).to(dt)
     w_uv = params["w_uv"].reshape(r, h, dv).to(dt)
     out = L.accum_einsum("bqhr,rhd->bqhd", lat, w_uv).to(dt)
-    return L.dense(out.reshape(b, s, h * dv), params["wo"], qc), cache
+    return L.dense(out.reshape(b, s, h * dv), params["wo"], qc, tp="row"), cache
 
 
 # ---------------------------------------------------------------------------

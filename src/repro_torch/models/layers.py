@@ -142,6 +142,18 @@ def accum_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, *(o.to(torch.float64) for o in ops))
 
 
+def _row_shard_off(x: torch.Tensor, w: WeightShard) -> torch.Tensor:
+    """A mode-"off" row shard: the rank's K slice of ``x`` (as it arrives
+    from a column-parallel layer, or cut from a whole ``x``) against its
+    rows, the partial in float32, the partials summed in float32 and
+    rounded to x's dtype once."""
+    k_local = w.w.shape[-2]
+    if x.shape[-1] != k_local:
+        x = x[..., w.mesh.rank * k_local:(w.mesh.rank + 1) * k_local]
+    part = x.to(torch.float32) @ w.w.to(torch.float32)
+    return collectives.all_reduce(part, w.mesh.group).to(x.dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
           bias: Optional[torch.Tensor] = None,
           generator: Optional[torch.Generator] = None,
@@ -160,25 +172,30 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
     reference marks it: "col" (the output dim splits: q/k/v, gate, up),
     "row" (the contraction dim splits: o, down) or "none". It takes
     effect where ``w`` is a rank's :class:`~repro_torch.dist.sharding.
-    WeightShard` (quantized modes, inference only): the shard holds its
-    part of the whole weight's codes and scale, so a column's statistic
-    is the single-device one. A row shard's input arrives split over K
+    WeightShard` (inference only). In a quantized mode the shard holds
+    its part of the whole weight's codes and scale, so a column's
+    statistic is the single-device one. A row shard's input arrives split over K
     (the previous column-parallel layer's output) and is gathered first
     (a copy), so the activation statistic (per tensor or per row) is
     taken over the whole row as on one device; its MAC is
     ``execution.execute_row_shard`` (the rank's half of ``execute_tp``),
     whose integer-count partials are summed exactly on the raw MAC
     output, before the cast and the scale fold (int8-compressed under
-    ``qc.tp_reduce``). A whole weight runs as on one device."""
+    ``qc.tp_reduce``). In mode "off" a column shard is ``x @ w`` and a
+    row shard :func:`_row_shard_off` (no gather: the partials are float
+    products of the rank's K slice). A whole weight runs as on one
+    device."""
     shard = isinstance(w, WeightShard)
-    if shard:
-        if w.kind != tp:
-            raise ValueError(f"a {w.kind}-parallel weight shard at a tp={tp!r} call site")
-        if w.kind == "row" and x.shape[-1] != w.k:
-            x = collectives.all_gather(x, w.mesh.group, dim=-1)
+    if shard and w.kind != tp:
+        raise ValueError(f"a {w.kind}-parallel weight shard at a tp={tp!r} call site")
     if qc.mode == "off":
-        out = x @ w.to(x.dtype)
+        if shard and w.kind == "row":
+            out = _row_shard_off(x, w)
+        else:
+            out = x @ (w.w if shard else w).to(x.dtype)
     else:
+        if shard and w.kind == "row" and x.shape[-1] != w.k:
+            x = collectives.all_gather(x, w.mesh.group, dim=-1)
         w_t, sw = (w.w, w.scale) if shard else _weight_codes(w, qc)
         if qc.quantize_activations:
             axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None

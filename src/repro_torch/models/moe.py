@@ -1,6 +1,7 @@
 """Token-choice top-k Mixture-of-Experts, deepseek-v2 / grok-1 style (port
-of ``repro/models/moe.py``, one routing group: the port's TP mesh
-splits the dense family only yet).
+of ``repro/models/moe.py``, one routing group: the reference's grouped
+dispatch, a group per data shard, waits for a data axis; under a TP mesh
+the experts split over the ranks, see :func:`moe_block`).
 
 Dispatch is the reference's capacity-buffer formulation: each (token,
 expert) assignment takes the next free row of its expert's ``cap`` rows
@@ -37,6 +38,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ternary as tern
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import ExpertShard
 from repro_torch.models import layers as L
 
 # moe leaves that the reference keeps in float32 under any config dtype
@@ -147,7 +150,14 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     Each token's K contributions are summed in rank order in x's dtype,
     as the reference's in-order scatter-add (``out.at[tok_id].add``)
     rounds them; no atomic ``index_add_``, whose bf16 sums would depend
-    on timing on the card."""
+    on timing on the card.
+
+    On a rank of a TP mesh the expert stacks are its
+    :class:`~repro_torch.dist.sharding.ExpertShard` s: the routing is
+    computed from the replicated activations on every rank, the rank
+    runs its experts' rows of the buffer, the outputs are gathered over
+    the expert dim, and every rank combines them in the order above; the
+    shared experts' MLP splits column and row as the dense MLP."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -157,7 +167,17 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     # rows are unique but for the overflow row, which is discarded
     buf[slot] = xt.repeat_interleave(k, dim=0)
-    ye = _expert_ffn(params, buf[:e * cap].reshape(e, cap, d), cfg.quant)
+    shard = params["w_gate"]
+    if isinstance(shard, ExpertShard):
+        # this rank's experts on their rows of the buffer, then every
+        # expert's rows gathered in expert order (a copy)
+        e0, el = shard.first, shard.w.shape[0]
+        mine = {name: params[name].w for name in ("w_gate", "w_up", "w_down")}
+        ye = _expert_ffn(mine, buf[e0 * cap:(e0 + el) * cap].reshape(el, cap, d),
+                         cfg.quant)
+        ye = collectives.all_gather(ye, shard.mesh.group, dim=0)
+    else:
+        ye = _expert_ffn(params, buf[:e * cap].reshape(e, cap, d), cfg.quant)
     ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
     weight = (gates * keep.to(torch.float32)).to(ye.dtype)
     contrib = (ye[slot] * weight[:, None]).reshape(t, k, d)

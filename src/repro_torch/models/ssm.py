@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import WeightShard
 from repro_torch.models import layers as L
 
 # mamba leaves that the reference keeps in float32 under any config dtype
@@ -176,13 +178,21 @@ def mamba2_block(params, x: torch.Tensor, cfg: ArchConfig,
     ``valid`` (B, S) marks real columns of a left-padded batched prefill:
     the raw conv inputs and dt of pad columns are zeroed, so they match
     the zero conv window of an unpadded run and freeze the state
-    (exp(0·A) = 1, no B·x injection)."""
+    (exp(0·A) = 1, no B·x injection).
+
+    On a rank of a TP mesh ``cfg`` gives the rank's SSM widths
+    (``dist.sharding.local_config``) and the params are its shards:
+    ``w_in``'s columns of its heads (B and C of its groups), its conv
+    channels and head vectors, ``w_out`` row-parallel; the cache holds
+    its channels and heads. The scan runs head-local, and the gated
+    input of the norm is gathered over the ranks first."""
     b, s, _ = x.shape
     di, g, n = cfg.ssm_d_inner, cfg.ssm_n_groups, cfg.ssm_state
     h = cfg.ssm_n_heads
     qc = cfg.quant
 
-    zxbcdt = L.dense(x, params["w_in"], qc)
+    w_in = params["w_in"]
+    zxbcdt = L.dense(x, w_in, qc, tp="col")
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * g * n]
     dt = softplus(zxbcdt[..., -h:].float() + params["dt_bias"])
@@ -226,5 +236,10 @@ def mamba2_block(params, x: torch.Tensor, cfg: ArchConfig,
         cache.state.copy_(state)
 
     y = y.reshape(b, s, di).to(x.dtype)
-    y = L.rms_norm(y * L.silu(z.float()).to(y.dtype), params["norm"])
-    return L.dense(y, params["w_out"], qc), cache
+    y = y * L.silu(z.float()).to(y.dtype)
+    if isinstance(w_in, WeightShard):
+        # the gated norm is a statistic over the whole d_inner: gather the
+        # ranks' heads (a copy, in head order) and norm whole on every rank
+        y = collectives.all_gather(y, w_in.mesh.group, dim=-1)
+    y = L.rms_norm(y, params["norm"])
+    return L.dense(y, params["w_out"], qc, tp="row"), cache

@@ -6,7 +6,9 @@ leg of profile → calibrate → replay (DESIGN.md §11).
 ns/pJ parameters, Figs 9–13). This module fits the same cost structure to
 what the execution layer measured: on the card, the port's CUDA kernels
 (the events ``execution._profiled_call`` emits for eager ``execute`` /
-``execute_packed`` calls, each timed to the device's completion)::
+``execute_packed`` calls, each timed to the device's completion, or,
+inside ``execution.graph_kernel_events``, as the device time of a
+CUDA-graph replay, which is what a captured serve step pays)::
 
     wall_us ≈ fixed_us + us_per_mmac · (M·K·N / 1e6)
                        + us_per_mb   · (weight_bytes / 1e6)

@@ -22,7 +22,8 @@ attention, and llava as its token stream). ``ContinuousBatcher(profile=)``
 records one trace event per decode step, per fill batch and per weight
 preparation (``repro_torch.profile``). ``ContinuousBatcher(mesh=)``
 serves tensor-parallel: each rank of a ``launch.mesh.TPMesh`` runs the
-same batcher on its shard (dense family), eagerly.
+same batcher on its shard (dense, ssm, hybrid and moe families),
+eagerly.
 """
 from __future__ import annotations
 
@@ -305,14 +306,19 @@ class ContinuousBatcher:
 
     ``mesh`` (a ``launch.mesh.TPMesh``) serves tensor-parallel: every
     rank of the mesh builds this batcher from the same whole params, the
-    same requests and the same seed, and keeps its shard
-    (``dist.sharding.shard_params``: q/k/v, gate and up column-parallel,
-    o and down row-parallel, the vocabulary split; ``self.cfg`` is the
-    rank's config, ``local_config``) and its kv heads' caches. The ranks
-    meet in the model's collectives (``dist.collectives``): they compute
-    the same logits and sample the same tokens, so each rank's
-    ``generated`` and ``stats()`` equal the single-device batcher's
-    (dense family; other families raise ``NotImplementedError``). gloo
+    same requests and the same seed, and keeps its shard (cut where the
+    params are: a whole tree on the host stays there, and only the shard
+    moves to ``device``; ``dist.sharding.shard_params``: q/k/v, gate and up column-parallel,
+    o and down row-parallel, mamba's heads, MLA's heads, the experts,
+    the vocabulary split; ``self.cfg`` is the rank's config,
+    ``local_config``) and its caches (its kv heads, its SSM channels and
+    heads, the whole MLA latent). The ranks meet in the model's
+    collectives (``dist.collectives``): they compute the same logits and
+    sample the same tokens, so in a quantized mode each rank's
+    ``generated`` and ``stats()`` equal the single-device batcher's; in
+    mode "off" the row-parallel layers sum float partials, equal to one
+    device's up to float summation order (encdec and vlm raise
+    ``NotImplementedError``). gloo
     runs its collectives from the host, and a captured CUDA graph cannot
     hold one, so under a mesh the decode and prefill steps run eagerly
     (``graphed`` stays False); capturing the segments between
@@ -372,7 +378,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "prepare_weights=True requires exec_spec (the surgery is "
                 "matched to the spec's packing)")
-        params = _params_to(params, dev)
+        if mesh is None or prepare_weights:
+            params = _params_to(params, dev)
         if prepare_weights:
             from repro_torch.quant.prepare import prepare_for_spec
 
@@ -417,7 +424,9 @@ class ContinuousBatcher:
         if mesh is not None:
             from repro_torch.dist.sharding import local_config, shard_params
 
-            params = shard_params(params, cfg, mesh)
+            # cut where the params are (a host tree stays there), and move
+            # only this rank's shard to the device
+            params = shard_params(params, cfg, mesh, device=dev)
             self.cfg = cfg = local_config(cfg, mesh)
         self.params = params
         self.fused = fused

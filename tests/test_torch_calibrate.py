@@ -538,3 +538,28 @@ def test_kernel_events_record_the_forced_class_as_reference():
         JP.set_profiler(jprev)
     assert [e.shape_class for e in prof.events] == [e.shape_class for e in jprof.events] \
         == ["decode", "prefill"]
+
+
+def test_graph_kernel_events_time_cpu_calls_eagerly():
+    """Graph timing is for calls on the card: a CPU call inside
+    ``graph_kernel_events`` records as outside it, with the same result,
+    and the context restores the eager timing it found."""
+    spec = _spec("blocked/cuda/none")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-1, 2, (4, 64), generator=g).float()
+    w = torch.randint(-1, 2, (64, 32), generator=g).float()
+    prof = P.Profiler()
+    prev = P.set_profiler(prof)
+    try:
+        eager = X.execute(spec, x, w)
+        with X.graph_kernel_events(copies=2):
+            with X.graph_kernel_events():
+                timed = X.execute(spec, x, w)
+            assert X._STEP.graph_copies == 2
+        assert X._STEP.graph_copies == 0
+    finally:
+        P.set_profiler(prev)
+    assert torch.equal(eager, timed)
+    assert len(prof.events) == 2
+    assert [e.meta for e in prof.events] == [prof.events[0].meta] * 2
+    assert "timing" not in prof.events[1].meta

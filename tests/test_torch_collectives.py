@@ -58,6 +58,25 @@ def test_compressed_sum_unbiased_across_fresh_generators(suite):
     assert np.abs(mean - want).max() <= 4 * step * np.sqrt(SHARDS / 4 / TRIALS)
 
 
+def test_compressed_sum_of_integer_partials_unbiased_and_streams_per_rank(suite):
+    """The reference's properties of the collective on fixed integer
+    partials (the CiM event counts a row-parallel layer sums): the mean
+    over 256 fresh generators lies within 4 standard errors of the exact
+    sum, 4 * step * sqrt(shards / 4 / trials); and the default rounding
+    stream of ``execute_tp`` differs between ranks (each rank rounds
+    with noise of its own), while it is one stream per (shape, rank)."""
+    shards_x, mean = suite["unbiased_int"]
+    assert np.array_equal(shards_x, np.round(shards_x))
+    want = shards_x.astype(np.float64).sum(axis=0)
+    step = np.abs(shards_x).max() / 127.0
+    assert np.abs(mean - want).max() <= 4 * step * np.sqrt(SHARDS / 4 / R.INT_TRIALS)
+    assert not np.array_equal(mean, want)
+    draws = suite["default_streams"]
+    assert draws.shape == (SHARDS, 32)
+    assert all(not np.array_equal(draws[i], draws[j])
+               for i in range(SHARDS) for j in range(i + 1, SHARDS))
+
+
 def test_exact_sum_matches_reference_tp_allreduce(suite):
     """The exact path, on integer counts as the CiM partials are: the
     port's sum == the reference's psum inside shard_map, bit for bit."""

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 import torch_tp_ranks as R
+from repro_torch import profile as P
+from repro_torch.core import execution as X
 from repro_torch.core.execution import CiMExecSpec
 from repro_torch.core.ternary import deinterleave_planes, interleave_planes, pack_ternary
 from repro_torch.kernels import packed_mac as pm
@@ -1401,3 +1403,27 @@ def test_cuda_tp_batcher_matches_captured_single_device(cuda_device):
     assert toks == [r.generated for r in reqs]
     assert stats["host_syncs"] == stats["decode_steps"] + stats["prefill_batches"]
     assert launches == 210 * (stats["decode_steps"] + stats["prefill_batches"])
+
+
+@pytest.mark.cuda
+def test_graph_kernel_events_time_a_replay(cuda_device):
+    """Inside ``graph_kernel_events`` an ``execute`` call on the card
+    returns its eager result and records the device time of a graph
+    replay, which pays no host dispatch: less than the eager call's."""
+    spec = CiMExecSpec("blocked", "cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randint(-1, 2, (4, 576), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randint(-1, 2, (576, 1536), generator=g, device=cuda_device).to(torch.bfloat16)
+    want = X.execute(spec, x, w)
+    prof = P.Profiler()
+    prev = P.set_profiler(prof)
+    try:
+        eager = [X.execute(spec, x, w) for _ in range(3)]
+        with X.graph_kernel_events():
+            timed = [X.execute(spec, x, w) for _ in range(3)]
+    finally:
+        P.set_profiler(prev)
+    assert all(torch.equal(o, want) for o in eager + timed)
+    walls = [e.wall_us for e in prof.events]
+    assert [e.meta.get("timing") for e in prof.events] == [None] * 3 + ["graph"] * 3
+    assert 0 < min(walls[3:]) and max(walls[3:]) < min(walls[:3])

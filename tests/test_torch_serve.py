@@ -61,6 +61,21 @@ def test_generate_greedy_prefix_matches_jax():
     assert np.array_equal(got[:4], want[:4]), (got, want)
 
 
+_WANT = {}
+
+
+def _want(params, prompt, cfg, max_new, s_max=32):
+    """generate() of one prompt alone, memoized for the module per
+    (params, cfg, prompt, max_new, s_max): tests that hold batchers of
+    one config against the same prompts share the runs (the memo keeps
+    its params alive, so an id is never reused)."""
+    key = (id(params), cfg, tuple(prompt), max_new, s_max)
+    if key not in _WANT:
+        _WANT[key] = (params, generate(params, [prompt], cfg, max_new=max_new,
+                                       s_max=s_max, device="cpu")[0].tolist())
+    return _WANT[key][1]
+
+
 def _requests():
     return [Request(i, [1 + (i * 7 + j) % 250 for j in range(1 + i % 5)],
                     max_new=3 + i % 4) for i in range(6)]
@@ -237,9 +252,8 @@ def test_capacity_mix_matches_generate_and_jax(port_model, fused):
                                 device="cpu")
     reqs = _serve_mix(batcher, CAPACITY_MIX)
     for r in reqs:
-        want = generate(params, [r.prompt], cfg, max_new=len(r.generated), s_max=8,
-                        device="cpu")[0].tolist()
-        assert r.generated == want, r.rid
+        assert r.generated == _want(params, r.prompt, cfg, len(r.generated), s_max=8), \
+            r.rid
     jcfg = jget_config("smollm-135m", smoke=True)
     jb = JBatcher(jT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, n_slots=2,
                   s_max=8, fused=fused)
@@ -280,9 +294,7 @@ def test_quant_cache_batcher_matches_generate(port_model, cache_dtype, mode):
     batcher = ContinuousBatcher(params, cfg, n_slots=2, s_max=32, device="cpu")
     reqs = _serve_mix(batcher, zip(PROMPTS, MAX_NEWS))
     for r in reqs:
-        want = generate(params, [r.prompt], cfg, max_new=r.max_new, s_max=32,
-                        device="cpu")[0].tolist()
-        assert r.generated == want, r.rid
+        assert r.generated == _want(params, r.prompt, cfg, r.max_new), r.rid
 
 
 @pytest.mark.parametrize("cache_dtype", ["int8", "ternary"])
@@ -337,8 +349,22 @@ def test_refilled_slot_rebuilt_in_cache_layout(port_model, cache_dtype):
     assert second.generated == want
 
 
+@pytest.fixture(scope="module")
+def jax_looped_stats():
+    """The JAX looped batcher's stats on PROMPTS/MAX_NEWS: its config has
+    no cache dtype of the port's, so one run serves both cases below."""
+    jcfg = jget_config("smollm-135m", smoke=True)
+    jb = JBatcher(jT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, n_slots=2,
+                  s_max=32, fused=False)
+    for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEWS)):
+        jb.submit(JRequest(i, p, max_new=m))
+    jb.run()
+    return jb.stats()
+
+
 @pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
-def test_looped_baseline_matches_generate_and_jax_counts(port_model, cache_dtype):
+def test_looped_baseline_matches_generate_and_jax_counts(port_model, cache_dtype,
+                                                         jax_looped_stats):
     """fused=False: per-slot prefill at index 0 and a per-slot loop of
     single-row steps; tokens == generate(), and host_syncs (one per
     prefill and per active slot a step) and prefill_batches (one per
@@ -348,19 +374,11 @@ def test_looped_baseline_matches_generate_and_jax_counts(port_model, cache_dtype
                                 cache_dtype=cache_dtype, device="cpu")
     reqs = _serve_mix(batcher, zip(PROMPTS, MAX_NEWS))
     for r in reqs:
-        want = generate(params, [r.prompt], batcher.cfg, max_new=r.max_new, s_max=32,
-                        device="cpu")[0].tolist()
-        assert r.generated == want, r.rid
+        assert r.generated == _want(params, r.prompt, batcher.cfg, r.max_new), r.rid
     st = batcher.stats()
     assert st["host_syncs"] == sum(len(r.generated) for r in reqs)
     assert st["prefill_batches"] == len(reqs) and batcher.capture_seconds is None
-    jcfg = jget_config("smollm-135m", smoke=True)
-    jb = JBatcher(jT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, n_slots=2,
-                  s_max=32, fused=False)
-    for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEWS)):
-        jb.submit(JRequest(i, p, max_new=m))
-    jb.run()
-    assert st == jb.stats()
+    assert st == jax_looped_stats
 
 
 def test_looped_baseline_is_greedy_only(port_model):

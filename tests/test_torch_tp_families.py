@@ -1,0 +1,298 @@
+"""Tensor-parallel serving of the ssm, hybrid and moe (MLA) families and
+of mode "off" (``dist.sharding``: mamba on whole SSM heads, MLA on whole
+heads with ``w_dkv`` replicated, the experts over the ranks) against the
+port on one device and against the JAX package's TP.
+
+The counterpart of the reference's family sweep
+(``test_tp_serve.py::test_fused_tp_decode_token_identical``): each family
+is served from the reference's ``init_params(PRNGKey(0))`` tree, bridged,
+with its PROMPTS/MAX_NEWS at ``n_slots=2, s_max=32``. The port's ranks
+are gloo processes on the CPU, one group per degree for the whole module
+(``torch_tp_ranks.tp_family_suite`` runs every family inside it). The
+contract:
+
+  * mode "off" at tp 2 and 4, every family: tokens and ``stats()`` equal
+    the single device's, and the prefill logits within one bf16 ulp (the
+    row-parallel layers -- o, down, mamba's ``w_out``, MLA's ``wo``, the
+    shared experts' down -- sum float32 partials in another order than
+    one device's matmul);
+  * ``[dense]`` and ``[ssm]``: a greedy prefix of >= 2 tokens with the
+    reference's TP batcher on its host mesh (the reference's ``[hybrid]``
+    and ``[mla]`` cases fail in the reference, so those families are held
+    against the port's single device only);
+  * mode "cim" at tp 2, ssm, hybrid and moe: tokens == single device;
+  * each family's layout, and the guards.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_tp_ranks as R
+from repro.launch.mesh import make_tp_mesh as jmake_tp_mesh
+from repro.models import transformer as jT
+from repro.models.layers import QuantConfig as JQuantConfig
+from repro.models.registry import get_config as jget_config
+from repro.serve.engine import ContinuousBatcher as JBatcher
+from repro.serve.engine import Request as JRequest
+from repro_torch.bridge import params_from_numpy
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import serve as launcher
+from repro_torch.launch.mesh import TPMesh, spawn_tp
+from repro_torch.models import transformer as T
+from repro_torch.models.attention import MLACache
+from repro_torch.models.layers import QuantConfig, _weight_codes
+from repro_torch.models.registry import get_config
+from repro_torch.models.ssm import SSMCache
+from repro_torch.serve.engine import ContinuousBatcher
+
+FAMILIES = tuple(R.FAMILY_ARCHS)
+SPAWN_TIMEOUT = 300.0
+# one bf16 ulp relative, on logits of magnitude up to a few units
+LOGIT_RTOL = LOGIT_ATOL = 2.0 ** -7
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return {f: jT.init_params(jax.random.PRNGKey(0), jget_config(arch, smoke=True))
+            for f, arch in R.FAMILY_ARCHS.items()}
+
+
+@pytest.fixture(scope="module")
+def trees(jax_params):
+    return {f: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
+            for f, p in jax_params.items()}
+
+
+@pytest.fixture(scope="module")
+def tp2(trees):
+    return spawn_tp(R.tp_family_suite, 2, trees, ("off", "cim"),
+                    timeout=SPAWN_TIMEOUT, threads=1)
+
+
+@pytest.fixture(scope="module")
+def tp4(trees):
+    return spawn_tp(R.tp_family_suite, 4, trees, ("off",),
+                    timeout=SPAWN_TIMEOUT, threads=1)
+
+
+@pytest.fixture(scope="module")
+def single(trees):
+    out = {}
+    for family, tree in trees.items():
+        for mode in ("off", "cim"):
+            cfg = R.family_cfg(family, mode)
+            params = params_from_numpy(tree, cfg, device="cpu")
+            out[(family, mode)] = R.serve(params, cfg)
+            if mode == "off":
+                out[(family, "logits")] = R.prefill_logits(params, cfg).numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_tp(jax_params):
+    """The reference's TP batcher (tp 2, mode "off") on the families whose
+    reference TP test passes: tokens per request."""
+    out = {}
+    for family in ("dense", "ssm"):
+        jcfg = jget_config(R.FAMILY_ARCHS[family], smoke=True).replace(
+            quant=JQuantConfig(mode="off"))
+        jb = JBatcher(jax_params[family], jcfg, n_slots=2, s_max=32,
+                      mesh=jmake_tp_mesh(2))
+        reqs = [JRequest(i, p, max_new=m) for i, (p, m) in
+                enumerate(zip(R.PROMPTS, R.MAX_NEWS))]
+        for r in reqs:
+            jb.submit(r)
+        jb.run()
+        out[family] = [r.generated for r in reqs]
+    return out
+
+
+def _view(size, rank=0):
+    return TPMesh(None, rank, size, tuple(range(size)))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("degree", ["tp2", "tp4"])
+def test_mode_off_tp_equals_single_device(request, single, degree, family):
+    """The reference's sweep in the port: mode "off", tokens and stats ==
+    one device's; the prefill logits within one bf16 ulp."""
+    got = request.getfixturevalue(degree)
+    assert got[(family, "off")] == single[(family, "off")]
+    np.testing.assert_allclose(got[(family, "logits")], single[(family, "logits")],
+                               rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_mode_off_tp_greedy_prefix_vs_reference_tp(tp2, reference_tp, family):
+    toks, _ = tp2[(family, "off")]
+    for got, want in zip(toks, reference_tp[family]):
+        prefix = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                      len(want))
+        assert prefix >= 2, (family, got, want)
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "moe"])
+def test_cim_tp2_tokens_equal_single_device(tp2, single, family):
+    """cim: every statistic over a split dim (the gated SSM norm, MLA's
+    kv_norm, each expert's scale, the combine order) is taken whole, and
+    every row-parallel partial is integer counts: the single device's
+    tokens and stats."""
+    assert tp2[(family, "cim")] == single[(family, "cim")]
+
+
+# ---------------------------------------------------------------------------
+# Layouts (no collective runs: a view of a mesh with no group)
+# ---------------------------------------------------------------------------
+
+
+def _whole_codes(w, qc):
+    parts = [_weight_codes(w[i], qc) for i in range(w.shape[0])]
+    return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+
+
+@pytest.mark.parametrize("mode", ["cim", "off"])
+def test_ssm_layout_whole_heads(mode):
+    cfg = get_config("mamba2-780m", smoke=True)
+    if mode == "off":
+        cfg = cfg.replace(quant=QuantConfig(mode="off"))
+    params = T.init_params(cfg, seed=0, device="cpu")
+    tp, rank = 2, 1
+    mesh = _view(tp, rank)
+    local = shd.shard_params(params, cfg, mesh)["blocks"]["mamba"]
+    lcfg = shd.local_config(cfg, mesh)
+    di, h, n, p = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_head_dim
+    hl, dil = h // tp, h // tp * p
+    assert (lcfg.ssm_n_heads, lcfg.ssm_d_inner, lcfg.ssm_n_groups) == (hl, dil, 1)
+    assert (lcfg.d_model, lcfg.vocab) == (cfg.d_model, cfg.vocab)
+    cols = torch.cat([torch.arange(rank * dil, (rank + 1) * dil),
+                      di + torch.arange(rank * dil, (rank + 1) * dil),
+                      2 * di + torch.arange(2 * n),            # B and C: one group, whole
+                      2 * di + 2 * n + torch.arange(rank * hl, (rank + 1) * hl)])
+    whole = params["blocks"]["mamba"]
+    w_in = local["w_in"]
+    assert w_in.kind == "col" and w_in.k == cfg.d_model
+    if mode == "cim":
+        codes, scale = _whole_codes(whole["w_in"], cfg.quant)
+        assert torch.equal(w_in.w, codes[..., cols]) and torch.equal(
+            w_in.scale, scale[..., cols])
+    else:
+        assert torch.equal(w_in.w, whole["w_in"][..., cols]) and w_in.scale is None
+    conv = torch.cat([torch.arange(rank * dil, (rank + 1) * dil), di + torch.arange(2 * n)])
+    assert torch.equal(local["conv_w"], whole["conv_w"][..., conv])
+    assert torch.equal(local["conv_b"], whole["conv_b"][..., conv])
+    for name in ("A_log", "D", "dt_bias"):
+        assert torch.equal(local[name], whole[name][..., rank * hl:(rank + 1) * hl]), name
+    assert torch.equal(local["norm"], whole["norm"])
+    w_out = local["w_out"]
+    assert (w_out.kind, w_out.k, w_out.w.shape[-2]) == ("row", di, di // tp)
+    caches = T.init_caches(lcfg, 2, 16, device="cpu")
+    assert isinstance(caches, SSMCache)
+    assert caches.conv.shape == (cfg.n_layers, 2, cfg.ssm_conv_width - 1, dil + 2 * n)
+    assert caches.state.shape == (cfg.n_layers, 2, hl, p, n)
+    assert shd.cache_specs(T.init_caches(cfg, 2, 16, device="cpu"), mesh, 2, cfg) == [
+        (None, "data", None, "model"), (None, "data", "model", None, None)]
+    # groups that divide split with the heads: rank 1 takes group 1's B and C
+    g2 = cfg.replace(ssm_n_groups=2)
+    cols2 = shd.mamba_columns(g2, 2, 1)
+    assert torch.equal(cols2["w_in"][2 * dil:2 * dil + 2 * n],
+                       torch.cat([2 * di + n + torch.arange(n),
+                                  2 * di + 3 * n + torch.arange(n)]))
+    assert shd.local_config(g2, mesh).ssm_n_groups == 1
+    # heads that do not divide: the mamba layers stay whole on every rank
+    assert not shd.mamba_splits(cfg, 3)
+
+
+def test_hybrid_layout_heads_and_cache_pair():
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    tp = 2
+    mesh = _view(tp, 1)
+    local = shd.shard_params(params, cfg, mesh)
+    lcfg = shd.local_config(cfg, mesh)
+    assert (lcfg.n_heads, lcfg.n_kv_heads, lcfg.ssm_n_heads) == (
+        cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.ssm_n_heads // tp)
+    sa = local["shared_attn"]
+    assert [sa["attn"][k].kind for k in ("wq", "wk", "wv", "wo")] == ["col"] * 3 + ["row"]
+    assert [sa["mlp"][k].kind for k in ("w_gate", "w_up", "w_down")] == [
+        "col", "col", "row"]
+    assert local["blocks"]["mamba"]["w_in"].kind == "col"
+    ssm_c, kv = T.init_caches(lcfg, 2, 16, device="cpu")
+    assert ssm_c.state.shape[2] == cfg.ssm_n_heads // tp
+    assert kv.k.shape == (cfg.n_layers // cfg.hybrid_attn_every, 2, 16,
+                          cfg.n_kv_heads // tp, cfg.resolved_head_dim)
+    specs = shd.cache_specs(T.init_caches(cfg, 2, 16, device="cpu"), mesh, 2, cfg)
+    assert specs == [(None, "data", None, "model"), (None, "data", "model", None, None),
+                     (None, "data", None, "model", None)] + [
+        (None, "data", None, "model", None)]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_layout_experts_and_mla(tp):
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rank = tp - 1
+    mesh = _view(tp, rank)
+    local = shd.shard_params(params, cfg, mesh)
+    lcfg = shd.local_config(cfg, mesh)
+    whole_moe, moe = params["blocks"]["moe"], local["blocks"]["moe"]
+    el = cfg.n_experts // tp
+    for name in ("w_gate", "w_up", "w_down"):
+        shard = moe[name]
+        assert isinstance(shard, shd.ExpertShard) and shard.first == rank * el
+        assert torch.equal(shard.w, whole_moe[name][:, rank * el:(rank + 1) * el])
+    assert moe["router"] is whole_moe["router"]
+    assert (moe["shared"]["w_gate"].kind, moe["shared"]["w_down"].kind) == ("col", "row")
+    attn, whole_attn = local["blocks"]["attn"], params["blocks"]["attn"]
+    hl, dn, dv = cfg.n_heads // tp, cfg.qk_nope_head_dim, cfg.v_head_dim
+    assert lcfg.n_heads == hl and lcfg.kv_lora_rank == cfg.kv_lora_rank
+    assert (attn["wq"].kind, attn["wo"].kind) == ("col", "row")
+    assert attn["wq"].w.shape[-1] == hl * (dn + cfg.qk_rope_head_dim)
+    assert attn["w_dkv"] is whole_attn["w_dkv"] and attn["kv_norm"] is whole_attn["kv_norm"]
+    assert torch.equal(attn["w_uk"], whole_attn["w_uk"][..., rank * hl * dn:(rank + 1) * hl * dn])
+    assert torch.equal(attn["w_uv"], whole_attn["w_uv"][..., rank * hl * dv:(rank + 1) * hl * dv])
+    caches = T.init_caches(lcfg, 2, 16, device="cpu")
+    assert isinstance(caches, MLACache)
+    assert caches.ckv.shape == (cfg.n_layers, 2, 16, cfg.kv_lora_rank)
+    assert shd.cache_specs(T.init_caches(cfg, 2, 16, device="cpu"), mesh, 2, cfg) == [
+        (None, "data", None, None)] * 2
+    # experts that do not divide stay whole on every rank
+    assert torch.is_tensor(shd.shard_params(params, cfg, _view(3))["blocks"]["moe"]["w_up"])
+
+
+# ---------------------------------------------------------------------------
+# Guards and the launcher
+# ---------------------------------------------------------------------------
+
+
+def test_guards_and_launcher(capsys, monkeypatch):
+    """encdec and vlm raise before any collective, in the batcher and in
+    the launcher (before any rank starts); --compress-tp in mode "off"
+    raises; ``--tp 2`` serves the ssm family."""
+    mesh = _view(2)
+    for arch in ("whisper-large-v3", "llava-next-34b"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(NotImplementedError, match="Queue A item 2.6"):
+            ContinuousBatcher(T.init_params(cfg, seed=0, device="cpu"), cfg,
+                              n_slots=2, s_max=16, device="cpu", mesh=mesh)
+        with pytest.raises(SystemExit):
+            launcher.main(["--smoke", "--device", "cpu", "--tp", "2", "--arch", arch])
+        assert "Queue A item 2.6" in capsys.readouterr().err
+    off = R.family_cfg("ssm", "off")
+    with pytest.raises(ValueError, match="quantized"):
+        ContinuousBatcher(T.init_params(off, seed=0, device="cpu"), off, n_slots=2,
+                          s_max=16, device="cpu", mesh=mesh, compress_tp=True)
+    with pytest.raises(ValueError, match="quantized"):
+        dataclasses.replace(off.quant, tp_reduce="int8")
+    monkeypatch.setattr(launcher, "TP_TIMEOUT_S", 120.0)
+    assert launcher.main(["--smoke", "--device", "cpu", "--tp", "2", "--arch",
+                          "mamba2-780m", "--requests", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "tp=2 rank 0" in out and "request 1:" in out

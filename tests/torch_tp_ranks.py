@@ -30,6 +30,8 @@ TP_SPECS = tuple(f"{f}/{b}" for f in ("exact", "blocked", "corrected",
     "blocked/cuda", "exact/cuda")
 PACKED_SPECS = ("blocked/cuda", "exact/cuda", "blocked/torch", "blocked/cuda_stream")
 PACKED_M = (1, 4, 8, 128)
+# fresh rounding streams of the compressed sum's unbiasedness check
+INT_TRIALS = 256
 PREPARED_SPEC = CiMExecSpec(formulation="blocked", backend="torch", packing="bitplane_u8")
 
 
@@ -163,6 +165,60 @@ def tp_suite(mesh, trees, x, w, planes_w, serve_checks):
     return out
 
 
+# the reference's TP family sweep (tests/test_tp_serve.py): one smoke arch
+# per family, deepseek-v2 at a capacity factor that drops nothing
+FAMILY_ARCHS = {"dense": "smollm-135m", "ssm": "mamba2-780m",
+                "hybrid": "zamba2-2.7b", "moe": "deepseek-v2-236b"}
+
+
+def family_cfg(family, mode):
+    """The family's smoke config (bf16, the registry default) in ``mode``
+    ("off", or "cim", the registry's own)."""
+    from repro_torch.models.layers import QuantConfig
+
+    cfg = get_config(FAMILY_ARCHS[family], smoke=True)
+    if family == "moe":
+        cfg = cfg.replace(moe_capacity_factor=8.0)
+    if mode == "off":
+        cfg = cfg.replace(quant=QuantConfig(mode="off"))
+    return cfg
+
+
+def prefill_logits(params, cfg, mesh=None):
+    """PROMPTS left-padded into one batch, prefilled through
+    ``decode_step`` on a batcher's params and caches (the rank's shard
+    under ``mesh``): the logits (B, S, V) as float32."""
+    from repro_torch.models import transformer as T
+
+    b = ContinuousBatcher(params, cfg, n_slots=len(PROMPTS), s_max=32, device="cpu",
+                          mesh=mesh)
+    s_pad = max(map(len, PROMPTS))
+    tokens = torch.zeros((len(PROMPTS), s_pad), dtype=torch.int64)
+    start = torch.tensor([s_pad - len(p) for p in PROMPTS])
+    for i, p in enumerate(PROMPTS):
+        tokens[i, s_pad - len(p):] = torch.tensor(p)
+    with torch.no_grad():
+        logits, _ = T.decode_step(b.params, tokens, b.caches, 0, b.cfg, start=start)
+    return logits.to(torch.float32)
+
+
+def tp_family_suite(mesh, trees, modes):
+    """Every family of ``trees`` (the bridged reference trees, by family)
+    on one spawned group: per mode of ``modes``, PROMPTS served (tokens,
+    stats) and, in mode "off", the prefill logits of :func:`prefill_logits`."""
+    out = {}
+    for family, tree in trees.items():
+        for mode in modes:
+            if mode == "cim" and family == "dense":
+                continue                 # test_torch_tp.py serves it
+            cfg = family_cfg(family, mode)
+            params = params_from_numpy(tree, cfg, device="cpu")
+            out[(family, mode)] = serve(params, cfg, mesh)
+            if mode == "off":
+                out[(family, "logits")] = prefill_logits(params, cfg, mesh)
+    return out
+
+
 def collectives_suite(mesh, sweep, unbiased_trials):
     """The collectives on one spawned group: the compressed sum over a
     seeded sweep (each rank's own draw of each case, and its result), the
@@ -187,6 +243,18 @@ def collectives_suite(mesh, sweep, unbiased_trials):
         gen = torch.Generator().manual_seed(10_000 + 97 * t + mesh.rank)
         acc += C.tp_allreduce(x, mesh.group, generator=gen, compressed=True).double()
     out["unbiased"] = (C.all_gather(x[None], mesh.group, dim=0), acc / unbiased_trials)
+    # fixed integer partials (event counts), 256 fresh rounding streams
+    ints = ((torch.arange(96) * (mesh.rank + 3)) % 81 - 40).to(torch.float32)
+    acc = torch.zeros(96, dtype=torch.float64)
+    for t in range(INT_TRIALS):
+        gen = torch.Generator().manual_seed(50_000 + 31 * t + mesh.rank)
+        acc += C.compressed_psum_int8(ints, mesh.group, gen).double()
+    out["unbiased_int"] = (C.all_gather(ints[None], mesh.group, dim=0), acc / INT_TRIALS)
+    # the default stream of a compressed execute_tp call, on every rank
+    from repro_torch.core.execution import _tp_stream
+
+    draw = torch.rand(32, generator=_tp_stream(200, 48, mesh.rank, "cpu"))
+    out["default_streams"] = C.all_gather(draw[None], mesh.group, dim=0)
     counts = torch.randint(-40, 41, (8, 24), generator=g).to(torch.float32)
     C.reset_counts()
     out["exact"] = (C.all_gather(counts[None], mesh.group, dim=0),
