@@ -231,7 +231,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      (amax/127) over the median |partial|. A rank's failure or a run past
      TP_TIMEOUT_S fails the script; the eager TP step median is printed
      beside phase 3's eager step.
- 22. (run last) the other families over 2 gloo ranks on cuda:0:
+ 22. the other families over 2 gloo ranks on cuda:0:
      full-size mamba2-780m and zamba2-2.7b and deepseek-v2-236b at full
      width and 2 of 60 layers, first served single-device (eager) on
      phase 3's requests, then in every rank, each rank making the seeded
@@ -244,6 +244,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      with its greedy prefix and largest first-fill logit difference
      against the single device printed; the eager TP step beside the
      eager single-device step, per family.
+ 23. (run last) the analysis contracts (repro_torch.analysis): the CLI
+     ``python -m repro_torch.analysis --check --json`` in a subprocess
+     beside the rest of the phase, exit 0 with every combination that
+     skips on the CPU (the cuda and cuda_stream points) audited here;
+     serve.fused_decode_step.cim's step at full size (phase 3's seeded
+     params) on CUDA tensors at 4 and 8 slots: its contract's rules, 0
+     host syncs, 0 host->device copies, one op count, #1 launched 210
+     times a call and no other kernel; one eager step and one replay of
+     it captured, under torch.cuda.set_sync_debug_mode("error"); and the
+     contracts' SASS pins on the SASS phase 1 read (int8 tensor-core MMAs
+     and no float ones in every instance of #2 and #3, #3's asynchronous
+     copies and their wait); one "analysis:" line.
 It then prints a JSON line of phase 20's fits, replay error,
 projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
@@ -475,6 +487,9 @@ SASS_CHECKS = {
     "ternary_exact_matmul": ("ternary_exact", "f"),
 }
 SASS_OPS = ("LDGSTS", "UBLKCP", "UTMALDG", "LDGDEPBAR", "DEPBAR", "SYNCS", "IMMA")
+# each checked kernel's SASS per instance, as check_sass read it: phase 23
+# applies the analysis contracts' SASS pins to it
+SASS_TEXT = {}
 
 
 def tile_args(name: str):
@@ -542,6 +557,7 @@ def check_sass(nvcc: str, libs: dict) -> dict:
             if not ops["IMMA"]:
                 fail(f"{kernel} {name}: no int8 tensor-core MMA (IMMA)")
             found[kernel][name] = ops
+            SASS_TEXT.setdefault(kernel, {})[name] = part
         if not found[kernel]:
             fail(f"no {kernel} instance (output type {out_type}) in the SASS "
                  f"of {libs[stem]}")
@@ -3801,6 +3817,142 @@ def tp_family_phase(torch, card, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the analysis contracts on the card
+# ---------------------------------------------------------------------------
+
+# the slot counts of the full-size step's audit (one op count across them)
+ANALYSIS_SLOTS = (4, 8)
+# the CLI's own time limit (its TP combinations spawn gloo ranks)
+ANALYSIS_CLI_TIMEOUT_S = 300
+
+
+def analysis_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 23: repro_torch.analysis on the card. The CLI (``python -m
+    repro_torch.analysis --check --json``) runs in a subprocess beside the
+    rest: it must exit 0, and every contract combination that skips on
+    the CPU (the cuda and cuda_stream points) must be audited here. (a)
+    serve.fused_decode_step.cim's step at full size (phase 3's seeded
+    smollm-135m params, mode "cim", s_max 256) on CUDA tensors at
+    n_slots 4 and 8: the contract's rules, 0 host syncs, 0 host->device
+    copies, one op count across both, #1 launched 210 times a call and
+    no other kernel; (b) one eager step and one replay of the step
+    captured (serve.graph.CapturedStep) under
+    torch.cuda.set_sync_debug_mode("error"); (c) the contracts' SASS pins
+    on the SASS check_sass read (every instance of #2 and #3 on int8
+    tensor cores, #3's asynchronous copies and their wait)."""
+    import tempfile
+
+    from repro_torch.analysis import op_audit as O
+    from repro_torch.analysis.contracts import (
+        get_trace_contract,
+        registered_trace_contracts,
+    )
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import fused_step_point
+    from repro_torch.serve.graph import CapturedStep
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="analysis-")
+    report_path = os.path.join(tmp, "report.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--json",
+         report_path], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        # (a) the full-size step, audited on the card
+        cfg = get_config("smollm-135m")
+        if cfg.quant.mode != "cim" or cfg.n_layers != 30:
+            fail(f"phase 23 needs full-size smollm-135m in mode cim: {cfg}")
+        params = T.init_params(cfg, seed=0, device=dev)
+        point = get_trace_contract("serve.fused_decode_step.cim")
+        build = fused_step_point("cim", s_max=256, cfg=cfg, params=params, device=dev)
+        ops, kernels = {}, {}
+        for n in ANALYSIS_SLOTS:
+            fn, args = build(n_slots=n)
+            trace = O.trace_ops(fn, args)
+            found = O.check_trace(trace, point.contract, point.name)
+            if found:
+                fail(f"analysis: {point.name} at n_slots={n} on the card: "
+                     + "; ".join(f"{f.rule}: {f.message}" for f in found))
+            syncs = sum(O.is_host_sync(r) for r in trace)
+            h2d = sum(O.is_host_to_device(r) for r in trace)
+            ops[n], kernels[n] = O.total_ops(trace), O.kernel_launches(trace)
+            if syncs or h2d:
+                fail(f"analysis: {syncs} host syncs, {h2d} host->device copies "
+                     f"in the full-size step at n_slots={n}")
+            if kernels[n] != {"ternary_cim_mac": 210}:
+                fail(f"analysis: the full-size step launched {kernels[n]}, "
+                     f"not #1 210 times, at n_slots={n}")
+        if len(set(ops.values())) != 1:
+            fail(f"analysis: the full-size step's op count varies with n_slots: {ops}")
+        audit_s = time.perf_counter() - t0
+
+        # (b) no synchronizing call in an eager step nor in a replay
+        fn, args = build(n_slots=ANALYSIS_SLOTS[0])
+        p, tokens, caches, positions, start, gen = args
+        step = CapturedStep(lambda tok, pos, st: fn(p, tok, caches, pos, st, gen)[0],
+                            [tokens, positions, start], dev)
+        step()                    # warm-up and capture (a capture syncs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = fn(*args)[0]
+            replayed = step()
+        except RuntimeError as e:
+            fail(f"analysis: a synchronizing call in the step under sync debug "
+                 f"mode: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if eager.shape != replayed.shape or step.replays != 1:
+            fail(f"analysis: eager {tuple(eager.shape)} / replayed "
+                 f"{tuple(replayed.shape)} tokens, {step.replays} replays")
+        del step
+
+        # (c) the SASS pins on the SASS check_sass read
+        texts = {wrappers(tm, pm)[k].entry: v for k, v in SASS_TEXT.items()}
+        pinned = [q for q in registered_trace_contracts() if q.contract.sass_pins]
+        sass_found = [f for q in pinned for f in O.check_sass(q.contract, q.name, texts)]
+        if sass_found:
+            fail("analysis: SASS pins: " + "; ".join(f.message for f in sass_found))
+        n_pins = sum(len(q.contract.sass_pins) for q in pinned)
+
+        # (d) the CLI
+        out, _ = cli.communicate(timeout=ANALYSIS_CLI_TIMEOUT_S)
+    except BaseException:
+        cli.kill()
+        cli.wait()
+        raise
+    if cli.returncode != 0:
+        fail(f"analysis: python -m repro_torch.analysis --check exited "
+             f"{cli.returncode}:\n{out[-4000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    combo_skips = {name: [s for s in meta["skipped"] if not s.startswith("sass ")]
+                   for name, meta in report["contracts"].items()}
+    if any(combo_skips.values()) or len(report["contracts"]) != 13:
+        fail(f"analysis: contracts not audited on the card: "
+             f"{ {k: v for k, v in combo_skips.items() if v} }")
+    secs = time.perf_counter() - t0
+    counts = {name: sorted(set(meta["op_counts"].values()))
+              for name, meta in report["contracts"].items()}
+    sass_skips = sum(len(meta["skipped"]) for meta in report["contracts"].values())
+    log(f"analysis: {len(report['contracts'])} contracts, "
+        f"{report['summary']['total']} findings, {sass_skips} skips (SASS pins, "
+        f"applied here: {n_pins} pins over {sum(len(v) for v in texts.values())} "
+        f"instances); full-size step ops {ops} by n_slots, #1 "
+        f"{kernels[ANALYSIS_SLOTS[0]]['ternary_cim_mac']} a call, 0 host syncs, 0 "
+        f"host->device copies, no sync under debug mode; CLI --check 0, op counts "
+        f"{counts}; audit {audit_s:.1f} s, phase {secs:.1f} s on {card}")
+    return {"ops": {str(k): v for k, v in ops.items()}, "cli_op_counts": counts,
+            "findings": report["summary"]["total"], "sass_pins": n_pins,
+            "audit_s": audit_s, "seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3885,6 +4037,7 @@ def main(argv=None) -> int:
     serving["tp"] = tp = tp_phase(torch, card, serving["cim"])
     serving["tp_families"] = tp_families = tp_family_phase(torch, card,
                                                            torch.device("cuda"))
+    serving["analysis"] = analysis_phase(torch, tm, pm, card, torch.device("cuda"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -13,7 +13,6 @@ Public surface, as the reference's:
 The names resolve on first access (PEP 562), not at import:
 ``kernels/`` imports ``core.ternary``, and ``core.execution`` imports
 ``kernels/``, so an eager re-export here would make that a cycle.
-``ternary_sparsity`` of the reference's re-exports is not ported yet.
 """
 import importlib
 
@@ -24,9 +23,10 @@ _EXPORTS = {
                  "SENSE_ERROR_PROB", "SiTeCiMConfig", "nm_ternary_matmul",
                  "scalar_product", "site_cim_matmul",
                  "site_cim_matmul_bitplane", "site_cim_matmul_corrected"),
-    "ternary": ("from_bitplanes", "pack_ternary", "ste_ternarize",
-                "ste_unit_ternarize", "ternarize", "to_bitplanes",
-                "unpack_ternary"),
+    "ternary": ("block_overflow_rate", "from_bitplanes", "pack_ternary",
+                "ste_ternarize", "ste_unit_ternarize", "ternarize",
+                "ternarize_fixed", "ternary_sparsity", "to_bitplanes",
+                "unpack_ternary", "validate_bitplanes"),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_WHERE)

@@ -414,6 +414,7 @@ def _graph_us(thunk: Callable, copies: int) -> float:
     start.record()
     graph.replay()
     end.record()
+    # analysis: host-sync ok -- profiler timing after the eager call, outside any step
     end.synchronize()
     del graph
     return start.elapsed_time(end) * 1e3 / copies
@@ -437,6 +438,7 @@ def _profiled_call(entry: str, spec: CiMExecSpec, x: torch.Tensor, m: int,
     out = thunk()
     t1 = time.perf_counter()
     if cuda:
+        # analysis: host-sync ok -- profiler timing after the eager call, outside any step
         torch.cuda.synchronize(x.device)
     t2 = time.perf_counter()
     wall_us = (t2 - t0) * 1e6
@@ -1033,6 +1035,7 @@ def _time_us(run: Callable, tiles: Tuple[int, ...], repeats: int, device,
     back, without the host's dispatch between them. The collector is off
     during the capture, as ``serve.graph.CapturedStep`` keeps it."""
     run(tiles)
+    # analysis: host-sync ok -- the tile sweep times calls, outside any step
     torch.cuda.synchronize(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -1050,13 +1053,14 @@ def _time_us(run: Callable, tiles: Tuple[int, ...], repeats: int, device,
     graph.replay()
     best = math.inf
     for _ in range(max(1, repeats)):
+        # analysis: host-sync ok -- the tile sweep times calls, outside any step
         torch.cuda.synchronize(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
-        end.synchronize()
+        end.synchronize()  # analysis: host-sync ok -- the tile sweep times calls, outside any step
         best = min(best, start.elapsed_time(end) * 1e3 / calls)
     return best
 
@@ -1224,3 +1228,210 @@ def spec_cost_summary(spec: CiMExecSpec, tech=None, array=None) -> Dict[str, obj
         "mac_pass_pj": cost.mac_pass_pj,
         "macro_area_vs_nm": cost.macro_area,
     }
+
+
+# ---------------------------------------------------------------------------
+# Tracing contracts (repro_torch.analysis)
+#
+# The execution-shim invariants, declared where the shim lives. These
+# drive the op auditor, the tests and the `python -m repro_torch.analysis`
+# ratchet from one table, under the reference's names: the suffixes
+# ``jnp``, ``pallas`` and ``stream`` run the port's ``torch``, ``cuda``
+# and ``cuda_stream`` backends. A ``cuda`` or ``cuda_stream`` point runs
+# on the card (its kernels launch, and its SASS pins apply) and is a
+# skip without one.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import (  # noqa: E402
+    OpRule,
+    SkipTrace,
+    TraceContract,
+    forbid_convert,
+    rank_mesh,
+    register_trace_contract,
+    sass_async_copies,
+    sass_int_accum,
+)
+
+
+def _audit_device(backend: str) -> torch.device:
+    if backend == "torch":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SkipTrace(f"the {backend} backend runs its kernels on the card")
+    return torch.device("cuda")
+
+
+def _audit_planes(spec: CiMExecSpec, device, k: int = 512, n: int = 256
+                  ) -> tern.PackedPlanes:
+    """Deterministic canonical PackedPlanes for audit runs: the
+    prepare-time layout without initializing a model. K/N are chosen so
+    no plane dim collides with the 128-row M tile (the decode-M rule
+    keys on a literal 128 leading dim)."""
+    g = torch.Generator().manual_seed(7)
+    w = torch.randint(-1, 2, (k, n), generator=g, dtype=torch.int8)
+    p1, p2 = tern.pack_ternary(w, axis=0)
+    k_mult, n_mult = canonical_plane_layout(spec, device)
+    p1 = ref.pad_axis(ref.pad_axis(p1, k_mult // 8, 0), n_mult, 1).to(device)
+    p2 = ref.pad_axis(ref.pad_axis(p2, k_mult // 8, 0), n_mult, 1).to(device)
+    scale = torch.ones((n,), dtype=torch.float32, device=device)
+    if spec.backend == "cuda_stream":
+        # the canonical layout prepare_for_spec emits for stream specs:
+        # plane-interleaved version 1
+        wi = tern.interleave_planes(p1, p2)
+        return tern.PackedPlanes(pos=wi, neg=wi[:0], scale=scale, k=k, n=n,
+                                 layout_version=tern.PLANE_LAYOUT_STREAM)
+    return tern.PackedPlanes(pos=p1, neg=p2, scale=scale, k=k, n=n)
+
+
+def no_decode_m128_rule() -> OpRule:
+    """No decode-class call pads an operand's M to the 128-row prefill
+    tile: the decode path takes M as it is (its kernels' M tile is 8).
+    Fires on a pad or cat that makes a 2-D non-uint8 tensor of 128 rows
+    from fewer (uint8 operands are the stored planes, whose leading dim
+    is K/8 or K/4, not M)."""
+
+    def _m128(rec) -> bool:
+        if rec.name not in ("constant_pad_nd", "pad", "cat") or not rec.outputs:
+            return False
+        out = rec.outputs[0]
+        return (len(out.shape) == 2 and out.shape[0] == 128 and out.dtype != "uint8"
+                and any(len(t.shape) == 2 and t.shape[0] < 128 for t in rec.inputs))
+
+    return OpRule(
+        rule="decode-m-pad-128", when=_m128,
+        reason="decode shapes take M as it is (an 8-row tile), never 128",
+    )
+
+
+def _packed_decode_point(backend: str):
+    """execute_packed over canonical stored planes at a decode shape
+    (M=3): the serving weight path."""
+
+    def build():
+        dev = _audit_device(backend)
+        spec = CiMExecSpec(formulation="blocked", backend=backend,
+                           packing="bitplane_u8")
+        planes = _audit_planes(spec, dev)
+        g = torch.Generator().manual_seed(3)
+        x = torch.randint(-1, 2, (3, planes.k), generator=g).to(torch.float32).to(dev)
+
+        def f(xv, pos, neg):
+            lay = tern.PackedPlanes(pos=pos, neg=neg, scale=planes.scale,
+                                    k=planes.k, n=planes.n,
+                                    layout_version=planes.layout_version)
+            return execute_packed(spec, xv, lay)
+
+        return f, (x, planes.pos, planes.neg)
+
+    return build
+
+
+_PACKED_DECODE_RULES = dict(
+    max_host_syncs=0,
+    no_pad_on_dtypes=("uint8",),
+)
+
+register_trace_contract(
+    "execution.execute_packed.decode.jnp",
+    _packed_decode_point("torch"),
+    TraceContract(**_PACKED_DECODE_RULES),
+)
+
+register_trace_contract(
+    "execution.execute_packed.decode.pallas",
+    _packed_decode_point("cuda"),
+    TraceContract(
+        **_PACKED_DECODE_RULES,
+        accum_dtype="int32",
+        forbid_ops=(
+            no_decode_m128_rule(),
+            forbid_convert(
+                from_kinds=("int",), to=("float32", "float64", "bfloat16"),
+                within="kernel",
+                reason="decode-class event counts stay integer end-to-end",
+            ),
+        ),
+        sass_pins=(sass_int_accum("packed_decode_mac"),),
+    ),
+)
+
+# The streaming decode path inherits every cuda decode rule (int32
+# accumulation, no uint8 pad: canonical version-1 planes enter the kernel
+# untouched, no int->float convert, M never padded to 128) and adds the
+# ring's pins: asynchronous global->shared copies and a wait on them in
+# every instance of #3 (the Pallas kernel's 2 dma_start / 1 dma_wait).
+register_trace_contract(
+    "execution.execute_packed.decode.stream",
+    _packed_decode_point("cuda_stream"),
+    TraceContract(
+        **_PACKED_DECODE_RULES,
+        accum_dtype="int32",
+        forbid_ops=(
+            no_decode_m128_rule(),
+            forbid_convert(
+                from_kinds=("int",), to=("float32", "float64", "bfloat16"),
+                within="kernel",
+                reason="the streaming decode path keeps the int8/int32 "
+                       "event-count datapath",
+            ),
+        ),
+        sass_pins=(sass_int_accum("packed_stream_mac"),)
+        + sass_async_copies("packed_stream_mac"),
+    ),
+)
+
+
+def _ste_backward_point(formulation: str = "exact"):
+    """The gradients of ``formulation`` on bf16 operands: the exact STE
+    backward's products keep the operand dtype, so TP all-reduce payloads
+    stay at activation width (no f32[4,32] dx anywhere). The blocked
+    formulation accumulates its STE backward in f32 by design: the tests
+    use it as the rule's positive control."""
+
+    def build():
+        spec = CiMExecSpec(formulation=formulation, backend="torch")
+        x = torch.ones((4, 32), dtype=torch.bfloat16, requires_grad=True)
+        w = torch.ones((32, 3), dtype=torch.bfloat16, requires_grad=True)
+
+        def f(a, b):
+            loss = execute(spec, a, b).to(torch.float32).sum()
+            return torch.autograd.grad(loss, (a, b))
+
+        return f, (x, w)
+
+    return build
+
+
+register_trace_contract(
+    "execution.ste_backward.exact",
+    _ste_backward_point(),
+    TraceContract(forbid_dtype_shapes=(("float32", (4, 32)),)),
+)
+
+
+def _execute_tp_point():
+    """The row-parallel TP route with the compressed int8 collective, in
+    a rank of a spawned group: the rank's program must not grow with
+    tp."""
+
+    def build(tp: int = 2):
+        mesh = rank_mesh(tp)
+        spec = CiMExecSpec(formulation="blocked", backend="torch")
+        x = torch.ones((4, 64), dtype=torch.float32)
+        w = torch.ones((64, 32), dtype=torch.float32)
+
+        def f(a, b):
+            return execute_tp(spec, a, b, mesh, compressed=True)
+
+        return f, (x, w)
+
+    return build
+
+
+register_trace_contract(
+    "execution.execute_tp.compressed",
+    _execute_tp_point(),
+    TraceContract(max_host_syncs=0),
+    axes={"tp": (2, 4)},
+)

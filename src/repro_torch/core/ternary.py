@@ -9,12 +9,15 @@
   * the differential (M1, M2) bitplane encoding of the SiTe CiM cell
     (W=+1 -> M1=1,M2=0; W=-1 -> M1=0,M2=1; W=0 -> M1=M2=0),
   * 8-way bit packing of each plane into uint8 along K (bit j of byte r
-    is row 8r+j), the two plane layouts and :class:`PackedPlanes`.
+    is row 8r+j), the two plane layouts and :class:`PackedPlanes`,
+  * the sparsity statistics :func:`ternary_sparsity` and
+    :func:`block_overflow_rate`.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import struct
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -49,8 +52,17 @@ def ternary_threshold(x: torch.Tensor, axis: Axis = None,
 
 @functools.lru_cache(maxsize=None)
 def _rounded(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype``, as a Python float."""
-    return float(torch.tensor(value, dtype=dtype))
+    """``value`` rounded to ``dtype`` (round to nearest even), as a
+    Python float, in pure Python: no tensor, so a step that calls it
+    dispatches no op for it, on its first call either."""
+    if dtype == torch.float64:
+        return float(value)
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", value))[0]
+    bits = struct.unpack("<I", struct.pack("<f", value))[0]
+    if dtype == torch.bfloat16:
+        bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def ternarize(x: torch.Tensor, axis: Axis = None,
@@ -69,6 +81,11 @@ def ternarize(x: torch.Tensor, axis: Axis = None,
         num = (x.abs() * mask).sum(dim=axes, keepdim=True)
         den = torch.clamp(mask.sum(dim=axes, keepdim=True), min=1.0)
     return t, (num / den).to(x.dtype)
+
+
+def ternarize_fixed(x: torch.Tensor, delta) -> torch.Tensor:
+    """Quantize with an externally supplied threshold (calibration path)."""
+    return torch.sign(x) * (x.abs() > delta).to(x.dtype)
 
 
 class _SteTernarize(torch.autograd.Function):
@@ -108,6 +125,12 @@ def from_bitplanes(m1: torch.Tensor, m2: torch.Tensor,
                    dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """(M1, M2) -> ternary; the illegal (1,1) state decodes as 0."""
     return (m1.to(torch.int32) - m2.to(torch.int32)).to(dtype)
+
+
+def validate_bitplanes(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """True (a 0-dim bool tensor) iff no cell stores the illegal (1,1)
+    combination."""
+    return torch.logical_not(torch.any((m1 == 1) & (m2 == 1)))
 
 
 def _pack_plane(plane: torch.Tensor, axis: int) -> torch.Tensor:
@@ -245,3 +268,31 @@ class PackedPlanes:
             pos=self.pos[..., cols].contiguous(), neg=self.neg[..., cols].contiguous(),
             scale=self.scale, k=self.k, n=self.n,
             layout_version=self.layout_version, shards=size)
+
+
+# ---------------------------------------------------------------------------
+# Sparsity statistics (the paper leans on DNN sparsity for sense margin)
+# ---------------------------------------------------------------------------
+
+
+def ternary_sparsity(t: torch.Tensor) -> torch.Tensor:
+    """Fraction of zeros (an f32 0-dim tensor): the quantity the paper's
+    sense-margin analysis relies on."""
+    return (t == 0).to(torch.float32).mean()
+
+
+def block_overflow_rate(x_t: torch.Tensor, w_t: torch.Tensor,
+                        block: int = 16) -> torch.Tensor:
+    """Fraction (an f32 0-dim tensor) of (``block``-row block, output
+    column) partial MACs whose event count a or b exceeds 8, i.e. how
+    often the 3-bit ADC clamp binds (paper: rare, due to sparsity).
+    x_t (..., K) and w_t (K, N) ternary values, K a multiple of
+    ``block``; the counts are exact in f32."""
+    k = x_t.shape[-1]
+    kb = k // block
+    xb = x_t.to(torch.float32).reshape(tuple(x_t.shape[:-1]) + (kb, block))
+    wb = w_t.to(torch.float32).reshape((kb, block) + tuple(w_t.shape[1:]))
+    p = torch.einsum("...ki,kin->...kn", xb, wb)
+    m = torch.einsum("...ki,kin->...kn", xb.abs(), wb.abs())
+    a, b = (m + p) / 2, (m - p) / 2
+    return ((a > 8) | (b > 8)).to(torch.float32).mean()

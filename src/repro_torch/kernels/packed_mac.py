@@ -32,10 +32,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.contracts import kernel_scope
 from repro_torch.core.ternary import deinterleave_planes
 from repro_torch.kernels import DECODE_M_MAX, _build
 from repro_torch.kernels.plan import LaunchPlan, device_plan
-from repro_torch.kernels.ref import pad_axis, ref_packed_matmul
+from repro_torch.kernels.ref import pad_axis, ref_packed_matmul, ref_packed_matmul_int
 
 DEFAULT_BLOCK = 16
 DEFAULT_ADC_MAX = 8
@@ -81,6 +82,25 @@ def packed_matmul_plain(x: torch.Tensor, w_pos: torch.Tensor,
     return out[:, :n_out]
 
 
+def packed_decode_plain(x: torch.Tensor, w_pos: torch.Tensor,
+                        w_neg: torch.Tensor, *, n_out: Optional[int] = None,
+                        block: int = DEFAULT_BLOCK,
+                        adc_max: int = DEFAULT_ADC_MAX,
+                        cim: bool = True) -> torch.Tensor:
+    """The decode kernels' function in plain PyTorch, in integers as they
+    count (int32 event counts, int32 accumulation): int32 (M, n_out),
+    equal to :func:`packed_matmul_plain`'s values. The wrappers of #2 and
+    #3 run it for CPU tensors (integer products need the CPU)."""
+    rows, n_cols = w_pos.shape
+    n_out = n_cols if n_out is None else n_out
+    k_full = -(-rows * 8 // block) * block
+    out = ref_packed_matmul_int(pad_axis(x, k_full, 1),
+                                pad_axis(w_pos, k_full // 8, 0),
+                                pad_axis(w_neg, k_full // 8, 0),
+                                block=block, adc_max=adc_max, cim=cim)
+    return out[:, :n_out]
+
+
 def _cuda_ok(x, block):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -109,7 +129,7 @@ def _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim,
         if plan is None:
             plan = device_plan(m, kx, n_out)
         _build.launch(
-            "packed_decode_mac", x.data_ptr(), w_pos.data_ptr(),
+            packed_cim_matmul_decode.entry, x.data_ptr(), w_pos.data_ptr(),
             w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
             w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
             int(adc_max), int(cim), plan.cluster, _build.stream_ptr(x.device))
@@ -131,7 +151,7 @@ def _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim,
         if plan is None:
             plan = device_plan(m, kx, n_out)
         _build.launch(
-            "packed_cim_mac", x.data_ptr(), w_pos.data_ptr(),
+            packed_cim_matmul.entry, x.data_ptr(), w_pos.data_ptr(),
             w_neg.data_ptr(), out.data_ptr(), m, kx, w_pos.shape[0],
             w_pos.stride(0), w_neg.stride(0), w_pos.shape[1], n_out,
             int(adc_max), int(cim), plan.rows, plan.cluster,
@@ -153,8 +173,9 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
         raise ValueError(f"decode kernel takes M <= {DECODE_M_MAX}, "
                          f"got {x.shape[0]}")
     if x.device.type == "cpu":
-        return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
-                                   adc_max=adc_max, cim=cim).to(torch.int32)
+        with kernel_scope(packed_cim_matmul_decode.entry):
+            return packed_decode_plain(x, w_pos, w_neg, n_out=n_out, block=block,
+                                       adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim, plan)
     if used is not None:
@@ -173,8 +194,9 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
     ``plan``: the grid on the card (default :func:`device_plan`)."""
     n_out = _check(x, w_pos, w_neg, n_out)
     if x.device.type == "cpu":
-        return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
-                                   adc_max=adc_max, cim=cim)
+        with kernel_scope(packed_cim_matmul.entry):
+            return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
+                                       adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim, plan)
     if used is not None:
@@ -219,7 +241,7 @@ def _launch_stream(x, w_int, n_out, adc_max, cim, nbuf,
         if plan is None:
             plan = device_plan(m, kx, n_out)
         _build.launch(
-            "packed_stream_mac", x.data_ptr(), w_int.data_ptr(),
+            packed_cim_matmul_decode_stream.entry, x.data_ptr(), w_int.data_ptr(),
             out.data_ptr(), m, x.shape[1], w_int.shape[0], w_int.stride(0),
             n_out, int(adc_max), int(cim), int(nbuf), plan.cluster,
             _build.stream_ptr(x.device))
@@ -250,8 +272,9 @@ def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
         raise ValueError(f"stream decode kernel takes M <= {DECODE_M_MAX}, "
                          f"got {x.shape[0]}")
     if x.device.type == "cpu":
-        return stream_matmul_plain(x, w_int, n_out=n_out, block=block,
-                                   adc_max=adc_max, cim=cim).to(torch.int32)
+        with kernel_scope(packed_cim_matmul_decode_stream.entry):
+            return packed_decode_plain(x, w_pos, w_neg, n_out=n_out, block=block,
+                                       adc_max=adc_max, cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_stream(x, w_int, n_out, adc_max, cim, nbuf, plan)
     if used is not None:
@@ -266,3 +289,108 @@ packed_cim_matmul_decode_stream.launches = 0
 packed_cim_matmul_decode.last_plan = None
 packed_cim_matmul.last_plan = None
 packed_cim_matmul_decode_stream.last_plan = None
+# the C entries (csrc/*.cu) the wrappers launch: the op auditor names a
+# launch after them, and their plain versions' kernel scopes
+packed_cim_matmul_decode.entry = "packed_decode_mac"
+packed_cim_matmul.entry = "packed_cim_mac"
+packed_cim_matmul_decode_stream.entry = "packed_stream_mac"
+
+
+# ---------------------------------------------------------------------------
+# Tracing contracts (repro_torch.analysis)
+#
+# The kernel-level invariants, declared next to the kernels they pin:
+#
+#   * the decode kernels' a/b event counts accumulate in int32: on the
+#     CPU their plain version counts in int32 and converts nothing to a
+#     float (an f32 accumulator would still be exact, counts are bounded
+#     by `block`, but silently abandons the integer ADC pipeline the
+#     macro contract costs against); on the card every instance of #2 and
+#     #3 multiplies on int8 tensor cores (IMMA, S32 accumulation);
+#   * the prefill kernel's plain version accumulates in f32 by design:
+#     pinned too, so a change to either side is a conscious contract
+#     edit, not drift;
+#   * the stream kernel's ring: asynchronous global->shared copies and a
+#     wait on them in every instance (the counterpart of the Pallas
+#     kernel's 2 dma_start / 1 dma_wait pin).
+#
+# The builders run on the card where there is one (the kernel launches,
+# and the SASS pins apply), else on the CPU (the plain versions).
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import (  # noqa: E402
+    TraceContract,
+    forbid_convert,
+    register_trace_contract,
+    sass_async_copies,
+    sass_int_accum,
+)
+
+
+def _audit_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _decode_kernel_point():
+    dev = _audit_device()
+    x = torch.ones((8, 256), dtype=torch.int8, device=dev)
+    planes = torch.zeros((32, 128), dtype=torch.uint8, device=dev)
+    return packed_cim_matmul_decode, (x, planes, planes)
+
+
+def _prefill_kernel_point():
+    dev = _audit_device()
+    x = torch.ones((128, 256), dtype=torch.int8, device=dev)
+    planes = torch.zeros((32, 128), dtype=torch.uint8, device=dev)
+    return packed_cim_matmul, (x, planes, planes)
+
+
+def _stream_kernel_point():
+    dev = _audit_device()
+    x = torch.ones((8, 512), dtype=torch.int8, device=dev)
+    w_int = torch.zeros((128, 256), dtype=torch.uint8, device=dev)  # (K/4, N) layout 1
+    return packed_cim_matmul_decode_stream, (x, w_int)
+
+
+register_trace_contract(
+    "kernels.packed_decode_kernel",
+    _decode_kernel_point,
+    TraceContract(
+        max_host_syncs=0,
+        accum_dtype="int32",
+        forbid_ops=(
+            forbid_convert(
+                from_kinds=("int",), to=("float32", "float64", "bfloat16"),
+                within="kernel",
+                reason="the decode kernel's int8/int32 event-count "
+                       "datapath must not promote to float",
+            ),
+        ),
+        sass_pins=(sass_int_accum("packed_decode_mac"),),
+    ),
+)
+
+register_trace_contract(
+    "kernels.packed_prefill_kernel",
+    _prefill_kernel_point,
+    TraceContract(max_host_syncs=0, accum_dtype="float32"),
+)
+
+register_trace_contract(
+    "kernels.packed_decode_stream_kernel",
+    _stream_kernel_point,
+    TraceContract(
+        max_host_syncs=0,
+        accum_dtype="int32",
+        forbid_ops=(
+            forbid_convert(
+                from_kinds=("int",), to=("float32", "float64", "bfloat16"),
+                within="kernel",
+                reason="the streaming decode kernel keeps the int8/int32 "
+                       "event-count datapath of the decode kernel",
+            ),
+        ),
+        sass_pins=(sass_int_accum("packed_stream_mac"),)
+        + sass_async_copies("packed_stream_mac"),
+    ),
+)

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import kernel_scope
 from repro_torch.kernels import _build
 from repro_torch.kernels.plan import LaunchPlan, device_plan
 from repro_torch.kernels.ref import pad_axis, ref_cim_matmul, ref_exact_matmul
@@ -112,10 +113,11 @@ def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
     the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
     if x.device.type == "cpu":
-        return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
+        with kernel_scope(ternary_cim_matmul.entry):
+            return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
     if block != DEFAULT_BLOCK:
         raise ValueError(f"the CUDA kernel implements block=16, got {block}")
-    out, used = _launch_codes("ternary_cim_mac", x, w, int(adc_max), plan=plan)
+    out, used = _launch_codes(ternary_cim_matmul.entry, x, w, int(adc_max), plan=plan)
     if used is not None:
         ternary_cim_matmul.launches += 1
         ternary_cim_matmul.last_plan = used
@@ -129,8 +131,9 @@ def ternary_exact_matmul(x: torch.Tensor, w: torch.Tensor, *,
     (M, N). ``plan``: the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
     if x.device.type == "cpu":
-        return exact_matmul_plain(x, w)
-    out, used = _launch_codes("ternary_exact_mac", x, w, plan=plan)
+        with kernel_scope(ternary_exact_matmul.entry):
+            return exact_matmul_plain(x, w)
+    out, used = _launch_codes(ternary_exact_matmul.entry, x, w, plan=plan)
     if used is not None:
         ternary_exact_matmul.launches += 1
         ternary_exact_matmul.last_plan = used
@@ -141,3 +144,7 @@ ternary_cim_matmul.launches = 0
 ternary_exact_matmul.launches = 0
 ternary_cim_matmul.last_plan = None
 ternary_exact_matmul.last_plan = None
+# the C entries (csrc/*.cu) the wrappers launch: the op auditor names a
+# launch after them, and their plain versions' kernel scopes
+ternary_cim_matmul.entry = "ternary_cim_mac"
+ternary_exact_matmul.entry = "ternary_exact_mac"

@@ -133,13 +133,37 @@ def _weight_codes(w: torch.Tensor, qc: QuantConfig
     return _ste_codes(w, axes, qc.threshold_factor)
 
 
+#: how :func:`accum_einsum` accumulates: None (the default) in float64;
+#: True natively, on the operands as they are; False in float32 casts
+_NATIVE_ACCUM: Optional[bool] = None
+
+
+def set_native_accum(on: Optional[bool]) -> None:
+    """Switch :func:`accum_einsum`, as the reference's switch does:
+    ``True`` contracts the operands in their own dtype and returns f32,
+    the reference's native form (on the card bf16 tensor-core products
+    accumulate in f32, though torch rounds the result to bf16 before the
+    cast, where the reference keeps f32); ``False`` casts them to f32
+    first, the reference's CPU form; ``None`` restores the port's
+    default, float64 (exact products, so a row's result does not depend
+    on its batch)."""
+    global _NATIVE_ACCUM
+    _NATIVE_ACCUM = on
+
+
 def accum_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``einsum`` accumulated and returned in float64: the counterpart of
-    the reference's f32-accumulating ``accum_einsum``, one step wider.
-    Products of bf16 (or f32) values are exact in float64, so a row's
-    result does not depend on the reduction order, i.e. on its batchmates
-    or the shapes around it; callers round where the reference rounds."""
-    return torch.einsum(spec, *(o.to(torch.float64) for o in ops))
+    """``einsum`` accumulated and returned in float64 by default: the
+    counterpart of the reference's f32-accumulating ``accum_einsum``, one
+    step wider. Products of bf16 (or f32) values are exact in float64, so
+    a row's result does not depend on the reduction order, i.e. on its
+    batchmates or the shapes around it; callers round where the
+    reference rounds. :func:`set_native_accum` switches to the
+    reference's f32 forms."""
+    if _NATIVE_ACCUM is None:
+        return torch.einsum(spec, *(o.to(torch.float64) for o in ops))
+    if _NATIVE_ACCUM:
+        return torch.einsum(spec, *ops).to(torch.float32)
+    return torch.einsum(spec, *(o.to(torch.float32) for o in ops))
 
 
 def _row_shard_off(x: torch.Tensor, w: WeightShard) -> torch.Tensor:

@@ -277,6 +277,7 @@ def wrap_step(
         out = fn(*args)
         t1 = time.perf_counter()
         for dev in _cuda_devices(out):
+            # analysis: host-sync ok -- the profiler waits after the step returned, never inside it
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
         profiler.record(TraceEvent(
@@ -291,3 +292,39 @@ def wrap_step(
         return out
 
     return timed
+
+
+# ---------------------------------------------------------------------------
+# Tracing contract (repro_torch.analysis): with no profiler, wrap_step
+# returns the step itself, so the disabled instrumentation adds no op
+# and no host sync to the step.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import (  # noqa: E402
+    TraceContract,
+    register_trace_contract,
+)
+
+
+def _instrumented_step_point():
+    """The production fused decode step, run raw (``wrapped=0``) and
+    through the disabled profile wrapper (``wrapped=1``): the auditor
+    requires one op count across both."""
+
+    def build(wrapped: int = 0):
+        from repro_torch.serve.engine import fused_step_point
+
+        step, args = fused_step_point("off")(n_slots=3)
+        if wrapped:
+            step = wrap_step(step, None, "serve.decode_step")
+        return step, args
+
+    return build
+
+
+register_trace_contract(
+    "profile.step_instrumentation.disabled",
+    _instrumented_step_point(),
+    TraceContract(max_host_syncs=0, max_host_to_device=0),
+    axes={"wrapped": (0, 1)},
+)

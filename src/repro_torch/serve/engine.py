@@ -208,6 +208,10 @@ def generate(params, prompt, cfg: ArchConfig, max_new: int = 16,
 
 @dataclasses.dataclass
 class Request:
+    """One generation request: ``prompt`` token ids, up to ``max_new``
+    tokens out (into ``generated``); ``done``, ``truncated`` and
+    ``cancelled`` say how it ended."""
+
     rid: int
     prompt: List[int]
     max_new: int
@@ -441,6 +445,7 @@ class ContinuousBatcher:
         pinned = dev.type == "cuda"
         host = [torch.zeros((n_slots,), dtype=torch.int64, pin_memory=pinned)
                 for _ in range(3)]
+        # analysis: host-sync ok -- numpy views of host (pinned) buffers: no device read
         self._last_tok, self.slot_pos, self.slot_start = (h.numpy() for h in host)
         # slot_pos: the next cache write slot; slot_start: the left-pad dead zone
         self._host_inputs = (host[0][:, None], host[1], host[2])
@@ -580,6 +585,7 @@ class ContinuousBatcher:
             # don't let the bucket make a servable prompt unservable
             s_pad = max_len
         host, step = self._prefill_step(s_pad)
+        # analysis: host-sync ok -- numpy views of host (pinned) buffers: no device read
         tokens, start, fill = (h.numpy() for h in (host,) + self._fill_host)
         tokens[:], start[:], fill[:] = 0, 0, False
         for s in newly:
@@ -598,7 +604,7 @@ class ContinuousBatcher:
                     "s_pad": s_pad, "filled": len(newly)}
             run = self._timed(step, "serve.prefill", shape_class="prefill",
                               meta_fn=lambda: meta)
-        toks = run().cpu().numpy()  # the one fetch of this fill batch
+        toks = run().cpu().numpy()  # analysis: host-sync ok -- the one fetch of a fill batch
         self.host_syncs += 1
         self.prefill_batches += 1
         for s in newly:
@@ -634,7 +640,7 @@ class ContinuousBatcher:
             static.copy_(host, non_blocking=True)
         toks = self._run_decode()
         self.decode_steps += 1
-        toks = toks.cpu().numpy()  # the single fetch of this step
+        toks = toks.cpu().numpy()  # analysis: host-sync ok -- the one fetch of a decode step
         self.host_syncs += 1
         for s in active:
             self._advance(s, int(toks[s]))
@@ -660,7 +666,8 @@ class ContinuousBatcher:
                 for old, new in zip(T.cache_leaves(row), T.cache_leaves(fresh)):
                     old.copy_(new)
                 logits, _ = prefill(self.params, prompt, row, self.cfg)
-                tok = int(torch.argmax(logits[0, -1]))  # one fetch per slot
+                # analysis: host-sync ok -- the looped baseline fetches each slot's token
+                tok = int(torch.argmax(logits[0, -1]))
                 self.host_syncs += 1
                 self.prefill_batches += 1
                 self._admit(s, tok, len(req.prompt), 0)
@@ -737,3 +744,133 @@ class ContinuousBatcher:
                 # the batcher opened the trace file (profile=<path>); the
                 # profiler flushes per event, so the file is whole
                 self.profiler.close()
+
+
+# ---------------------------------------------------------------------------
+# Tracing contracts (repro_torch.analysis)
+#
+# The serving invariants, declared where the fused step lives:
+#
+#   * the fused decode step is ONE batched program: its op count is
+#     invariant to the slot count and the TP degree (the per-slot python
+#     work of the looped baseline must never leak back into the step);
+#   * no host sync and no host->device copy inside the step: the single
+#     documented host fetch (``toks.cpu().numpy()``) happens after the
+#     step returned, and a captured CUDA graph can hold neither;
+#   * no pad on uint8 operands: stored 2-bit planes enter kernels in
+#     their prepare-time canonical layout.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import (  # noqa: E402
+    OpRule,
+    TraceContract,
+    rank_mesh,
+    register_trace_contract,
+)
+
+
+def fused_step_point(quant_mode: str, cache_dtype: str = "bf16", s_max: int = 32,
+                     *, cfg: Optional[ArchConfig] = None, params=None,
+                     device: DeviceLike = "cpu"):
+    """``build(n_slots, tp) -> (fn, args)`` running the production fused
+    decode step (:func:`fused_decode_fn`) once: on the smoke serving arch
+    under ``quant_mode`` (weights) and ``cache_dtype`` (KV cache), seeded
+    params, on the CPU, or on ``cfg`` with ``params`` on ``device``
+    (``chip_smoke.py`` audits the full-size step on the card so). A
+    ``tp`` > 1 combination runs in a rank of a spawned group
+    (``contracts.rank_mesh``) on the rank's shard and caches, as a TP
+    batcher's step does."""
+
+    def build(n_slots: int = 3, tp: int = 1):
+        mesh = rank_mesh(tp) if tp > 1 else None
+        dev = resolve_device(device)
+        c = cfg
+        if c is None:
+            from repro_torch.models.layers import QuantConfig
+            from repro_torch.models.registry import get_config
+
+            c = get_config("smollm-135m", smoke=True).replace(
+                quant=QuantConfig(mode=quant_mode, cache_dtype=cache_dtype))
+        p = params if params is not None else T.init_params(c, seed=0, device=dev)
+        if mesh is not None:
+            from repro_torch.dist.sharding import local_config, shard_params
+
+            p = shard_params(p, c, mesh, device=dev)
+            c = local_config(c, mesh)
+        caches = T.init_caches(c, n_slots, s_max, device=dev)
+        ints = [torch.zeros(shape, dtype=torch.int64, device=dev)
+                for shape in ((n_slots, 1), (n_slots,), (n_slots,))]
+        args = (p, ints[0], caches, ints[1], ints[2],
+                torch.Generator(device=dev).manual_seed(1))
+        return fused_decode_fn(c), args
+
+    return build
+
+
+_FUSED_STEP_CONTRACT = TraceContract(
+    max_host_syncs=0,
+    max_host_to_device=0,
+    no_pad_on_dtypes=("uint8",),
+)
+
+register_trace_contract(
+    "serve.fused_decode_step",
+    fused_step_point("off"),
+    _FUSED_STEP_CONTRACT,
+    axes={"n_slots": (2, 6), "tp": (1, 2, 4)},
+)
+
+register_trace_contract(
+    "serve.fused_decode_step.cim",
+    fused_step_point("cim"),
+    _FUSED_STEP_CONTRACT,
+    axes={"n_slots": (2, 6)},
+)
+
+
+# Quantized KV cache: the fused step over an int8 cache must never
+# materialize a full-precision copy of the *stacked* cache: dequant stays
+# per layer (one layer's codes at a time). The regression this rule
+# catches is cache-level dequant: an integer code tensor shaped like the
+# *stacked* cache (rank 5 with the contract's s_max at axis 2, picked to
+# collide with no legitimate dimension of the smoke arch) converted to a
+# float tensor. Matching on the op's integer *input* keeps legitimate
+# rank-5 float activations out of scope.
+_KVQ_S_MAX = 48
+
+
+def _kvq_stacked_dequant(rec) -> bool:
+    def stacked(t, kinds):
+        return t.dtype in kinds and len(t.shape) == 5 and t.shape[2] == _KVQ_S_MAX
+
+    # int/uint stacked codes in AND a float tensor of the same stacked
+    # shape out = the cache-level dequant
+    if not any(stacked(t, ("int8", "uint8")) for t in rec.inputs):
+        return False
+    return any(stacked(t, ("float16", "bfloat16", "float32", "float64"))
+               for t in rec.outputs)
+
+
+register_trace_contract(
+    "serve.fused_decode_step.kvq",
+    fused_step_point("off", cache_dtype="int8", s_max=_KVQ_S_MAX),
+    TraceContract(
+        max_host_syncs=0,
+        max_host_to_device=0,
+        # int8 codes and ternary-packed uint8 planes both enter the
+        # attention contractions in their stored layout: zero relayout
+        no_pad_on_dtypes=("uint8", "int8"),
+        forbid_ops=(
+            OpRule(
+                rule="kvq-stacked-dequant",
+                when=_kvq_stacked_dequant,
+                reason="full-precision copy of the stacked quantized KV "
+                       "cache -- dequant must stay per layer in the "
+                       "attention contractions",
+            ),
+        ),
+        # a future hand-written attention kernel must accumulate f32
+        accum_dtype="float32",
+    ),
+    axes={"n_slots": (2, 6), "tp": (1, 2)},
+)

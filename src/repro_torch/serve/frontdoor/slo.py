@@ -110,6 +110,7 @@ class RequestSLO:
 def _pct(values: List[float]) -> Dict[str, float]:
     if not values:
         return {"p50": 0.0, "p99": 0.0, "mean": 0.0, "n": 0}
+    # analysis: host-sync ok -- host latencies (Python floats), no device value
     arr = np.asarray(values, dtype=np.float64)
     return {
         "p50": round(float(np.percentile(arr, 50)), 1),

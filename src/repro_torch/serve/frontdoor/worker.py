@@ -258,3 +258,35 @@ class EngineWorker:
                     "replica": self.name,
                 }))
                 del self._tracked[rid]
+
+
+# ---------------------------------------------------------------------------
+# Tracing contract (repro_torch.analysis): the front door's seam adds
+# nothing to the engine's step -- the program through passthrough_step
+# is the program without it, with no host sync in either.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import (  # noqa: E402
+    TraceContract,
+    register_trace_contract,
+)
+
+
+def _passthrough_point():
+    def build(wrapped: int = 0):
+        from repro_torch.serve.engine import fused_step_point
+
+        step, args = fused_step_point("off")(n_slots=3)
+        if wrapped:
+            step = passthrough_step(step)
+        return step, args
+
+    return build
+
+
+register_trace_contract(
+    "serve.frontdoor.step_passthrough",
+    _passthrough_point(),
+    TraceContract(max_host_syncs=0, max_host_to_device=0),
+    axes={"wrapped": (0, 1)},
+)

@@ -78,11 +78,13 @@ def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Generator):
         leaf = leaf.get_state()
     if torch.is_tensor(leaf):
+        # analysis: host-sync ok -- checkpoint save copies the state to the host
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
+            # analysis: host-sync ok -- checkpoint save: a host tensor's numpy view
             return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
-    return np.asarray(leaf)
+        return t.numpy()  # analysis: host-sync ok -- checkpoint save: a host tensor's numpy view
+    return np.asarray(leaf)  # analysis: host-sync ok -- checkpoint save of a host leaf
 
 
 def _dtype_name(leaf, host: np.ndarray) -> str:
@@ -157,6 +159,7 @@ def _rebuild(like: PyTree, arrays: Iterator[np.ndarray], device) -> PyTree:
         if torch.is_tensor(like):
             return a.to(device=like.device if device is None else device,
                         dtype=like.dtype)
+        # analysis: host-sync ok -- checkpoint restore of a host scalar leaf
         return type(like)(a.item())
     if isinstance(like, dict):
         return {k: _rebuild(like[k], arrays, device) for k in sorted(like)}
@@ -183,6 +186,7 @@ def restore(directory: str, like: PyTree, step: Optional[int] = None,
     with np.load(os.path.join(path, "arrays.npz")) as data:
         arrays = []
         for i in range(n):
+            # analysis: host-sync ok -- checkpoint restore reads the host archive
             a = np.array(data[str(i)])
             if manifest["dtypes"][i] == "bfloat16":
                 arrays.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16))

@@ -143,13 +143,15 @@ class Trainer:
         if self.batch_transform:
             batch = self.batch_transform(batch)
         # host tensors: the step copies them into its static inputs
+        # analysis: host-sync ok -- the pipeline's host batch, copied into the step's inputs
         batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
         if self.failure_injector:
             self.failure_injector.maybe_fail(step)
         self.state, metrics = self.step_fn(self.state, batch)
         names = sorted(metrics)
+        # analysis: host-sync ok -- one host transfer of a step's metrics, after the step
         values = torch.stack([metrics[k].to(torch.float32) for k in names]).cpu()
-        return dict(zip(names, values.tolist()))  # one host transfer
+        return dict(zip(names, values.tolist()))  # analysis: host-sync ok -- a host tensor
 
     def _drain(self):
         if self._pending_ckpt is not None:

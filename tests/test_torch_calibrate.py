@@ -36,6 +36,7 @@ from repro_torch.kernels import plan as kp
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config
 from repro_torch.serve.engine import ContinuousBatcher, Request
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SPECS = ("blocked/cuda/none", "blocked/cuda/bitplane_u8")

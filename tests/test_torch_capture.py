@@ -25,6 +25,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import (init_train_state, make_jit_train_step,
                                           make_train_step)
 from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
+from torch_threads import one_thread  # noqa: F401
 
 # (arch, cache dtype): dense under bf16 and int8 caches, hybrid, moe (MLA)
 SERVE_CASES = [("smollm-135m", "bf16"), ("smollm-135m", "int8"),

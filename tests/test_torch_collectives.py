@@ -24,6 +24,7 @@ from repro.dist.collectives import tp_allreduce as jtp_allreduce
 from repro.launch.mesh import make_tp_mesh as jmake_tp_mesh
 from repro_torch.dist.sharding import replica_device_groups
 from repro_torch.launch.mesh import TPMesh, make_tp_mesh, spawn_tp
+from torch_threads import one_thread  # noqa: F401
 
 SHARDS = 4
 SWEEP = tuple((seed, scale, shape) for seed, (scale, shape) in enumerate(

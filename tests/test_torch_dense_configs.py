@@ -18,6 +18,7 @@ from repro.models.registry import get_config as jget_config
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import ARCH_IDS, get_config
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 ARCHS = ("starcoder2-7b", "starcoder2-15b", "yi-34b")

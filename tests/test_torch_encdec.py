@@ -36,6 +36,7 @@ from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import ternarize_params, tree_paths
 from repro_torch.serve.engine import (ContinuousBatcher, Request, generate,
                                       make_jit_serve_step, serve_step)
+from torch_threads import one_thread  # noqa: F401
 
 ARCH = "whisper-large-v3"
 ATOL = 1e-5

@@ -26,6 +26,7 @@ from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 NM = api.CiMExecSpec("exact", "cuda")
 

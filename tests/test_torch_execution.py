@@ -13,6 +13,7 @@ from repro import api as japi
 from repro.core import ternary as jt
 from repro_torch import api
 from repro_torch.core import ternary as tt
+from torch_threads import one_thread  # noqa: F401
 
 # port backend -> the JAX backend computing the same function (the cuda
 # entries run their kernels' plain versions on CPU tensors and are held

@@ -31,6 +31,7 @@ from repro_torch.serve.engine import ContinuousBatcher, generate
 from repro_torch.serve.frontdoor import protocol as proto
 from repro_torch.serve.frontdoor import slo
 from repro_torch.serve.frontdoor.client import WSClient, http_json
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = [[3, 1, 4], [9, 8], [2, 7, 1, 8], [6], [5, 5, 5], [1, 2]]
 MAX_NEWS = [4, 6, 3, 5, 4, 6]

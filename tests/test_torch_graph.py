@@ -24,6 +24,7 @@ from repro_torch.models.registry import get_config
 from repro_torch.serve import graph
 from repro_torch.serve.engine import (ContinuousBatcher, Request, make_jit_serve_step,
                                       serve_step)
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -35,6 +35,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import prepare_for_spec, tree_paths
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 ARCH = {"ssm": "mamba2-780m", "hybrid": "zamba2-2.7b"}

@@ -12,7 +12,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the same rule
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "tests" / "torch_tp_ranks.py"]
+    ROOT / "tests" / "torch_tp_ranks.py", ROOT / "tests" / "torch_threads.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,10 +43,11 @@ def test_scan_sees_the_package():
             "router.py", "server.py", "registry.py", "array.py", "macro.py",
             "dnn_suite.py", "workload.py", "cost_model.py", "accelerator.py",
             "site_cim.py", "calibrate.py", "replay.py", "sharding.py",
-            "collectives.py", "mesh.py", "torch_tp_ranks.py"} <= names
+            "collectives.py", "mesh.py", "torch_tp_ranks.py", "contracts.py",
+            "op_audit.py", "lint.py", "report.py", "ops.py"} <= names
     assert ROOT / "src" / "repro_torch" / "hw" / "registry.py" in PORT_FILES
     dirs = {p.parent.name for p in PORT_FILES}
-    assert {"profile", "frontdoor", "hw", "dist"} <= dirs
+    assert {"profile", "frontdoor", "hw", "dist", "analysis"} <= dirs
 
 
 @pytest.fixture

@@ -20,6 +20,7 @@ from repro_torch.core.ternary import pack_ternary
 from repro_torch.kernels import packed_mac as pm
 from repro_torch.kernels import ternary_mac as tm
 from repro_torch.kernels.ref import ref_packed_matmul
+from torch_threads import one_thread  # noqa: F401
 
 
 def _tern(rng, shape, p_zero=0.2):

@@ -21,6 +21,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -25,6 +25,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
+from torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": dict(rtol=0, atol=1e-5),
        "bfloat16": dict(rtol=2.0 ** -7, atol=2.0 ** -10)}

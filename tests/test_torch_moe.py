@@ -22,6 +22,7 @@ from repro.models.registry import get_config as jget_config
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import moe as tmoe
 from repro_torch.models.registry import get_config
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("deepseek-v2-236b", "grok-1-314b")
 TOL = {"float32": dict(rtol=0, atol=1e-5),

@@ -37,6 +37,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import ternarize_params, tree_paths
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("deepseek-v2-236b", "grok-1-314b")
 # tests/test_serve.py's MLA mix (2 slots, s_max 32) and tests/test_kv_quant.py's

@@ -30,6 +30,7 @@ from repro_torch.models.layers import QuantConfig
 from repro_torch.models.registry import get_config
 from repro_torch.serve.engine import ContinuousBatcher, Request, make_jit_serve_step
 from repro_torch.models import transformer as T
+from torch_threads import one_thread  # noqa: F401
 
 
 def _event(mod, entry="execution.execute", spec="exact/torch/none", cls="decode",

@@ -28,6 +28,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import prepare_for_spec, tree_paths
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 PACKED_SPEC = api.CiMExecSpec("blocked", "cuda", "bitplane_u8")
 

@@ -28,6 +28,7 @@ from repro_torch.models import layers as tL
 from repro_torch.models import ssm as tS
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import ARCH_IDS, get_config
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 ARCHS = ("mamba2-780m", "zamba2-2.7b")

@@ -30,6 +30,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import prepare_for_spec, tree_paths
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 STREAM = {f: api.CiMExecSpec(f, "cuda_stream", "bitplane_u8")
           for f in ("blocked", "exact")}

@@ -9,6 +9,7 @@ from repro.core import ternary as jt
 from repro.kernels import ref as jref
 from repro_torch.core import ternary as tt
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 
 def _tern(rng, shape, p_zero=0.3):

@@ -50,6 +50,7 @@ from repro_torch.models.layers import QuantConfig, dense
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import prepare_for_spec
 from repro_torch.serve.engine import ContinuousBatcher
+from torch_threads import one_thread  # noqa: F401
 
 DTYPES = ("float32", "bfloat16")
 SPAWN_TIMEOUT = 240.0

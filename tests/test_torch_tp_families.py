@@ -47,6 +47,7 @@ from repro_torch.models.layers import QuantConfig, _weight_codes
 from repro_torch.models.registry import get_config
 from repro_torch.models.ssm import SSMCache
 from repro_torch.serve.engine import ContinuousBatcher
+from torch_threads import one_thread  # noqa: F401
 
 FAMILIES = tuple(R.FAMILY_ARCHS)
 SPAWN_TIMEOUT = 300.0

@@ -34,6 +34,7 @@ from repro_torch.optim.adamw import AdamWConfig, AdamWState, clip_by_global_norm
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import init_train_state
 from repro_torch.train.trainer import FailureInjector, TrainConfig, Trainer
+from torch_threads import one_thread  # noqa: F401
 
 
 def small_cfg():

@@ -52,6 +52,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.train.train_step import TrainState, loss_fn, make_train_step
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b", "grok-1-314b",
          "whisper-large-v3", "llava-next-34b")

@@ -36,6 +36,7 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.train.train_step import TrainState, loss_fn, make_train_step
 from repro_torch.train.train_step import make_jit_train_step as make_captured_step
+from torch_threads import one_thread  # noqa: F401
 
 STEPS = 3
 SEQ, BATCH = 32, 4

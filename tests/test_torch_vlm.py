@@ -29,6 +29,7 @@ from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_config
 from repro_torch.quant.prepare import ternarize_params, tree_paths
 from repro_torch.serve.engine import ContinuousBatcher, Request, generate
+from torch_threads import one_thread  # noqa: F401
 
 ARCH = "llava-next-34b"
 ATOL = 1e-5
