@@ -232,19 +232,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      TP_TIMEOUT_S fails the script; the eager TP step median is printed
      beside phase 3's eager step.
  22. the other families over 2 gloo ranks on cuda:0:
-     full-size mamba2-780m and zamba2-2.7b and deepseek-v2-236b at full
-     width and 2 of 60 layers, first served single-device (eager) on
-     phase 3's requests, then in every rank, each rank making the seeded
-     tree on the card in turn, holding it on the host and moving only its
-     shard (whole SSM heads, MLA heads with the latent whole, whole
-     experts): tokens == the single device's, #1 launched macs_per_step x
+     full-size mamba2-780m, zamba2-2.7b and whisper-large-v3 (its decoder,
+     as the batcher serves it; 10 of its 20 heads a rank) and
+     deepseek-v2-236b and llava-next-34b (28 of 56 heads, 4 of 8 kv heads
+     a rank) at full width and 2 of 60 layers, first served single-device
+     (eager) on phase 3's requests, then in every rank, each rank making
+     the seeded tree on the card in turn, holding it on the host and
+     moving only its shard (whole SSM heads, MLA heads with the latent
+     whole, whole experts, whisper's encoder and cross attention and
+     llava's projector placed too; whisper and llava on phase 14's four
+     requests): tokens == the single device's, #1
+     launched macs_per_step x
      (steps + fills) and macs_per_step in every fill, a decode step's
      collectives at 2 slots those of each step and fill at 4 slots;
      mamba2-780m in mode "off"
      with its greedy prefix and largest first-fill logit difference
      against the single device printed; the eager TP step beside the
      eager single-device step, per family.
- 23. (run last) the analysis contracts (repro_torch.analysis): the CLI
+ 23. the analysis contracts (repro_torch.analysis): the CLI
      ``python -m repro_torch.analysis --check --json`` in a subprocess
      beside the rest of the phase, exit 0 with every combination that
      skips on the CPU (the cuda and cuda_stream points) audited here;
@@ -256,6 +261,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      contracts' SASS pins on the SASS phase 1 read (int8 tensor-core MMAs
      and no float ones in every instance of #2 and #3, #3's asynchronous
      copies and their wait); one "analysis:" line.
+ 24. (run last) the front door over tensor-parallel replicas:
+     full-size smollm-135m (per_row, blocked/cuda) behind the launcher's
+     build_frontdoor with --tp 3 and 2 replicas: six gloo processes on
+     cuda:0, one (1, 3) mesh per replica (make_replica_meshes), each
+     replica driven from the door's process through its proxy
+     (serve.frontdoor.tp_replica); 4 of phase 19's requests (6 new
+     tokens each) streamed concurrently == the prefix of phase 19's
+     generate(); one cancelled after 2 tokens
+     while another streams on the other replica; /stats carries mesh
+     {"data": 2, "model": 3}, one host sync per step and fill and #1
+     launched 210 x (steps + fills) in every rank (the ranks agree each
+     step), the cancel on its replica and in no rank's slot table; TTFT,
+     per-token p50/p99 and goodput on lines of their own; the stop's time
+     and no rank process alive after it.
 It then prints a JSON line of phase 20's fits, replay error,
 projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
@@ -2686,7 +2705,7 @@ def door_args(**kw):
     ns = dict(slots=DOOR_SLOTS, s_max=DOOR_S_MAX, temperature=0.0, seed=0,
               loop_decode=False, prepare_weights=False, profile=None,
               replicas=DOOR_REPLICAS, pace_us=0.0, queue_limit=64,
-              host="127.0.0.1", port=0)
+              host="127.0.0.1", port=0, tp=1, compress_tp=False)
     ns.update(kw)
     return argparse.Namespace(**ns)
 
@@ -2925,6 +2944,7 @@ def frontdoor_phase(torch, tm, pm, card, dev, phase3_step_ms) -> dict:
         f"'0']) at full size returned 0 in {selftest_s:.1f} s; phase 19 wall time "
         f"{wall:.1f} s on {card}")
     return {"launches": got["ternary_cim_matmul"], "launches_per_step": per_step,
+            "requests": reqs, "generated": want,
             "replicas": replicas, "stats": stats, "warm": warm,
             "profiled": {"replicas": preplicas, "decode_replay_ms": replay_ms,
                          "decode_wall_us": replay_us, "prefill_wall_us": prefill_us,
@@ -3584,8 +3604,17 @@ def tp_first_token_margins(torch, params, cfg, mesh, dev) -> list:
 
 TP_FAMILY_DEGREE = 2
 # arch -> layers served (None: full depth); deepseek-v2 at full width and
-# 2 of its 60 layers (two ranks' host trees of ~17 GB each)
-TP_FAMILY_ARCHS = {"mamba2-780m": None, "zamba2-2.7b": None, "deepseek-v2-236b": 2}
+# 2 of its 60 layers (two ranks' host trees of ~17 GB each); whisper's
+# decoder (the batcher takes no enc) over its whole tree, encoder and
+# cross attention included (2.02 B parameters, 4.04 GB a rank); llava at
+# full width and 2 of its 60 layers (2.04 B parameters, 4.08 GB a rank,
+# of which the untied vocabulary tables are 0.92 B)
+TP_FAMILY_ARCHS = {"mamba2-780m": None, "zamba2-2.7b": None, "deepseek-v2-236b": 2,
+                   "whisper-large-v3": None, "llava-next-34b": 2}
+# the archs served on phase 11's and 14's four requests (4 prompts, 8 new
+# tokens: 8 decode steps and a fill, where phase 3's 8 requests take 25
+# and 3), which keeps the script within its time limit
+TP_FAMILY_FOUR = ("whisper-large-v3", "llava-next-34b")
 TP_FAMILY_TIMEOUT_S = 600.0
 
 
@@ -3597,6 +3626,14 @@ def tp_family_cfg(arch, mode="cim"):
     if TP_FAMILY_ARCHS[arch]:
         cfg = cfg.replace(n_layers=TP_FAMILY_ARCHS[arch])
     return cfg.replace(quant=QuantConfig(mode="off")) if mode == "off" else cfg
+
+
+def tp_family_requests(Request, arch, vocab):
+    """Phase 22's requests of ``arch``: phase 3's, or four_requests for
+    TP_FAMILY_FOUR."""
+    if arch in TP_FAMILY_FOUR:
+        return four_requests(Request, vocab)
+    return make_requests(Request, vocab, seed=0)
 
 
 def first_fill_logits(torch, params, cfg, dev, mesh=None):
@@ -3622,8 +3659,9 @@ def first_fill_logits(torch, params, cfg, dev, mesh=None):
 def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
     """Phase 22 on one rank: per arch of TP_FAMILY_ARCHS, the whole seeded
     tree made on the card one rank at a time and held on the host, the
-    rank's shard cut there and moved (``ContinuousBatcher(mesh=)``); phase
-    3's requests served eagerly with the launch counts at 0 just before:
+    rank's shard cut there and moved (``ContinuousBatcher(mesh=)``); its
+    requests (``tp_family_requests``) served eagerly with the launch counts
+    at 0 just before:
     tokens == the single device's, #1 launched macs_per_step x (steps +
     fills) and macs_per_step in every fill; the collectives of a decode
     step at 2 slots, times the steps and fills, equal to the 4-slot run's;
@@ -3660,7 +3698,7 @@ def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
         batcher = ContinuousBatcher(host, cfg, n_slots=4, s_max=256, seed=0, device=dev,
                                     mesh=mesh)
         check(not batcher.graphed, f"{arch}: a TP batcher's steps must run eagerly")
-        reqs = make_requests(Request, cfg.vocab, seed=0)
+        reqs = tp_family_requests(Request, arch, cfg.vocab)
         fills = []
         reset_counts(tm, pm)
         C.reset_counts()
@@ -3679,7 +3717,9 @@ def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
                "fill_ms": [ms for ms, _, _ in fills], "launches": got["ternary_cim_matmul"],
                "steps": steps, "per_step": per_step, "collectives": dict(C.COUNTS),
                "local": {k: getattr(batcher.cfg, k) for k in (
-                   ("n_heads",) if cfg.family == "moe" else ("ssm_n_heads", "ssm_d_inner")
+                   ("n_heads",) if cfg.family == "moe"
+                   else ("n_heads", "n_kv_heads") if cfg.family in ("encdec", "vlm")
+                   else ("ssm_n_heads", "ssm_d_inner")
                    + (("n_heads",) if cfg.family == "hybrid" else ()))},
                "cache_shapes": [tuple(leaf.shape) for leaf in T.cache_leaves(batcher.caches)]}
         del batcher
@@ -3733,10 +3773,12 @@ def _host_tree(tree):
 
 
 def tp_family_phase(torch, card, dev) -> dict:
-    """Phase 22: full-size mamba2-780m and zamba2-2.7b and full-width
-    deepseek-v2-236b (2 of 60 layers) served over TP_FAMILY_DEGREE gloo
-    ranks on the one card (``tp_family_rank``), phase 3's requests,
-    eager; first the same requests single-device, eager, on the same
+    """Phase 22: full-size mamba2-780m, zamba2-2.7b and whisper-large-v3
+    (its decoder) and full-width deepseek-v2-236b and llava-next-34b (2
+    of 60 layers each) served over TP_FAMILY_DEGREE gloo
+    ranks on the one card (``tp_family_rank``), phase 3's requests
+    (whisper and llava: four_requests), eager; first the same requests
+    single-device, eager, on the same
     seeded weights (and mamba2-780m in mode "off", with its first fill's
     logits). A rank's failure or a run past TP_FAMILY_TIMEOUT_S fails the
     script. The eager TP step is printed beside the eager single-device
@@ -3756,7 +3798,7 @@ def tp_family_phase(torch, card, dev) -> dict:
             batcher = ContinuousBatcher(params, mcfg, n_slots=4, s_max=256, seed=0,
                                         device=dev)
             batcher.graphed = False
-            reqs = make_requests(Request, cfg.vocab, seed=0)
+            reqs = tp_family_requests(Request, arch, cfg.vocab)
             secs, step_ms = drive(torch, batcher, reqs)
             rec = {"tokens": [r.generated for r in reqs], "secs": secs, "step_ms": step_ms,
                    "stats": batcher.stats()}
@@ -3953,6 +3995,166 @@ def analysis_phase(torch, tm, pm, card, dev) -> dict:
             "audit_s": audit_s, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the front door over tensor-parallel replicas
+# ---------------------------------------------------------------------------
+
+# 2 replicas x 3 ranks, six gloo processes on the one card (3 is the
+# smallest degree that splits smollm-135m's 9 heads and 3 kv heads), and
+# phase 19's first DOOR_TP_STREAMS requests
+DOOR_TP_REPLICAS, DOOR_TP = 2, 3
+DOOR_TP_STREAMS = 4
+# new tokens a stream (phase 19's max_new capped: its generate() tokens'
+# prefix), which keeps the script within its time limit
+DOOR_TP_MAX_NEW = 6
+# the replicas' command timeout (launch.serve.TP_TIMEOUT_S for the phase)
+DOOR_TP_TIMEOUT_S = 300.0
+
+
+def frontdoor_tp_phase(torch, card, dev, phase19) -> dict:
+    """Phase 24: full-size smollm-135m (per_row, blocked/cuda) behind the
+    front door over DOOR_TP_REPLICAS replicas, each a rank group of
+    DOOR_TP gloo processes on the one card, built by the launcher's
+    build_frontdoor (``--serve-http --tp``): (a) phase 19's first
+    requests (at most DOOR_TP_MAX_NEW new tokens) streamed concurrently
+    == the prefix of phase 19's generate(); (b) one
+    request cancelled after 2 tokens while another streams on the other
+    replica; /stats: the mesh, one host sync per step and fill in rank 0,
+    #1 launched macs_per_step x (steps + fills) in every rank of every
+    replica (their counts start at 0 with the processes) and no other
+    kernel, the cancel on its replica and in no rank's slot table; the
+    SLOs of (a); the stop's time, and no rank process alive after it."""
+    import asyncio
+    import multiprocessing
+
+    from repro_torch import api
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.frontdoor import WSClient, http_json
+
+    t_phase = time.perf_counter()
+    cfg = get_config("smollm-135m")
+    cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    spec = api.CiMExecSpec("blocked", "cuda")
+    reqs = [(p, min(m, DOOR_TP_MAX_NEW)) for p, m in phase19["requests"][:DOOR_TP_STREAMS]]
+    want = [w[:m] for w, (_, m) in zip(phase19["generated"], reqs)]
+    per_step = macs_per_step(cfg)
+
+    def check(ok, what):
+        if not ok:
+            fail(f"front door over TP replicas: {what}")
+
+    async def traffic(door):
+        out = {}
+        t0 = time.perf_counter()
+        conns = [await WSClient.connect(door.host, door.port) for _ in reqs]
+        res = await asyncio.gather(*[ws.generate(p, m) for ws, (p, m) in zip(conns, reqs)])
+        for ws in conns:
+            await ws.close()
+        out["a"], out["a_s"] = res, time.perf_counter() - t0
+        _, out["a_stats"] = await http_json(door.host, door.port, "GET", "/stats")
+        w1 = await WSClient.connect(door.host, door.port)
+        w2 = await WSClient.connect(door.host, door.port)
+        out["victim"], out["survivor"] = await asyncio.gather(
+            w1.generate(reqs[0][0], DOOR_S_MAX - 16, cancel_after=2),
+            w2.generate(*reqs[1]))
+        await w1.close()
+        await w2.close()
+        _, out["stats"] = await http_json(door.host, door.port, "GET", "/stats")
+        return out
+
+    saved = launch.TP_TIMEOUT_S
+    launch.TP_TIMEOUT_S = DOOR_TP_TIMEOUT_S
+    try:
+        t0 = time.perf_counter()
+        door, _ = launch.build_frontdoor(
+            door_args(replicas=DOOR_TP_REPLICAS, tp=DOOR_TP), cfg, None, spec, dev)
+        start_s = time.perf_counter() - t0
+        replicas = [w.batcher for w in door.router.workers]
+        procs = [p for rep in replicas for p in rep.procs]
+
+        async def run():
+            await door.start()
+            try:
+                return await traffic(door)
+            finally:
+                ts = time.perf_counter()
+                await door.stop()
+                stop_s.append(time.perf_counter() - ts)
+
+        stop_s = []
+        out = asyncio.run(run())
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"front door over TP replicas: {e}")
+    finally:
+        launch.TP_TIMEOUT_S = saved
+    alive = [p.pid for p in procs if p.is_alive()]
+    check(not alive and not set(procs) & set(multiprocessing.active_children()),
+          f"rank processes {alive} alive after door.stop()")
+    got = [r["tokens"] for r in out["a"]]
+    check(got == want, f"streams {got} != the prefix of phase 19's generate() {want}")
+    victim, survivor = out["victim"], out["survivor"]
+    check(survivor["tokens"] == want[1] and not survivor["done"]["cancelled"],
+          f"survivor {survivor}")
+    n = min(len(victim["tokens"]), len(want[0]))
+    check(victim["done"]["cancelled"] and n >= 2
+          and len(victim["tokens"]) < DOOR_S_MAX - 16
+          and victim["tokens"][:n] == want[0][:n], f"cancelled {victim}")
+    check(victim["done"]["replica"] != survivor["done"]["replica"],
+          f"victim and survivor on one replica: {victim['done']} {survivor['done']}")
+    stats = out["stats"]
+    check(stats["mesh"] == {"data": DOOR_TP_REPLICAS, "model": DOOR_TP},
+          f"/stats mesh {stats['mesh']}")
+    check(stats["slo"]["requests"]["cancelled"] == 1
+          and stats["slo"]["requests"]["completed"] == len(reqs) + 1
+          and stats["router"]["in_flight"] == 0, f"/stats {stats['slo']['requests']}")
+    rows = {}
+    for r in stats["router"]["replicas"]:
+        steps = r["decode_steps"] + r["prefill_batches"]
+        launches = r["launches"]
+        check(r["tp"] == DOOR_TP and r["failed"] is None and len(r["rank_slots"]) == DOOR_TP
+              and all(slot is None for slots in r["rank_slots"] for slot in slots),
+              f"replica {r['name']}: {r}")
+        check(r["host_syncs"] == steps, f"replica {r['name']} host syncs {r}")
+        check(launches["ternary_cim_matmul"] == per_step * steps
+              and not any(v for k, v in launches.items() if k != "ternary_cim_matmul"),
+              f"replica {r['name']}: launches {launches} over {steps} steps and fills "
+              f"(every rank agreed)")
+        rows[r["name"]] = {k: r[k] for k in ("decode_steps", "prefill_batches", "host_syncs",
+                                             "completed", "cancelled", "ranks")}
+        rows[r["name"]]["launches"] = launches["ternary_cim_matmul"]
+    hit = rows[victim["done"]["replica"]]
+    check(hit["cancelled"] == 1, f"the cancel is not on replica {victim['done']['replica']}: "
+          f"{rows}")
+    slo = out["a_stats"]["slo"]
+    wall = time.perf_counter() - t_phase
+    log(f"front door over TP replicas: full-size smollm-135m (per_row, blocked/cuda), "
+        f"{DOOR_TP_REPLICAS} replicas x tp {DOOR_TP} ({DOOR_TP_REPLICAS * DOOR_TP} gloo "
+        f"processes on {card}), {DOOR_SLOTS} slots, s_max {DOOR_S_MAX}: started in "
+        f"{start_s:.1f} s; (a) {len(reqs)} concurrent WebSocket streams == the prefix of "
+        f"phase 19's generate() ({sum(map(len, want))} tokens in {out['a_s']:.1f} s); "
+        f"(b) cancelled "
+        f"after {len(victim['tokens'])} tokens on {victim['done']['replica']} (a greedy "
+        f"prefix), survivor exact on {survivor['done']['replica']}; /stats mesh "
+        f"{stats['mesh']}; per replica (rank 0; every rank agreed each step) "
+        + "; ".join(f"{name}: {r['decode_steps']} decode steps, {r['prefill_batches']} "
+                    f"fills, {r['host_syncs']} host syncs, #1 {r['launches']} = {per_step} "
+                    f"x {r['decode_steps'] + r['prefill_batches']}, completed "
+                    f"{r['completed']}, cancelled {r['cancelled']}, world ranks {r['ranks']}"
+                    for name, r in rows.items())
+        + f"; door.stop() {stop_s[0]:.2f} s, no rank process alive after it")
+    log(f"front door over TP replicas, SLOs of (a) on {card}: TTFT "
+        f"{pct_line(slo['slo_us']['ttft'])}")
+    log(f"front door over TP replicas, per-token latency of (a): "
+        f"{pct_line(slo['slo_us']['tok_latency'])}")
+    log(f"front door over TP replicas, goodput of (a): {slo['goodput_tok_s']:.1f} tok/s "
+        f"({slo['tokens_out']} tokens in {slo['uptime_s']:.3f} s); phase 24 wall time "
+        f"{wall:.1f} s")
+    return {"replicas": rows, "mesh": stats["mesh"], "slo": slo, "start_s": start_s,
+            "traffic_a_s": out["a_s"], "stop_s": stop_s[0], "wall_s": wall,
+            "launches_per_step": per_step}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4038,6 +4240,8 @@ def main(argv=None) -> int:
     serving["tp_families"] = tp_families = tp_family_phase(torch, card,
                                                            torch.device("cuda"))
     serving["analysis"] = analysis_phase(torch, tm, pm, card, torch.device("cuda"))
+    serving["frontdoor_tp"] = frontdoor_tp_phase(torch, card, torch.device("cuda"),
+                                                 serving["frontdoor"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -67,10 +67,20 @@ The other families' rules, where the port differs from GSPMD's:
     dense MLP. The reference's grouped dispatch (one routing group per
     data shard) waits for a data axis.
 
+encdec and vlm split as the dense family does: the batcher serves
+their decoders (self-attention and an MLP; it takes no encoder output and
+no image patches). The leaves it never reads are placed by the same
+rule: whisper's cross attention (``blocks/cross``: q/k/v
+column-parallel, o row-parallel, on whole heads with the self-attention)
+and its encoder (``enc_blocks``: attention and MLP as a decoder layer's;
+``blocks/ln_x``, ``enc_norm`` and ``enc_pos`` replicated), and llava's
+``projector`` column-parallel (``transformer.embed_inputs`` gathers its
+output over the ranks), so a rank's ``forward(frames=)`` or
+``forward(patches=)`` runs on its shards too.
+
 Mode "off" splits the same weights as float slices (no codes): a column
 shard is ``x @ w``, a row shard computes its partial in float32, sums
-the partials in float32 and rounds once. encdec and vlm do not split
-yet (ROADMAP Queue A item 2.6).
+the partials in float32 and rounds once.
 
 The reference's ``shard_act`` and ``use_mesh`` have no counterpart:
 activation constraints and a mesh context steer a partitioner, and here
@@ -106,8 +116,8 @@ _ATTN = {"wq", "wk", "wv", "wo"}
 # leaves below this size are never FSDP-sharded (gather overhead > savings)
 FSDP_MIN_SIZE = 1 << 20
 
-#: the families whose params shard_params splits
-TP_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+#: the families whose params shard_params splits: every family
+TP_FAMILIES = ("dense", "ssm", "hybrid", "moe", "encdec", "vlm")
 # the mamba leaves a rank takes its heads' (or channels') part of
 _MAMBA_HEADS = {"A_log", "D", "dt_bias"}
 _MAMBA_CHANNELS = {"conv_w", "conv_b"}
@@ -236,13 +246,6 @@ def mamba_columns(cfg, tp: int, rank: int) -> Dict[str, torch.Tensor]:
             "heads": heads}
 
 
-def _check_family(cfg) -> None:
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor-parallel serving of the {cfg.family!r} family is not "
-            f"ported yet (ROADMAP Queue A item 2.6; {TP_FAMILIES} split)")
-
-
 def local_config(cfg, mesh):
     """``cfg`` at one rank's widths: its heads (and kv heads) where
     attention splits, its SSM heads (a ``configs.base.RankConfig``
@@ -250,7 +253,6 @@ def local_config(cfg, mesh):
     else ``cfg`` itself. The vocabulary, d_model, the experts and MLA's
     latent stay whole (the residual stream, the logits, the routing and
     the latent cache are whole on every rank)."""
-    _check_family(cfg)
     tp = model_axis_size(mesh)
     if tp == 1:
         return cfg
@@ -456,7 +458,6 @@ def shard_params(params: PyTree, cfg, mesh, device=None) -> PyTree:
     only this rank's shard moves, each weight's codes computed on
     ``device`` from its whole layer (one layer moved at a time), as the
     step there computes them."""
-    _check_family(cfg)
     tp = model_axis_size(mesh)
     if tp == 1:
         return params

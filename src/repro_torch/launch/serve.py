@@ -31,19 +31,25 @@ batch run (``repro_torch.serve.frontdoor``): an HTTP + WebSocket server
 streaming tokens per request, with ``--replicas N`` batchers behind a
 least-loaded router and bounded admission (``--queue-limit``, 429 over
 it). Every replica runs on the one ``--device``; on the card they step
-one at a time under the device's lock. ``--selftest`` runs the front
-door against itself — stream one request, cancel a second mid-stream,
-check ``/stats``, shut down — and exits::
+one at a time under the device's lock. With ``--tp N`` each replica is a
+tensor-parallel group of N rank processes (``serve.frontdoor.
+tp_replica``: ``replicas x N`` gloo processes on ``--device``, each
+making the seeded model and keeping its shard; the door in this process
+drives them through a proxy, and its shutdown reaps them); ``/stats``
+carries ``mesh {"data": replicas, "model": N}``. ``--selftest`` runs the
+front door against itself — stream one request, cancel a second
+mid-stream, check ``/stats``, shut down — and exits::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --serve-http --replicas 2 --selftest
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --serve-http --replicas 2 --tp 2 --selftest
 
 ``--tp N`` serves tensor-parallel over N ranks (``launch.mesh.spawn_tp``:
 N processes of one gloo group, all on ``--device``: on one card they
 share it): every rank builds the same seeded params and requests, keeps
-its shard (``ContinuousBatcher(mesh=)``: the dense, ssm, hybrid and moe
-families; encdec and vlm are refused before any rank starts), and the
-parent prints rank 0's report; the steps run eagerly (gloo's collectives cannot
+its shard (``ContinuousBatcher(mesh=)``: every family), and the parent
+prints rank 0's report; the steps run eagerly (gloo's collectives cannot
 be captured). ``--compress-tp`` sums the row-parallel partials through
 the int8-compressed collective::
 
@@ -52,12 +58,11 @@ the int8-compressed collective::
         --arch mamba2-780m
     python -m repro_torch.launch.serve --tp 3              # on the card
     python -m repro_torch.launch.serve --tp 2 --arch zamba2-2.7b
-
-The front door's ``--tp`` (a mesh per replica) is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -153,57 +158,77 @@ def main(argv=None) -> int:
     if args.selftest:
         args.serve_http = True
         args.port = 0  # ephemeral: the selftest races no other listener
-    if args.serve_http and args.tp > 1:
-        ap.error("--serve-http with --tp > 1 is not ported yet")
-    if args.tp > 1:
-        from repro_torch.dist.sharding import TP_FAMILIES
+    if args.tp > 1 and not args.serve_http:
         from repro_torch.launch.mesh import spawn_tp
-
-        family = get_config(args.arch, smoke=args.smoke).family
-        if family not in TP_FAMILIES:
-            ap.error(f"--tp: the {family!r} family does not split yet "
-                     f"(ROADMAP Queue A item 2.6; {', '.join(TP_FAMILIES)} do)")
 
         for line in spawn_tp(_serve_rank, args.tp, args, timeout=TP_TIMEOUT_S):
             print(line)
         return 0
-    cfg, params, exec_spec = _model(args, device)
+    cfg, exec_spec = _config(args)
     if args.serve_http:
+        # under --tp the ranks make the seeded params themselves
+        params = None if args.tp > 1 else _params(cfg, args.seed, device)
         return _serve_http_main(args, cfg, params, exec_spec, device)
-    for line in serve_once(args, cfg, params, exec_spec, device):
+    for line in serve_once(args, cfg, _params(cfg, args.seed, device), exec_spec,
+                           device):
         print(line)
     return 0
 
 
-def _model(args, device):
-    """(cfg, seeded params, exec spec) of the parsed args."""
+def _config(args):
+    """(cfg, exec spec) of the parsed args."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    params = T.init_params(cfg, seed=args.seed, device=device)
     if args.pre_quantize:
-        import dataclasses
-
-        params = ternarize_params(params)
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, pre_quantized=True))
-    return cfg, params, parse_exec_spec(args.exec_spec) if args.exec_spec else None
+    return cfg, parse_exec_spec(args.exec_spec) if args.exec_spec else None
+
+
+def _params(cfg, seed, device):
+    """The seeded params of ``cfg`` on ``device``, ternarized offline
+    where ``cfg.quant.pre_quantized`` (``--pre-quantize``)."""
+    params = T.init_params(cfg, seed=seed, device=device)
+    return ternarize_params(params) if cfg.quant.pre_quantized else params
+
+
+def _batcher(args, params, cfg, exec_spec, device, mesh=None, profile=None):
+    """The parsed args' batcher over ``params`` (on ``mesh``: its shard)."""
+    return ContinuousBatcher(
+        params, cfg, n_slots=args.slots, s_max=args.s_max, exec_spec=exec_spec,
+        temperature=args.temperature, seed=args.seed, fused=not args.loop_decode,
+        prepare_weights=args.prepare_weights, device=device, profile=profile,
+        mesh=mesh, compress_tp=args.compress_tp)
 
 
 def _serve_rank(mesh, args):
     """One ``--tp`` rank: the whole seeded model, its shard served; rank
     0's report lines come back to the parent."""
     device = resolve_device(args.device)
-    cfg, params, exec_spec = _model(args, device)
-    lines = serve_once(args, cfg, params, exec_spec, device, mesh)
+    cfg, exec_spec = _config(args)
+    lines = serve_once(args, cfg, _params(cfg, args.seed, device), exec_spec, device,
+                       mesh)
     return lines if mesh.rank == 0 else None
+
+
+def _frontdoor_rank(mesh, device, args, cfg, exec_spec):
+    """One rank of a ``--serve-http --tp`` replica
+    (``tp_replica.TPReplicaGroup``'s ``build``): the seeded params of
+    ``cfg``, its shard served by the parsed args' batcher on ``mesh``.
+    Under ``--profile`` rank 0's batcher records into a profiler in
+    memory, whose events the replica's proxy writes to the door's file."""
+    profile = None
+    if args.profile and mesh.rank == 0:
+        from repro_torch.profile.trace import Profiler
+
+        profile = Profiler()
+    return _batcher(args, _params(cfg, args.seed, device), cfg, exec_spec, device,
+                    mesh=mesh, profile=profile)
 
 
 def serve_once(args, cfg, params, exec_spec, device, mesh=None):
     """The one-shot batch run of the parsed args; returns its report
     lines (raises if a request did not finish)."""
-    batcher = ContinuousBatcher(
-        params, cfg, n_slots=args.slots, s_max=args.s_max, exec_spec=exec_spec,
-        temperature=args.temperature, seed=args.seed, fused=not args.loop_decode,
-        prepare_weights=args.prepare_weights, device=device, profile=args.profile,
-        mesh=mesh, compress_tp=args.compress_tp)
+    batcher = _batcher(args, params, cfg, exec_spec, device, mesh=mesh,
+                       profile=args.profile)
     reqs = [
         Request(i, [1 + (i * 7 + j) % (cfg.vocab - 1) for j in range(1 + i % 4)],
                 max_new=2 + i % args.max_new)
@@ -254,10 +279,20 @@ def serve_once(args, cfg, params, exec_spec, device, mesh=None):
 
 def build_frontdoor(args, cfg, params, exec_spec, device):
     """(FrontDoor, profiler) for the parsed args: ``args.replicas``
-    batchers on ``device``, one router, one tracker, and one profiler
-    shared by every replica and the tracker when ``args.profile`` is
-    set (it appends per event, so their events interleave in one
-    file)."""
+    batchers of ``params`` on ``device``, one router, one tracker, and
+    one profiler shared by every replica and the tracker when
+    ``args.profile`` is set (it appends per event, so their events
+    interleave in one file).
+
+    With ``args.tp > 1`` each replica is a rank group of
+    ``serve.frontdoor.tp_replica.TPReplicaGroup``: ``replicas x tp`` gloo
+    processes on ``device`` (every rank on it: on one card they share
+    it), one ``(1, tp)`` mesh per replica, each rank making the seeded
+    params of ``cfg`` itself (``params`` is not read and may be None);
+    a replica whose rank raises, dies or overruns ``TP_TIMEOUT_S`` fails
+    alone, the door's ``stop()`` reaps every rank, and the tracker
+    reports ``mesh {"data": replicas, "model": tp}``, as the
+    reference's does."""
     from repro_torch.serve.frontdoor import (
         EngineWorker,
         FrontDoor,
@@ -270,19 +305,25 @@ def build_frontdoor(args, cfg, params, exec_spec, device):
         from repro_torch.profile.trace import Profiler
 
         profiler = Profiler(args.profile)
-    batchers = [
-        ContinuousBatcher(
-            params, cfg, n_slots=args.slots, s_max=args.s_max,
-            exec_spec=exec_spec, temperature=args.temperature, seed=args.seed,
-            fused=not args.loop_decode, prepare_weights=args.prepare_weights,
-            device=device, profile=profiler)
-        for _ in range(args.replicas)
-    ]
-    tracker = SLOTracker(profiler=profiler, exec_spec=batchers[0].spec_tag)
+    tp = args.tp
+    group = None
+    if tp > 1:
+        from repro_torch.serve.frontdoor.tp_replica import TPReplicaGroup
+
+        group = TPReplicaGroup(_frontdoor_rank, (args, cfg, exec_spec),
+                               replicas=args.replicas, tp=tp, device=device,
+                               timeout=TP_TIMEOUT_S, profiler=profiler)
+        batchers = group.replicas
+    else:
+        batchers = [_batcher(args, params, cfg, exec_spec, device, profile=profiler)
+                    for _ in range(args.replicas)]
+    tracker = SLOTracker(profiler=profiler, exec_spec=batchers[0].spec_tag,
+                         mesh={"data": args.replicas, "model": tp} if tp > 1 else None)
     workers = [EngineWorker(f"r{i}", b, tracker, pace_us=args.pace_us)
                for i, b in enumerate(batchers)]
     router = ReplicaRouter(workers, queue_limit=args.queue_limit)
-    return FrontDoor(router, tracker, host=args.host, port=args.port), profiler
+    return FrontDoor(router, tracker, host=args.host, port=args.port,
+                     on_stop=None if group is None else group.close), profiler
 
 
 async def _selftest_session(door) -> None:
@@ -319,8 +360,9 @@ async def _serve_http_async(args, cfg, params, exec_spec, device) -> int:
     door, profiler = build_frontdoor(args, cfg, params, exec_spec, device)
     host, port = await door.start()
     n_rep = args.replicas
+    tp = f" x tp {args.tp}" if args.tp > 1 else ""
     print(f"[serve] front door on http://{host}:{port} "
-          f"({n_rep} replica{'s' if n_rep != 1 else ''} on {device}, "
+          f"({n_rep} replica{'s' if n_rep != 1 else ''}{tp} on {device}, "
           f"queue-limit {args.queue_limit}) — "
           "routes: /healthz /stats /v1/generate /v1/stream", flush=True)
     try:

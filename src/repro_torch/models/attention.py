@@ -507,13 +507,15 @@ def cross_attention(params, x: torch.Tensor, enc: torch.Tensor,
     D), unmasked, no RoPE. K and V are projected from ``enc`` on every
     call, as in the reference: there is no cross-KV cache. Every
     projection is a dense layer (kernel #1 on the card under mode cim);
-    the contractions are :func:`_sdpa`'s, in float64."""
+    the contractions are :func:`_sdpa`'s, in float64. On a rank of a TP
+    mesh, as :func:`gqa_attention`: the rank's heads, q/k/v
+    column-parallel, o row-parallel."""
     b, s, _ = x.shape
     se = enc.shape[1]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     qc = cfg.quant
-    q = L.dense(x, params["wq"], qc).reshape(b, s, h, hd)
-    k = L.dense(enc, params["wk"], qc).reshape(b, se, h, hd)
-    v = L.dense(enc, params["wv"], qc).reshape(b, se, h, hd)
+    q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, hd)
+    k = L.dense(enc, params["wk"], qc, tp="col").reshape(b, se, h, hd)
+    v = L.dense(enc, params["wv"], qc, tp="col").reshape(b, se, h, hd)
     out = _sdpa(q, k, v, causal_offset=None)
-    return L.dense(out.reshape(b, s, h * hd), params["wo"], qc)
+    return L.dense(out.reshape(b, s, h * hd), params["wo"], qc, tp="row")

@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import VocabShard
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import VocabShard, WeightShard
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -249,12 +250,17 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig,
 def embed_inputs(params, tokens: torch.Tensor, cfg: ArchConfig,
                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings (B, S, D); for vlm the projected ``patches`` (B,
-    n_img, d_vision), a dense layer, go in front: (B, n_img + S, D)."""
+    n_img, d_vision), a dense layer, go in front: (B, n_img + S, D). On a
+    rank of a TP mesh the projector is column-parallel and its output is
+    gathered over the ranks (a copy)."""
     x = L.embed(tokens, params["embed"])
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("the vlm family's forward needs patches")
-        img = L.dense(patches.to(x.dtype), params["projector"], cfg.quant)
+        proj = params["projector"]
+        img = L.dense(patches.to(x.dtype), proj, cfg.quant, tp="col")
+        if isinstance(proj, WeightShard):
+            img = collectives.all_gather(img, proj.mesh.group, dim=-1)
         x = torch.cat([img, x], dim=1)
     return x
 

@@ -22,8 +22,7 @@ attention, and llava as its token stream). ``ContinuousBatcher(profile=)``
 records one trace event per decode step, per fill batch and per weight
 preparation (``repro_torch.profile``). ``ContinuousBatcher(mesh=)``
 serves tensor-parallel: each rank of a ``launch.mesh.TPMesh`` runs the
-same batcher on its shard (dense, ssm, hybrid and moe families),
-eagerly.
+same batcher on its shard (every family), eagerly.
 """
 from __future__ import annotations
 
@@ -224,6 +223,23 @@ class Request:
     cancelled: bool = False
 
 
+def check_prompt(prompt: List[int], vocab: int, s_max: int) -> None:
+    """Raise ValueError unless a batcher of ``vocab`` tokens and cache
+    capacity ``s_max`` can serve ``prompt``: not empty, every id in the
+    vocabulary, and one decode slot left after it."""
+    if not prompt:
+        raise ValueError("empty prompt: serving needs at least one prompt token")
+    bad = [t for t in prompt if not 0 <= t < vocab]
+    if bad:
+        # an out-of-range index would fail inside a step on the card
+        raise ValueError(f"prompt token ids {bad[:4]} outside the "
+                         f"vocabulary [0, {vocab})")
+    if len(prompt) >= s_max:
+        raise ValueError(
+            f"prompt length {len(prompt)} does not fit a cache of "
+            f"s_max={s_max} (needs at least one decode slot)")
+
+
 def _next_pow2(n: int, lo: int = 4) -> int:
     v = lo
     while v < n:
@@ -321,8 +337,8 @@ class ContinuousBatcher:
     sample the same tokens, so in a quantized mode each rank's
     ``generated`` and ``stats()`` equal the single-device batcher's; in
     mode "off" the row-parallel layers sum float partials, equal to one
-    device's up to float summation order (encdec and vlm raise
-    ``NotImplementedError``). gloo
+    device's up to float summation order. Every family splits (encdec
+    and vlm serve their decoders, as on one device). gloo
     runs its collectives from the host, and a captured CUDA graph cannot
     hold one, so under a mesh the decode and prefill steps run eagerly
     (``graphed`` stays False); capturing the segments between
@@ -685,17 +701,7 @@ class ContinuousBatcher:
         return len(active)
 
     def submit(self, req: Request):
-        if not req.prompt:
-            raise ValueError("empty prompt: serving needs at least one prompt token")
-        bad = [t for t in req.prompt if not 0 <= t < self.cfg.vocab]
-        if bad:
-            # an out-of-range index would fail inside a step on the card
-            raise ValueError(f"prompt token ids {bad[:4]} outside the "
-                             f"vocabulary [0, {self.cfg.vocab})")
-        if len(req.prompt) >= self.s_max:
-            raise ValueError(
-                f"prompt length {len(req.prompt)} does not fit a cache of "
-                f"s_max={self.s_max} (needs at least one decode slot)")
+        check_prompt(req.prompt, self.cfg.vocab, self.s_max)
         self.queue.append(req)
 
     def cancel(self, request_id: int) -> bool:

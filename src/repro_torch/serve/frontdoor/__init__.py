@@ -8,6 +8,8 @@ replicas.
   * :mod:`.worker`   — one engine replica: step in a worker thread
     (under the device's lock on the card), token/cancel plumbing at step
     boundaries;
+  * :mod:`.tp_replica` — a tensor-parallel replica: rank processes of
+    one gloo world behind a batcher-shaped proxy (``--tp``);
   * :mod:`.router`   — least-loaded dispatch, bounded admission
     (QueueFull -> 429), replica drain/health;
   * :mod:`.slo`      — per-request TTFT / queue-wait / per-token

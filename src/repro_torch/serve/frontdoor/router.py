@@ -3,9 +3,10 @@
 
 Fans front-door requests across N :class:`EngineWorker` replicas —
 each an independent :class:`~repro_torch.serve.engine.ContinuousBatcher`
-(every replica here runs on one device, as the reference's do at tp=1;
-a TP mesh per replica, ``launch.mesh.make_replica_meshes``, is not wired
-into the front door yet).
+on the one device, or, under ``--tp``, a tensor-parallel rank group
+(:class:`~repro_torch.serve.frontdoor.tp_replica.TPReplica`: one row of
+``launch.mesh.make_replica_meshes``' grid, as the reference gives each
+replica a ``(1, tp)`` mesh).
 
 Policy, deliberately boring:
 
@@ -19,7 +20,8 @@ Policy, deliberately boring:
     is explicit: the client is told now, rather than parked on an
     unbounded queue distorting every TTFT behind it;
   * **health/drain** — a draining or dead replica receives nothing new;
-    its in-flight requests finish (drain) or error out (dead).
+    its in-flight requests finish (drain) or error out (dead: a worker
+    whose step raised drains itself, ``EngineWorker.failed``).
 
 Request ids are allocated router-wide, so a rid names one request
 across every replica, trace event and stats endpoint.

@@ -5,8 +5,9 @@ One asyncio server, four routes:
 
   * ``GET /healthz``      — liveness + replica count;
   * ``GET /stats``        — SLO aggregates (p50/p99 TTFT, queue wait,
-    per-token latency, goodput) and per-replica engine counters
-    (decode_steps, host_syncs, prefill_batches, load);
+    per-token latency, goodput), per-replica engine counters
+    (decode_steps, host_syncs, prefill_batches, load) and the serving
+    ``mesh`` (``{"data": replicas, "model": tp}`` under TP, else null);
   * ``POST /v1/generate`` — one-shot JSON: submit, wait, return every
     token. 429 + ``{"error": "queue_full"}`` when admission control
     rejects;
@@ -26,7 +27,7 @@ and JSON between sockets and asyncio queues.
 from __future__ import annotations
 
 import asyncio
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from repro_torch.serve.frontdoor.protocol import (
     CLOSE_PROTOCOL_ERROR,
@@ -53,17 +54,22 @@ class FrontDoor:
     """Binds the router to a TCP port and speaks the wire protocol.
 
     ``port=0`` binds an ephemeral port (tests, chip_smoke.py) — read the real
-    one from :attr:`port` after :meth:`start`.
+    one from :attr:`port` after :meth:`start`. ``on_stop`` (a callable)
+    runs in a thread at the end of :meth:`stop`: the launcher's TP route
+    passes ``TPReplicaGroup.close``, which reaps the rank processes.
     """
 
     def __init__(self, router: ReplicaRouter, tracker: SLOTracker,
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0,
+                 on_stop: Optional[Callable[[], None]] = None):
         self.router = router
         self.tracker = tracker
         self.host = host
         self.port = port
+        self.on_stop = on_stop
         self._server: Optional[asyncio.AbstractServer] = None
         self._worker_tasks: List[asyncio.Task] = []
+        self._conns: Set[asyncio.StreamWriter] = set()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -80,20 +86,26 @@ class FrontDoor:
 
     async def stop(self) -> None:
         """Clean shutdown: stop admitting, let in-flight requests finish,
-        join every engine loop, close the listener."""
+        join every engine loop, close the listener and the connections
+        that clients left open, then ``on_stop``."""
         self.router.stop()
         if self._worker_tasks:
             await asyncio.gather(*self._worker_tasks, return_exceptions=True)
             self._worker_tasks = []
         if self._server is not None:
             self._server.close()
+            for writer in list(self._conns):
+                writer.close()
             await self._server.wait_closed()
             self._server = None
+        if self.on_stop is not None:
+            await asyncio.to_thread(self.on_stop)
 
     # -- connection handling ------------------------------------------------
 
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter) -> None:
+        self._conns.add(writer)
         try:
             while True:
                 req = await read_http_request(reader)
@@ -120,6 +132,7 @@ class FrontDoor:
         except (ConnectionError, asyncio.IncompleteReadError):
             pass  # peer vanished; per-request cancel handled in the session
         finally:
+            self._conns.discard(writer)
             writer.close()
             try:
                 await writer.wait_closed()
@@ -146,7 +159,8 @@ class FrontDoor:
         await writer.drain()
 
     def stats(self) -> Dict[str, Any]:
-        return {"slo": self.tracker.summary(), "router": self.router.stats()}
+        return {"slo": self.tracker.summary(), "router": self.router.stats(),
+                "mesh": self.tracker.mesh}
 
     def _submit(self, body: Dict[str, Any]) -> TrackedRequest:
         """Validate + admit. Raises ProtocolError (400), QueueFull /

@@ -28,7 +28,13 @@ process-wide. Replicas on one card share its default stream, so their
 steps were serialized on the device anyway. Each step runs on the stream
 that was current where the worker was built (where its batcher was),
 because torch keeps the current stream per thread. On the CPU, replicas
-step concurrently, as the reference's do.
+step concurrently, as the reference's do. A tensor-parallel replica
+(``tp_replica.TPReplica``, ``remote``) steps in rank processes of its
+own: the worker takes no lock and no stream for it (see that module).
+
+A replica whose step raises fails: its open streams end with an error
+frame, it takes nothing new (``draining``, and ``failed`` in its stats
+says why), and the router passes it by.
 """
 from __future__ import annotations
 
@@ -94,7 +100,7 @@ class EngineWorker:
         # with the GIL released — the way accelerator compute occupies a
         # device without occupying the host; 0 disables (the default)
         self.pace_us = float(pace_us)
-        cuda = batcher.device.type == "cuda"
+        cuda = batcher.device.type == "cuda" and not getattr(batcher, "remote", False)
         self._lock = device_lock(batcher.device) if cuda else None
         self._stream = torch.cuda.current_stream(batcher.device) if cuda else None
         self._tracked: Dict[int, TrackedRequest] = {}
@@ -102,7 +108,9 @@ class EngineWorker:
         self._wake = asyncio.Event()
         self._stopping = False
         self.draining = False
+        self.failed = None
         self.steps = 0
+        self.completed = self.cancelled = 0
         # one thread: engine steps serialize per replica (the batcher is
         # not reentrant)
         self._pool = ThreadPoolExecutor(
@@ -168,6 +176,9 @@ class EngineWorker:
             "slots_active": sum(r is not None for r in self.batcher.slot_req),
             "n_slots": self.batcher.n_slots,
             "draining": self.draining,
+            "failed": self.failed,
+            "completed": self.completed,
+            "cancelled": self.cancelled,
         })
         return s
 
@@ -208,6 +219,8 @@ class EngineWorker:
                     # woken by submit/cancel/drain/stop
                     await self._wake.wait()
         except Exception as e:  # engine died: fail every open stream
+            self.failed = repr(e)
+            self.draining = True  # the router sends nothing more here
             for t in list(self._tracked.values()):
                 t.stream.put_nowait(("error", f"engine error: {e!r}"))
             self._tracked.clear()
@@ -247,6 +260,10 @@ class EngineWorker:
                 t.slo.mark_done(cancelled=t.req.cancelled,
                                 truncated=t.req.truncated, t_us=now)
                 self.tracker.finish(t.slo)
+                if t.req.cancelled:
+                    self.cancelled += 1
+                else:
+                    self.completed += 1
                 t.stream.put_nowait(("done", {
                     "rid": rid,
                     "tokens": t.slo.tokens,

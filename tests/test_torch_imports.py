@@ -44,7 +44,7 @@ def test_scan_sees_the_package():
             "dnn_suite.py", "workload.py", "cost_model.py", "accelerator.py",
             "site_cim.py", "calibrate.py", "replay.py", "sharding.py",
             "collectives.py", "mesh.py", "torch_tp_ranks.py", "contracts.py",
-            "op_audit.py", "lint.py", "report.py", "ops.py"} <= names
+            "op_audit.py", "lint.py", "report.py", "ops.py", "tp_replica.py"} <= names
     assert ROOT / "src" / "repro_torch" / "hw" / "registry.py" in PORT_FILES
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"profile", "frontdoor", "hw", "dist", "analysis"} <= dirs
@@ -82,6 +82,9 @@ def test_entry_points_raise_without_cuda(no_cuda):
         generate(params, [[1, 2]], cfg, max_new=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke", "--requests", "1"])
+    # the front door's TP route raises before any rank process starts
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke", "--serve-http", "--tp", "2", "--selftest"])
 
 
 def test_serve_cli_runs_on_cpu_when_asked(no_cuda, capsys):

@@ -373,20 +373,31 @@ def test_guards_raise_before_any_collective():
     up = shd.shard_params(params, off, mesh)["blocks"]["mlp"]["w_up"]
     assert up.scale is None and torch.equal(
         up.w, params["blocks"]["mlp"]["w_up"][..., :cfg.d_ff // 2])
+    # every family splits (encdec and vlm serve their decoders); a family
+    # the model does not know raises before any collective
     for arch in ("whisper-large-v3", "llava-next-34b"):
         other = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="Queue A item 2.6"):
-            ContinuousBatcher(T.init_params(other, seed=0, device="cpu"), other,
+        b = ContinuousBatcher(T.init_params(other, seed=0, device="cpu"), other,
                               n_slots=2, s_max=16, device="cpu", mesh=mesh)
+        assert (b.cfg.n_heads, b.cfg.n_kv_heads) == (other.n_heads // 2,
+                                                     other.n_kv_heads // 2)
+    with pytest.raises(ValueError, match="unknown family"):
+        ContinuousBatcher(params, cfg.replace(family="bogus"), n_slots=2, s_max=16,
+                          device="cpu", mesh=mesh)
 
 
 def test_launcher_tp_and_its_checks(capsys, monkeypatch):
+    """--compress-tp without --tp is refused; --tp 2 --compress-tp serves;
+    --tp 2 --serve-http (the front door over a TP rank group per replica)
+    runs its selftest with --compress-tp passed through to every rank."""
     monkeypatch.setattr(launcher, "TP_TIMEOUT_S", 120.0)
     with pytest.raises(SystemExit):
         launcher.main(["--smoke", "--device", "cpu", "--compress-tp"])
-    with pytest.raises(SystemExit):
-        launcher.main(["--smoke", "--device", "cpu", "--tp", "2", "--serve-http"])
     assert launcher.main(["--smoke", "--device", "cpu", "--tp", "2", "--compress-tp",
                           "--requests", "2"]) == 0
     out = capsys.readouterr().out
     assert "tp=2 int8-compressed rank 0" in out and "request 1:" in out
+    assert launcher.main(["--smoke", "--device", "cpu", "--tp", "2", "--serve-http",
+                          "--selftest", "--replicas", "1", "--compress-tp"]) == 0
+    out = capsys.readouterr().out
+    assert "1 replica x tp 2 on cpu" in out and "selftest ok" in out

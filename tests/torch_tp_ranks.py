@@ -1,5 +1,6 @@
 """Rank functions of the port's tensor-parallel tests
-(``test_torch_tp.py``, ``test_torch_collectives.py``).
+(``test_torch_tp.py``, ``test_torch_tp_families.py``,
+``test_torch_collectives.py``, ``test_torch_frontdoor_tp.py``).
 
 ``launch.mesh.spawn_tp`` pickles a rank function by its import path and
 runs it in fresh processes; this module imports neither JAX nor the JAX
@@ -168,15 +169,18 @@ def tp_suite(mesh, trees, x, w, planes_w, serve_checks):
 # the reference's TP family sweep (tests/test_tp_serve.py): one smoke arch
 # per family, deepseek-v2 at a capacity factor that drops nothing
 FAMILY_ARCHS = {"dense": "smollm-135m", "ssm": "mamba2-780m",
-                "hybrid": "zamba2-2.7b", "moe": "deepseek-v2-236b"}
+                "hybrid": "zamba2-2.7b", "moe": "deepseek-v2-236b",
+                "encdec": "whisper-large-v3", "vlm": "llava-next-34b"}
 
 
-def family_cfg(family, mode):
-    """The family's smoke config (bf16, the registry default) in ``mode``
-    ("off", or "cim", the registry's own)."""
+def family_cfg(family, mode, dtype=None):
+    """The family's smoke config (bf16, the registry default, unless
+    ``dtype``) in ``mode`` ("off", or "cim", the registry's own)."""
     from repro_torch.models.layers import QuantConfig
 
     cfg = get_config(FAMILY_ARCHS[family], smoke=True)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     if family == "moe":
         cfg = cfg.replace(moe_capacity_factor=8.0)
     if mode == "off":
@@ -202,11 +206,37 @@ def prefill_logits(params, cfg, mesh=None):
     return logits.to(torch.float32)
 
 
-def tp_family_suite(mesh, trees, modes):
+def forward_logits(params, cfg, mesh=None):
+    """encdec and vlm: ``transformer.forward`` of PROMPTS[2] with seeded
+    frames or image patches (the leaves the batcher never reads: the
+    encoder, cross attention, the projector), on the rank's shards under
+    ``mesh``; the logits as float32."""
+    from repro_torch.dist.sharding import local_config, shard_params
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator().manual_seed(3)
+    if cfg.family == "encdec":
+        kw = {"frames": torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g)}
+    else:
+        kw = {"patches": torch.randn((1, cfg.n_image_tokens, cfg.d_vision), generator=g)}
+    if mesh is not None:
+        params, cfg = shard_params(params, cfg, mesh), local_config(cfg, mesh)
+    with torch.no_grad():
+        return T.forward(params, torch.tensor([PROMPTS[2]]), cfg, **kw).to(torch.float32)
+
+
+def tp_family_suite(mesh, trees, modes, f32=()):
     """Every family of ``trees`` (the bridged reference trees, by family)
     on one spawned group: per mode of ``modes``, PROMPTS served (tokens,
-    stats) and, in mode "off", the prefill logits of :func:`prefill_logits`."""
+    stats) and, in mode "off", the prefill logits of :func:`prefill_logits`
+    and, for encdec and vlm, :func:`forward_logits`; the families of
+    ``f32`` also served in mode "off" at float32 (key ``(family,
+    "float32")``)."""
     out = {}
+    for family in f32:
+        cfg = family_cfg(family, "off", "float32")
+        out[(family, "float32")] = serve(params_from_numpy(trees[family], cfg,
+                                                           device="cpu"), cfg, mesh)
     for family, tree in trees.items():
         for mode in modes:
             if mode == "cim" and family == "dense":
@@ -216,6 +246,8 @@ def tp_family_suite(mesh, trees, modes):
             out[(family, mode)] = serve(params, cfg, mesh)
             if mode == "off":
                 out[(family, "logits")] = prefill_logits(params, cfg, mesh)
+                if family in ("encdec", "vlm"):
+                    out[(family, "forward")] = forward_logits(params, cfg, mesh)
     return out
 
 
@@ -372,3 +404,29 @@ def cuda_tp_serve(mesh, requests):
     b.run()
     return ([r.generated for r in reqs], b.stats(),
             tm.ternary_cim_matmul.launches - before)
+
+
+# ---------------------------------------------------------------------------
+# The front door over TP rank groups (test_torch_frontdoor_tp.py)
+# ---------------------------------------------------------------------------
+
+
+def door_cfg(mode):
+    """smollm-135m smoke at f32: mode "off", or "cim" under per-row
+    activation scales (fused serving == generate() under per_row)."""
+    from repro_torch.models.layers import QuantConfig
+
+    cfg = get_config("smollm-135m", smoke=True).replace(dtype="float32")
+    if mode == "off":
+        return cfg.replace(quant=QuantConfig(mode="off"))
+    return cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+
+
+def door_batcher(mesh, device, mode):
+    """A ``TPReplicaGroup`` rank's batcher: the seed-0 params of
+    :func:`door_cfg`, this rank's shard on ``mesh``."""
+    from repro_torch.models import transformer as T
+
+    cfg = door_cfg(mode)
+    return ContinuousBatcher(T.init_params(cfg, seed=0, device=device), cfg,
+                             n_slots=2, s_max=32, device=device, mesh=mesh)
