@@ -261,6 +261,33 @@ Phases, each fatal on failure (exit code 1, no result line):
      contracts' SASS pins on the SASS phase 1 read (int8 tensor-core MMAs
      and no float ones in every instance of #2 and #3, #3's asynchronous
      copies and their wait); one "analysis:" line.
+ 25. (run before 24) data-parallel training: launch.mesh.spawn_mesh
+     starts a (2, 1) data mesh, 2 gloo ranks on cuda:0, each running
+     full-size smollm-135m (bf16, remat, CiM, blocked/cuda) through
+     Trainer(mesh=) on its 4 rows of phase 17's global batch (8 x 128):
+     the eager data-parallel step (per-tensor activation statistics and
+     the gradients' mean over the data group), 2 steps, the checkpoint
+     at step 2 written by rank 0; first, in this process, deepseek-v2-236b
+     at full width (2 of 60 layers, per_row): one forward of 4 x 16
+     tokens in 2 routing groups == the forwards of its row blocks at
+     one group, bit for bit, and 2 eager single-device make_train_step
+     steps of smollm-135m on the same batches, freed before the ranks
+     start. Checked: step 0's loss, and the data-parallel forward's loss
+     of the single device's params at every step, within rtol 1e-3 of
+     the single device's loss, later losses within rtol 1e-2; step 0's
+     grad norm within rtol 1e-3; after step 0 every weight within lr/10
+     plus one bf16 step of the weight, and 100 x its weights past lr/10
+     within those of a control step (one device's step on rank 0's rows
+     alone, taken in rank 0 before the Trainer); the mean |delta param|
+     within lr/10 at every step; the params bit-equal on both ranks
+     after every step; #1 launched 420 times a step in every rank and no
+     other kernel; the last checkpoint restored bit for bit by a
+     single-device Trainer on cuda:0 that then takes a step. Printed:
+     max and mean |delta|, the weights past lr/10, step 0's moved
+     activation codes, the single device's loss of its unmoved params on
+     the later batches (what the later losses' bound is read against),
+     and on lines of their own the eager data-parallel step, the
+     gradient all-reduce's ms, collectives a step and peak memory a rank.
  24. (run last) the front door over tensor-parallel replicas:
      full-size smollm-135m (per_row, blocked/cuda) behind the launcher's
      build_frontdoor with --tp 3 and 2 replicas: six gloo processes on
@@ -279,7 +306,8 @@ It then prints a JSON line of phase 20's fits, replay error,
 projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
 served path, #2-#4 in its execute_packed_tp calls; ``tp_family_launches``:
-#1's in rank 0 per arch of phase 22), and last the result
+#1's in rank 0 per arch of phase 22; ``dp_launches``: #1's in rank 0 of
+phase 25), and last the result
 line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
 """
@@ -4155,6 +4183,540 @@ def frontdoor_tp_phase(torch, card, dev, phase19) -> dict:
             "launches_per_step": per_step}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: data-parallel training
+# ---------------------------------------------------------------------------
+
+# the data ranks of phase 25 (each takes TRAIN_BATCH / DP_DATA rows)
+DP_DATA = 2
+# steps the ranks take through the Trainer (and the single device); its one
+# checkpoint is the one it writes at its end, at step DP_STEPS (2 steps, not
+# 3, keep the script within its time limit)
+DP_STEPS = 2
+DP_TIMEOUT_S = 400.0
+# phase 25's full-width deepseek-v2 grouped dispatch: 2 of 60 layers,
+# DP_MOE_ROWS x DP_MOE_SEQ tokens in DP_DATA routing groups
+DP_MOE_LAYERS, DP_MOE_ROWS, DP_MOE_SEQ = 2, 4, 16
+# the loss bounds against one device's: step 0, and the data-parallel
+# forward's loss of the single device's params at every step, at the
+# cross-package CiM training bound of the CPU tests; the data-parallel
+# run's own later losses, whose params have moved apart by bf16 rounding
+# steps, at DP_TRAJ_RTOL (through 30 CiM layers a moved code moves the
+# codes after it: on the CPU the f32 per-tensor 30-layer smoke model's
+# step-1 losses part by 2.5e-3, the per_row one's by 1e-7)
+DP_LOSS_RTOL = 1e-3
+DP_TRAJ_RTOL = 1e-2
+# step 0's grad norm against one device's: the two sum a bf16 gradient of
+# 4 + 4 rows and of 8 rows in other orders (3.4e-4 apart on the H100)
+DP_NORM_RTOL = 1e-3
+# step 0's weights past lr/10 of the single device's, times this, stay
+# within the control's: one device's step on a rank's rows alone (no
+# collective of the data axis; on the H100 1,330 against 4,886,022)
+DP_CONTROL_MARGIN = 100
+
+
+def dp_setup():
+    """Phase 25's config (full-size smollm-135m, its config's bf16, remat
+    and CiM), pipeline and optimizer (phase 17's)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+
+    cfg = get_config("smollm-135m")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    return cfg, pipe, AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+
+
+def tree_digest(torch, leaves):
+    """One int64 a tensor leaf: its bytes as integers, weighted by a fixed
+    sequence and summed modulo 2^64 on the device (exact in any order):
+    two leaves differ in a bit -> their digests differ (but by chance)."""
+    out = []
+    for t in leaves:
+        flat = t.detach().reshape(-1)
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+        v = flat.view(ints[flat.element_size()]).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.int64)
+        out.append((v * (w * 6364136223846793005 + 1442695040888963407)).sum())
+    return torch.stack(out).cpu().tolist()
+
+
+def state_leaves(torch, state):
+    """The tensors of a TrainState: params, the Adam step and moments."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    return (list(tree_leaves(state.params)) + [state.opt.step]
+            + list(tree_leaves(state.opt.mu)) + list(tree_leaves(state.opt.nu)))
+
+
+def forward_codes(torch, params, batch, cfg, mesh=None):
+    """The activation codes of every per-tensor ternarization of one
+    no-grad forward (int8, on the host, in call order): a data rank's
+    over its rows, under ``data_parallel``."""
+    import importlib
+
+    from repro_torch.core import ternary as tern
+    from repro_torch.dist import sharding as shd
+
+    ts = importlib.import_module("repro_torch.train.train_step")
+    real, codes = tern.ternarize, []
+
+    def spy(x, axis=None, factor=tern.TWN_THRESHOLD_FACTOR, reduce=None):
+        t, scale = real(x, axis, factor, reduce)
+        if axis is None:
+            codes.append(t.to(torch.int8).cpu())
+        return t, scale
+
+    tern.ternarize = spy
+    try:
+        with torch.no_grad():
+            if mesh is None:
+                ts.loss_fn(params, batch, cfg)
+            else:
+                with shd.data_parallel(mesh):
+                    ts.loss_fn(params, shd.batch_shard(batch, mesh), cfg)
+    finally:
+        tern.ternarize = real
+    return codes
+
+
+def param_gap(torch, params, want, lr) -> dict:
+    """|delta| of ``params`` (a tree on the card) against ``want`` (the
+    same leaves on the host), in float32: max, mean, the weights past
+    lr/10 and past lr/10 plus one bf16 step of the weight, the count."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst = total = beyond = past = 0.0
+    n = 0
+    for p, w in zip(tree_leaves(params), want):
+        w = w.to(p.device).to(torch.float32)
+        d = (p.detach().to(torch.float32) - w).abs()
+        # the spacing of bf16 at the single device's weight
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        worst = max(worst, float(d.max()))
+        total += float(d.sum())
+        n += d.numel()
+        beyond += float((d > lr / 10).sum())
+        past += float((d > lr / 10 + ulp).sum())
+    return {"max": worst, "mean": total / n, "beyond_lr10": beyond,
+            "beyond_lr10_ulp": past, "n": n}
+
+
+def dp_single(torch, dev, tmp) -> dict:
+    """Phase 25 (a)'s single device: step 0's forward codes and the
+    control (the seed-0 params' loss on batches 1..), then DP_STEPS eager
+    make_train_step steps from the Trainer's seed-0 state on the
+    pipeline's batches 0.. under deterministic mode, the params after each
+    saved to ``tmp`` for the ranks; losses, step times, peak memory."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import init_train_state, loss_fn, make_train_step
+
+    cfg, pipe, opt = dp_setup()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=0, device=dev)
+    batch0 = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(0).items()}
+    codes_path = os.path.join(tmp, "codes.pt")
+    torch.save(forward_codes(torch, state.params, batch0, cfg), codes_path)
+    # the control: the loss of the unmoved params on the later batches (a
+    # step that moved nothing would read these)
+    with torch.no_grad():
+        control = [float(loss_fn(state.params, {k: torch.from_numpy(v).to(dev) for k, v in
+                                                pipe.batch(i).items()}, cfg)[0])
+                   for i in range(1, DP_STEPS)]
+    step_fn = make_train_step(cfg, opt)
+    out = {"losses": [], "secs": [], "params": [], "codes": codes_path, "control": control}
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(DP_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, norm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+            out["secs"].append(time.perf_counter() - t0)
+            out["losses"].append(loss)
+            out.setdefault("grad_norms", []).append(norm)
+            path = os.path.join(tmp, f"params_{i}.pt")
+            torch.save([p.detach().cpu() for p in tree_leaves(state.params)], path)
+            out["params"].append(path)
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms"] = statistics.median(out["secs"][1:]) * 1e3
+    del state, step_fn
+    _free(torch)
+    return out
+
+
+def dp_rank(mesh, single, ckpt_dir, dev_name="cuda") -> dict:
+    """Phase 25 on one data rank (``launch.mesh.spawn_mesh``, every rank on
+    cuda:0): the Trainer under the mesh (``Trainer(mesh=)``: the eager
+    data-parallel step) from the seed-0 state for DP_STEPS steps, its
+    checkpoints into ``ckpt_dir`` (rank 0 writes). Before it, not counted:
+    step 0's forward codes against the single device's rows. The launch
+    counts at 0 just before ``run()``; in every step call: #1 launched
+    2 x macs_per_step and no other kernel, the collectives, the gradient
+    bucket's all-reduce time, then (outside the step's time) the params'
+    digest gathered over the data group (bit-equal on every rank) and,
+    in rank 0, every weight against the single device's after the same
+    step (after step 0 each within lr/10 plus one bf16 step of the
+    weight). Raises on any failure."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import packed_mac as pm
+    from repro_torch.kernels import ternary_mac as tm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ts = importlib.import_module("repro_torch.train.train_step")
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"phase 25 data rank {mesh.data_rank}: {what}")
+
+    dev = torch.device(dev_name, 0) if dev_name == "cuda" else torch.device(dev_name)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg, pipe, opt = dp_setup()
+    per_step = 2 * macs_per_step(cfg)
+    trainer = Trainer(cfg, opt, TrainConfig(
+        num_steps=DP_STEPS, ckpt_dir=ckpt_dir, ckpt_every=DP_STEPS + 1, log_every=1),
+        pipe, seed=0, device=dev, mesh=mesh)
+    check(trainer.step_fn.graphed is False, "the data-parallel step must run eagerly")
+    # step 0's codes against the single device's rows of them
+    batch0 = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(0).items()}
+    mine = forward_codes(torch, trainer.state.params, batch0, cfg, mesh)
+    theirs = torch.load(single["codes"])
+    rows = TRAIN_BATCH // mesh.data
+    r0 = mesh.data_rank * rows
+    check(len(mine) == len(theirs), f"{len(mine)} per-tensor calls, the single device "
+          f"{len(theirs)}")
+    moved = torch.tensor([sum(int((a != b[r0:r0 + rows]).sum()) for a, b in zip(mine, theirs))
+                          + 0.0, sum(a.numel() for a in mine) + 0.0], dtype=torch.float64)
+    moved = C.all_reduce(moved, mesh.data_group)
+    del mine, theirs
+    # the gradient bucket's all-reduce, timed
+    real_bucket, bucket_ms = C.bucket_mean, []
+
+    def timed_bucket(tensors, group):
+        sync()
+        t0 = time.perf_counter()
+        out = real_bucket(tensors, group)
+        sync()
+        bucket_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    C.bucket_mean = timed_bucket
+    inner, per_call, secs, collectives, deltas, digests = trainer.step_fn, [], [], [], [], []
+    bad = []
+
+    def cross_loss(step):
+        """The data-parallel forward's loss (no grad) of the single
+        device's params before ``step`` on the step's batch: the single
+        device's loss of the step where the forward is consistent."""
+        if step == 0:
+            params = trainer.state.params
+        else:
+            found = iter(torch.load(single["params"][step - 1]))
+            params = tree_map(lambda p: next(found).to(dev), trainer.state.params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(step).items()}
+        with torch.no_grad(), shd.data_parallel(mesh):
+            loss, _ = ts.loss_fn(params, shd.batch_shard(batch, mesh), cfg)
+        return float(C.all_reduce(loss.reshape(1), mesh.data_group)) / mesh.data
+
+    # before the run (not counted): the forward against the single device's
+    cross = [cross_loss(step) for step in range(DP_STEPS)]
+    control = None
+    if mesh.data_rank == 0:
+        # the control, a step that skips every collective of the data axis:
+        # one device's step from the seed-0 state on this rank's rows alone,
+        # against the single device's params after step 0 as step 0 is
+        # (the other rank waits at its first collective meanwhile)
+        fresh = init_train_state(cfg, seed=0, device=dev)
+        wrong, m = make_train_step(cfg, opt)(fresh, shd.batch_shard(batch0, mesh))
+        control = dict(param_gap(torch, wrong.params, torch.load(single["params"][0]), opt.lr),
+                       grad_norm=float(m["grad_norm"]))
+        del fresh, wrong
+
+    def counted(state, batch):
+        # records only: a raise inside the step is a node failure to the
+        # Trainer, which would restore this rank alone
+        before = counts(tm, pm)
+        C.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = inner(state, batch)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        step = len(secs) - 1
+        per_call.append({k: v - before[k] for k, v in counts(tm, pm).items()})
+        collectives.append(dict(C.COUNTS))
+        mine = tree_digest(torch, tree_leaves(state.params))
+        every = [None] * mesh.data
+        dist.all_gather_object(every, mine, group=mesh.data_group)
+        digests.append(all(d == mine for d in every))
+        if mesh.data_rank == 0:
+            gap = param_gap(torch, state.params, torch.load(single["params"][step]), opt.lr)
+            # after one step the two runs' gradients differ by bf16 sums in
+            # another order only: every weight within lr/10 and a rounding
+            # step of bf16 storage, and far fewer weights past lr/10 than
+            # the control's (``dp_report``; later steps move apart through
+            # 30 CiM layers: the mean is held there, each weight printed)
+            if step == 0 and gap["beyond_lr10_ulp"]:
+                bad.append(f"step 0: {int(gap['beyond_lr10_ulp'])} weights past lr/10 plus "
+                           f"one bf16 step of the single device's")
+            deltas.append(gap)
+        return out
+
+    trainer.step_fn = counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(tm, pm)
+    try:
+        log_ = trainer.run()
+    finally:
+        C.bucket_mean = real_bucket
+    got = counts(tm, pm)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    check(trainer.restarts == 0 and len(secs) == DP_STEPS,
+          f"{trainer.restarts} restarts, {len(secs)} step calls")
+    check(all(digests), f"the params differ between the data ranks after steps "
+          f"{[i for i, ok in enumerate(digests) if not ok]}")
+    check(not bad, "; ".join(bad[:4]))
+    check(all(d["mean"] <= opt.lr / 10 for d in deltas),
+          f"mean |delta param| {[d['mean'] for d in deltas]} past lr/10")
+    want = dict.fromkeys(got, 0)
+    want["ternary_cim_matmul"] = per_step
+    check(len(per_call) == DP_STEPS and all(c == want for c in per_call),
+          f"launches per step call {per_call}, expected {want}")
+    check(got["ternary_cim_matmul"] == per_step * DP_STEPS, f"launches {got}")
+    final = tree_digest(torch, state_leaves(torch, trainer.state))
+    return {"log": [(m["step"], m["loss"], m["grad_norm"]) for m in log_],
+            "cross": cross, "secs": secs, "bucket_ms": bucket_ms, "collectives": collectives,
+            "launches": got["ternary_cim_matmul"], "per_step": per_step,
+            "moved": moved.tolist(), "deltas": deltas, "peak_bytes": peak,
+            "final_digest": final, "rows": rows, "control": control}
+
+
+def dp_moe_groups(torch, tm, pm, dev) -> dict:
+    """Phase 25 (f): full-width deepseek-v2-236b (DP_MOE_LAYERS of 60
+    layers, bf16, per_row so that no statistic couples the rows) seeded on
+    the card: one ``forward`` of DP_MOE_ROWS x DP_MOE_SEQ tokens under
+    ``enable_activation_sharding(batch_divisor=DP_DATA)`` (DP_DATA routing
+    groups, each its own capacity) against ``torch.cat`` of the forwards
+    of its row blocks at one group each, bit for bit; #1's launches in
+    the grouped forward."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("deepseek-v2-236b")
+    cfg = cfg.replace(n_layers=DP_MOE_LAYERS,
+                      quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    tokens = torch.randint(0, cfg.vocab, (DP_MOE_ROWS, DP_MOE_SEQ), generator=g, device=dev)
+    n = DP_MOE_ROWS // DP_DATA
+    with torch.no_grad():
+        shd.enable_activation_sharding(batch_divisor=DP_DATA)
+        try:
+            reset_counts(tm, pm)
+            sync_t = time.perf_counter()
+            grouped = T.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            grouped_ms = (time.perf_counter() - sync_t) * 1e3
+            got = counts(tm, pm)
+        finally:
+            shd.disable_activation_sharding()
+        halves = torch.cat([T.forward(params, tokens[i * n:(i + 1) * n], cfg)
+                            for i in range(DP_DATA)])
+        whole = T.forward(params, tokens, cfg)
+    if not torch.equal(grouped, halves):
+        fail(f"deepseek-v2 grouped dispatch: the {DP_DATA}-group forward differs from its "
+             f"row blocks' by up to {float((grouped - halves).abs().max())}")
+    per_forward = macs_per_step(cfg)
+    if got["ternary_cim_matmul"] != per_forward or any(
+            v for k, v in got.items() if k != "ternary_cim_matmul"):
+        fail(f"deepseek-v2 grouped forward: launches {got}, expected #1 {per_forward}")
+    out = {"launches": got["ternary_cim_matmul"], "grouped_ms": grouped_ms,
+           "vs_one_group_max_abs": float((grouped - whole).abs().max()),
+           "secs": time.perf_counter() - t0}
+    del params, grouped, halves, whole
+    _free(torch)
+    return out
+
+
+def dp_report(out, single, losses, card, opt):
+    """Log phase 25's rank results beside the single device's and fail
+    past the loss bounds; returns the DP step median (ms) and step 0's
+    collectives."""
+    moved, n_codes = out["moved"]
+    norms = [n for _, _, n in out["log"]]
+    log(f"data parallel: losses " + " ".join(f"{v:.6f}" for v in losses)
+        + ", grad norms " + " ".join(f"{v:.6f}" for v in norms)
+        + "; the single device's losses " + " ".join(f"{v:.6f}" for v in single["losses"])
+        + ", grad norms " + " ".join(f"{v:.6f}" for v in single["grad_norms"])
+        + "; the data-parallel forward's loss of the single device's params on each "
+        "step's batch " + " ".join(f"{v:.6f}" for v in out["cross"])
+        + "; control: the single device's loss of its unmoved params on the later "
+        "batches " + " ".join(f"{v:.6f}" for v in single["control"]))
+    ctl = out["control"]
+    log(f"data parallel: the control, one device's step on rank 0's {out['rows']} rows "
+        f"alone (no collective of the data axis): grad norm {ctl['grad_norm']:.6f} against "
+        f"the single device's {single['grad_norms'][0]:.6f} (the data-parallel step's "
+        f"{norms[0]:.6f}); its params against the single device's after step 0: |delta| max "
+        f"{ctl['max']:.3g}, mean {ctl['mean']:.3g}, weights past lr/10 "
+        f"{int(ctl['beyond_lr10'])}, past lr/10 + one bf16 step {int(ctl['beyond_lr10_ulp'])}"
+        f" (the data-parallel step's {int(out['deltas'][0]['beyond_lr10'])}, "
+        f"{int(out['deltas'][0]['beyond_lr10_ulp'])})")
+    dp_ms = statistics.median(out["secs"][1:]) * 1e3
+    coll = out["collectives"][0]
+    per_step = out["per_step"]
+    log(f"data parallel: full-size smollm-135m (bf16, remat, CiM, blocked/cuda; global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}) over a ({DP_DATA}, 1) mesh, {DP_DATA} gloo ranks on "
+        f"{card}, {out['rows']} rows each, {DP_STEPS} steps through Trainer(mesh=): "
+        f"|delta param| against the single device max "
+        + " ".join(f"{d['max']:.3g}" for d in out["deltas"]) + ", mean "
+        + " ".join(f"{d['mean']:.3g}" for d in out["deltas"]) + " (bound lr/10 = "
+        + f"{opt.lr / 10:.3g}), weights past lr/10 "
+        + " ".join(f"{int(d['beyond_lr10'])}" for d in out["deltas"])
+        + ", past lr/10 + one bf16 step of the weight "
+        + " ".join(f"{int(d['beyond_lr10_ulp'])}" for d in out["deltas"])
+        + f" of {out['deltas'][0]['n']} (step 0's held at 0); "
+        f"step 0's per-tensor activation codes moved {int(moved)} of {int(n_codes)}; params "
+        f"bit-equal on every rank after every step; #1 launched {per_step} in every step in "
+        f"every rank ({out['launches']} in rank 0), no other kernel")
+    log(f"data parallel: eager data-parallel step median {dp_ms:.2f} ms of the steps after "
+        f"step 0 (all: " + " ".join(f"{s * 1e3:.1f}" for s in out["secs"])
+        + f" ms) against the eager single-device step {single['step_ms']:.2f} ms ("
+        + " ".join(f"{s * 1e3:.1f}" for s in single["secs"]) + " ms); gradient all-reduce "
+        f"(one f32 bucket) " + " ".join(f"{v:.1f}" for v in out["bucket_ms"])
+        + f" ms; collectives a step {coll}; peak memory a rank (rank 0) "
+        f"{out['peak_bytes'] / 1e9:.2f} GB, the single device's {single['peak_bytes'] / 1e9:.2f}"
+        f" GB; on {card}")
+    bad = [i for i, (a, b) in enumerate(zip(losses, single["losses"]))
+           if not abs(a - b) <= (DP_TRAJ_RTOL if i else DP_LOSS_RTOL) * abs(b)]
+    bad += [i for i, (a, b) in enumerate(zip(out["cross"], single["losses"]))
+            if not abs(a - b) <= DP_LOSS_RTOL * abs(b)]
+    if bad:
+        fail(f"data-parallel training: losses of steps {sorted(set(bad))} past their "
+             f"bounds (step 0 and the forward of the single device's params rtol "
+             f"{DP_LOSS_RTOL}, later steps {DP_TRAJ_RTOL})")
+    if not abs(norms[0] - single["grad_norms"][0]) <= DP_NORM_RTOL * single["grad_norms"][0]:
+        fail(f"data-parallel training: step 0's grad norm {norms[0]} against the single "
+             f"device's {single['grad_norms'][0]} (rtol {DP_NORM_RTOL})")
+    if not out["deltas"][0]["beyond_lr10"] * DP_CONTROL_MARGIN <= ctl["beyond_lr10"]:
+        fail(f"data-parallel training: step 0 left {int(out['deltas'][0]['beyond_lr10'])} "
+             f"weights past lr/10 of the single device's, the control "
+             f"{int(ctl['beyond_lr10'])} (margin {DP_CONTROL_MARGIN})")
+    return dp_ms, coll
+
+
+def dp_phase(torch, tm, pm, card, dev) -> dict:
+    """Phase 25: full-size smollm-135m (bf16, remat, CiM, blocked/cuda: its
+    config's) trained over a (DP_DATA, 1) data mesh, DP_DATA gloo ranks on
+    cuda:0, TRAIN_BATCH / DP_DATA rows of phase 17's global batch each
+    (``dp_rank``): first, in this process, the full-width deepseek-v2
+    grouped dispatch (``dp_moe_groups``) and DP_STEPS eager single-device
+    steps on the same batches (``dp_single``), freed before the ranks
+    start; then the ranks: (a) step 0's loss, and at every step the
+    data-parallel forward's loss of the single device's params before it
+    on its batch, within DP_LOSS_RTOL of the single device's loss, the
+    run's own later losses within DP_TRAJ_RTOL, step 0's grad norm within
+    DP_NORM_RTOL, the mean |delta param| within lr/10 at every step and,
+    after step 0, every weight within lr/10 plus one bf16 rounding step
+    of the weight (each update is stored in bf16: a weight of 0.04 moves
+    by 2.4e-4 = 8 x lr/10 when its rounding flips) and DP_CONTROL_MARGIN
+    x the weights past lr/10 within the control step's (one device's
+    step on rank 0's rows alone); max and mean |delta|, the weights past
+    lr/10, step 0's moved activation codes and the single device's loss
+    of its unmoved params on the later batches printed; (b)
+    the params bit-equal on every rank after every step; (c) #1 launched
+    420 times a step in every rank, no other kernel; (d) the eager
+    data-parallel step, the gradient all-reduce, collectives a step and
+    peak memory a rank; (e) the Trainer's last checkpoint (written at data
+    DP_DATA) restored by a single-device Trainer on cuda:0 bit for bit,
+    which then takes one step. A rank's failure or a run past
+    DP_TIMEOUT_S fails the script."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    moe = dp_moe_groups(torch, tm, pm, dev)
+    log(f"data parallel (f): deepseek-v2-236b at full width ({DP_MOE_LAYERS} of 60 layers, "
+        f"bf16, per_row) on {card}: one forward of {DP_MOE_ROWS} x {DP_MOE_SEQ} tokens in "
+        f"{DP_DATA} routing groups == torch.cat of its {DP_DATA} row blocks' one-group "
+        f"forwards, bit for bit ({moe['grouped_ms']:.1f} ms); its logits differ from one "
+        f"group over all rows by up to {moe['vs_one_group_max_abs']:.4g}; #1 launched "
+        f"{moe['launches']} in the grouped forward, no other kernel; {moe['secs']:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        single = dp_single(torch, dev, tmp)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        try:
+            out = spawn_mesh(dp_rank, DP_DATA, 1,
+                             {k: single[k] for k in ("codes", "params")}, ckpt_dir,
+                             dev.type, timeout=DP_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"data-parallel training: {e}")
+        cfg, pipe, opt = dp_setup()
+        losses = [loss for _, loss, _ in out["log"]]
+        if [s for s, _, _ in out["log"]] != list(range(DP_STEPS)):
+            fail(f"data-parallel training: steps {out['log']}")
+        dp_ms, coll = dp_report(out, single, losses, card, opt)
+        # (e) the data-2 checkpoint on one device
+        # made without the directory (no restore at construction), then
+        # restored once through restore(device=); it writes no checkpoint
+        trainer = Trainer(cfg, opt, TrainConfig(num_steps=DP_STEPS + 1), pipe, seed=0,
+                          device=dev)
+        t0 = time.perf_counter()
+        trainer.train_cfg.ckpt_dir = ckpt_dir
+        start = trainer.restore(device=dev)
+        trainer.train_cfg.ckpt_dir = None
+        restored = tree_digest(torch, state_leaves(torch, trainer.state))
+        restore_s = time.perf_counter() - t0
+        if start != DP_STEPS or restored != out["final_digest"]:
+            fail(f"elastic restore: step {start}, the restored state's digest "
+                 f"{'==' if restored == out['final_digest'] else '!='} data rank 0's")
+        reset_counts(tm, pm)
+        after = trainer.run()
+        got = counts(tm, pm)
+        per_step = out["per_step"]
+        if ([m["step"] for m in after] != [DP_STEPS] or not math.isfinite(after[0]["loss"])
+                or got["ternary_cim_matmul"] != per_step):
+            fail(f"elastic restore: the step after it {after}, launches {got}")
+        del trainer
+        _free(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"data parallel (e): the Trainer's checkpoint at step {DP_STEPS} (written at data "
+        f"{DP_DATA}) restored by a single-device Trainer on {dev} bit for bit in "
+        f"{restore_s:.1f} s, then step {DP_STEPS}: loss {after[0]['loss']:.6f}, #1 launched "
+        f"{got['ternary_cim_matmul']}; phase 25 wall time {wall:.1f} s")
+    return {"losses": losses, "single_losses": single["losses"], "deltas": out["deltas"],
+            "cross_losses": out["cross"], "grad_norms": [n for _, _, n in out["log"]],
+            "single_grad_norms": single["grad_norms"], "control_losses": single["control"],
+            "control_step": out["control"],
+            "moved_codes": out["moved"][0], "codes": out["moved"][1], "dp_step_ms": dp_ms,
+            "dp_secs": out["secs"], "single_step_ms": single["step_ms"],
+            "single_secs": single["secs"], "bucket_ms": out["bucket_ms"],
+            "collectives_per_step": coll, "peak_bytes_rank": out["peak_bytes"],
+            "single_peak_bytes": single["peak_bytes"], "launches": out["launches"],
+            "launches_per_step": per_step, "restore_s": restore_s,
+            "after_restore_loss": after[0]["loss"], "moe": moe, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4240,6 +4802,7 @@ def main(argv=None) -> int:
     serving["tp_families"] = tp_families = tp_family_phase(torch, card,
                                                            torch.device("cuda"))
     serving["analysis"] = analysis_phase(torch, tm, pm, card, torch.device("cuda"))
+    serving["data_parallel"] = dp = dp_phase(torch, tm, pm, card, torch.device("cuda"))
     serving["frontdoor_tp"] = frontdoor_tp_phase(torch, card, torch.device("cuda"),
                                                  serving["frontdoor"])
 
@@ -4257,6 +4820,7 @@ def main(argv=None) -> int:
             "tp_family_launches": ({arch: tp_families[arch]["launches"]
                                     for arch in TP_FAMILY_ARCHS}
                                    if name == "ternary_cim_matmul" else None),
+            "dp_launches": (dp["launches"] if name == "ternary_cim_matmul" else None),
             **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import struct
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -66,10 +66,19 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 
 
 def ternarize(x: torch.Tensor, axis: Axis = None,
-              factor: float = TWN_THRESHOLD_FACTOR
+              factor: float = TWN_THRESHOLD_FACTOR,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize ``x`` to {-1, 0, +1} * scale. Returns ``(t, scale)`` with
-    ``t`` in the dtype of x and ``scale = E[|x| : |x| > delta]``."""
+    ``t`` in the dtype of x and ``scale = E[|x| : |x| > delta]``.
+
+    ``reduce`` (per-tensor only) makes ``x`` one rank's part of a tensor
+    split over ranks: it sums a float64 vector over them (an all-reduce),
+    and the statistics are the whole tensor's, from :func:`_split_stats`."""
+    if reduce is not None:
+        if axis is not None:
+            raise ValueError("a split statistic is per tensor (axis=None)")
+        return _split_stats(x, factor, reduce)
     delta = ternary_threshold(x, axis=axis, factor=factor)
     mask = (x.abs() > delta).to(x.dtype)
     t = torch.sign(x) * mask
@@ -80,6 +89,30 @@ def ternarize(x: torch.Tensor, axis: Axis = None,
     else:
         num = (x.abs() * mask).sum(dim=axes, keepdim=True)
         den = torch.clamp(mask.sum(dim=axes, keepdim=True), min=1.0)
+    return t, (num / den).to(x.dtype)
+
+
+def _split_stats(x: torch.Tensor, factor: float,
+                 reduce: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor ternarization of the tensor whose part on this rank is
+    ``x``: the sum of |x| and the count, then the sum of |x| over the
+    kept codes and their count, each pair summed over the ranks by
+    ``reduce`` in float64 (two collectives, in this order on every rank)
+    and rounded to x's dtype where one device's ``mean`` and ``sum``
+    round. Equal to :func:`ternarize` of the whole tensor up to the order
+    of the float sums: a threshold one ulp away moves the codes at a
+    near-tie."""
+    absx = x.abs()
+    f64 = torch.float64
+    count = torch.full((), float(x.numel()), dtype=f64, device=x.device)
+    mean = reduce(torch.stack([absx.sum(dtype=f64), count]))
+    delta = _rounded(factor, x.dtype) * (mean[0] / mean[1]).to(x.dtype)
+    mask = (absx > delta).to(x.dtype)
+    t = torch.sign(x) * mask
+    kept = reduce(torch.stack([(absx * mask).sum(dtype=f64), mask.sum(dtype=f64)]))
+    num = kept[0].to(x.dtype)
+    den = torch.clamp(kept[1].to(x.dtype), min=1.0)
     return t, (num / den).to(x.dtype)
 
 

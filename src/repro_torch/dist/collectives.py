@@ -13,7 +13,10 @@ cross-rank reduction of the port goes through this module:
     all-reduce of the local amax, stochastic rounding from an explicit
     ``torch.Generator``, an int32 sum, the f32 decode);
   * :func:`mean_grads_int8`, the same primitive as a data-parallel
-    gradient mean.
+    gradient mean (pinned; the data-parallel step does not use it, as
+    the reference's ``train_step`` does not);
+  * :func:`bucket_mean`, the data-parallel step's exact gradient mean:
+    every tensor in one flat f32 bucket, one all-reduce.
 
 gloo drives its collectives from the host: a CUDA tensor is copied to
 host memory, reduced there and copied back (the wire), so no collective
@@ -108,3 +111,21 @@ def mean_grads_int8(grad: torch.Tensor, group,
     ``mean_grads_int8(mesh, grads, keys)`` takes the stacked shards of
     one program instead."""
     return compressed_psum_int8(grad, group, generator) / dist.get_world_size(group)
+
+
+def bucket_mean(tensors, group):
+    """The mean over ``group`` of each rank's ``tensors`` (a sequence),
+    through one collective: every tensor flattened into one f32 bucket,
+    summed by one all-reduce, divided by the group's size and rounded
+    back to each tensor's dtype. Returns new tensors in order."""
+    tensors = list(tensors)
+    bucket = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+    COUNTS["all_reduce"] += 1
+    bucket /= dist.get_world_size(group)
+    out, start = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(bucket[start:start + n].view(t.shape).to(t.dtype))
+        start += n
+    return out

@@ -65,7 +65,7 @@ The other families' rules, where the port differs from GSPMD's:
     are gathered over the expert dim (a copy), and every rank combines
     them in the single-device order. The shared experts split as the
     dense MLP. The reference's grouped dispatch (one routing group per
-    data shard) waits for a data axis.
+    data shard) runs inside each group (:func:`routing_groups`).
 
 encdec and vlm split as the dense family does: the batcher serves
 their decoders (self-attention and an MLP; it takes no encoder output and
@@ -82,16 +82,25 @@ Mode "off" splits the same weights as float slices (no codes): a column
 shard is ``x @ w``, a row shard computes its partial in float32, sums
 the partials in float32 and rounds once.
 
-The reference's ``shard_act`` and ``use_mesh`` have no counterpart:
-activation constraints and a mesh context steer a partitioner, and here
-every shard and every collective is explicit, so there is nothing for
-them to do.
+The data axis (data-parallel training) splits the batch, not the
+weights: every rank holds the whole replicated state and runs its rows
+of the global batch (:func:`batch_shard`, the rule of the reference's
+``dryrun.batch_shardings``). The reference's activation-sharding switch
+is ported as state (:func:`enable_activation_sharding`): its divisor
+sets MoE's routing groups in one process, as the reference's does,
+while ``shard_act`` is the identity, since no partitioner reads a
+constraint here. Inside a data-parallel rank (:func:`data_parallel`)
+the rank's rows are one routing group, and every per-tensor activation
+statistic that the reference's partitioner takes over the whole batch
+is summed over the data group (:func:`data_group`, read by
+``layers.dense``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -206,8 +215,17 @@ def param_specs(params: PyTree, fsdp: bool = False,
 
 
 def model_axis_size(mesh=None) -> int:
-    """The size of ``mesh``'s "model" axis; 1 without a mesh."""
-    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+    """The size of ``mesh``'s "model" axis; without a mesh, the "model"
+    size of the enabled activation sharding (the reference's
+    ``model_axis_size()``), 1 when it is off."""
+    if mesh is None:
+        return int(_ACT_AXES.get("model_size", 1)) if _ACT_AXES else 1
+    return int(mesh.shape.get("model", 1))
+
+
+def _tp(mesh) -> int:
+    """The model-axis size a rank's shard is cut for (1 without a mesh)."""
+    return 1 if mesh is None else model_axis_size(mesh)
 
 
 def attention_splits(cfg, tp: int) -> bool:
@@ -253,7 +271,7 @@ def local_config(cfg, mesh):
     else ``cfg`` itself. The vocabulary, d_model, the experts and MLA's
     latent stay whole (the residual stream, the logits, the routing and
     the latent cache are whole on every rank)."""
-    tp = model_axis_size(mesh)
+    tp = _tp(mesh)
     if tp == 1:
         return cfg
     if attention_splits(cfg, tp) and cfg.family != "ssm":
@@ -304,7 +322,7 @@ def cache_specs(caches, mesh, batch: int, cfg) -> List[Spec]:
     one group) and an SSM state (L, B, H, P, N) its heads (dim 2) where
     mamba splits; an MLA latent cache stays whole on every rank (every
     head reads the latent)."""
-    tp = model_axis_size(mesh)
+    tp = _tp(mesh)
     return _cache_leaf_specs(caches, batch, tp > 1 and attention_splits(cfg, tp),
                              tp > 1 and mamba_splits(cfg, tp))
 
@@ -458,7 +476,7 @@ def shard_params(params: PyTree, cfg, mesh, device=None) -> PyTree:
     only this rank's shard moves, each weight's codes computed on
     ``device`` from its whole layer (one layer moved at a time), as the
     step there computes them."""
-    tp = model_axis_size(mesh)
+    tp = _tp(mesh)
     if tp == 1:
         return params
     rank, qc = mesh.rank, cfg.quant
@@ -519,3 +537,118 @@ def shard_params(params: PyTree, cfg, mesh, device=None) -> PyTree:
     with torch.no_grad():
         return _map_tree(params, lambda path, leaf: place(
             path, leaf, tuple(_leaf_spec(path, leaf, sizes))))
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding and the data axis
+# ---------------------------------------------------------------------------
+
+# None = off. When on: {"multi_pod", "divisor", "model_size", "data"}, the
+# reference's record; models/moe.py reads "divisor" for its routing groups
+_ACT_AXES: Optional[Dict[str, Any]] = None
+# the data group of the data-parallel step running in this process (None:
+# none), process-wide so that remat's recompute in autograd's device
+# thread reads it too
+_DATA_GROUP: Any = None
+
+
+def enable_activation_sharding(*, multi_pod: bool = False, batch_divisor: int = 1,
+                               model_size: int = 1) -> None:
+    """The reference's switch: a batch that divides ``batch_divisor``
+    is treated as split over the data-like axes (MoE routes in that many
+    groups), the model axis has ``model_size`` ranks."""
+    global _ACT_AXES
+    _ACT_AXES = {
+        "multi_pod": bool(multi_pod),
+        "divisor": int(batch_divisor),
+        "model_size": int(model_size),
+        "data": ("pod", "data") if multi_pod else ("data",),
+    }
+
+
+def disable_activation_sharding() -> None:
+    global _ACT_AXES
+    _ACT_AXES = None
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The data-like mesh axes batch dims shard over (() when off)."""
+    return _ACT_AXES["data"] if _ACT_AXES else ()
+
+
+def shard_act(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The reference's named activation constraint: the identity, as the
+    reference's is with no mesh context, for any batch (a batch that
+    does not divide the divisor is not an error there either). Every
+    split of the port is explicit, so no constraint has a reader."""
+    return x
+
+
+def routing_groups(batch: int) -> int:
+    """MoE's routing groups for a batch of ``batch`` rows, the
+    reference's rule: the enabled divisor where it is above 1 and
+    divides ``batch``, else 1; always 1 inside a data-parallel rank,
+    whose rows are one group (a second split would route them in
+    groups of groups)."""
+    if _DATA_GROUP is not None or _ACT_AXES is None:
+        return 1
+    div = int(_ACT_AXES.get("divisor", 1))
+    return div if div > 1 and batch % div == 0 else 1
+
+
+def mesh_batch_divisor(mesh) -> int:
+    """Product of the data-like axis sizes ("pod", "data") of ``mesh``:
+    a batch splits over the data axis only where it divides this (else
+    it is replicated: :func:`batch_shard`)."""
+    d = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.axis_names:
+            d *= int(mesh.shape[ax])
+    return d
+
+
+def batch_is_split(batch: int, mesh) -> bool:
+    """Whether a global batch of ``batch`` rows splits over ``mesh``'s
+    data axis: the divisor is above 1 and divides it (else every rank
+    runs the whole batch, replicated)."""
+    div = 1 if mesh is None else mesh_batch_divisor(mesh)
+    return div > 1 and batch % div == 0
+
+
+def batch_shard(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's rows of the global ``batch`` (a dict of arrays or
+    tensors, batch dim first): a contiguous block of ``B / D`` rows,
+    block ``data_rank``, where the batch divides ``D =
+    mesh_batch_divisor(mesh)``; else the whole batch (replicated). The
+    reference's ``dryrun.batch_shardings`` rule. Views, not copies."""
+    rows = {len(v) for v in batch.values()}
+    if len(rows) != 1:
+        raise ValueError(f"a batch's entries disagree on the batch dim: {sorted(rows)}")
+    b = rows.pop()
+    if not batch_is_split(b, mesh):
+        return dict(batch)
+    n = b // mesh_batch_divisor(mesh)
+    r = mesh.data_rank
+    return {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+
+
+def data_group():
+    """The data group of the data-parallel step running in this process,
+    or None: where ``layers.dense``, its only reader, sums its per-tensor
+    activation statistics."""
+    return _DATA_GROUP
+
+
+@contextlib.contextmanager
+def data_parallel(mesh) -> Iterator[None]:
+    """Run the body as one data-parallel rank of ``mesh`` on its rows of
+    a split batch: per-tensor activation statistics are summed over the
+    data group and MoE routes the rank's rows as one group. Restores
+    the previous state after."""
+    global _DATA_GROUP
+    prev = _DATA_GROUP
+    _DATA_GROUP = mesh.data_group
+    try:
+        yield
+    finally:
+        _DATA_GROUP = prev

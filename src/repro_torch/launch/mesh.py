@@ -1,13 +1,21 @@
-"""Tensor-parallel meshes over ``torch.distributed`` (port of
-``repro/launch/mesh.py``).
+"""Meshes over ``torch.distributed`` (port of ``repro/launch/mesh.py``).
 
 The reference's mesh is a grid of devices that one program shards over.
-Here a :class:`TPMesh` is one rank's view of a gloo process group: the
-group, this process's rank and the group's size, under the reference's
-axis names ``("data", "model")`` (data 1, model ``size``). Each rank is a
-process of its own: :func:`spawn_tp` starts ``tp`` of them and runs a
-function on each, and :func:`make_tp_mesh` sets up or joins the group
+Here a :class:`TPMesh` is one rank's view of a ``(data, model)`` grid of
+gloo ranks, under the reference's axis names ``("data", "model")``: its
+model group (the ranks of its row, which split the weights) and its data
+group (the ranks of its column, which split the batch), its coordinate
+on each axis and the sizes. Global rank ``d * model + m`` sits at
+``(d, m)``, the reference's row-major device order. Each rank is a
+process of its own: :func:`spawn_mesh` starts ``data * model`` of them
+and runs a function on each (:func:`spawn_tp` is its ``(1, tp)`` case),
+and :func:`make_mesh` / :func:`make_tp_mesh` set up or join the groups
 from inside one.
+
+:func:`make_production_mesh` is the reference's production grid as
+sizes only (:class:`AbstractMesh`: no process behind it), for the
+sharding rules and :func:`mesh_batch_divisor`; :func:`make_smoke_mesh`
+is the reference's test mesh over the ranks this process can see.
 
 The backend is gloo on the CPU and on the card alike: NCCL refuses two
 ranks on one GPU, and on one H100 the ranks share ``cuda:0``. Nothing
@@ -17,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import queue as queue_mod
 import tempfile
@@ -28,25 +37,65 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+# the reference's launch.mesh exports it; the data axis's rules own it
+from repro_torch.dist.sharding import mesh_batch_divisor  # noqa: F401
+
 AXIS_NAMES = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
 class TPMesh:
-    """One rank's view of a tensor-parallel group: the gloo ``group``
-    (``None`` for a replica this process is not in, see
-    :func:`make_replica_meshes`), this process's ``rank`` in it, its
-    ``size``, the global ``ranks`` it spans, and the axis names."""
+    """One rank's view of a ``(data, model)`` grid of gloo ranks.
+
+    The model axis: the gloo ``group`` of the rank's row (``None`` for a
+    replica this process is not in, see :func:`make_replica_meshes`),
+    this process's ``rank`` in it, its ``size`` and the global ``ranks``
+    it spans. The data axis: ``data`` rows, this process's row
+    ``data_rank``, and ``data_group`` / ``data_ranks``, the ranks of its
+    column (``None`` / ``()`` when ``data`` is 1). A tensor-parallel mesh
+    has data 1."""
 
     group: Any
     rank: int
     size: int
     ranks: Tuple[int, ...] = ()
     axis_names: Tuple[str, ...] = AXIS_NAMES
+    data: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+    data_ranks: Tuple[int, ...] = ()
 
     @property
     def shape(self) -> dict:
-        return {"data": 1, "model": self.size}
+        return {"data": self.data, "model": self.size}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh as sizes and axis names only: no process stands behind it
+    (the reference's production grid, which no single host spawns). It
+    serves the sharding rules (``param_specs(axis_sizes=mesh.shape)``)
+    and :func:`mesh_batch_divisor`; :func:`spawn_mesh` refuses it."""
+
+    sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh as sizes: ``(16, 16)`` over
+    ``("data", "model")``, or ``(2, 16, 16)`` over ``("pod", "data",
+    "model")``."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), AXIS_NAMES)
 
 
 def _timeout(seconds: float) -> datetime.timedelta:
@@ -78,6 +127,57 @@ def make_tp_mesh(tp: int, *, rank: Optional[int] = None,
     if world != tp:
         raise ValueError(f"tp={tp} but this process's group has {world} ranks")
     return TPMesh(dist.group.WORLD, dist.get_rank(), tp, tuple(range(tp)))
+
+
+def make_mesh(data: int, model: int, *, rank: Optional[int] = None,
+              init_method: Optional[str] = None,
+              timeout: float = 600.0) -> TPMesh:
+    """The calling rank's view of a ``(data, model)`` grid of gloo ranks.
+    Sets up or joins a ``data * model``-rank default group as
+    :func:`make_tp_mesh` does, then makes every row's model group and
+    every column's data group (each subgroup is made by all ranks, in
+    one order). ``make_mesh(1, tp)`` is ``make_tp_mesh(tp)``."""
+    if data < 1 or model < 1:
+        raise ValueError(f"need data >= 1 and model >= 1, got data={data} "
+                         f"model={model}")
+    if data == 1:
+        return make_tp_mesh(model, rank=rank, init_method=init_method,
+                            timeout=timeout)
+    world = make_tp_mesh(data * model, rank=rank, init_method=init_method,
+                         timeout=timeout)
+    me = world.rank
+    d_me, m_me = divmod(me, model)
+    model_group = data_group = None
+    for d in range(data):
+        ranks = list(range(d * model, (d + 1) * model))
+        group = dist.new_group(ranks, backend="gloo")
+        if d == d_me:
+            model_group = group
+    for m in range(model):
+        ranks = list(range(m, data * model, model))
+        group = dist.new_group(ranks, backend="gloo")
+        if m == m_me:
+            data_group = group
+    return TPMesh(model_group, m_me, model,
+                  tuple(range(d_me * model, (d_me + 1) * model)), AXIS_NAMES,
+                  data, d_me, data_group, tuple(range(m_me, data * model, model)))
+
+
+def make_smoke_mesh(*, timeout: float = 600.0) -> TPMesh:
+    """The reference's test mesh over the ranks this process can see: a
+    ``(n // 2, 2)`` grid over the ``n`` ranks of its default group when
+    ``n >= 4``, else ``(1, 1)`` (a process with no group gets a 1-rank
+    one: one card is ``(1, 1)``). The reference's ``(1, 1)`` over the
+    first of 2 or 3 devices has no counterpart for the other ranks of a
+    2- or 3-rank group, so those raise."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n >= 4:
+        if n % 2:
+            raise ValueError(f"a smoke mesh over {n} ranks needs an even count")
+        return make_mesh(n // 2, 2, timeout=timeout)
+    if n != 1:
+        raise ValueError(f"a smoke mesh is (1, 1) below 4 ranks; this group has {n}")
+    return make_tp_mesh(1, timeout=timeout)
 
 
 def make_replica_meshes(replicas: int, tp: int) -> List[TPMesh]:
@@ -122,11 +222,11 @@ def _to_host(obj):
     return obj
 
 
-def _rank_main(rank: int, tp: int, store: str, fn: Callable, args: Sequence,
-               results, timeout: float, threads: int) -> None:
+def _rank_main(rank: int, data: int, model: int, store: str, fn: Callable,
+               args: Sequence, results, timeout: float, threads: int) -> None:
     torch.set_num_threads(threads)
     try:
-        mesh = make_tp_mesh(tp, rank=rank, init_method=store, timeout=timeout)
+        mesh = make_mesh(data, model, rank=rank, init_method=store, timeout=timeout)
         try:
             out = fn(mesh, *args)
         finally:
@@ -140,8 +240,17 @@ def _rank_main(rank: int, tp: int, store: str, fn: Callable, args: Sequence,
 def spawn_tp(fn: Callable, tp: int, *args, timeout: float = 600.0,
              threads: Optional[int] = None):
     """Run ``fn(mesh, *args)`` on ``tp`` new processes, one per rank of a
-    gloo group, and return rank 0's result (tensors in it come back as
-    numpy arrays). ``fn`` and ``args`` are pickled: ``fn`` must be a
+    gloo group, and return rank 0's result: :func:`spawn_mesh` over a
+    ``(1, tp)`` grid."""
+    return spawn_mesh(fn, 1, tp, *args, timeout=timeout, threads=threads)
+
+
+def spawn_mesh(fn: Callable, data: int, model: int, *args, timeout: float = 600.0,
+               threads: Optional[int] = None):
+    """Run ``fn(mesh, *args)`` on ``data * model`` new processes, one per
+    rank of a ``(data, model)`` grid of gloo ranks (:func:`make_mesh`),
+    and return rank 0's result (tensors in it come back as numpy
+    arrays). ``fn`` and ``args`` are pickled: ``fn`` must be a
     module-level function. The group meets at a ``file://`` store in a
     temporary directory (no port to collide with other groups on the
     host); ``threads`` sets each rank's torch threads (default: half the
@@ -151,6 +260,12 @@ def spawn_tp(fn: Callable, tp: int, *args, timeout: float = 600.0,
     Every rank must finish within ``timeout`` seconds, which also bounds
     each collective: a rank that raises, dies or overruns ends every
     rank (killed) and raises here, RuntimeError or TimeoutError."""
+    if not (isinstance(data, int) and isinstance(model, int)):
+        raise TypeError(f"spawn_mesh takes the grid's sizes, got {data!r} x {model!r}")
+    if data < 1 or model < 1:
+        raise ValueError(f"need data >= 1 and model >= 1, got data={data} "
+                         f"model={model}")
+    tp = data * model
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // (2 * tp))
     ctx = mp.get_context("spawn")
@@ -158,8 +273,8 @@ def spawn_tp(fn: Callable, tp: int, *args, timeout: float = 600.0,
     with tempfile.TemporaryDirectory(prefix="tp-store-") as tmp:
         store = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, tp, store, fn, args, results, timeout,
-                                   threads))
+                             args=(r, data, model, store, fn, args, results,
+                                   timeout, threads))
                  for r in range(tp)]
         for p in procs:
             p.start()
@@ -170,7 +285,7 @@ def spawn_tp(fn: Callable, tp: int, *args, timeout: float = 600.0,
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise TimeoutError(
-                        f"tp={tp} ranks did not finish within {timeout:.0f} s "
+                        f"{data}x{model} ranks did not finish within {timeout:.0f} s "
                         f"(finished: {sorted(done)})")
                 try:
                     rank, status, payload = results.get(timeout=min(left, 1.0))

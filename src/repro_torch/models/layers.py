@@ -19,10 +19,14 @@ channel weight scale. Under autograd the codes carry the value-exact
 straight-through estimator ``t + (w - w.detach())`` (the same for x), the
 scales are detached, and the MAC's backward is the STE exact matmul of
 ``core.execution.execute``: the reference's quantization-aware training.
+Inside a data-parallel rank (``dist.sharding.data_parallel``) the
+per-tensor activation statistic is summed over the data group, so it is
+the whole batch's, as the reference's partitioner takes it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,7 +35,7 @@ from repro_torch.core import ternary as tern
 from repro_torch.core.execution import CiMExecSpec, check_tp_spec, execute_row_shard
 from repro_torch.core.execution import execute as exec_mac
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import VocabShard, WeightShard
+from repro_torch.dist.sharding import VocabShard, WeightShard, data_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,13 +112,16 @@ class QuantConfig:
                            block=self.block, adc_max=self.adc_max)
 
 
-def _ste_codes(x: torch.Tensor, axis, factor: float
+def _ste_codes(x: torch.Tensor, axis, factor: float, group=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(codes in {-1,0,1} in x's dtype, detached scale). When x needs a
     gradient the codes are ``t + (x - x.detach())``: exactly t forward
     (``x + (t - x)`` would round in bf16 and move the CiM event counts),
-    the identity backward."""
-    t, scale = tern.ternarize(x.detach(), axis=axis, factor=factor)
+    the identity backward. ``group``: x is a data-parallel rank's rows
+    of the batch, and the per-tensor statistics are summed over it."""
+    reduce = None if group is None else functools.partial(
+        collectives.all_reduce, group=group)
+    t, scale = tern.ternarize(x.detach(), axis=axis, factor=factor, reduce=reduce)
     if x.requires_grad and torch.is_grad_enabled():
         t = t + (x - x.detach())
     return t, scale
@@ -223,7 +230,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
         w_t, sw = (w.w, w.scale) if shard else _weight_codes(w, qc)
         if qc.quantize_activations:
             axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None
-            x_t, sx = _ste_codes(x, axis, qc.threshold_factor)
+            # a data-parallel rank's per-tensor statistic is the whole
+            # batch's, as under the reference's batch sharding: the one
+            # place in the model that reads the data-parallel switch
+            group = data_group() if axis is None else None
+            x_t, sx = _ste_codes(x, axis, qc.threshold_factor, group)
         else:
             x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
         spec = qc.resolved_spec()

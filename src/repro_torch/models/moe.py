@@ -1,16 +1,21 @@
 """Token-choice top-k Mixture-of-Experts, deepseek-v2 / grok-1 style (port
-of ``repro/models/moe.py``, one routing group: the reference's grouped
-dispatch, a group per data shard, waits for a data axis; under a TP mesh
-the experts split over the ranks, see :func:`moe_block`).
+of ``repro/models/moe.py``: the reference's grouped dispatch, G routing
+groups, one per data shard; under a TP mesh the experts split over the
+ranks, see :func:`moe_block`).
 
-Dispatch is the reference's capacity-buffer formulation: each (token,
-expert) assignment takes the next free row of its expert's ``cap`` rows
-in an (E·cap + 1, D) buffer, assignments past ``cap`` go to the one
-overflow row and are dropped (the residual path keeps the token), the
-experts run batched over E, and the outputs are gathered back by slot
-and combined with the router gates. Every shape is fixed by (tokens,
-config), never by the routing: a decode step that routes is captured
-into a CUDA graph like any other.
+Dispatch is the reference's capacity-buffer formulation: the tokens are
+cut into G groups of whole batch rows (``dist.sharding.routing_groups``:
+the enabled batch divisor, 1 inside a data-parallel rank), and within
+its group each (token, expert) assignment takes the next free row of its
+expert's ``cap = moe_capacity(T / G)`` rows in the group's (E·cap + 1, D)
+buffer; assignments past ``cap`` go to the group's overflow row and are
+dropped (the residual path keeps the token), the experts run batched
+over E with the groups' rows side by side, and the outputs are gathered
+back by slot and combined with the router gates. The cumsum, scatter,
+gather and combine never cross a group: G groups in one call give
+the G single-group calls on the groups' rows, bit for bit. Every shape is
+fixed by (tokens, groups, config), never by the routing: a decode step
+that routes is captured into a CUDA graph like any other.
 
 The routed-expert products are plain PyTorch, as they are ``jnp``
 outside any Pallas kernel in the reference: per expert, per-out-channel
@@ -39,7 +44,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ternary as tern
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import ExpertShard
+from repro_torch.dist.sharding import ExpertShard, routing_groups
 from repro_torch.models import layers as L
 
 # moe leaves that the reference keeps in float32 under any config dtype
@@ -121,31 +126,41 @@ def _expert_ffn(params, xe: torch.Tensor, qc: L.QuantConfig) -> torch.Tensor:
 
 
 def route(params, xt: torch.Tensor, cfg: ArchConfig):
-    """Routing of tokens xt (T, D): returns ``(gates, slot, keep)`` over
-    the T·K assignments in token order (token i's top-k at [i·K,
-    (i+1)·K)): the renormalized top-k gates (f32), each assignment's
-    row in the (E·cap + 1, D) buffer (E·cap, the overflow row, where
-    dropped) and whether it was kept. The router logits come from x
-    against the router cast to x's dtype, accumulated in float64, then
-    softmax, top-k and renormalization."""
-    t = xt.shape[0]
+    """Routing of tokens xt (T, D), or of G groups of tokens (G, Tg, D):
+    returns ``(gates, slot, keep)`` over each group's Tg·K assignments in
+    token order (token i's top-k at [i·K, (i+1)·K)), shaped (T·K,) or
+    (G, Tg·K): the renormalized top-k gates (f32), each assignment's row
+    in its group's (E·cap + 1, D) buffer, ``cap = moe_capacity(Tg)``
+    (E·cap, the overflow row, where dropped) and whether it was kept.
+    The router logits come from x against the router cast to x's dtype,
+    accumulated in float64, then softmax, top-k and renormalization;
+    the buffer positions come from a cumsum within the group."""
+    grouped = xt.dim() == 3
+    if not grouped:
+        xt = xt[None]
+    g, t = xt.shape[:2]
     e, k = cfg.n_experts, cfg.top_k
     cap = moe_capacity(t, cfg)
-    logits = L.accum_einsum("td,de->te", xt, params["router"].to(xt.dtype))
+    logits = L.accum_einsum("gtd,de->gte", xt, params["router"].to(xt.dtype))
     top_g, top_e = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
     top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
-    flat_e = top_e.reshape(t * k)
+    flat_e = top_e.reshape(g, t * k)
     # position within the expert's buffer: a cumsum over one-hot rows
-    onehot = (flat_e[:, None] == torch.arange(e, device=xt.device)).to(torch.int32)
-    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
+    onehot = (flat_e[..., None] == torch.arange(e, device=xt.device)).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=1) - 1).gather(2, flat_e[..., None])[..., 0]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, e * cap)
-    return top_g.reshape(t * k).to(torch.float32), slot, keep
+    gates = top_g.reshape(g, t * k).to(torch.float32)
+    if not grouped:
+        return gates[0], slot[0], keep[0]
+    return gates, slot, keep
 
 
 def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D): route, dispatch into the capacity buffer,
-    run the experts, gather back and combine, plus the shared experts.
+    """x (B, S, D) -> (B, S, D): route each of G groups of whole rows
+    (``dist.sharding.routing_groups(B)``), dispatch into its capacity
+    buffer, run the experts, gather back and combine, plus the shared
+    experts.
 
     Each token's K contributions are summed in rank order in x's dtype,
     as the reference's in-order scatter-add (``out.at[tok_id].add``)
@@ -155,37 +170,50 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     On a rank of a TP mesh the expert stacks are its
     :class:`~repro_torch.dist.sharding.ExpertShard` s: the routing is
     computed from the replicated activations on every rank, the rank
-    runs its experts' rows of the buffer, the outputs are gathered over
-    the expert dim, and every rank combines them in the order above; the
-    shared experts' MLP splits column and row as the dense MLP."""
+    runs its experts' rows of every group's buffer, the outputs are
+    gathered over the expert dim, and every rank combines them in the
+    order above; the shared experts' MLP splits column and row as the
+    dense MLP."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    g = routing_groups(b)
     t = b * s
-    cap = moe_capacity(t, cfg)
-    xt = x.reshape(t, d)
+    tg = t // g
+    cap = moe_capacity(tg, cfg)
+    xt = x.reshape(g, tg, d)
     gates, slot, keep = route(params, xt, cfg)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    # rows are unique but for the overflow row, which is discarded
-    buf[slot] = xt.repeat_interleave(k, dim=0)
+    rows = torch.arange(g, device=x.device)[:, None]
+    buf = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    # rows are unique within a group but for the overflow row, discarded
+    buf[rows, slot] = xt.repeat_interleave(k, dim=1)
+
+    def experts(params_, first, count):
+        # experts [first, first + count) on every group's rows of their
+        # buffers, side by side: (count, G·cap, D) -> (G, count, cap, D)
+        xe = buf[:, first * cap:(first + count) * cap].reshape(g, count, cap, d)
+        ye = _expert_ffn(params_, xe.transpose(0, 1).reshape(count, g * cap, d),
+                         cfg.quant)
+        return ye.reshape(count, g, cap, d)
+
     shard = params["w_gate"]
     if isinstance(shard, ExpertShard):
-        # this rank's experts on their rows of the buffer, then every
-        # expert's rows gathered in expert order (a copy)
-        e0, el = shard.first, shard.w.shape[0]
+        # this rank's experts, then every expert's rows gathered in expert
+        # order (a copy)
         mine = {name: params[name].w for name in ("w_gate", "w_up", "w_down")}
-        ye = _expert_ffn(mine, buf[e0 * cap:(e0 + el) * cap].reshape(el, cap, d),
-                         cfg.quant)
+        ye = experts(mine, shard.first, shard.w.shape[0])
         ye = collectives.all_gather(ye, shard.mesh.group, dim=0)
     else:
-        ye = _expert_ffn(params, buf[:e * cap].reshape(e, cap, d), cfg.quant)
-    ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
+        ye = experts(params, 0, e)
+    ye = torch.cat([ye.transpose(0, 1).reshape(g, e * cap, d),
+                    ye.new_zeros((g, 1, d))], dim=1)
     weight = (gates * keep.to(torch.float32)).to(ye.dtype)
-    contrib = (ye[slot] * weight[:, None]).reshape(t, k, d)
+    contrib = (ye[rows, slot] * weight[..., None]).reshape(g, tg, k, d)
     out = torch.zeros_like(xt)
     for j in range(k):
-        out = out + contrib[:, j]
+        out = out + contrib[:, :, j]
+    out = out.reshape(t, d)
     if cfg.n_shared_experts:
-        out = out + L.mlp(params["shared"], xt, cfg.quant)
+        out = out + L.mlp(params["shared"], x.reshape(t, d), cfg.quant)
     return out.reshape(b, s, d)
 
 

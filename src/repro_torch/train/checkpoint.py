@@ -150,6 +150,8 @@ def _rebuild(like: PyTree, arrays: Iterator[np.ndarray], device) -> PyTree:
     if like is None:
         return None
     if isinstance(like, torch.Generator):
+        # a generator's state is device-type specific: it stays on its
+        # like's device
         g = torch.Generator(device=like.device)
         g.set_state(next(arrays))
         return g
@@ -171,7 +173,11 @@ def restore(directory: str, like: PyTree, step: Optional[int] = None,
             device: DeviceLike = None) -> Tuple[PyTree, int]:
     """Restore into the structure and dtypes of ``like``, each leaf on
     ``device`` (default: the device of its ``like`` leaf). Returns (tree,
-    step); ``step`` None takes the committed LATEST."""
+    step); ``step`` None takes the committed LATEST; a generator leaf is
+    made on its ``like`` leaf's device. ``device`` is the counterpart of
+    the reference's ``shardings=`` (elastic restore): the port's
+    data-parallel state is replicated, so a rank of any mesh restores the
+    whole tree onto its device."""
     if step is None:
         step = latest_step(directory)
         if step is None:

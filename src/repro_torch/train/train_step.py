@@ -10,9 +10,25 @@ through ``moe._tern3``'s straight-through codes, the SSM's ``dt``
 through ``ssm.softplus``'s reference gradient; encdec and vlm batches
 carry ``frames`` or ``patches`` beside the tokens. An unknown family
 raises in ``transformer.forward``.
+
+Under a mesh with a data axis (``mesh=``, ``launch.mesh.spawn_mesh``:
+one process a data rank) each step is the reference's batch-sharded
+step, with its collectives made explicit. The rank runs the loss on its
+rows of the global batch (``dist.sharding.batch_shard``) inside
+``dist.sharding.data_parallel``, so every per-tensor activation
+statistic is the whole batch's, and takes its gradients by autograd;
+then the gradients' exact mean over the data group, through one flat
+f32 bucket (``dist.collectives.bucket_mean``); only then the
+compression and AdamW, identical on every rank, which keeps the state
+replicated. This is the reference's order: its reduction sits inside
+``value_and_grad`` and compression straddles it. A batch that does not
+divide the data size runs whole on every rank (replicated) with no
+collective: one device's step. A mesh whose model axis is above 1
+raises: tensor-parallel training is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -20,6 +36,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim import compress as gcomp
@@ -72,16 +90,46 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     return loss, {"loss": loss.detach(), "accuracy": acc}
 
 
+def _check_mesh(mesh) -> None:
+    """Only a mesh's data axis trains: a model axis above 1 raises."""
+    if mesh is not None and shd.model_axis_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a train step over a mesh {mesh.shape}: only the data axis trains "
+            "(tensor-parallel training is not ported)")
+
+
+def _split(batch: Dict[str, torch.Tensor], mesh) -> bool:
+    """Whether the step runs ``batch`` split over ``mesh``'s data axis."""
+    if mesh is None:
+        return False
+    _check_mesh(mesh)
+    return shd.batch_is_split(len(next(iter(batch.values()))), mesh)
+
+
 def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-           grad_compression: Optional[str]):
+           grad_compression: Optional[str], mesh=None):
     """The loss's metrics, the gradients (compressed under
     ``grad_compression``, drawing from the state's generator) and the new
-    residual; ``state`` is not modified."""
+    residual; ``state`` is not modified. Under a split batch, the rank's
+    rows, the gradients' mean over the data group, and the loss and
+    accuracy averaged over it (see the module docstring)."""
+    split = _split(batch, mesh)
     params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-    loss, metrics = loss_fn(params, batch, cfg)
-    found = iter(torch.autograd.grad(loss, list(tree_leaves(params))))
+    # remat's recompute runs inside autograd.grad: the data group stays set
+    with shd.data_parallel(mesh) if split else contextlib.nullcontext():
+        loss, metrics = loss_fn(params, shd.batch_shard(batch, mesh) if split else batch,
+                                cfg)
+        found = torch.autograd.grad(loss, list(tree_leaves(params)))
     del loss
     with torch.no_grad():
+        if split:
+            group = mesh.data_group
+            found = collectives.bucket_mean(found, group)
+            both = collectives.all_reduce(
+                torch.stack([metrics["loss"], metrics["accuracy"]]), group)
+            both = both / mesh.shape["data"]
+            metrics = {"loss": both[0], "accuracy": both[1]}
+        found = iter(found)
         grads = tree_map(lambda p: next(found), params)
         residual = state.residual
         if grad_compression:
@@ -92,11 +140,12 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-               grad_compression: Optional[str] = None
+               grad_compression: Optional[str] = None, mesh=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step; ``state`` is not modified (the generator
-    advances where int8 compression draws from it)."""
-    metrics, grads, residual = _grads(state, batch, cfg, grad_compression)
+    advances where int8 compression draws from it). ``mesh``: this
+    process is a data rank of it, ``batch`` the global batch."""
+    metrics, grads, residual = _grads(state, batch, cfg, grad_compression, mesh)
     with torch.no_grad():
         new_params, opt, gnorm = adamw.update(opt_cfg, grads, state.opt, state.params)
     metrics = dict(metrics, grad_norm=gnorm)
@@ -105,11 +154,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def train_step_(state: TrainState, batch: Dict[str, torch.Tensor],
                 cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                grad_compression: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                grad_compression: Optional[str] = None, mesh=None
+                ) -> Dict[str, torch.Tensor]:
     """:func:`train_step` in place: the state's tensors keep their storage
     and take the values :func:`train_step` returns, bit for bit
     (``adamw.update_``). Returns the metrics."""
-    metrics, grads, residual = _grads(state, batch, cfg, grad_compression)
+    metrics, grads, residual = _grads(state, batch, cfg, grad_compression, mesh)
     with torch.no_grad():
         if residual is not state.residual:
             if state.residual is None:
@@ -122,13 +172,13 @@ def train_step_(state: TrainState, batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                    grad_compression: Optional[str] = None):
+                    grad_compression: Optional[str] = None, mesh=None):
     """The eager, functional counterpart of the reference's
     ``make_jit_train_step``: ``step(state, batch) -> (state, metrics)``,
     a new state each call. The plain version of
-    :func:`make_jit_train_step`."""
+    :func:`make_jit_train_step`. ``mesh``: a data rank's step."""
     return functools.partial(train_step, cfg=cfg, opt_cfg=opt_cfg,
-                             grad_compression=grad_compression)
+                             grad_compression=grad_compression, mesh=mesh)
 
 
 def _state_tensors(state: TrainState):
@@ -136,7 +186,7 @@ def _state_tensors(state: TrainState):
 
 
 def make_jit_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                        grad_compression: Optional[str] = None):
+                        grad_compression: Optional[str] = None, mesh=None):
     """:func:`train_step` as a captured CUDA graph, the counterpart of the
     reference's ``make_jit_train_step``: ``step(state, batch) -> (state,
     metrics)``.
@@ -156,7 +206,27 @@ def make_jit_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     batch raises; nothing runs eagerly instead. On the CPU every call runs
     :func:`train_step_` eagerly on the same static tensors.
     ``step.captured`` is the bound :class:`~repro_torch.serve.graph.
-    CapturedStep` (None before the first call)."""
+    CapturedStep` (None before the first call); ``step.graphed`` says
+    whether the step is captured on the card.
+
+    Under ``mesh`` (a data rank) no graph is captured, and the step says
+    so (``step.graphed`` is False): gloo drives its collectives from the
+    host, which no CUDA graph can hold (the TP batcher turns its graphs
+    off for the same reason). Every call then runs :func:`train_step_`
+    eagerly on the state in place, the batch moved to the state's
+    device."""
+    if mesh is not None:
+        _check_mesh(mesh)
+
+        def eager(state: TrainState, batch: Dict[str, torch.Tensor]):
+            dev = state.opt.step.device
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            return state, train_step_(state, batch, cfg, opt_cfg, grad_compression,
+                                      mesh)
+
+        eager.captured = None
+        eager.graphed = False
+        return eager
     bound: Dict[str, Any] = {}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -189,4 +259,5 @@ def make_jit_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         return state, step.captured()
 
     step.captured = None
+    step.graphed = True
     return step

@@ -21,8 +21,20 @@ adds, and a replayed step would not equal its first pass bit for bit,
 as the reference's replays do by construction. The capture, at the
 first step, runs under it too.
 
-Single process on one device: the reference's elastic restore onto
-another mesh has no counterpart until the port has tensor parallelism.
+Under a mesh with a data axis (``mesh=``: this process is one data rank,
+``launch.mesh.spawn_mesh``) every rank runs the loop on the same
+replicated state, and its step takes its rows of each global batch
+(``dist.sharding.batch_shard`` in ``train_step``): the step is the eager
+data-parallel step (``make_jit_train_step(mesh=)``). Rank 0 writes the
+checkpoints, and the ranks meet at a barrier of the data group after
+each save and before each read of the last committed step. A
+``FailureInjector`` given to every rank fails every rank at that step,
+and every rank restores and replays it.
+
+Elastic restore, the counterpart of the reference's ``shardings=``:
+``restore(device=, mesh=)`` reads the last committed checkpoint onto the
+current device or mesh. The state is replicated over the data axis, so a
+checkpoint written at data 2 resumes at data 1 or data 4.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -49,6 +62,10 @@ def _copy_state(dst: TrainState, src: TrainState) -> None:
             d.set_state(v.get_state())
         else:
             d.copy_(v)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 @dataclasses.dataclass
@@ -88,6 +105,7 @@ class Trainer:
         failure_injector: Optional[FailureInjector] = None,
         batch_transform: Optional[Callable[[Dict], Dict]] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
@@ -97,8 +115,8 @@ class Trainer:
         self.failure_injector = failure_injector
         self.batch_transform = batch_transform
         self.device = resolve_device(device)
-        self.step_fn = make_jit_train_step(cfg, opt_cfg,
-                                           grad_compression=train_cfg.grad_compression)
+        self.mesh = mesh
+        self.step_fn = self._make_step()
         self.state: TrainState = self._fresh_state()
         self.start_step = 0
         self.metrics_log: List[Dict[str, float]] = []
@@ -107,6 +125,21 @@ class Trainer:
         self._pending_ckpt = None
         if train_cfg.ckpt_dir and ckpt.latest_step(train_cfg.ckpt_dir) is not None:
             self.restore()
+
+    def _make_step(self):
+        return make_jit_train_step(self.cfg, self.opt_cfg,
+                                   grad_compression=self.train_cfg.grad_compression,
+                                   mesh=self.mesh)
+
+    def _writer(self) -> bool:
+        """Whether this process writes the checkpoints: the one process,
+        or rank 0 of the mesh."""
+        return self.mesh is None or (self.mesh.data_rank == 0 and self.mesh.rank == 0)
+
+    def _barrier(self) -> None:
+        """Every data rank meets here (nothing without a data axis)."""
+        if self.mesh is not None and self.mesh.data_group is not None:
+            dist.barrier(group=self.mesh.data_group)
 
     def _fresh_state(self) -> TrainState:
         return init_train_state(self.cfg, self.seed, self.train_cfg.grad_compression,
@@ -118,21 +151,45 @@ class Trainer:
         tc = self.train_cfg
         if not tc.ckpt_dir:
             return
-        if self._pending_ckpt is not None:
-            self._pending_ckpt.result()  # don't overlap two saves
-        self._pending_ckpt = ckpt.save(
-            tc.ckpt_dir, step, self.state,
-            extra={"arch": self.cfg.name, "data_step": step},
-            async_=tc.async_ckpt)
-        ckpt.gc_old(tc.ckpt_dir, tc.keep_last_n)
+        if self._writer():
+            if self._pending_ckpt is not None:
+                self._pending_ckpt.result()  # don't overlap two saves
+            extra = {"arch": self.cfg.name, "data_step": step}
+            if self.mesh is not None:
+                extra["mesh"] = self.mesh.shape
+            self._pending_ckpt = ckpt.save(tc.ckpt_dir, step, self.state, extra=extra,
+                                           async_=tc.async_ckpt)
+            ckpt.gc_old(tc.ckpt_dir, tc.keep_last_n)
+        self._barrier()
 
-    def restore(self) -> int:
-        if self._pending_ckpt is not None:
-            self._pending_ckpt.result()  # never read a mid-commit checkpoint
-            self._pending_ckpt = None
-        restored, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state,
-                                      device="cpu")
-        _copy_state(self.state, restored)
+    def _committed_step(self) -> Optional[int]:
+        """The last committed step, read by every rank once rank 0's
+        checkpoint in flight has committed."""
+        self._drain()  # never read a mid-commit checkpoint
+        self._barrier()
+        return ckpt.latest_step(self.train_cfg.ckpt_dir)
+
+    def restore(self, device: DeviceLike = None, mesh=None) -> int:
+        """Restore the last committed checkpoint onto ``device`` (default:
+        the Trainer's) and, given ``mesh``, continue as a data rank of it
+        (elastic restore: any data size, the state being replicated).
+        On its own device the state keeps its storage (a captured step
+        holds it); on another the Trainer moves there: a state made there
+        takes the checkpoint (its generator too, so the checkpoint must
+        come from a device of the same type) and the step is made anew."""
+        if mesh is not None:
+            self.mesh = mesh
+            self.step_fn = self._make_step()
+        self._committed_step()
+        target = self.device if device is None else resolve_device(device)
+        if not _same_device(target, self.device):
+            self.device = target
+            self.state, step = ckpt.restore(self.train_cfg.ckpt_dir, self._fresh_state())
+            self.step_fn = self._make_step()
+        else:
+            restored, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state,
+                                          device="cpu")
+            _copy_state(self.state, restored)
         self.start_step = step
         return step
 
@@ -183,7 +240,7 @@ class Trainer:
                 self._drain()
                 if self.restarts > tc.max_restarts or not tc.ckpt_dir:
                     raise
-                if ckpt.latest_step(tc.ckpt_dir) is not None:
+                if self._committed_step() is not None:
                     step = self.restore()
                 else:  # failure before the first checkpoint: restart from 0
                     _copy_state(self.state, self._fresh_state())
@@ -208,4 +265,5 @@ class Trainer:
         if tc.ckpt_dir:
             self.save(step)
             self._drain()
+            self._barrier()
         return self.metrics_log

@@ -12,7 +12,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the same rule
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "tests" / "torch_tp_ranks.py", ROOT / "tests" / "torch_threads.py"]
+    ROOT / "tests" / "torch_tp_ranks.py", ROOT / "tests" / "torch_threads.py",
+    ROOT / "tests" / "torch_dp_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
