@@ -232,10 +232,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      TP_TIMEOUT_S fails the script; the eager TP step median is printed
      beside phase 3's eager step.
  22. the other families over 2 gloo ranks on cuda:0:
-     full-size mamba2-780m, zamba2-2.7b and whisper-large-v3 (its decoder,
-     as the batcher serves it; 10 of its 20 heads a rank) and
-     deepseek-v2-236b and llava-next-34b (28 of 56 heads, 4 of 8 kv heads
-     a rank) at full width and 2 of 60 layers, first served single-device
+     mamba2-780m and zamba2-2.7b at full width and 12 of 48 and 54
+     layers, whisper-large-v3 at full width and 8 of 32 layers (its
+     decoder, as the batcher serves it; 10 of its 20 heads a rank),
+     deepseek-v2-236b at full width and 1 of 60 layers and llava-next-34b
+     (28 of 56 heads, 4 of 8 kv heads a rank) at full width and 2 of 60
+     layers, first served single-device
      (eager) on phase 3's requests, then in every rank, each rank making
      the seeded tree on the card in turn, holding it on the host and
      moving only its shard (whole SSM heads, MLA heads with the latent
@@ -288,6 +290,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      the later batches (what the later losses' bound is read against),
      and on lines of their own the eager data-parallel step, the
      gradient all-reduce's ms, collectives a step and peak memory a rank.
+ 26. (run after 25, before 24) tensor-parallel training:
+     launch.mesh.spawn_mesh starts a (1, 3) mesh, 3 gloo ranks on
+     cuda:0, each holding its shards of full-size smollm-135m (bf16,
+     remat, CiM, blocked/cuda; 3 of 9 heads, 1 of 3 kv heads, the MLP's
+     512 of 1536 and 16384 of the 49152 vocabulary a rank) and running
+     Trainer(mesh=) on phase 17's global batch (8 x 128): the eager step
+     with the model axis's collectives inside autograd, 2 steps, the
+     checkpoint at step 2 gathered whole and written by rank 0. It reuses
+     phase 25's single-device steps (their losses, grad norms and the
+     params after each, kept on disk until this phase ends). Checked:
+     step 0's loss equal to the single device's bit for bit; step 0's
+     grad norm within rtol 1e-3; after step 0 every weight (gathered
+     whole) within lr/10 plus one bf16 step of the single device's; the
+     replicated leaves bit-equal on the 3 ranks after every step; #1
+     launched 420 times a step in every rank and no other kernel; the
+     gathered checkpoint restored bit for bit by a single-device Trainer
+     on cuda:0. Printed: the TP step beside the single device's,
+     collectives a step by name, peak memory a rank and the phase's
+     seconds.
  24. (run last) the front door over tensor-parallel replicas:
      full-size smollm-135m (per_row, blocked/cuda) behind the launcher's
      build_frontdoor with --tp 3 and 2 replicas: six gloo processes on
@@ -307,7 +328,8 @@ projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
 served path, #2-#4 in its execute_packed_tp calls; ``tp_family_launches``:
 #1's in rank 0 per arch of phase 22; ``dp_launches``: #1's in rank 0 of
-phase 25), and last the result
+phase 25; ``tp_train_launches``: #1's in rank 0 of phase 26), a line of
+each phase's seconds and the script's, and last the result
 line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
 """
@@ -322,6 +344,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -3631,14 +3654,18 @@ def tp_first_token_margins(torch, params, cfg, mesh, dev) -> list:
 # ---------------------------------------------------------------------------
 
 TP_FAMILY_DEGREE = 2
-# arch -> layers served (None: full depth); deepseek-v2 at full width and
-# 2 of its 60 layers (two ranks' host trees of ~17 GB each); whisper's
-# decoder (the batcher takes no enc) over its whole tree, encoder and
-# cross attention included (2.02 B parameters, 4.04 GB a rank); llava at
+# arch -> layers served (None: full depth); mamba2-780m and zamba2-2.7b at
+# full width and 12 of 48 and 54 layers (zamba2: two applications of the
+# shared block, every hybrid_attn_every = 6), which keeps the script within
+# its time limit beside phase 26; deepseek-v2 at full width and
+# 1 of its 60 layers (2 before phase 26: two ranks' host trees of ~17 GB
+# each); whisper's
+# decoder (the batcher takes no enc) at full width and 8 of its 32 layers,
+# over its tree with the encoder and cross attention placed too; llava at
 # full width and 2 of its 60 layers (2.04 B parameters, 4.08 GB a rank,
 # of which the untied vocabulary tables are 0.92 B)
-TP_FAMILY_ARCHS = {"mamba2-780m": None, "zamba2-2.7b": None, "deepseek-v2-236b": 2,
-                   "whisper-large-v3": None, "llava-next-34b": 2}
+TP_FAMILY_ARCHS = {"mamba2-780m": 12, "zamba2-2.7b": 12, "deepseek-v2-236b": 1,
+                   "whisper-large-v3": 8, "llava-next-34b": 2}
 # the archs served on phase 11's and 14's four requests (4 prompts, 8 new
 # tokens: 8 decode steps and a fill, where phase 3's 8 requests take 25
 # and 3), which keeps the script within its time limit
@@ -3801,9 +3828,10 @@ def _host_tree(tree):
 
 
 def tp_family_phase(torch, card, dev) -> dict:
-    """Phase 22: full-size mamba2-780m, zamba2-2.7b and whisper-large-v3
-    (its decoder) and full-width deepseek-v2-236b and llava-next-34b (2
-    of 60 layers each) served over TP_FAMILY_DEGREE gloo
+    """Phase 22: full-width mamba2-780m and zamba2-2.7b (12 layers each),
+    whisper-large-v3 (its decoder, 8 of 32 layers) and full-width
+    deepseek-v2-236b (1 of 60 layers) and llava-next-34b (2 of 60) served over
+    TP_FAMILY_DEGREE gloo
     ranks on the one card (``tp_family_rank``), phase 3's requests
     (whisper and llava: four_requests), eager; first the same requests
     single-device, eager, on the same
@@ -4623,7 +4651,7 @@ def dp_report(out, single, losses, card, opt):
     return dp_ms, coll
 
 
-def dp_phase(torch, tm, pm, card, dev) -> dict:
+def dp_phase(torch, tm, pm, card, dev, tmp) -> dict:
     """Phase 25: full-size smollm-135m (bf16, remat, CiM, blocked/cuda: its
     config's) trained over a (DP_DATA, 1) data mesh, DP_DATA gloo ranks on
     cuda:0, TRAIN_BATCH / DP_DATA rows of phase 17's global batch each
@@ -4648,9 +4676,8 @@ def dp_phase(torch, tm, pm, card, dev) -> dict:
     peak memory a rank; (e) the Trainer's last checkpoint (written at data
     DP_DATA) restored by a single-device Trainer on cuda:0 bit for bit,
     which then takes one step. A rank's failure or a run past
-    DP_TIMEOUT_S fails the script."""
-    import tempfile
-
+    DP_TIMEOUT_S fails the script. The single device's files go into
+    ``tmp``, where phase 26 reads them (the result's "single")."""
     from repro_torch.launch.mesh import spawn_mesh
     from repro_torch.train.trainer import TrainConfig, Trainer
 
@@ -4662,43 +4689,42 @@ def dp_phase(torch, tm, pm, card, dev) -> dict:
         f"forwards, bit for bit ({moe['grouped_ms']:.1f} ms); its logits differ from one "
         f"group over all rows by up to {moe['vs_one_group_max_abs']:.4g}; #1 launched "
         f"{moe['launches']} in the grouped forward, no other kernel; {moe['secs']:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:
-        single = dp_single(torch, dev, tmp)
-        ckpt_dir = os.path.join(tmp, "ckpt")
-        try:
-            out = spawn_mesh(dp_rank, DP_DATA, 1,
-                             {k: single[k] for k in ("codes", "params")}, ckpt_dir,
-                             dev.type, timeout=DP_TIMEOUT_S)
-        except (RuntimeError, TimeoutError) as e:
-            fail(f"data-parallel training: {e}")
-        cfg, pipe, opt = dp_setup()
-        losses = [loss for _, loss, _ in out["log"]]
-        if [s for s, _, _ in out["log"]] != list(range(DP_STEPS)):
-            fail(f"data-parallel training: steps {out['log']}")
-        dp_ms, coll = dp_report(out, single, losses, card, opt)
-        # (e) the data-2 checkpoint on one device
-        # made without the directory (no restore at construction), then
-        # restored once through restore(device=); it writes no checkpoint
-        trainer = Trainer(cfg, opt, TrainConfig(num_steps=DP_STEPS + 1), pipe, seed=0,
-                          device=dev)
-        t0 = time.perf_counter()
-        trainer.train_cfg.ckpt_dir = ckpt_dir
-        start = trainer.restore(device=dev)
-        trainer.train_cfg.ckpt_dir = None
-        restored = tree_digest(torch, state_leaves(torch, trainer.state))
-        restore_s = time.perf_counter() - t0
-        if start != DP_STEPS or restored != out["final_digest"]:
-            fail(f"elastic restore: step {start}, the restored state's digest "
-                 f"{'==' if restored == out['final_digest'] else '!='} data rank 0's")
-        reset_counts(tm, pm)
-        after = trainer.run()
-        got = counts(tm, pm)
-        per_step = out["per_step"]
-        if ([m["step"] for m in after] != [DP_STEPS] or not math.isfinite(after[0]["loss"])
-                or got["ternary_cim_matmul"] != per_step):
-            fail(f"elastic restore: the step after it {after}, launches {got}")
-        del trainer
-        _free(torch)
+    single = dp_single(torch, dev, tmp)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    try:
+        out = spawn_mesh(dp_rank, DP_DATA, 1,
+                         {k: single[k] for k in ("codes", "params")}, ckpt_dir,
+                         dev.type, timeout=DP_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"data-parallel training: {e}")
+    cfg, pipe, opt = dp_setup()
+    losses = [loss for _, loss, _ in out["log"]]
+    if [s for s, _, _ in out["log"]] != list(range(DP_STEPS)):
+        fail(f"data-parallel training: steps {out['log']}")
+    dp_ms, coll = dp_report(out, single, losses, card, opt)
+    # (e) the data-2 checkpoint on one device
+    # made without the directory (no restore at construction), then
+    # restored once through restore(device=); it writes no checkpoint
+    trainer = Trainer(cfg, opt, TrainConfig(num_steps=DP_STEPS + 1), pipe, seed=0,
+                      device=dev)
+    t0 = time.perf_counter()
+    trainer.train_cfg.ckpt_dir = ckpt_dir
+    start = trainer.restore(device=dev)
+    trainer.train_cfg.ckpt_dir = None
+    restored = tree_digest(torch, state_leaves(torch, trainer.state))
+    restore_s = time.perf_counter() - t0
+    if start != DP_STEPS or restored != out["final_digest"]:
+        fail(f"elastic restore: step {start}, the restored state's digest "
+             f"{'==' if restored == out['final_digest'] else '!='} data rank 0's")
+    reset_counts(tm, pm)
+    after = trainer.run()
+    got = counts(tm, pm)
+    per_step = out["per_step"]
+    if ([m["step"] for m in after] != [DP_STEPS] or not math.isfinite(after[0]["loss"])
+            or got["ternary_cim_matmul"] != per_step):
+        fail(f"elastic restore: the step after it {after}, launches {got}")
+    del trainer
+    _free(torch)
     wall = time.perf_counter() - t_phase
     log(f"data parallel (e): the Trainer's checkpoint at step {DP_STEPS} (written at data "
         f"{DP_DATA}) restored by a single-device Trainer on {dev} bit for bit in "
@@ -4714,7 +4740,208 @@ def dp_phase(torch, tm, pm, card, dev) -> dict:
             "collectives_per_step": coll, "peak_bytes_rank": out["peak_bytes"],
             "single_peak_bytes": single["peak_bytes"], "launches": out["launches"],
             "launches_per_step": per_step, "restore_s": restore_s,
-            "after_restore_loss": after[0]["loss"], "moe": moe, "wall_s": wall}
+            "after_restore_loss": after[0]["loss"], "moe": moe, "wall_s": wall,
+            "single": single}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# the model ranks of phase 26: 3 split smollm-135m's 9 heads and 3 kv
+# heads, its MLP's 1536 and its vocabulary's 49152
+TP_TRAIN_MODEL = 3
+TP_TRAIN_TIMEOUT_S = 400.0
+
+
+def replicated_leaves(tree, layout):
+    """The leaves of a params-shaped ``tree`` that ``layout`` keeps whole
+    on every model rank."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    return [t for t, sp in zip(tree_leaves(tree), tree_leaves(layout)) if sp is None]
+
+
+def tp_train_rank(mesh, single, ckpt_dir, dev_name="cuda") -> dict:
+    """Phase 26 on one model rank (``launch.mesh.spawn_mesh``, (1,
+    TP_TRAIN_MODEL), every rank on cuda:0): the Trainer under the mesh
+    (``Trainer(mesh=)``: the eager step on the rank's shards) from the
+    seed-0 state for DP_STEPS steps on phase 17's global batch, its
+    checkpoint gathered whole into ``ckpt_dir`` (rank 0 writes). The
+    launch counts at 0 just before ``run()``; in every step call: #1
+    launched 2 x macs_per_step and no other kernel, the collectives by
+    name, then (outside the step's time) the replicated leaves' digest
+    gathered over the model group (bit-equal on every rank) and the
+    params gathered whole, held in rank 0 against the single device's
+    after the same step (phase 25's, ``single``; after step 0 every
+    weight within lr/10 plus one bf16 step). Raises on any failure."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import packed_mac as pm
+    from repro_torch.kernels import ternary_mac as tm
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"phase 26 model rank {mesh.rank}: {what}")
+
+    dev = torch.device(dev_name, 0) if dev_name == "cuda" else torch.device(dev_name)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg, pipe, opt = dp_setup()
+    per_step = 2 * macs_per_step(cfg)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, TrainConfig(
+        num_steps=DP_STEPS, ckpt_dir=ckpt_dir, ckpt_every=DP_STEPS + 1, log_every=1),
+        pipe, seed=0, device=dev, mesh=mesh)
+    init_s = time.perf_counter() - t0
+    check(trainer.step_fn.graphed is False, "the tensor-parallel step must run eagerly")
+    layout = shd.train_layout(cfg, mesh)
+    local = shd.local_config(cfg, mesh)
+    shapes = {"blocks/attn/wq": tuple(trainer.state.params["blocks"]["attn"]["wq"].shape),
+              "blocks/mlp/w_down": tuple(trainer.state.params["blocks"]["mlp"]["w_down"].shape),
+              "embed": tuple(trainer.state.params["embed"].shape)}
+    inner, per_call, secs, collectives, deltas, digests = trainer.step_fn, [], [], [], [], []
+    bad = []
+
+    def counted(state, batch):
+        # records only: a raise inside the step is a node failure to the
+        # Trainer, which would restore this rank alone
+        before = counts(tm, pm)
+        C.reset_counts()
+        sync()
+        t = time.perf_counter()
+        out = inner(state, batch)
+        sync()
+        secs.append(time.perf_counter() - t)
+        step = len(secs) - 1
+        per_call.append({k: v - before[k] for k, v in counts(tm, pm).items()})
+        collectives.append(dict(C.COUNTS))
+        mine = tree_digest(torch, replicated_leaves(state.params, layout))
+        every = [None] * mesh.size
+        dist.all_gather_object(every, mine, group=mesh.group)
+        digests.append(all(d == mine for d in every))
+        whole = shd.gather_tree(state.params, layout)
+        if mesh.rank == 0:
+            gap = param_gap(torch, whole, torch.load(single["params"][step]), opt.lr)
+            if step == 0 and gap["beyond_lr10_ulp"]:
+                bad.append(f"step 0: {int(gap['beyond_lr10_ulp'])} weights past lr/10 plus "
+                           f"one bf16 step of the single device's")
+            deltas.append(gap)
+        del whole
+        return out
+
+    trainer.step_fn = counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(tm, pm)
+    log_ = trainer.run()
+    got = counts(tm, pm)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    check(trainer.restarts == 0 and len(secs) == DP_STEPS,
+          f"{trainer.restarts} restarts, {len(secs)} step calls")
+    check(all(digests), f"the replicated leaves differ between the model ranks after "
+          f"steps {[i for i, ok in enumerate(digests) if not ok]}")
+    check(not bad, "; ".join(bad[:4]))
+    want = dict.fromkeys(got, 0)
+    want["ternary_cim_matmul"] = per_step
+    check(len(per_call) == DP_STEPS and all(c == want for c in per_call),
+          f"launches per step call {per_call}, expected {want}")
+    check(got["ternary_cim_matmul"] == per_step * DP_STEPS, f"launches {got}")
+    final = tree_digest(torch, state_leaves(torch, shd.gather_state(trainer.state, cfg, mesh)))
+    return {"log": [(m["step"], m["loss"], m["grad_norm"]) for m in log_],
+            "secs": secs, "collectives": collectives, "launches": got["ternary_cim_matmul"],
+            "per_step": per_step, "deltas": deltas, "peak_bytes": peak,
+            "final_digest": final, "init_s": init_s, "shapes": shapes,
+            "local": {k: getattr(local, k) for k in ("n_heads", "n_kv_heads")}}
+
+
+def tp_train_phase(torch, tm, pm, card, dev, single, tmp) -> dict:
+    """Phase 26: full-size smollm-135m (bf16, remat, CiM, blocked/cuda: its
+    config's) trained over a (1, TP_TRAIN_MODEL) mesh, TP_TRAIN_MODEL gloo
+    ranks on cuda:0 (``tp_train_rank``), on phase 17's global batch, held
+    against phase 25's DP_STEPS eager single-device steps (``single``,
+    its files in ``tmp``): step 0's loss bit for bit, step 0's grad norm
+    within DP_NORM_RTOL, after step 0 every weight within lr/10 plus one
+    bf16 step (checked in rank 0), the replicated leaves bit-equal on the
+    ranks after every step, #1 launched 420 times a step in every rank
+    and no other kernel; the gathered checkpoint at step DP_STEPS
+    restored by a single-device Trainer on cuda:0 bit for bit. A rank's
+    failure or a run past TP_TRAIN_TIMEOUT_S fails the script."""
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "tp_ckpt")
+    try:
+        out = spawn_mesh(tp_train_rank, 1, TP_TRAIN_MODEL, {"params": single["params"]},
+                         ckpt_dir, dev.type, timeout=TP_TRAIN_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tensor-parallel training: {e}")
+    cfg, pipe, opt = dp_setup()
+    if [st for st, _, _ in out["log"]] != list(range(DP_STEPS)):
+        fail(f"tensor-parallel training: steps {out['log']}")
+    losses = [loss for _, loss, _ in out["log"]]
+    norms = [n for _, _, n in out["log"]]
+    tp_ms = statistics.median(out["secs"][1:]) * 1e3
+    coll = out["collectives"][0]
+    log(f"tensor parallel training: full-size smollm-135m (bf16, remat, CiM, blocked/cuda; "
+        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}) over a (1, {TP_TRAIN_MODEL}) mesh, "
+        f"{TP_TRAIN_MODEL} gloo ranks on {card} (a rank's heads {out['local']}, shards "
+        f"{out['shapes']}), {DP_STEPS} steps through Trainer(mesh=): losses "
+        + " ".join(f"{v:.6f}" for v in losses) + ", grad norms "
+        + " ".join(f"{v:.6f}" for v in norms) + " against the single device's (phase 25) "
+        + " ".join(f"{v:.6f}" for v in single["losses"]) + ", "
+        + " ".join(f"{v:.6f}" for v in single["grad_norms"]) + "; |delta param| (gathered "
+        "whole) max " + " ".join(f"{d['max']:.3g}" for d in out["deltas"]) + ", mean "
+        + " ".join(f"{d['mean']:.3g}" for d in out["deltas"]) + ", weights past lr/10 "
+        + " ".join(f"{int(d['beyond_lr10'])}" for d in out["deltas"])
+        + ", past lr/10 + one bf16 step "
+        + " ".join(f"{int(d['beyond_lr10_ulp'])}" for d in out["deltas"])
+        + f" of {out['deltas'][0]['n']} (step 0's held at 0); replicated leaves bit-equal on "
+        f"every rank after every step; #1 launched {out['per_step']} in every step in every "
+        f"rank ({out['launches']} in rank 0), no other kernel")
+    log(f"tensor parallel training: eager TP step median {tp_ms:.2f} ms of the steps after "
+        f"step 0 (all: " + " ".join(f"{v * 1e3:.1f}" for v in out["secs"])
+        + f" ms) against the eager single-device step {single['step_ms']:.2f} ms; collectives "
+        f"a step {coll}; peak memory a rank (rank 0) {out['peak_bytes'] / 1e9:.2f} GB, the "
+        f"single device's {single['peak_bytes'] / 1e9:.2f} GB; a rank's Trainer made in "
+        f"{out['init_s']:.1f} s; on {card}")
+    if losses[0] != single["losses"][0]:
+        fail(f"tensor-parallel training: step 0's loss {losses[0]!r} != the single device's "
+             f"{single['losses'][0]!r}")
+    if not abs(norms[0] - single["grad_norms"][0]) <= DP_NORM_RTOL * single["grad_norms"][0]:
+        fail(f"tensor-parallel training: step 0's grad norm {norms[0]} against the single "
+             f"device's {single['grad_norms'][0]} (rtol {DP_NORM_RTOL})")
+    bad = [i for i, (a, b) in enumerate(zip(losses, single["losses"]))
+           if i and not abs(a - b) <= DP_TRAJ_RTOL * abs(b)]
+    if bad:
+        fail(f"tensor-parallel training: losses of steps {bad} past rtol {DP_TRAJ_RTOL}")
+    # the gathered checkpoint on one device, restored once through
+    # restore(device=) by a Trainer made without the directory
+    trainer = Trainer(cfg, opt, TrainConfig(num_steps=DP_STEPS + 1), pipe, seed=0, device=dev)
+    t0 = time.perf_counter()
+    trainer.train_cfg.ckpt_dir = ckpt_dir
+    start = trainer.restore(device=dev)
+    restored = tree_digest(torch, state_leaves(torch, trainer.state))
+    restore_s = time.perf_counter() - t0
+    if start != DP_STEPS or restored != out["final_digest"]:
+        fail(f"tensor-parallel elastic restore: step {start}, the restored state's digest "
+             f"{'==' if restored == out['final_digest'] else '!='} the ranks' gathered one")
+    del trainer
+    _free(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"tensor parallel training: the checkpoint at step {DP_STEPS} (gathered whole at "
+        f"model {TP_TRAIN_MODEL}) restored by a single-device Trainer on {dev} bit for bit in "
+        f"{restore_s:.1f} s; phase 26 wall time {wall:.1f} s")
+    return {"losses": losses, "grad_norms": norms, "single_losses": single["losses"],
+            "single_grad_norms": single["grad_norms"], "deltas": out["deltas"],
+            "tp_step_ms": tp_ms, "tp_secs": out["secs"], "single_step_ms": single["step_ms"],
+            "collectives_per_step": coll, "peak_bytes_rank": out["peak_bytes"],
+            "launches": out["launches"], "launches_per_step": out["per_step"],
+            "restore_s": restore_s, "wall_s": wall}
 
 
 def main(argv=None) -> int:
@@ -4739,6 +4966,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import packed_mac as pm
     from repro_torch.kernels import ternary_mac as tm
 
+    t_script = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t, 1)
+
     card = card_line()
     log(f"card: {card}; {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -4756,55 +4993,68 @@ def main(argv=None) -> int:
         elif "registers" in line:
             log(f"  {short_name(entry)}: {line.split(':', 1)[-1].strip()}")
     sass = check_sass(_build.nvcc_path(), libs)
+    phase_s["1"] = round(time.perf_counter() - t0, 1)
     for kernel, instances in sass.items():
         log(f"{kernel} SASS: " + "; ".join(
             f"{short_name(name)}: {ops}" for name, ops in sorted(instances.items())))
 
-    per_kernel, errs, extra = kernel_phase(torch, tm, pm, tern_mod, DECODE_M_MAX,
-                                           torch.device("cuda"))
-    launches, serving = serving_phases(torch, tm, pm, card, torch.device("cuda"))
-    serving["starcoder2_7b"] = starcoder2_phase(torch, tm, pm, card, torch.device("cuda"))
+    per_kernel, errs, extra = timed("2", kernel_phase, torch, tm, pm, tern_mod, DECODE_M_MAX,
+                                    torch.device("cuda"))
+    launches, serving = timed("3-10", serving_phases, torch, tm, pm, card,
+                              torch.device("cuda"))
+    serving["starcoder2_7b"] = timed("11", starcoder2_phase, torch, tm, pm, card,
+                                     torch.device("cuda"))
     for arch in SSM_ARCHS:
         tag = arch.replace("-", "_").replace(".", "_")
-        serving[tag] = ssm_family_phase(torch, tm, pm, card, torch.device("cuda"), arch)
+        serving[tag] = timed(f"12-13 {arch}", ssm_family_phase, torch, tm, pm, card,
+                             torch.device("cuda"), arch)
         per_kernel["ternary_cim_matmul"][tag].update(
             launches=serving[tag]["bf16"]["launches"],
             launches_per_step=serving[tag]["macs_per_step"])
-    serving["capacity_zamba2"] = zamba2_capacity(torch, torch.device("cuda"))
+    serving["capacity_zamba2"] = timed("13 capacity", zamba2_capacity, torch,
+                                       torch.device("cuda"))
     for arch in CUT_ARCHS:
         tag = arch.replace("-", "_").replace(".", "_")
-        serving[tag] = cut_model_phase(torch, tm, pm, card, torch.device("cuda"), arch)
+        serving[tag] = timed(f"14/16 {arch}", cut_model_phase, torch, tm, pm, card,
+                             torch.device("cuda"), arch)
         per_kernel["ternary_cim_matmul"][tag].update(
             launches=serving[tag]["bf16"]["launches"],
             launches_per_step=serving[tag]["macs_per_step"])
-    serving["whisper_large_v3"] = whisper = whisper_phase(torch, tm, pm, card,
-                                                          torch.device("cuda"))
+    serving["whisper_large_v3"] = whisper = timed("15", whisper_phase, torch, tm, pm, card,
+                                                  torch.device("cuda"))
     per_kernel["ternary_cim_matmul"]["whisper_large_v3"].update(
         launches=whisper["captured"]["launches"],
         launches_per_step=whisper["macs_per_step"])
-    serving["training"] = training = train_phase(torch, tm, pm, card,
-                                                 torch.device("cuda"))
+    serving["training"] = training = timed("17", train_phase, torch, tm, pm, card,
+                                           torch.device("cuda"))
     per_kernel["ternary_cim_matmul"]["smollm_135m_train"].update(
         launches=training["launches"], launches_per_step=training["launches_per_step"])
-    serving["training_ssm"] = ssm_training = ssm_train_phase(
-        torch, tm, pm, card, torch.device("cuda"))
+    serving["training_ssm"] = ssm_training = timed(
+        "18", ssm_train_phase, torch, tm, pm, card, torch.device("cuda"))
     per_kernel["ternary_cim_matmul"]["mamba2_780m_train"].update(
         launches=ssm_training["mamba2_780m"]["launches"],
         launches_per_step=ssm_training["mamba2_780m"]["launches_per_step"])
     per_kernel["ternary_cim_matmul"]["zamba2_2_7b_train"].update(
         launches=ssm_training["zamba2_2_7b"]["launches"],
         launches_per_step=ssm_training["zamba2_2_7b"]["launches_per_step"])
-    serving["frontdoor"] = frontdoor_phase(
-        torch, tm, pm, card, torch.device("cuda"), serving["cim"]["captured_step_ms"])
-    calibration = calibration_phase(torch, tm, pm, card, torch.device("cuda"),
-                                    serving["cim"]["generated"])
-    serving["tp"] = tp = tp_phase(torch, card, serving["cim"])
-    serving["tp_families"] = tp_families = tp_family_phase(torch, card,
-                                                           torch.device("cuda"))
-    serving["analysis"] = analysis_phase(torch, tm, pm, card, torch.device("cuda"))
-    serving["data_parallel"] = dp = dp_phase(torch, tm, pm, card, torch.device("cuda"))
-    serving["frontdoor_tp"] = frontdoor_tp_phase(torch, card, torch.device("cuda"),
-                                                 serving["frontdoor"])
+    serving["frontdoor"] = timed(
+        "19", frontdoor_phase, torch, tm, pm, card, torch.device("cuda"),
+        serving["cim"]["captured_step_ms"])
+    calibration = timed("20", calibration_phase, torch, tm, pm, card, torch.device("cuda"),
+                        serving["cim"]["generated"])
+    serving["tp"] = tp = timed("21", tp_phase, torch, card, serving["cim"])
+    serving["tp_families"] = tp_families = timed("22", tp_family_phase, torch, card,
+                                                 torch.device("cuda"))
+    serving["analysis"] = timed("23", analysis_phase, torch, tm, pm, card,
+                                torch.device("cuda"))
+    # phase 26 reads phase 25's single-device files: one directory for both
+    with tempfile.TemporaryDirectory() as dp_tmp:
+        serving["data_parallel"] = dp = timed("25", dp_phase, torch, tm, pm, card,
+                                              torch.device("cuda"), dp_tmp)
+        serving["tp_training"] = tpt = timed("26", tp_train_phase, torch, tm, pm, card,
+                                             torch.device("cuda"), dp.pop("single"), dp_tmp)
+    serving["frontdoor_tp"] = timed("24", frontdoor_tp_phase, torch, card,
+                                    torch.device("cuda"), serving["frontdoor"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -4821,6 +5071,7 @@ def main(argv=None) -> int:
                                     for arch in TP_FAMILY_ARCHS}
                                    if name == "ternary_cim_matmul" else None),
             "dp_launches": (dp["launches"] if name == "ternary_cim_matmul" else None),
+            "tp_train_launches": (tpt["launches"] if name == "ternary_cim_matmul" else None),
             **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}
@@ -4835,6 +5086,8 @@ def main(argv=None) -> int:
                 **extra), f, indent=1)
     print(json.dumps({"calibration": {k: calibration[k] for k in (
         "fits", "engine", "replay", "projections", "winners")}}), flush=True)
+    log(f"phase seconds: {json.dumps(phase_s)}; the script "
+        f"{time.perf_counter() - t_script:.1f} s to here on {card}")
     print(card, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,19 @@ cross-rank reduction of the port goes through this module:
     gradient mean (pinned; the data-parallel step does not use it, as
     the reference's ``train_step`` does not);
   * :func:`bucket_mean`, the data-parallel step's exact gradient mean:
-    every tensor in one flat f32 bucket, one all-reduce.
+    every tensor in one flat f32 bucket, one all-reduce;
+  * :func:`copy`, :func:`gather` and :func:`reduce`, the model axis of
+    tensor-parallel training: the same collectives as autograd functions,
+    each with the adjoint its place in the model needs (below).
+
+The three autograd functions follow one rule: every replicated tensor
+that feeds a rank-partial computation enters it through :func:`copy`
+(identity forward, the sum of the ranks' partial gradients backward), a
+rank's part of a replicated tensor is made whole by :func:`gather` (an
+all-gather forward, the rank's slice of the replicated gradient
+backward), and the ranks' partial sums are added by :func:`reduce` (an
+all-reduce forward, the identity backward: every rank's partial took the
+whole gradient). The serving path keeps the plain calls.
 
 gloo drives its collectives from the host: a CUDA tensor is copied to
 host memory, reduced there and copied back (the wire), so no collective
@@ -38,7 +50,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-#: collectives run by this process, by name ("all_reduce", "all_gather")
+#: collectives run by this process, by name ("all_reduce", "all_gather";
+#: the training functions "copy", "gather" and "reduce" once a forward
+#: call, beside the primitives they run forward or backward)
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -129,3 +143,77 @@ def bucket_mean(tensors, group):
         out.append(bucket[start:start + n].view(t.shape).to(t.dtype))
         start += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# The model axis of tensor-parallel training: collectives under autograd
+# ---------------------------------------------------------------------------
+
+
+def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (the size over the group)."""
+    n = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, partial):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = all_reduce(g, ctx.group)
+        return _slice(g, ctx.group, ctx.dim), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself forward; backward, the sum over ``group`` of the
+    ranks' gradients (each rank's is partial: it reached ``x`` through the
+    rank's part of the computation). A replicated tensor enters a
+    rank-partial computation through it once."""
+    COUNTS["copy"] += 1
+    return _Copy.apply(x, group)
+
+
+def gather(x: torch.Tensor, group, dim: int = -1, partial: bool = False
+           ) -> torch.Tensor:
+    """:func:`all_gather` forward (every rank's ``x`` along ``dim``, in
+    rank order); backward, the rank's block of the gradient. That is the
+    adjoint where the gradient is whole on every rank (what follows is
+    replicated). ``partial=True``: each rank's gradient is a partial one
+    (it reached only the part that rank computes from), so they are
+    summed over ``group`` first."""
+    COUNTS["gather"] += 1
+    dim = dim % x.dim()
+    return _Gather.apply(x, group, dim, partial)
+
+
+def reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce`'s sum forward; backward, the gradient itself:
+    each rank's partial took part in the whole sum."""
+    COUNTS["reduce"] += 1
+    return _Reduce.apply(x, group)

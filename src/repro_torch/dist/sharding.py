@@ -82,6 +82,16 @@ Mode "off" splits the same weights as float slices (no codes): a column
 shard is ``x @ w``, a row shard computes its partial in float32, sums
 the partials in float32 and rounds once.
 
+The model axis of a train step splits by the same rule, kept once in
+:func:`train_layout` (a :class:`LeafSplit` per split leaf, which
+:func:`shard_params` cuts serving shards by too): a rank holds float
+slices that take gradients (:func:`shard_state`; the model reads them
+through :func:`train_views` as :class:`TrainShard`, ``ExpertShard`` and
+``VocabShard`` views), the model-axis collectives are
+``dist.collectives``' autograd functions, and mamba's B and C, held
+whole by every rank of one group, sum their partial gradients over the
+ranks. :func:`gather_state` joins the shards back, bit for bit.
+
 The data axis (data-parallel training) splits the batch, not the
 weights: every rank holds the whole replicated state and runs its rows
 of the global batch (:func:`batch_shard`, the rule of the reference's
@@ -104,7 +114,6 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.execution import row_split
 from repro_torch.dist import collectives
 from repro_torch.quant.prepare import _map_tree
 
@@ -198,7 +207,8 @@ def param_specs(params: PyTree, fsdp: bool = False,
                 axis_sizes: Optional[Dict[str, int]] = None) -> PyTree:
     """Spec tree matching ``params`` (one entry per dim of each leaf).
     ``fsdp=True`` additionally spreads large weights over the "data" axis
-    wherever a free dim divides (the port trains on one rank yet)."""
+    wherever a free dim divides (the reference's FSDP rule; no step of the
+    port shards over the data axis)."""
 
     def f(path, leaf):
         spec = _leaf_spec(path, leaf, axis_sizes)
@@ -400,11 +410,14 @@ class ExpertShard:
     """One rank's whole experts of a MoE expert stack (``w_gate``,
     ``w_up`` or ``w_down``, (L, E_local, K, N) or one layer's): experts
     ``[first, first + E_local)`` as float weights; ``moe._tern3``
-    ternarizes each expert from its own whole weight, as on one device."""
+    ternarizes each expert from its own whole weight, as on one device.
+    ``train``: a training view (:func:`train_views`), whose collectives
+    are ``dist.collectives``' autograd functions."""
 
     w: torch.Tensor
     first: int
     mesh: Any
+    train: bool = False
 
     def __getitem__(self, i) -> "ExpertShard":
         return dataclasses.replace(self, w=self.w[i])
@@ -414,12 +427,17 @@ class ExpertShard:
 class VocabShard:
     """One rank's rows of the embedding (``vocab_dim`` 0, (V, D)) or
     columns of the unembedding (``vocab_dim`` 1, (D, V)): token ids
-    ``[offset, offset + n)``."""
+    ``[offset, offset + n)``. ``train``: a training view
+    (:func:`train_views`): the lookup's sum is ``collectives.reduce``,
+    and the logits' input enters through ``collectives.copy`` and their
+    gather is ``collectives.gather``, so the table (tied: both uses) and
+    the activations take their gradients."""
 
     table: torch.Tensor
     offset: int
     vocab_dim: int
     mesh: Any
+    train: bool = False
 
     def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """Embedding rows of ``tokens``: the rank's rows, zero elsewhere
@@ -430,6 +448,8 @@ class VocabShard:
         inside = (local >= 0) & (local < n)
         rows = self.table[local.clamp(0, n - 1)]
         rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        if self.train:
+            return collectives.reduce(rows, self.mesh.group)
         return collectives.all_reduce(rows, self.mesh.group)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -439,13 +459,12 @@ class VocabShard:
         that dtype (a copy), so a greedy argmax breaks ties on the same
         index."""
         table = self.table.T if self.vocab_dim == 0 else self.table
+        if self.train:
+            x = collectives.copy(x, self.mesh.group)
         local = (x.to(torch.float64) @ table.to(torch.float64)).to(x.dtype)
+        if self.train:
+            return collectives.gather(local, self.mesh.group, dim=-1)
         return collectives.all_gather(local, self.mesh.group, dim=-1)
-
-
-def _col_split(t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
-    cols = t.shape[-1] // tp
-    return t[..., rank * cols:(rank + 1) * cols].clone()
 
 
 def _codes(w: torch.Tensor, qc, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -476,67 +495,288 @@ def shard_params(params: PyTree, cfg, mesh, device=None) -> PyTree:
     only this rank's shard moves, each weight's codes computed on
     ``device`` from its whole layer (one layer moved at a time), as the
     step there computes them."""
-    tp = _tp(mesh)
-    if tp == 1:
+    layout = train_layout(cfg, mesh)
+    if layout is None:
         return params
-    rank, qc = mesh.rank, cfg.quant
-    sizes = {"data": 1, "model": tp}
+    qc = cfg.quant
     to = (lambda t: t) if device is None else (lambda t: t.to(device))
-    attn, mamba = attention_splits(cfg, tp), mamba_splits(cfg, tp)
-    cols = mamba_columns(cfg, tp, rank) if mamba else None
 
-    def weight(leaf, kind, index=None):
-        if qc.mode == "off":
-            w, scale = leaf, None
-        else:
-            w, scale = _codes(leaf, qc, device)
-        if kind == "row":
-            # a float shard splits K evenly; codes split in whole blocks
-            w = row_split(w, 1 if scale is None else qc.block, tp, rank)
-        elif index is not None:
-            w, scale = w[..., index], None if scale is None else scale[..., index]
-        else:
-            w = _col_split(w, tp, rank)
-            scale = None if scale is None else _col_split(scale, tp, rank)
-        return WeightShard(to(w).contiguous(),
-                           None if scale is None else scale.contiguous(), kind,
+    def place(leaf, sp):
+        if sp is None:
+            return to(leaf)
+        first = int(sp.index[mesh.rank][0])
+        if sp.view == "expert":
+            return ExpertShard(to(sp.cut(leaf)), first, mesh)
+        if sp.view == "vocab":
+            return VocabShard(to(sp.cut(leaf)), first, sp.dim, mesh)
+        if sp.view == "plain":
+            return to(sp.cut(leaf))
+        # a dense weight: the whole weight's codes and scale (mode "off": the
+        # float weight), cut as a float shard is (row: in whole blocks)
+        w, scale = (leaf, None) if qc.mode == "off" else _codes(leaf, qc, device)
+        if scale is not None and sp.view == "col":
+            scale = sp.cut(scale)
+        return WeightShard(to(sp.cut(w)).contiguous(),
+                           None if scale is None else scale.contiguous(), sp.view,
                            leaf.shape[-2], mesh)
 
-    def place_mamba(name, leaf):
-        if name in _MAMBA_HEADS:
-            return to(leaf[..., cols["heads"]].contiguous())
-        if name in _MAMBA_CHANNELS:
-            return to(leaf[..., cols["conv"]].contiguous())
-        if name == "w_in":
-            return weight(leaf, "col", cols["w_in"])
-        if name == "w_out":
-            return weight(leaf, "row")
-        return to(leaf)
-
-    def place(path, leaf, spec):
-        segs = path.split("/")
-        name = segs[-1]
-        if "mamba" in segs:
-            return place_mamba(name, leaf) if mamba else to(leaf)
-        if "model" not in spec or (name in _ATTN and not attn) or name == "w_dkv":
-            return to(leaf)
-        if name == "embed":
-            n = leaf.shape[0] // tp
-            return VocabShard(to(leaf[rank * n:(rank + 1) * n].clone()), rank * n, 0, mesh)
-        if name == "unembed":
-            n = leaf.shape[-1] // tp
-            return VocabShard(to(_col_split(leaf, tp, rank)), rank * n, 1, mesh)
-        if name in ("w_uk", "w_uv"):
-            return to(_col_split(leaf, tp, rank) if attn else leaf)
-        if len(segs) > 1 and segs[-2] == "moe" and name in _EXPERT_TP:
-            e_dim = leaf.dim() - 3
-            n = leaf.shape[e_dim] // tp
-            return ExpertShard(to(leaf.narrow(e_dim, rank * n, n).clone()), rank * n, mesh)
-        return weight(leaf, "col" if spec[-1] == "model" else "row")
-
     with torch.no_grad():
-        return _map_tree(params, lambda path, leaf: place(
-            path, leaf, tuple(_leaf_spec(path, leaf, sizes))))
+        return _zip_map(place, params, layout)
+
+
+# ---------------------------------------------------------------------------
+# Training shards: the model axis of a train step
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainShard:
+    """One rank's training view of a split dense weight, stacked (L, ..)
+    or one layer's: ``w`` is the rank's float slice, which takes the
+    gradient (a :class:`WeightShard` holds codes fixed at placement and
+    serves only). ``kind`` "col": ``w`` holds the rank's output columns
+    (a contiguous slice, or a mamba ``w_in``'s index set); "row": its
+    contraction rows, K (``k`` is the whole K) zero-padded to ``block *
+    size`` and split in whole blocks (evenly in mode "off"), as
+    :func:`~repro_torch.core.execution.row_split` cuts. ``layers.dense``
+    takes the codes from it at every call (see there)."""
+
+    w: torch.Tensor
+    kind: str
+    k: int
+    mesh: Any
+
+    def __getitem__(self, i) -> "TrainShard":
+        return dataclasses.replace(self, w=self.w[i])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LeafSplit:
+    """How one leaf of a training state splits over the model axis, the
+    same rule for the params, the Adam moments and the residual. The
+    whole leaf (``shape``) is zero-padded along ``dim`` to ``padded``
+    (row splits on whole blocks; else ``padded`` is the extent) and rank
+    ``r`` holds its positions ``index[r]`` along it: a contiguous block,
+    or a mamba layer's index set. ``shared``: the positions of the
+    rank's shard that every rank holds (mamba's B and C of one group),
+    or None. ``view`` is what the model reads (:meth:`view_of`)."""
+
+    view: str            # "col" | "row" | "expert" | "vocab" | "plain"
+    dim: int
+    shape: Tuple[int, ...]
+    padded: int
+    index: Tuple[torch.Tensor, ...]
+    shared: Optional[torch.Tensor]
+    mesh: Any
+
+    def cut(self, whole: torch.Tensor, rank: Optional[int] = None) -> torch.Tensor:
+        """Rank ``rank``'s shard (default: this process's) of the whole
+        leaf: an exact copy of its positions."""
+        rank = self.mesh.rank if rank is None else rank
+        pad = self.padded - whole.shape[self.dim]
+        if pad:
+            widths = [0, 0] * (whole.dim() - 1 - self.dim) + [0, pad]
+            whole = torch.nn.functional.pad(whole, widths)
+        return whole.index_select(self.dim, self.index[rank].to(whole.device))
+
+    def join(self, parts) -> torch.Tensor:
+        """The whole leaf from every rank's shard, in rank order (exact
+        copies; a shared position is written by every rank alike)."""
+        first = parts[0]
+        shape = list(self.shape)
+        shape[self.dim] = self.padded
+        whole = torch.zeros(shape, dtype=first.dtype, device=first.device)
+        for idx, part in zip(self.index, parts):
+            whole.index_copy_(self.dim, idx.to(first.device), part)
+        return whole.narrow(self.dim, 0, self.shape[self.dim])
+
+    def squares(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the leaf's sum of squares over the whole
+        (f32): its shard, a shared position counted on rank 0 alone."""
+        out = torch.sum(torch.square(g.to(torch.float32)))
+        if self.shared is not None and self.mesh.rank != 0:
+            dup = g.index_select(self.dim, self.shared.to(g.device))
+            out = out - torch.sum(torch.square(dup.to(torch.float32)))
+        return out
+
+    def view_of(self, w: torch.Tensor):
+        """The model's view of the rank's shard ``w`` (a leaf that takes
+        gradients): a :class:`TrainShard`, :class:`ExpertShard` or
+        :class:`VocabShard` for a training step, else the tensor. Shared
+        positions pass through ``collectives.copy``, so their gradient,
+        a partial one on every rank, is summed over the model group."""
+        want = list(self.shape)
+        want[self.dim] = len(self.index[self.mesh.rank])
+        if list(w.shape) != want:
+            raise ValueError(f"a training shard of shape {tuple(w.shape)} where this "
+                             f"rank's split wants {tuple(want)} (a whole state under "
+                             f"a model axis? shard it: shard_state)")
+        if self.shared is not None:
+            idx = self.shared.to(w.device)
+            part = collectives.copy(w.index_select(self.dim, idx), self.mesh.group)
+            w = w.index_copy(self.dim, idx, part)
+        first = int(self.index[self.mesh.rank][0])
+        if self.view in ("col", "row"):
+            return TrainShard(w, self.view, self.shape[-2], self.mesh)
+        if self.view == "expert":
+            return ExpertShard(w, first, self.mesh, train=True)
+        if self.view == "vocab":
+            return VocabShard(w, first, self.dim, self.mesh, train=True)
+        return w
+
+
+def _blocks(padded: int, tp: int) -> Tuple[torch.Tensor, ...]:
+    """Every rank's contiguous block of ``padded`` positions."""
+    n = padded // tp
+    return tuple(torch.arange(r * n, (r + 1) * n) for r in range(tp))
+
+
+def _leaf_split(path: str, leaf, cfg, mesh, attn: bool, cols) -> Optional[LeafSplit]:
+    """The split of one whole leaf over the model axis (None:
+    replicated): its view, dim, padding and every rank's positions."""
+    tp = mesh.size
+    segs = path.split("/")
+    name = segs[-1]
+    shape = tuple(leaf.shape)
+    nd = len(shape)
+
+    def split(view, dim, index, padded=None):
+        dim = dim % nd
+        padded = shape[dim] if padded is None else padded
+        held = torch.cat(index)
+        shared = None
+        if held.numel() > padded:       # a position on more than one rank
+            counts = torch.bincount(held, minlength=padded)
+            mine = index[mesh.rank]
+            found = torch.nonzero(counts[mine] == tp).reshape(-1)
+            shared = found if found.numel() else None
+        return LeafSplit(view, dim, shape, padded, tuple(index), shared, mesh)
+
+    def blocks(view, dim):
+        return split(view, dim, _blocks(shape[dim % nd], tp))
+
+    def row():
+        block = 1 if cfg.quant.mode == "off" else cfg.quant.block
+        k = shape[-2]
+        padded = -(-k // (block * tp)) * block * tp
+        return split("row", -2, _blocks(padded, tp), padded)
+
+    if "mamba" in segs:
+        if cols is None:
+            return None
+        if name in _MAMBA_HEADS:
+            return split("plain", -1, [c["heads"] for c in cols])
+        if name in _MAMBA_CHANNELS:
+            return split("plain", -1, [c["conv"] for c in cols])
+        if name == "w_in":
+            return split("col", -1, [c["w_in"] for c in cols])
+        return row() if name == "w_out" else None
+    spec = _leaf_spec(path, leaf, {"data": 1, "model": tp})
+    if "model" not in spec or (name in _ATTN and not attn) or name == "w_dkv":
+        return None
+    if name == "embed":
+        return blocks("vocab", 0)
+    if name == "unembed":
+        return blocks("vocab", -1)
+    if name in ("w_uk", "w_uv"):
+        return blocks("plain", -1) if attn else None
+    if len(segs) > 1 and segs[-2] == "moe" and name in _EXPERT_TP:
+        return blocks("expert", nd - 3)
+    return blocks("col", -1) if spec[-1] == "model" else row()
+
+
+def train_layout(cfg, mesh) -> Optional[PyTree]:
+    """The training split of every leaf of ``cfg``'s params for this
+    rank of ``mesh``'s model axis: a tree of :class:`LeafSplit` (None
+    for a replicated leaf) in the params' structure, or None without a
+    model axis. The one rule of the module docstring, which
+    :func:`shard_params` places serving shards by too: q/k/v/o only on
+    whole heads, mamba on whole SSM heads by index sets (B and C whole on
+    every rank for one group: shared), the experts, the vocabulary;
+    MLA's ``w_dkv``, the norms and the router replicated. Read from the
+    params' shapes (``transformer.init_params`` on the meta device: a
+    few ms a call)."""
+    tp = _tp(mesh)
+    if tp == 1:
+        return None
+    from repro_torch.models import transformer as T
+
+    whole = T.init_params(cfg, device="meta")
+    attn = attention_splits(cfg, tp)
+    cols = [mamba_columns(cfg, tp, r) for r in range(tp)] if mamba_splits(cfg, tp) else None
+    return _map_tree(whole, lambda path, leaf: _leaf_split(path, leaf, cfg, mesh, attn, cols))
+
+
+def _zip_map(fn, tree, layout):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], layout[k]) for k in tree}
+    return fn(tree, layout)
+
+
+def train_views(params: PyTree, layout: Optional[PyTree]) -> PyTree:
+    """The model's view of a rank's training params (its shards, leaves
+    that take gradients) under ``layout`` (:func:`train_layout`):
+    :class:`TrainShard`, :class:`ExpertShard` and :class:`VocabShard`
+    where the leaf splits (``LeafSplit.view_of``), the tensor where it is
+    replicated. ``params`` itself without a layout."""
+    if layout is None:
+        return params
+    return _zip_map(lambda p, sp: p if sp is None else sp.view_of(p), params, layout)
+
+
+def shard_tree(tree: PyTree, layout: Optional[PyTree]) -> PyTree:
+    """This rank's shards of a whole tree in the params' structure
+    (params, an Adam moment, a residual or gradients): exact copies."""
+    if layout is None:
+        return tree
+    return _zip_map(lambda t, sp: t if sp is None else sp.cut(t).contiguous(),
+                    tree, layout)
+
+
+def gather_tree(tree: PyTree, layout: Optional[PyTree]) -> PyTree:
+    """The whole tree from every rank's shards of it (every rank of the
+    model group calls it: one all-gather a split leaf); replicated leaves
+    as they are. Exact copies: ``gather_tree(shard_tree(t)) == t``."""
+    if layout is None:
+        return tree
+
+    def whole(t, sp):
+        if sp is None:
+            return t
+        parts = collectives.all_gather(t.contiguous()[None], sp.mesh.group, dim=0)
+        return sp.join(parts.unbind(0))
+
+    return _zip_map(whole, tree, layout)
+
+
+def shard_state(state, cfg, mesh):
+    """A rank's train state from the whole one (a ``train_step.
+    TrainState``): its shards of the params, the Adam moments and the
+    residual (:func:`shard_tree` under :func:`train_layout`); the step
+    and the compression generator are replicated. The state itself
+    without a model axis."""
+    layout = train_layout(cfg, mesh)
+    if layout is None:
+        return state
+    cut = lambda t: shard_tree(t, layout)
+    return state._replace(
+        params=cut(state.params),
+        opt=state.opt._replace(mu=cut(state.opt.mu), nu=cut(state.opt.nu)),
+        residual=None if state.residual is None else cut(state.residual))
+
+
+def gather_state(state, cfg, mesh):
+    """The whole train state from the model group's shards: the inverse
+    of :func:`shard_state`, bit for bit (a collective of the model
+    group)."""
+    layout = train_layout(cfg, mesh)
+    if layout is None:
+        return state
+    join = lambda t: gather_tree(t, layout)
+    return state._replace(
+        params=join(state.params),
+        opt=state.opt._replace(mu=join(state.opt.mu), nu=join(state.opt.nu)),
+        residual=None if state.residual is None else join(state.residual))
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,11 @@
 
 Every token family trains here; encdec and vlm need frames or patches,
 which the token pipeline does not make (nor the reference's): train them
-through ``Trainer(batch_transform=...)``. No mesh or sharding: the port
-has no tensor parallelism yet.
+through ``Trainer(batch_transform=...)``. The launcher trains on one
+device, and takes no mesh flag, as the reference's has none: a ``(data,
+model)`` grid trains through ``Trainer(mesh=)`` in the processes of
+``launch.mesh.spawn_mesh`` (the dense, ssm, hybrid and moe families over
+a model axis).
 """
 from __future__ import annotations
 

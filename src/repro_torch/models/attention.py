@@ -38,6 +38,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ternary as tern
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import TrainShard
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -346,10 +348,14 @@ def gqa_attention(params, x: torch.Tensor, cfg: ArchConfig,
     divides S. Returns (out, cache). On a rank of a TP mesh ``cfg`` gives
     the rank's heads (``dist.sharding.local_config``) and the weights
     are its shards: q/k/v column-parallel, o row-parallel, attention
-    head-local over the kv heads (and cache) the rank owns."""
+    head-local over the kv heads (and cache) the rank owns. In a train
+    step (``dist.sharding.TrainShard`` weights) ``x`` enters q/k/v
+    through ``collectives.copy`` once (``layers.tp_input``), and remat's
+    recompute runs the same collectives again."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qc = cfg.quant
+    x = L.tp_input(x, params["wq"])
     q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, hd)
     k = L.dense(x, params["wk"], qc, tp="col").reshape(b, s, hkv, hd)
     v = L.dense(x, params["wv"], qc, tp="col").reshape(b, s, hkv, hd)
@@ -423,17 +429,26 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig,
     On a rank of a TP mesh ``cfg`` gives the rank's heads
     (``dist.sharding.local_config``): ``wq`` is its column shard,
     ``w_uk``/``w_uv`` its heads' columns, ``wo`` row-parallel; ``w_dkv``,
-    ``kv_norm`` and the latent cache are whole on every rank."""
+    ``kv_norm`` and the latent cache are whole on every rank. In a train
+    step ``x`` enters ``wq`` through ``collectives.copy`` (``w_dkv``
+    reads it whole: its gradient is whole on every rank), and so do the
+    normed latent and the rope key, where they meet the rank's heads."""
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     qc, dt = cfg.quant, x.dtype
-    q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, dn + dr)
+    q = L.dense(L.tp_input(x, params["wq"]), params["wq"], qc,
+                tp="col").reshape(b, s, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
     dkv = L.dense(x, params["w_dkv"], qc)
     ckv = L.rms_norm(dkv[..., :r], params["kv_norm"])
     k_rope = L.apply_rope(dkv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+    if isinstance(params["wq"], TrainShard):
+        # the latent and the rope key, replicated (w_dkv and kv_norm are
+        # whole on every rank), feed the rank's heads: one copy for both
+        both = collectives.copy(torch.cat([ckv, k_rope], dim=-1), params["wq"].mesh.group)
+        ckv, k_rope = both[..., :r], both[..., r:]
 
     ckv_scale = krope_scale = length = None
     if cache is None:

@@ -21,7 +21,9 @@ scales are detached, and the MAC's backward is the STE exact matmul of
 ``core.execution.execute``: the reference's quantization-aware training.
 Inside a data-parallel rank (``dist.sharding.data_parallel``) the
 per-tensor activation statistic is summed over the data group, so it is
-the whole batch's, as the reference's partitioner takes it.
+the whole batch's, as the reference's partitioner takes it. On a rank of
+a tensor-parallel train step the weight is a
+``dist.sharding.TrainShard`` (see :func:`dense`).
 """
 from __future__ import annotations
 
@@ -32,10 +34,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import ternary as tern
-from repro_torch.core.execution import CiMExecSpec, check_tp_spec, execute_row_shard
+from repro_torch.core.execution import (CiMExecSpec, check_tp_spec, execute_row_shard,
+                                        row_shard_input, row_split)
 from repro_torch.core.execution import execute as exec_mac
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import VocabShard, WeightShard, data_group
+from repro_torch.dist.sharding import TrainShard, VocabShard, WeightShard, data_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +206,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
     reference marks it: "col" (the output dim splits: q/k/v, gate, up),
     "row" (the contraction dim splits: o, down) or "none". It takes
     effect where ``w`` is a rank's :class:`~repro_torch.dist.sharding.
-    WeightShard` (inference only). In a quantized mode the shard holds
+    WeightShard` (serving) or :class:`~repro_torch.dist.sharding.
+    TrainShard` (training: :func:`_train_dense`). In a quantized mode the
+    serving shard holds
     its part of the whole weight's codes and scale, so a column's
     statistic is the single-device one. A row shard's input arrives split over K
     (the previous column-parallel layer's output) and is gathered first
@@ -216,6 +221,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
     row shard :func:`_row_shard_off` (no gather: the partials are float
     products of the rank's K slice). A whole weight runs as on one
     device."""
+    if isinstance(w, TrainShard):
+        if w.kind != tp:
+            raise ValueError(f"a {w.kind}-parallel training shard at a tp={tp!r} call site")
+        out = _train_dense(x, w, qc)
+        return out if bias is None else out + bias.to(out.dtype)
     shard = isinstance(w, WeightShard)
     if shard and w.kind != tp:
         raise ValueError(f"a {w.kind}-parallel weight shard at a tp={tp!r} call site")
@@ -256,6 +266,83 @@ def dense(x: torch.Tensor, w: torch.Tensor, qc: QuantConfig,
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def _train_dense(x: torch.Tensor, w: TrainShard, qc: QuantConfig) -> torch.Tensor:
+    """:func:`dense` on a rank's training shard, every collective an
+    autograd function (``dist.collectives``), so the step's gradients
+    are the single device's.
+
+    Column-parallel: ``x`` is replicated and has entered the layer
+    through ``collectives.copy`` at its caller (once for every consumer
+    of it: q/k/v, gate/up); the codes are ``_weight_codes`` of the
+    rank's columns, which is the single device's slice (a column's
+    statistic runs over K, whole here), and the MAC (#1 on the card) runs
+    on them. Row-parallel: the input is gathered over the ranks where it
+    arrives split (``collectives.gather``), so the activation statistic
+    is the whole row's; the weight's K shards are gathered too and
+    ternarized whole, so the rank's codes are its rows of the single
+    device's codes bit for bit (a split sum of the per-column statistic
+    would equal it only up to the order of its float sums, and flip a
+    code at a near tie); the rank's MAC runs on its whole blocks of K,
+    and the partial counts are summed by ``collectives.reduce`` before
+    the scale fold, exactly, as ``execution.execute_row_shard`` sums
+    them. Mode "off": a column shard is ``x @ w``, a row shard its K
+    slice's float32 partial, summed by ``collectives.reduce`` and
+    rounded once. The sensing-error channel and the int8-compressed sum
+    (``qc.tp_reduce``) do not run on a training shard: they raise."""
+    mesh = w.mesh
+    if qc.tp_reduce != "none":
+        raise ValueError("the int8-compressed TP sum (tp_reduce) serves only; a train "
+                         "step sums its partials exactly")
+    if qc.mode == "off":
+        if w.kind == "col":
+            return x @ w.w.to(x.dtype)
+        k_local = w.w.shape[-2]
+        if x.shape[-1] != k_local:
+            x = row_shard_input(x, k_local, mesh)
+        part = x.to(torch.float32) @ w.w.to(torch.float32)
+        return collectives.reduce(part, mesh.group).to(x.dtype)
+    if w.kind == "row":
+        k_local = w.w.shape[-2]
+        if x.shape[-1] != w.k:
+            # each rank's gradient of the whole input is its K blocks' part:
+            # partial, unless those blocks are the rank's own columns of it
+            x = collectives.gather(x, mesh.group, dim=-1,
+                                   partial=x.shape[-1] != k_local)
+        whole = collectives.gather(w.w, mesh.group, dim=-2).narrow(-2, 0, w.k)
+        w_t, sw = _weight_codes(whole, qc)
+        w_t = row_split(w_t, qc.block, mesh.size, mesh.rank)
+    else:
+        w_t, sw = _weight_codes(w.w, qc)
+    if qc.quantize_activations:
+        axis = (x.ndim - 1,) if qc.act_scale == "per_row" else None
+        group = data_group() if axis is None else None
+        x_t, sx = _ste_codes(x, axis, qc.threshold_factor, group)
+    else:
+        x_t, sx = x, torch.ones((), dtype=x.dtype, device=x.device)
+    spec = qc.resolved_spec()
+    check_tp_spec(spec)
+    if w.kind == "row":
+        x_loc = row_shard_input(x_t.to(torch.float32), w_t.shape[-2], mesh)
+        part = exec_mac(spec, x_loc, w_t)
+        out = collectives.reduce(part.to(torch.float32), mesh.group)
+    elif spec.resolve(x.device).clamps:
+        out = exec_mac(spec, x_t.to(torch.float32), w_t)
+    else:
+        out = exec_mac(spec, x_t.to(x.dtype), w_t.to(x.dtype))
+    return out.to(x.dtype) * (sx * sw).to(x.dtype)
+
+
+def tp_input(x: torch.Tensor, w) -> torch.Tensor:
+    """``x`` as it enters the column-parallel layers that read it (q/k/v,
+    gate/up, ``w_in``): through ``collectives.copy`` where ``w`` is a
+    column-parallel training shard, once for all of them, so the
+    rank-partial gradients of the replicated ``x`` are summed once over
+    the model group; else ``x`` itself."""
+    if isinstance(w, TrainShard) and w.kind == "col":
+        return collectives.copy(x, w.mesh.group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +419,10 @@ def init_dense_weight(generator: torch.Generator, shape, dtype,
                       device) -> torch.Tensor:
     """N(0, 1/fan_in) weights, fan_in = shape[-2] (the contraction dim).
     A stacked (L, K, N) weight is drawn one layer at a time into its
-    ``dtype`` stack, so the f32 draw never holds more than one layer."""
+    ``dtype`` stack, so the f32 draw never holds more than one layer.
+    On the meta device (shapes alone) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if len(shape) == 2:
         w = torch.randn(shape, generator=generator, device=device) * shape[-2] ** -0.5
         return w.to(dtype)
@@ -352,6 +442,7 @@ def init_mlp(generator: torch.Generator, d: int, f: int, dtype, device,
 
 
 def mlp(params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
+    x = tp_input(x, params["w_gate"])
     g = dense(x, params["w_gate"], qc, tp="col")
     u = dense(x, params["w_up"], qc, tp="col")
     return dense(swiglu(g, u), params["w_down"], qc, tp="row")

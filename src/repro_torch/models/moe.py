@@ -173,7 +173,10 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     runs its experts' rows of every group's buffer, the outputs are
     gathered over the expert dim, and every rank combines them in the
     order above; the shared experts' MLP splits column and row as the
-    dense MLP."""
+    dense MLP. In a train step (``ExpertShard.train``) the buffer enters
+    the rank's experts through ``collectives.copy`` and their outputs are
+    gathered by ``collectives.gather``, so each rank's experts take
+    their gradients and the buffer's partial ones are summed."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     g = routing_groups(b)
@@ -200,8 +203,15 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         # this rank's experts, then every expert's rows gathered in expert
         # order (a copy)
         mine = {name: params[name].w for name in ("w_gate", "w_up", "w_down")}
-        ye = experts(mine, shard.first, shard.w.shape[0])
-        ye = collectives.all_gather(ye, shard.mesh.group, dim=0)
+        if shard.train:
+            # a train step: the replicated buffer enters the rank's experts
+            # through a copy, the outputs are gathered under autograd
+            buf = collectives.copy(buf, shard.mesh.group)
+            ye = collectives.gather(experts(mine, shard.first, shard.w.shape[0]),
+                                    shard.mesh.group, dim=0)
+        else:
+            ye = collectives.all_gather(experts(mine, shard.first, shard.w.shape[0]),
+                                        shard.mesh.group, dim=0)
     else:
         ye = experts(params, 0, e)
     ye = torch.cat([ye.transpose(0, 1).reshape(g, e * cap, d),

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import WeightShard
+from repro_torch.dist.sharding import TrainShard, WeightShard
 from repro_torch.models import layers as L
 
 # mamba leaves that the reference keeps in float32 under any config dtype
@@ -185,14 +185,21 @@ def mamba2_block(params, x: torch.Tensor, cfg: ArchConfig,
     ``w_in``'s columns of its heads (B and C of its groups), its conv
     channels and head vectors, ``w_out`` row-parallel; the cache holds
     its channels and heads. The scan runs head-local, and the gated
-    input of the norm is gathered over the ranks first."""
+    input of the norm is gathered over the ranks first. In a train step
+    (``dist.sharding.TrainShard`` weights) ``x`` enters ``w_in`` through
+    ``collectives.copy``, the gated input is gathered by
+    ``collectives.gather`` and the normed row enters ``w_out`` through a
+    copy; ``w_in``'s and the conv's B and C, held whole by every rank of
+    one group, sum their partial gradients over the ranks
+    (``LeafSplit.view_of``)."""
     b, s, _ = x.shape
     di, g, n = cfg.ssm_d_inner, cfg.ssm_n_groups, cfg.ssm_state
     h = cfg.ssm_n_heads
     qc = cfg.quant
 
     w_in = params["w_in"]
-    zxbcdt = L.dense(x, w_in, qc, tp="col")
+    train = isinstance(w_in, TrainShard)
+    zxbcdt = L.dense(L.tp_input(x, w_in), w_in, qc, tp="col")
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * g * n]
     dt = softplus(zxbcdt[..., -h:].float() + params["dt_bias"])
@@ -237,9 +244,15 @@ def mamba2_block(params, x: torch.Tensor, cfg: ArchConfig,
 
     y = y.reshape(b, s, di).to(x.dtype)
     y = y * L.silu(z.float()).to(y.dtype)
-    if isinstance(w_in, WeightShard):
-        # the gated norm is a statistic over the whole d_inner: gather the
-        # ranks' heads (a copy, in head order) and norm whole on every rank
-        y = collectives.all_gather(y, w_in.mesh.group, dim=-1)
-    y = L.rms_norm(y, params["norm"])
+    if train:
+        # as below, under autograd; the normed row then feeds the rank's
+        # rows of w_out, so its partial gradients are summed by a copy
+        y = L.rms_norm(collectives.gather(y, w_in.mesh.group, dim=-1), params["norm"])
+        y = collectives.copy(y, w_in.mesh.group)
+    else:
+        if isinstance(w_in, WeightShard):
+            # the gated norm is a statistic over the whole d_inner: gather the
+            # ranks' heads (a copy, in head order) and norm whole on every rank
+            y = collectives.all_gather(y, w_in.mesh.group, dim=-1)
+        y = L.rms_norm(y, params["norm"])
     return L.dense(y, params["w_out"], qc, tp="row"), cache

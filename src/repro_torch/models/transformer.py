@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import DeviceLike, dtype_of, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import VocabShard, WeightShard
+from repro_torch.dist.sharding import TrainShard, VocabShard, WeightShard
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -93,11 +93,14 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     mlp}``. encdec adds ``blocks/{ln_x, cross}``, the encoder's
     ``enc_blocks/{ln1, ln2, attn, mlp}`` stacked over
     ``n_encoder_layers``, ``enc_norm`` and ``enc_pos`` (encoder_seq, D);
-    vlm the ``projector`` (d_vision, D)."""
+    vlm the ``projector`` (d_vision, D). ``device="meta"`` makes the
+    tree's shapes and dtypes alone (``dist.sharding.train_layout`` reads
+    them)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device gives the shapes and dtypes alone: no draws
+    g = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     n, d = cfg.n_layers, cfg.d_model
     embed = torch.randn((cfg.vocab, d), generator=g, device=dev) * 0.02
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
@@ -233,11 +236,19 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig,
     x = L.rms_norm(x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     if isinstance(table, VocabShard):
-        if qc.mode != "off":
+        if qc.mode == "off":
+            return table.logits(x)
+        if not table.train:
             raise NotImplementedError(
-                "a quantized unembedding over a vocabulary shard is not ported "
-                "(the decode step's unembedding is plain)")
-        return table.logits(x)
+                "a quantized unembedding over a serving vocabulary shard is not "
+                "ported (the decode step's unembedding is plain)")
+        # a train step's quantized unembedding: a column-parallel dense over
+        # the rank's vocabulary (per-column codes: the single device's
+        # slice), gathered over the ranks
+        w = table.table.T if table.vocab_dim == 0 else table.table
+        shard = TrainShard(w, "col", w.shape[-2], table.mesh)
+        local = L.dense(L.tp_input(x, shard), shard, qc, tp="col")
+        return collectives.gather(local, table.mesh.group, dim=-1)
     table = table.T if cfg.tie_embeddings else table
     if qc.mode != "off":
         return L.dense(x, table, qc)

@@ -62,9 +62,29 @@ def init(params: PyTree) -> AdamWState:
     return AdamWState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree: PyTree, group=None, split: Optional[PyTree] = None
+                ) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together. Under a model
+    axis (``group``, the model group, and ``split``: a tree of the
+    leaves' ``dist.sharding.LeafSplit``, None where a leaf is
+    replicated), the norm of the whole tree: the replicated leaves,
+    whole on every rank, counted once, and the split leaves' squares
+    (``LeafSplit.squares``) summed over ``group`` by one all-reduce."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tree_leaves(tree)))
+    from repro_torch.dist import collectives
+
+    whole, parts = [], []
+    for x, sp in zip(tree_leaves(tree), tree_leaves(split)):
+        if sp is None:
+            whole.append(torch.sum(torch.square(x.to(torch.float32))))
+        else:
+            parts.append(sp.squares(x))
+    local = (torch.stack(parts).sum() if parts
+             else torch.zeros((), device=next(tree_leaves(tree)).device))
+    shared = collectives.all_reduce(local, group)
+    return torch.sqrt(sum(whole) + shared)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -82,12 +102,15 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     return tree_map(lambda g: _scaled(g, scale), grads), norm
 
 
-def _rule(cfg: AdamWConfig, grads: PyTree, step: torch.Tensor):
+def _rule(cfg: AdamWConfig, grads: PyTree, step: torch.Tensor, group=None,
+          split: Optional[PyTree] = None):
     """(grad_norm, part): ``part(p, g, m, v) -> (p2, m2, v2)``, the clip
     (:func:`clip_by_global_norm`'s rounding) and the update of one leaf
     or slice at the new ``step``. The lr is made on the device from the
-    step (a host-to-device copy would stop a graph capture)."""
-    gnorm = global_norm(grads)
+    step (a host-to-device copy would stop a graph capture). ``group``,
+    ``split``: the leaves are a model rank's shards, clipped by the whole
+    tree's norm (:func:`global_norm`); the update is elementwise."""
+    gnorm = global_norm(grads, group, split)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip else None
     sf = step.to(torch.float32)
     lr = torch.full_like(sf, cfg.lr)
@@ -119,7 +142,8 @@ def _slices(p: torch.Tensor):
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
-def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
+def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree,
+           group=None, split: Optional[PyTree] = None
            ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the inputs are not
     modified. The clip (:func:`clip_by_global_norm`'s rounding) and the
@@ -127,9 +151,10 @@ def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
     in slices along its first axis: the arithmetic is elementwise, so the
     result is the same, and the f32 temporaries stay small beside the
     two copies of the state (zamba2-2.7b's stacked ``w_in`` is 1.44 G
-    elements). The plain version of :func:`update_`."""
+    elements). The plain version of :func:`update_`. ``group``,
+    ``split``: a model rank's shards (see :func:`_rule`)."""
     step = state.step + 1
-    gnorm, part = _rule(cfg, grads, step)
+    gnorm, part = _rule(cfg, grads, step, group, split)
 
     def leaf(p, g, m, v):
         cuts = _slices(p)
@@ -146,15 +171,15 @@ def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
     return pick(0), AdamWState(step, pick(1), pick(2)), gnorm
 
 
-def update_(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
-            ) -> torch.Tensor:
+def update_(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree,
+            group=None, split: Optional[PyTree] = None) -> torch.Tensor:
     """:func:`update` in place: the params, ``mu``, ``nu`` and ``step``
     keep their storage (a captured train step holds it) and take the
     values :func:`update` returns, bit for bit (the same arithmetic per
     leaf and per slice). Returns the grad norm. One copy of the state
     fewer than :func:`update` at the peak."""
     state.step.add_(1)
-    gnorm, part = _rule(cfg, grads, state.step)
+    gnorm, part = _rule(cfg, grads, state.step, group, split)
 
     def leaf(p, g, m, v):
         for sl in _slices(p):

@@ -8,7 +8,10 @@
     long-run training.
 
 The encode/decode round trip models the numerics of a compressed
-gradient reduction; the port has no multi-device reduction yet.
+gradient reduction. It runs after the data axis's exact mean
+(``train_step``), as the reference's does, on every rank alike; under a
+model axis each rank compresses its shards as the single device
+compresses the whole leaf (:func:`compress_grads`' ``split``).
 """
 from __future__ import annotations
 
@@ -26,13 +29,26 @@ class Int8Encoded(NamedTuple):
     scale: torch.Tensor    # f32 per-leaf scale
 
 
-def encode_int8(g: torch.Tensor, generator: torch.Generator) -> Int8Encoded:
-    """Unbiased stochastic-rounding int8 quantization (per-leaf scale)."""
+def encode_int8(g: torch.Tensor, generator: torch.Generator, split=None,
+                group=None) -> Int8Encoded:
+    """Unbiased stochastic-rounding int8 quantization (per-leaf scale).
+    ``split`` (a ``dist.sharding.LeafSplit``) and ``group``: ``g`` is a
+    model rank's shard of the leaf; the scale is the whole leaf's amax
+    (a max over ``group``) and the noise is drawn at the whole leaf's
+    shape from the replicated ``generator`` and cut as ``g`` was, so the
+    rank's codes are its part of the single device's."""
     gf = g.to(torch.float32)
-    amax = torch.clamp(gf.abs().max(), min=1e-12)
-    scale = amax / 127.0
-    noise = torch.rand(g.shape, generator=generator, dtype=torch.float32,
+    amax = gf.abs().max()
+    if split is not None:
+        from repro_torch.dist import collectives
+
+        amax = collectives.all_reduce(amax, group, op="max")
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    shape = g.shape if split is None else split.shape
+    noise = torch.rand(shape, generator=generator, dtype=torch.float32,
                        device=g.device) - 0.5
+    if split is not None:
+        noise = split.cut(noise)
     q = torch.clamp(torch.round(gf / scale + noise), -127, 127).to(torch.int8)
     return Int8Encoded(q, scale)
 
@@ -43,11 +59,16 @@ def decode_int8(enc: Int8Encoded, dtype=torch.float32) -> torch.Tensor:
 
 def compress_grads(grads: PyTree, method: Optional[str],
                    generator: Optional[torch.Generator] = None,
-                   residual: Optional[PyTree] = None
-                   ) -> Tuple[PyTree, Optional[PyTree]]:
+                   residual: Optional[PyTree] = None, split: Optional[PyTree] = None,
+                   group=None) -> Tuple[PyTree, Optional[PyTree]]:
     """Apply compression with optional error feedback. Returns
     (decoded_grads, new_residual). int8 draws each leaf's noise from
-    ``generator`` in sorted-key order."""
+    ``generator`` in sorted-key order. ``split`` (``dist.sharding.
+    train_layout``'s tree: None where a leaf is replicated) and ``group``
+    (the model group): the leaves are a model rank's shards, each
+    encoded as its part of the whole leaf (:func:`encode_int8`); bf16
+    is elementwise, so a shard's round trip is its part of the whole
+    one's."""
     if method is None or method == "none":
         return grads, residual
     if residual is not None:
@@ -57,7 +78,11 @@ def compress_grads(grads: PyTree, method: Optional[str],
     elif method == "int8":
         if generator is None:
             raise ValueError("int8 compression needs a torch.Generator")
-        dec = tree_map(lambda g: decode_int8(encode_int8(g, generator)), grads)
+        if split is None:
+            dec = tree_map(lambda g: decode_int8(encode_int8(g, generator)), grads)
+        else:
+            dec = tree_map(lambda g, sp: decode_int8(encode_int8(g, generator, sp, group)),
+                           grads, split)
     else:
         raise ValueError(method)
     new_residual = tree_map(

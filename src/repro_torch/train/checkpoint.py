@@ -175,9 +175,12 @@ def restore(directory: str, like: PyTree, step: Optional[int] = None,
     ``device`` (default: the device of its ``like`` leaf). Returns (tree,
     step); ``step`` None takes the committed LATEST; a generator leaf is
     made on its ``like`` leaf's device. ``device`` is the counterpart of
-    the reference's ``shardings=`` (elastic restore): the port's
-    data-parallel state is replicated, so a rank of any mesh restores the
-    whole tree onto its device."""
+    the reference's ``shardings=`` (elastic restore): a checkpoint holds
+    the whole state (the Trainer gathers a model rank's shards before it
+    saves), so a rank of any mesh restores the whole tree onto its device
+    and cuts its shards from it (``dist.sharding.shard_state``). Only the
+    structure and dtypes of ``like`` are read: it may be a rank's
+    shards."""
     if step is None:
         step = latest_step(directory)
         if step is None:

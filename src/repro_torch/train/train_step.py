@@ -11,20 +11,29 @@ through ``ssm.softplus``'s reference gradient; encdec and vlm batches
 carry ``frames`` or ``patches`` beside the tokens. An unknown family
 raises in ``transformer.forward``.
 
-Under a mesh with a data axis (``mesh=``, ``launch.mesh.spawn_mesh``:
-one process a data rank) each step is the reference's batch-sharded
-step, with its collectives made explicit. The rank runs the loss on its
-rows of the global batch (``dist.sharding.batch_shard``) inside
-``dist.sharding.data_parallel``, so every per-tensor activation
-statistic is the whole batch's, and takes its gradients by autograd;
-then the gradients' exact mean over the data group, through one flat
-f32 bucket (``dist.collectives.bucket_mean``); only then the
-compression and AdamW, identical on every rank, which keeps the state
-replicated. This is the reference's order: its reduction sits inside
-``value_and_grad`` and compression straddles it. A batch that does not
-divide the data size runs whole on every rank (replicated) with no
-collective: one device's step. A mesh whose model axis is above 1
-raises: tensor-parallel training is not ported.
+Under a mesh (``mesh=``, ``launch.mesh.spawn_mesh``: one process a
+rank of a ``(data, model)`` grid) each step is the reference's sharded
+step, with its collectives made explicit. On the data axis the rank
+runs the loss on its rows of the global batch (``dist.sharding.
+batch_shard``) inside ``dist.sharding.data_parallel``, so every
+per-tensor activation statistic is the whole batch's. On the model axis
+the rank's state holds its shard of every split leaf
+(``dist.sharding.train_layout``: ``shard_state`` cuts it from the whole
+one, ``gather_state`` joins it), float master weights that take the
+gradients; the model reads them through ``train_views`` and runs the
+model-axis collectives inside autograd (``dist.collectives.copy``,
+``gather``, ``reduce``; remat's recompute repeats them), so a
+replicated leaf's gradient is whole and the same on every model rank
+and a split leaf's is its part of the single device's. Then the
+gradients' exact mean over the data group, through one flat f32 bucket
+(``dist.collectives.bucket_mean``); then the compression and AdamW,
+clipped by the whole tree's norm (a sum over the model group) and
+elementwise on the shards. This is the reference's order: its reduction
+sits inside ``value_and_grad`` and compression straddles it. A batch
+that does not divide the data size runs whole on every data rank
+(replicated) with no collective of the data axis. The encdec and vlm
+families do not split over a model axis: a mesh whose model axis is
+above 1 raises for them before any work.
 """
 from __future__ import annotations
 
@@ -57,15 +66,20 @@ class TrainState(NamedTuple):
 
 def init_train_state(cfg: ArchConfig, seed: int = 0,
                      grad_compression: Optional[str] = None,
-                     device: DeviceLike = None) -> TrainState:
+                     device: DeviceLike = None, mesh=None) -> TrainState:
     """Seeded params (``transformer.init_params``), a fresh AdamW state,
     the compression generator and, under any gradient compression, a
     zero residual, on ``device`` (default ``cuda``). The reference starts
     bf16 compression without a residual and makes one at the first step;
     a zero residual gives the same values and lets the step update it in
-    place."""
+    place. ``mesh`` with a model axis: this rank's shards of the seeded
+    params (``dist.sharding.shard_tree``) and of the rest; the generator
+    is the same on every rank."""
     dev = resolve_device(device)
+    _check_mesh(mesh, cfg)
     params = T.init_params(cfg, seed=seed, device=dev)
+    if mesh is not None:
+        params = shd.shard_tree(params, shd.train_layout(cfg, mesh))
     residual = (gcomp.init_residual(params)
                 if grad_compression not in (None, "none") else None)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -79,8 +93,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and metrics of ``batch``. ``mesh`` with a model axis:
+    ``params`` are this rank's shards (``dist.sharding.shard_state``), read
+    through ``train_views`` at the rank's widths (``local_config``); the
+    logits are gathered whole, so the loss is replicated."""
+    layout = shd.train_layout(cfg, mesh) if mesh is not None else None
+    if layout is not None:
+        params, cfg = shd.train_views(params, layout), shd.local_config(cfg, mesh)
     logits = T.forward(params, batch["tokens"], cfg, frames=batch.get("frames"),
                        patches=batch.get("patches"))
     if cfg.family == "vlm":
@@ -90,20 +111,31 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     return loss, {"loss": loss.detach(), "accuracy": acc}
 
 
-def _check_mesh(mesh) -> None:
-    """Only a mesh's data axis trains: a model axis above 1 raises."""
-    if mesh is not None and shd.model_axis_size(mesh) > 1:
+#: the families that train over a model axis
+TP_TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+
+
+def _check_mesh(mesh, cfg: ArchConfig) -> None:
+    """A model axis above 1 trains the families of
+    :data:`TP_TRAIN_FAMILIES`; for the others it raises."""
+    if (mesh is not None and shd.model_axis_size(mesh) > 1
+            and cfg.family not in TP_TRAIN_FAMILIES):
         raise NotImplementedError(
-            f"a train step over a mesh {mesh.shape}: only the data axis trains "
-            "(tensor-parallel training is not ported)")
+            f"a train step of the {cfg.family} family over a mesh {mesh.shape}: its "
+            f"model axis is not ported (the families {TP_TRAIN_FAMILIES} split)")
 
 
 def _split(batch: Dict[str, torch.Tensor], mesh) -> bool:
     """Whether the step runs ``batch`` split over ``mesh``'s data axis."""
     if mesh is None:
         return False
-    _check_mesh(mesh)
     return shd.batch_is_split(len(next(iter(batch.values()))), mesh)
+
+
+def _model_axis(cfg: ArchConfig, mesh):
+    """(group, layout) of ``mesh``'s model axis, (None, None) without one."""
+    layout = None if mesh is None else shd.train_layout(cfg, mesh)
+    return (None, None) if layout is None else (mesh.group, layout)
 
 
 def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -112,13 +144,16 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ``grad_compression``, drawing from the state's generator) and the new
     residual; ``state`` is not modified. Under a split batch, the rank's
     rows, the gradients' mean over the data group, and the loss and
-    accuracy averaged over it (see the module docstring)."""
+    accuracy averaged over it; under a model axis, the rank's shards'
+    gradients (see the module docstring)."""
+    _check_mesh(mesh, cfg)
     split = _split(batch, mesh)
+    group, layout = _model_axis(cfg, mesh)
     params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
     # remat's recompute runs inside autograd.grad: the data group stays set
     with shd.data_parallel(mesh) if split else contextlib.nullcontext():
         loss, metrics = loss_fn(params, shd.batch_shard(batch, mesh) if split else batch,
-                                cfg)
+                                cfg, mesh)
         found = torch.autograd.grad(loss, list(tree_leaves(params)))
     del loss
     with torch.no_grad():
@@ -134,7 +169,8 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         residual = state.residual
         if grad_compression:
             grads, residual = gcomp.compress_grads(grads, grad_compression,
-                                                   state.generator, residual)
+                                                   state.generator, residual,
+                                                   layout, group)
     return metrics, grads, residual
 
 
@@ -144,10 +180,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step; ``state`` is not modified (the generator
     advances where int8 compression draws from it). ``mesh``: this
-    process is a data rank of it, ``batch`` the global batch."""
+    process is a rank of it, ``batch`` the global batch and, under a
+    model axis, ``state`` the rank's shards (``dist.sharding.
+    shard_state``)."""
     metrics, grads, residual = _grads(state, batch, cfg, grad_compression, mesh)
     with torch.no_grad():
-        new_params, opt, gnorm = adamw.update(opt_cfg, grads, state.opt, state.params)
+        new_params, opt, gnorm = adamw.update(opt_cfg, grads, state.opt, state.params,
+                                              *_model_axis(cfg, mesh))
     metrics = dict(metrics, grad_norm=gnorm)
     return TrainState(new_params, opt, state.generator, residual), metrics
 
@@ -167,7 +206,8 @@ def train_step_(state: TrainState, batch: Dict[str, torch.Tensor],
                                  "needs the state's residual (init_train_state "
                                  "makes one)")
             tree_map(lambda r, new: r.copy_(new), state.residual, residual)
-        gnorm = adamw.update_(opt_cfg, grads, state.opt, state.params)
+        gnorm = adamw.update_(opt_cfg, grads, state.opt, state.params,
+                              *_model_axis(cfg, mesh))
     return dict(metrics, grad_norm=gnorm)
 
 
@@ -176,7 +216,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     """The eager, functional counterpart of the reference's
     ``make_jit_train_step``: ``step(state, batch) -> (state, metrics)``,
     a new state each call. The plain version of
-    :func:`make_jit_train_step`. ``mesh``: a data rank's step."""
+    :func:`make_jit_train_step`. ``mesh``: a rank's step (its state
+    sharded under a model axis)."""
     return functools.partial(train_step, cfg=cfg, opt_cfg=opt_cfg,
                              grad_compression=grad_compression, mesh=mesh)
 
@@ -209,14 +250,15 @@ def make_jit_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     CapturedStep` (None before the first call); ``step.graphed`` says
     whether the step is captured on the card.
 
-    Under ``mesh`` (a data rank) no graph is captured, and the step says
-    so (``step.graphed`` is False): gloo drives its collectives from the
-    host, which no CUDA graph can hold (the TP batcher turns its graphs
-    off for the same reason). Every call then runs :func:`train_step_`
-    eagerly on the state in place, the batch moved to the state's
+    Under ``mesh`` (a rank of a data, model or both axes' grid) no graph
+    is captured, and the step says so (``step.graphed`` is False): gloo
+    drives its collectives from the host, which no CUDA graph can hold
+    (the TP batcher turns its graphs off for the same reason). Every call
+    then runs :func:`train_step_` eagerly on the state in place (the
+    rank's shards under a model axis), the batch moved to the state's
     device."""
     if mesh is not None:
-        _check_mesh(mesh)
+        _check_mesh(mesh, cfg)
 
         def eager(state: TrainState, batch: Dict[str, torch.Tensor]):
             dev = state.opt.step.device

@@ -21,20 +21,24 @@ adds, and a replayed step would not equal its first pass bit for bit,
 as the reference's replays do by construction. The capture, at the
 first step, runs under it too.
 
-Under a mesh with a data axis (``mesh=``: this process is one data rank,
-``launch.mesh.spawn_mesh``) every rank runs the loop on the same
-replicated state, and its step takes its rows of each global batch
-(``dist.sharding.batch_shard`` in ``train_step``): the step is the eager
-data-parallel step (``make_jit_train_step(mesh=)``). Rank 0 writes the
-checkpoints, and the ranks meet at a barrier of the data group after
-each save and before each read of the last committed step. A
-``FailureInjector`` given to every rank fails every rank at that step,
-and every rank restores and replays it.
+Under a mesh (``mesh=``: this process is one rank of a ``(data,
+model)`` grid, ``launch.mesh.spawn_mesh``) every rank runs the loop, and
+its step is the eager sharded step (``make_jit_train_step(mesh=)``): it
+takes its rows of each global batch (``dist.sharding.batch_shard``) and,
+under a model axis, holds its shards of the state
+(``dist.sharding.shard_state``). The checkpoints hold the whole state:
+the ranks of data row 0 gather it from their shards
+(``dist.sharding.gather_state``) and rank (0, 0) writes it, with the
+mesh in the manifest; the whole grid meets at a barrier after each save
+and before each read of the last committed step. A ``FailureInjector``
+given to every rank fails every rank at that step, and every rank
+restores and replays it.
 
 Elastic restore, the counterpart of the reference's ``shardings=``:
-``restore(device=, mesh=)`` reads the last committed checkpoint onto the
-current device or mesh. The state is replicated over the data axis, so a
-checkpoint written at data 2 resumes at data 1 or data 4.
+``restore(device=, mesh=)`` reads the last committed checkpoint, whole,
+onto the current device or mesh and cuts this rank's shards from it, so
+a checkpoint written on any grid resumes on any other: data 2 at data 1
+or 4, model 2 on one device, one device at (2, 2).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ import torch.distributed as dist
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.dist import sharding as shd
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import TrainState, init_train_state, make_jit_train_step
@@ -137,13 +142,14 @@ class Trainer:
         return self.mesh is None or (self.mesh.data_rank == 0 and self.mesh.rank == 0)
 
     def _barrier(self) -> None:
-        """Every data rank meets here (nothing without a data axis)."""
-        if self.mesh is not None and self.mesh.data_group is not None:
-            dist.barrier(group=self.mesh.data_group)
+        """Every rank of the grid meets here (nothing without a mesh of
+        more than one rank)."""
+        if self.mesh is not None and self.mesh.data * self.mesh.size > 1:
+            dist.barrier()
 
     def _fresh_state(self) -> TrainState:
         return init_train_state(self.cfg, self.seed, self.train_cfg.grad_compression,
-                                self.device)
+                                self.device, mesh=self.mesh)
 
     # -- checkpoint/restore -------------------------------------------------
 
@@ -151,13 +157,17 @@ class Trainer:
         tc = self.train_cfg
         if not tc.ckpt_dir:
             return
+        state = self.state
+        if self.mesh is not None and self.mesh.data_rank == 0:
+            # the whole state, gathered over the writer's model group
+            state = shd.gather_state(state, self.cfg, self.mesh)
         if self._writer():
             if self._pending_ckpt is not None:
                 self._pending_ckpt.result()  # don't overlap two saves
             extra = {"arch": self.cfg.name, "data_step": step}
             if self.mesh is not None:
                 extra["mesh"] = self.mesh.shape
-            self._pending_ckpt = ckpt.save(tc.ckpt_dir, step, self.state, extra=extra,
+            self._pending_ckpt = ckpt.save(tc.ckpt_dir, step, state, extra=extra,
                                            async_=tc.async_ckpt)
             ckpt.gc_old(tc.ckpt_dir, tc.keep_last_n)
         self._barrier()
@@ -171,12 +181,14 @@ class Trainer:
 
     def restore(self, device: DeviceLike = None, mesh=None) -> int:
         """Restore the last committed checkpoint onto ``device`` (default:
-        the Trainer's) and, given ``mesh``, continue as a data rank of it
-        (elastic restore: any data size, the state being replicated).
-        On its own device the state keeps its storage (a captured step
-        holds it); on another the Trainer moves there: a state made there
-        takes the checkpoint (its generator too, so the checkpoint must
-        come from a device of the same type) and the step is made anew."""
+        the Trainer's) and, given ``mesh``, continue as a rank of it
+        (elastic restore: the checkpoint holds the whole state, and this
+        rank takes its shards of it for any data and model sizes). Where
+        the rank's state keeps its shapes on its own device, it keeps its
+        storage (a captured step holds it); else the Trainer makes a state
+        there, which takes the checkpoint (its generator too, so the
+        checkpoint must come from a device of the same type), and the
+        step is made anew."""
         if mesh is not None:
             self.mesh = mesh
             self.step_fn = self._make_step()
@@ -184,12 +196,17 @@ class Trainer:
         target = self.device if device is None else resolve_device(device)
         if not _same_device(target, self.device):
             self.device = target
-            self.state, step = ckpt.restore(self.train_cfg.ckpt_dir, self._fresh_state())
+            self.state = self._fresh_state()
             self.step_fn = self._make_step()
-        else:
-            restored, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state,
-                                          device="cpu")
-            _copy_state(self.state, restored)
+        whole, step = ckpt.restore(self.train_cfg.ckpt_dir, self.state, device="cpu")
+        restored = shd.shard_state(whole, self.cfg, self.mesh)
+        shapes = lambda st: [tuple(t.shape) for t in ckpt.tree_flatten(st)
+                             if torch.is_tensor(t)]
+        if shapes(restored) != shapes(self.state):
+            # another model size: the rank's shards have other shapes
+            self.state = self._fresh_state()
+            self.step_fn = self._make_step()
+        _copy_state(self.state, restored)
         self.start_step = step
         return step
 

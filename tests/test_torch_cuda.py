@@ -13,6 +13,7 @@ import torch
 
 import torch_dp_ranks as DP
 import torch_tp_ranks as R
+import torch_tp_train_ranks as TPT
 from repro_torch import profile as P
 from repro_torch.core import execution as X
 from repro_torch.core.execution import CiMExecSpec
@@ -1453,6 +1454,30 @@ def test_cuda_dp_step_matches_single_device(cuda_device):
     for k in one["params"]:
         assert abs(run["params"][k] - one["params"][k]).max() <= DP.LR / 10, k
     assert run["launches"] == 7 * cfg.n_layers * (2 + DP.STEPS)
+
+
+@pytest.mark.cuda
+def test_cuda_tp_step_matches_single_device(cuda_device):
+    """The model-axis step on 2 gloo ranks sharing cuda:0 (smollm-135m
+    smoke, f32, per_row, #1 on the card on each rank's shards): step 0's
+    loss bit for bit, its gradients at rtol 1e-5 / atol 1e-6, three
+    steps' losses at rtol 1e-6 and every weight within lr/10 of one
+    device's on the card; the replicated leaves and their gradients
+    bit-equal on both ranks (checked there); #1 launched 7 x n_layers in
+    the rank for step 0's gradients and for each of the 3 steps (no remat
+    at smoke size)."""
+    cfg = TPT.case_cfg("smollm-135m", "per_row")
+    tree = DP.numpy_tree(cfg)
+    run = spawn_mesh(TPT.cuda_tp, 1, 2, tree, "smollm-135m", timeout=600.0)
+    one = TPT.tp_record(tree, cfg, None, device=cuda_device)
+    assert run["loss0"] == one["loss0"]
+    for k in one["grads0"]:
+        torch.testing.assert_close(torch.from_numpy(run["grads0"][k]),
+                                   torch.from_numpy(one["grads0"][k]), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(run["losses"], one["losses"], rtol=1e-6, atol=0)
+    for k in one["params"]:
+        assert abs(run["params"][k] - one["params"][k]).max() <= DP.LR / 10, k
+    assert run["launches"] == 7 * cfg.n_layers * (1 + DP.STEPS)
 
 
 @pytest.mark.cuda

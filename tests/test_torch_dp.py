@@ -332,20 +332,31 @@ def test_activation_sharding_batch_divisor_guard():
         shd.disable_activation_sharding()
 
 
-def test_train_step_under_a_model_axis_raises():
-    """Tensor-parallel training is not ported: a mesh with model > 1
-    raises before any work; under a data mesh the jit step is eager."""
-    cfg = R.smoke_cfg("smollm-135m")
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
+def test_train_step_under_a_model_axis_raises(arch):
+    """The encdec and vlm families do not train over a model axis: a mesh
+    with model > 1 raises before any work (the dense, ssm, hybrid and
+    moe families train there: test_torch_tp_train.py)."""
+    cfg = R.smoke_cfg(arch)
     opt = adamw.AdamWConfig(lr=R.LR)
     tp = M.TPMesh(None, 0, 2, (0, 1))
-    with pytest.raises(NotImplementedError, match="data axis"):
+    with pytest.raises(NotImplementedError, match="model axis"):
         ts.make_jit_train_step(cfg, opt, mesh=tp)
     state = ts.init_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="data axis"):
+    with pytest.raises(NotImplementedError, match="model axis"):
         ts.make_train_step(cfg, opt, mesh=tp)(state, R.batches(cfg.vocab, 1)[0])
+
+
+def test_jit_train_step_under_a_data_mesh_is_eager():
+    """Under a data mesh the jit step runs eagerly (gloo's collectives
+    cannot sit in a CUDA graph); without a mesh it is captured."""
+    cfg = R.smoke_cfg("smollm-135m")
+    opt = adamw.AdamWConfig(lr=R.LR)
     step = ts.make_jit_train_step(cfg, opt, mesh=M.TPMesh(None, 0, 1, data=2))
     assert step.graphed is False and step.captured is None
     assert ts.make_jit_train_step(cfg, opt).graphed is True
+
+
 # ---------------------------------------------------------------------------
 # (c) against the reference's batch-sharded jitted step
 # ---------------------------------------------------------------------------
