@@ -38,7 +38,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      torch.profiler (device-busy time over the device rows, #1's, busy
      over the unprofiled median);
   4. token identity: the captured batcher against the port's
-     generate(), greedy, under act_scale="per_row";
+     generate(), greedy, under act_scale="per_row" (here and in every
+     later identity check, requests of at most 6 new tokens);
   5. stored planes: a prepare_weights=True batcher under
      blocked/cuda/bitplane_u8, then execute_packed on its planes for every
      quantized weight of 2 layers at M=4 and M=128 == execute on the
@@ -65,7 +66,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      steps), per_row batchers == generate() under the same cache_dtype,
      step medians and tok/s beside phase 3's, the cache bytes per slot;
  10. the looped baseline (fused=False, greedy, per_row, eager) over 4
-     requests: tokens == generate(), one host sync per prefill and per
+     requests of at most 6 new tokens: tokens == generate(), one host sync per prefill and per
      active slot a step, its step median beside phase 3's;
  11. full-size starcoder2-7b (32 layers, d 4608, seeded random weights)
      with an int8 cache, captured and eager (tokens equal, #1 launched
@@ -112,7 +113,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      equal, #1 launched 352 in the prefill and every step (the cross K/V
      recomputed from enc each step, as in the reference) and nothing else,
      cache storage kept, the exact KV bytes per slot; generate(enc=) under
-     per_row, rows together == each alone; a profiled replayed step; the
+     per_row (6 new tokens), rows together == each alone; a profiled replayed step; the
      step under mode "off"; the batcher (no enc, as the reference's) on 4
      token requests, captured == eager;
  16. llava-next-34b at full width, 8 of its 60 layers (the whole model is
@@ -146,14 +147,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      bit-checks #1 and #5 at the training M in {1024, 1023} at the four
      (K, N) of its layers and times one layer's 7 calls of #1 at M=1024
      ("smollm_135m_train" in the kernels line);
- 18. training the ssm and hybrid families: full-size
-     mamba2-780m (bf16, remat, the CiM spec) through the Trainer as in
-     phase 17 (20 steps, checkpoints every 10, a failure at 15), the
+ 18. training the ssm and hybrid families: mamba2-780m at full width
+     and 24 of 48 layers (bf16, remat, the CiM spec) through the Trainer
+     as in phase 17 (20 steps, checkpoints every 10, a failure at 15), the
      phase leaving deterministic mode to Trainer.run(): losses and grad
      norms finite, the loss falling, steps 10-14 replayed bit-equal, #1
-     launched 192 times in every step (96 forward + 96 remat) and no
+     launched 96 times in every step (48 forward + 48 remat) and no
      other MAC kernel, steps 0-4 bit-equal to 5 eager steps; one
-     exact/cuda step (#5 192 times) and one under mode "off" (its grad
+     exact/cuda step (#5 96 times) and one under mode "off" (its grad
      norm), the captured and eager step medians, tokens/s, capture time,
      peak memory and a profiled replay; then full-size zamba2-2.7b: 3
      steps of make_jit_train_step, finite losses, #1 279 times a step
@@ -216,9 +217,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      vocab 16384) over phase 3's requests, eagerly, with the launch
      counts at 0 just before: tokens == phase 3's, #1 launched 210 x
      (steps + fills) in the rank, the row-parallel K shards (wo 192,
-     w_down 512) whole blocks; the same under compress_tp (its greedy
-     prefix against the exact path is printed), with one MAX all-reduce
-     more per row-parallel layer and forward, and every row-parallel MAC
+     w_down 512) whole blocks; the same under compress_tp on the same
+     requests cut to 3 new tokens each (its greedy prefix against the
+     exact path is printed), with one MAX all-reduce more per
+     row-parallel layer and forward a step, and every row-parallel MAC
      of its first fill and step within ranks * amax/127 * 1.5 of the
      exact sum of the same partials and not equal to it; execute_tp through #1 at
      wo's and w_down's shapes (M 1, 4, 64, 128) and execute_packed_tp
@@ -232,8 +234,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      TP_TIMEOUT_S fails the script; the eager TP step median is printed
      beside phase 3's eager step.
  22. the other families over 2 gloo ranks on cuda:0:
-     mamba2-780m and zamba2-2.7b at full width and 12 of 48 and 54
-     layers, whisper-large-v3 at full width and 8 of 32 layers (its
+     mamba2-780m and zamba2-2.7b at full width and 6 of 48 and 54
+     layers, whisper-large-v3 at full width and 4 of 32 layers (its
      decoder, as the batcher serves it; 10 of its 20 heads a rank),
      deepseek-v2-236b at full width and 1 of 60 layers and llava-next-34b
      (28 of 56 heads, 4 of 8 kv heads a rank) at full width and 2 of 60
@@ -309,6 +311,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      on cuda:0. Printed: the TP step beside the single device's,
      collectives a step by name, peak memory a rank and the phase's
      seconds.
+ 27. (run after 26, before 24) tensor-parallel training of the encdec
+     and vlm families: launch.mesh.spawn_mesh starts one (1, 2) mesh, 2
+     gloo ranks on cuda:0, which train in turn (the first freed before
+     the second) whisper-large-v3 (4 of 32 encoder and 4 of 32 decoder
+     layers, full width: d 1280, 10 of 20 heads and 25933 of the 51866
+     vocabulary a rank; 2 x 64 tokens with 2 x 1500 seeded frames) and
+     llava-next-34b (1 of 60 layers, full width: 28 of 56 heads, 4 of 8
+     kv heads, the MLP's 10240 of 20480, the projector's 3584 of 7168
+     columns and 32000 of the 64000 vocabulary a rank; 1 x (2880 seeded
+     patches + 16 tokens)), bf16, remat, CiM, blocked/cuda, 2 steps each
+     through Trainer(mesh=, batch_transform=), eager; whisper's
+     checkpoint at step 2 gathered whole and written by rank 0. Before
+     the spawn, this process runs each config's 2 eager single-device
+     steps (files in a temp dir) and frees them. Checked, per family:
+     step 0's loss equal to the single device's bit for bit, step 0's
+     grad norm within rtol 1e-3; after step 0 every weight (gathered
+     whole) within lr/10 plus one bf16 step of the single device's; the
+     replicated leaves (the encoder's norms
+     and positions among them) bit-equal on both ranks after every step;
+     #1 launched 116 (whisper: 7 x 4 encoder layers + 2 x 11 x 4 remat
+     decoder layers) or 15 (llava: 2 x 7 + the projector) times a step in
+     every rank and no other kernel; whisper's gathered checkpoint
+     restored bit for bit by a single-device Trainer on cuda:0. Printed:
+     the losses and grad norms beside the single device's, the TP step
+     beside the single device's, collectives a step by name, peak memory
+     a rank and the phase's seconds.
  24. (run last) the front door over tensor-parallel replicas:
      full-size smollm-135m (per_row, blocked/cuda) behind the launcher's
      build_frontdoor with --tp 3 and 2 replicas: six gloo processes on
@@ -328,7 +356,8 @@ projections and winners, the card line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
 served path, #2-#4 in its execute_packed_tp calls; ``tp_family_launches``:
 #1's in rank 0 per arch of phase 22; ``dp_launches``: #1's in rank 0 of
-phase 25; ``tp_train_launches``: #1's in rank 0 of phase 26), a line of
+phase 25; ``tp_train_launches``: #1's in rank 0 per arch of phases 26
+and 27), a line of
 each phase's seconds and the script's, and last the result
 line. Without CUDA, or without ``src/repro_torch`` beside
 it, it exits 1 and prints no result.
@@ -1255,7 +1284,14 @@ def serve_captured_and_eager(torch, tm, pm, params, cfg, spec, kernel, label, de
     return got, st, line, numbers
 
 
+# the token-identity checks' requests are cut to this many new tokens each
+# (generate() runs each request alone, eagerly)
+IDENTITY_MAX_NEW = 6
+
+
 def token_identity(torch, batcher, reqs, params, cfg, generate, spec, label):
+    for r in reqs:
+        r.max_new = min(r.max_new, IDENTITY_MAX_NEW)
     drive(torch, batcher, reqs)
     if batcher.capture_seconds is None:
         fail(f"{label}: the decode step was not captured")
@@ -1266,7 +1302,8 @@ def token_identity(torch, batcher, reqs, params, cfg, generate, spec, label):
         if solo != r.generated:
             fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
                  f"fused {r.generated} != generate {solo}")
-    log(f"{label}: captured batcher == generate() for {len(reqs)} requests "
+    log(f"{label}: captured batcher == generate() for {len(reqs)} requests (at most "
+        f"{IDENTITY_MAX_NEW} new tokens each) "
         f"({sum(len(r.generated) for r in reqs)} tokens, prompt lengths "
         f"{[len(r.prompt) for r in reqs]}), act_scale=per_row")
 
@@ -1533,9 +1570,14 @@ def kv_cache_phases(torch, tm, pm, params, cfg, row_cfg, card, bf16, dev) -> dic
     return out
 
 
+# phase 10's requests are cut to this many new tokens each (at 8-16 its
+# 14 eager decode steps took ~19 s on an H100 80GB HBM3 at 700 W)
+LOOPED_MAX_NEW = 6
+
+
 def looped_phase(torch, tm, pm, params, row_cfg, card, fused, dev) -> dict:
     """Phase 10: the looped baseline (fused=False, greedy, per_row) over 4
-    requests, eager: tokens == generate(), one host sync per prefill and
+    requests of at most LOOPED_MAX_NEW new tokens, eager: tokens == generate(), one host sync per prefill and
     per active slot a step (= the tokens served), one prefill batch per
     request, #1 launched 210 x (4 slots x decode steps + prefills); its
     step median beside the fused step's (phase 3, ``fused``)."""
@@ -1544,6 +1586,8 @@ def looped_phase(torch, tm, pm, params, row_cfg, card, fused, dev) -> dict:
     batcher = ContinuousBatcher(params, row_cfg, n_slots=4, s_max=256, fused=False,
                                 device=dev)
     reqs = make_requests(Request, row_cfg.vocab, seed=6, n=4)
+    for r in reqs:
+        r.max_new = min(r.max_new, LOOPED_MAX_NEW)
     reset_counts(tm, pm)
     secs, step_ms = drive(torch, batcher, reqs)
     got = counts(tm, pm)
@@ -2182,10 +2226,11 @@ def whisper_phase(torch, tm, pm, card, dev) -> dict:
     # per_row: no activation scale couples the rows, so each row served
     # alone (its own encoder run) gives the batched rows' tokens
     row_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, act_scale="per_row"))
-    batched = E.generate(params, prompt, row_cfg, max_new=8, s_max=128, device=dev,
-                         enc=T.run_encoder(params, frames, row_cfg))
+    batched = E.generate(params, prompt, row_cfg, max_new=IDENTITY_MAX_NEW, s_max=128,
+                         device=dev, enc=T.run_encoder(params, frames, row_cfg))
     for i in range(4):
-        solo = E.generate(params, prompt[i:i + 1], row_cfg, max_new=8, s_max=128,
+        solo = E.generate(params, prompt[i:i + 1], row_cfg, max_new=IDENTITY_MAX_NEW,
+                          s_max=128,
                           device=dev, enc=T.run_encoder(params, frames[i:i + 1], row_cfg))
         if not torch.equal(solo[0], batched[i]):
             fail(f"whisper per_row: row {i} alone {solo[0].tolist()} != batched "
@@ -2480,17 +2525,23 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# phase 18's mamba2-780m depth: its full width at 24 of 48 layers (at 48
+# each checkpoint write and read moves ~8.5 GB)
+SSM_TRAIN_LAYERS = 24
+
+
 def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
-    """Phase 18: full-size mamba2-780m (48 layers, d 1536, vocab 50280,
-    bf16, remat, the CiM spec: its config's, checked as phase 12 does)
-    trained as phase 17 trains smollm-135m: seed-0 params, TokenPipeline
+    """Phase 18: mamba2-780m at full width (d 1536, vocab 50280, bf16,
+    remat, the CiM spec: its config's, checked as phase 12 does) and
+    SSM_TRAIN_LAYERS of its 48 layers, trained as phase 17 trains
+    smollm-135m: seed-0 params, TokenPipeline
     seed 0 at batch 8 x seq 128, lr 3e-4 under warmup_cosine(20, 20), 20
     steps through the port's Trainer, checkpoints every 10 steps and a
     failure injected at step 15. The phase does not touch deterministic
     mode: Trainer.run() sets it and restores it, and the phase fails
     unless it is off again after the run. Every loss and grad norm
     finite, the last 5 steps' mean loss below the first 5's, one restart,
-    steps 10-14 replayed bit-equal, #1 launched 2 x 96 = 192 times in
+    steps 10-14 replayed bit-equal, #1 launched 2 x 48 = 96 times in
     every step (remat checkpoints each mamba layer) and no other MAC
     kernel, counted through the replays of the Trainer's captured step
     (make_jit_train_step), whose first 5 losses and grad norms must equal
@@ -2526,10 +2577,10 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
         return cfg
 
     t_phase = time.perf_counter()
-    cfg = full_size("mamba2-780m")
+    cfg = full_size("mamba2-780m").replace(n_layers=SSM_TRAIN_LAYERS)
     per_step = 2 * macs_per_step(cfg)   # the forward, then remat's recompute
-    if per_step != 192:
-        fail(f"mamba2 training: {per_step} MACs a step, expected 192")
+    if per_step != 2 * 2 * SSM_TRAIN_LAYERS:
+        fail(f"mamba2 training: {per_step} MACs a step, expected {4 * SSM_TRAIN_LAYERS}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -2607,7 +2658,8 @@ def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
     secs = [m["sec"] for m in log_[1:]]
     step_ms = statistics.median(secs) * 1e3
     tok_s = TRAIN_M / (step_ms / 1e3)
-    log(f"training mamba2-780m (full size, bf16, remat, CiM spec; batch "
+    log(f"training mamba2-780m (full width, {cfg.n_layers} of 48 layers, bf16, remat, "
+        f"CiM spec; batch "
         f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) on {card}: {len(steps)} steps in "
         f"{run_s:.1f} s ({TRAIN_STEPS} + {len(replayed)} replayed after the failure at "
         f"step {TRAIN_FAIL_AT}, restarts {trainer.restarts}); loss "
@@ -3286,6 +3338,11 @@ TP_ROW_M = (1, 4, 64, 128)
 TP_PLANE_SHAPES = ((576, 1536), (1536, 576))
 TP_PLANE_M = (4, 128)
 TP_TIMEOUT_S = 400.0
+# the --compress-tp leg serves phase 3's requests cut to this many new
+# tokens each (its readings, the greedy prefix, the collectives a step and
+# the first fill's and step's per-call bounds, need no more; at 8-16 it
+# took 28 steps, ~48 s on an H100 80GB HBM3 at 700 W)
+TP_COMPRESS_MAX_NEW = 3
 # the collectives gloo was asked to run on CUDA tensors
 GLOO_PROBES = ("all_reduce sum f32", "all_reduce sum bf16", "all_reduce sum int32",
                "all_reduce max f32", "broadcast", "all_gather",
@@ -3421,6 +3478,9 @@ def tp_rank(mesh, phase3_tokens) -> dict:
                                     device=dev, mesh=mesh, compress_tp=compress)
         check(not batcher.graphed, "a TP batcher's steps must run eagerly")
         reqs = make_requests(Request, cfg.vocab, seed=0)
+        if compress:
+            for r in reqs:
+                r.max_new = min(r.max_new, TP_COMPRESS_MAX_NEW)
         fills = []
         reset_counts(tm, pm)
         C.reset_counts()
@@ -3451,16 +3511,17 @@ def tp_rank(mesh, phase3_tokens) -> dict:
           f"row-parallel K shards {out['row_shards']} are not whole blocks")
     out["serve"], out["compressed"] = runs[False], runs[True]
     # the compressed path: one MAX all-reduce (the shared scale) more per
-    # row-parallel layer and forward than the exact path, the same gathers;
-    # every row-parallel MAC of a fill and a step within its bound of the
-    # exact sum of the same partials, and not bit-equal to it
+    # row-parallel layer and forward than the exact path, the same gathers,
+    # a step or fill (it serves fewer tokens: TP_COMPRESS_MAX_NEW); every
+    # row-parallel MAC of a fill and a step within its bound of the exact
+    # sum of the same partials, and not bit-equal to it
     ex, co = runs[False], runs[True]
-    check(co["steps"] == ex["steps"]
-          and co["collectives"]["all_reduce"]
-          == ex["collectives"]["all_reduce"] + 2 * cfg.n_layers * co["steps"]
-          and co["collectives"]["all_gather"] == ex["collectives"]["all_gather"],
-          f"compressed collectives {co['collectives']} against exact "
-          f"{ex['collectives']} over {co['steps']} steps and fills")
+    check(co["collectives"]["all_reduce"] * ex["steps"]
+          == (ex["collectives"]["all_reduce"] + 2 * cfg.n_layers * ex["steps"]) * co["steps"]
+          and co["collectives"]["all_gather"] * ex["steps"]
+          == ex["collectives"]["all_gather"] * co["steps"],
+          f"compressed collectives {co['collectives']} over {co['steps']} steps and fills "
+          f"against exact {ex['collectives']} over {ex['steps']}")
     calls, fwd = tp_compressed_layers(torch, params, cfg, mesh, dev)
     check(fwd >= 2 and len(calls) == 2 * cfg.n_layers * fwd
           and all(c and err <= bound and not same for c, err, bound, same, _ in calls),
@@ -3545,7 +3606,7 @@ def tp_phase(torch, card, phase3) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log("tp: gloo on CUDA tensors: " + "; ".join(f"{k}: {v}" for k, v in out["gloo"].items()))
     exact, comp = out["serve"], out["compressed"]
-    prefix = [next((i for i, (a, b) in enumerate(zip(c, e)) if a != b), len(e))
+    prefix = [next((i for i, (a, b) in enumerate(zip(c, e)) if a != b), len(c))
               for c, e in zip(comp["tokens"], exact["tokens"])]
     out["compressed_prefix"] = prefix
     tp_ms = statistics.median(exact["step_ms"])
@@ -3572,9 +3633,10 @@ def tp_phase(torch, card, phase3) -> dict:
         f"{phase3['captured_step_ms']:.2f} ms); fill {num['tp_fill_ms']:.2f} ms median; "
         f"{num['tp_tok_s']:.1f} tok/s; collectives per step or fill "
         f"{num['collectives_per_step']}")
-    log(f"tp: --compress-tp: {sum(map(len, comp['tokens']))} tokens, greedy prefix "
-        f"shared with the exact path per request {prefix} (of "
-        f"{[len(t) for t in exact['tokens']]}); step {num['tp_compressed_eager_step_ms']:.2f}"
+    log(f"tp: --compress-tp ({TP_COMPRESS_MAX_NEW} new tokens a request at most): "
+        f"{sum(map(len, comp['tokens']))} tokens in {comp['steps']} steps and fills, greedy "
+        f"prefix shared with the exact path per request {prefix} (of "
+        f"{[len(t) for t in comp['tokens']]}); step {num['tp_compressed_eager_step_ms']:.2f}"
         f" ms median; {comp['collectives']} collectives (one MAX all-reduce a "
         f"row-parallel layer more than the exact path's {exact['collectives']}); "
         f"its {out['compressed_layers']['calls']} row-parallel MACs over "
@@ -3655,17 +3717,17 @@ def tp_first_token_margins(torch, params, cfg, mesh, dev) -> list:
 
 TP_FAMILY_DEGREE = 2
 # arch -> layers served (None: full depth); mamba2-780m and zamba2-2.7b at
-# full width and 12 of 48 and 54 layers (zamba2: two applications of the
-# shared block, every hybrid_attn_every = 6), which keeps the script within
-# its time limit beside phase 26; deepseek-v2 at full width and
-# 1 of its 60 layers (2 before phase 26: two ranks' host trees of ~17 GB
-# each); whisper's
-# decoder (the batcher takes no enc) at full width and 8 of its 32 layers,
-# over its tree with the encoder and cross attention placed too; llava at
+# full width and 6 of 48 and 54 layers (zamba2: one application of the
+# shared block, every hybrid_attn_every = 6; 12 before phase 27), which
+# keeps the script within its time limit beside phases 26-27; deepseek-v2
+# at full width and 1 of its 60 layers (2 before phase 26: two ranks' host
+# trees of ~17 GB each); whisper's decoder (the batcher takes no enc) at
+# full width and 4 of its 32 layers (8 before phase 27), over its tree
+# with the encoder and cross attention placed too; llava at
 # full width and 2 of its 60 layers (2.04 B parameters, 4.08 GB a rank,
 # of which the untied vocabulary tables are 0.92 B)
-TP_FAMILY_ARCHS = {"mamba2-780m": 12, "zamba2-2.7b": 12, "deepseek-v2-236b": 1,
-                   "whisper-large-v3": 8, "llava-next-34b": 2}
+TP_FAMILY_ARCHS = {"mamba2-780m": 6, "zamba2-2.7b": 6, "deepseek-v2-236b": 1,
+                   "whisper-large-v3": 4, "llava-next-34b": 2}
 # the archs served on phase 11's and 14's four requests (4 prompts, 8 new
 # tokens: 8 decode steps and a fill, where phase 3's 8 requests take 25
 # and 3), which keeps the script within its time limit
@@ -3828,8 +3890,8 @@ def _host_tree(tree):
 
 
 def tp_family_phase(torch, card, dev) -> dict:
-    """Phase 22: full-width mamba2-780m and zamba2-2.7b (12 layers each),
-    whisper-large-v3 (its decoder, 8 of 32 layers) and full-width
+    """Phase 22: full-width mamba2-780m and zamba2-2.7b (6 layers each),
+    whisper-large-v3 (its decoder, 4 of 32 layers) and full-width
     deepseek-v2-236b (1 of 60 layers) and llava-next-34b (2 of 60) served over
     TP_FAMILY_DEGREE gloo
     ranks on the one card (``tp_family_rank``), phase 3's requests
@@ -4944,10 +5006,364 @@ def tp_train_phase(torch, tm, pm, card, dev, single, tmp) -> dict:
             "restore_s": restore_s, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: tensor-parallel training of the encdec and vlm families
+# ---------------------------------------------------------------------------
+
+# the model ranks of phase 27: 2 split whisper-large-v3's 20 heads, MLP
+# 5120 and vocabulary 51866, and llava-next-34b's 56 heads, 8 kv heads,
+# MLP 20480, vocabulary 64000 and projector's 7168 columns
+TP_FAMILY_TRAIN_MODEL = 2
+TP_FAMILY_TRAIN_TIMEOUT_S = 600.0
+# arch: (decoder layers, encoder layers, global batch rows, tokens a row),
+# full width at cut depth; whisper's rows carry 1500 frames each, llava's
+# its 2880 patches before the tokens
+TP_FAMILY_TRAIN = {"whisper-large-v3": (4, 4, 2, 64), "llava-next-34b": (1, 0, 1, 16)}
+
+
+def tp_family_train_setup(arch):
+    """Phase 27's config of ``arch`` (its full width and config's bf16,
+    remat and CiM; the depth of TP_FAMILY_TRAIN), pipeline and optimizer
+    (phase 17's)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+
+    layers, enc, rows, seq = TP_FAMILY_TRAIN[arch]
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=layers, n_encoder_layers=enc or cfg.n_encoder_layers)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=0))
+    return cfg, pipe, AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+
+
+def family_inputs(cfg):
+    """The Trainer's ``batch_transform`` of ``cfg``'s family: whisper's
+    ``frames`` (rows, encoder_seq, d_model) or llava's ``patches`` (rows,
+    n_image_tokens, d_vision), f32 normals from a generator seeded by the
+    batch's token sum: every rank, and a replay, makes the same ones."""
+    import numpy as np
+
+    key, shape = (("frames", (cfg.encoder_seq, cfg.d_model)) if cfg.family == "encdec"
+                  else ("patches", (cfg.n_image_tokens, cfg.d_vision)))
+
+    def add(batch):
+        tokens = np.asarray(batch["tokens"], dtype=np.int64)
+        rng = np.random.default_rng(int(tokens.sum()))
+        return dict(batch, **{key: rng.standard_normal(
+            (tokens.shape[0],) + shape, dtype=np.float32)})
+
+    return add
+
+
+def family_train_launches(cfg) -> int:
+    """#1's launches in one train step of whisper or llava, one per
+    quantized dense call: a decoder layer's q/k/v/o and gate/up/down, and
+    whisper's cross q/k/v/o, twice under remat (the forward and the
+    recompute); 7 for each of whisper's encoder layers, which run once
+    (no remat, as the reference's scan); llava's projector once. The
+    unembedding is plain (quantize_unembed off)."""
+    dec = 7 + (4 if cfg.family == "encdec" else 0)
+    n = dec * cfg.n_layers * (2 if cfg.remat else 1)
+    if cfg.family == "encdec":
+        n += 7 * cfg.n_encoder_layers
+    return n + (1 if cfg.family == "vlm" else 0)
+
+
+def tp_family_train_single(torch, dev, tmp) -> dict:
+    """Phase 27's single device, for each family in turn: DP_STEPS eager
+    make_train_step steps from the seed-0 state on the pipeline's batches
+    with their frames or patches, under deterministic mode, the params
+    after step 0 saved to ``tmp`` for the ranks (what their weight check
+    reads); losses, grad norms, step times, peak memory. Each family is
+    freed before the next."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    out = {}
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    for arch in TP_FAMILY_TRAIN:
+        cfg, pipe, opt = tp_family_train_setup(arch)
+        add = family_inputs(cfg)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, seed=0, device=dev)
+        step_fn = make_train_step(cfg, opt)
+        rec = {"losses": [], "grad_norms": [], "secs": [], "params": []}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for i in range(DP_STEPS):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in add(pipe.batch(i)).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                loss, norm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+                rec["secs"].append(time.perf_counter() - t0)
+                rec["losses"].append(loss)
+                rec["grad_norms"].append(norm)
+                if i == 0:
+                    path = os.path.join(tmp, f"{arch}_params_0.pt")
+                    torch.save([p.detach().cpu() for p in tree_leaves(state.params)], path)
+                    rec["params"].append(path)
+                del batch, m
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["step_ms"] = statistics.median(rec["secs"][1:]) * 1e3
+        rec["n_params"] = sum(p.numel() for p in tree_leaves(state.params))
+        out[arch] = rec
+        del state, step_fn
+    _free(torch)
+    return out
+
+
+def tp_family_train_rank(mesh, single, ckpt_dir, dev_name="cuda") -> dict:
+    """Phase 27 on one model rank (``launch.mesh.spawn_mesh``, (1,
+    TP_FAMILY_TRAIN_MODEL), every rank on cuda:0): for each family in
+    turn (the first freed before the second), the Trainer under the mesh
+    with its frames or patches (``Trainer(mesh=, batch_transform=)``)
+    from the seed-0 state for DP_STEPS steps; whisper's checkpoint
+    gathered whole into ``ckpt_dir`` (rank 0 writes). The launch counts
+    at 0 just before ``run()``; in every step call: #1 launched
+    family_train_launches times and no other kernel, the collectives by
+    name, then (outside the step's time) the replicated leaves' digest
+    gathered over the model group (bit-equal on every rank) and, after
+    step 0, the params gathered whole, held in rank 0 against the single
+    device's (every weight within lr/10 plus one bf16 step). Raises on
+    any failure."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import packed_mac as pm
+    from repro_torch.kernels import ternary_mac as tm
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device(dev_name, 0) if dev_name == "cuda" else torch.device(dev_name)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for arch in TP_FAMILY_TRAIN:
+        def check(ok, what):
+            if not ok:
+                raise RuntimeError(f"phase 27 {arch} model rank {mesh.rank}: {what}")
+
+        cfg, pipe, opt = tp_family_train_setup(arch)
+        per_step = family_train_launches(cfg)
+        if dev.type == "cuda":
+            torch.empty((), device=dev)   # the allocator of a fresh rank, before its reset
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        save = ckpt_dir if cfg.family == "encdec" else None
+        trainer = Trainer(cfg, opt, TrainConfig(
+            num_steps=DP_STEPS, ckpt_dir=save, ckpt_every=DP_STEPS + 1, log_every=1),
+            pipe, seed=0, batch_transform=family_inputs(cfg), device=dev, mesh=mesh)
+        init_s = time.perf_counter() - t0
+        check(trainer.step_fn.graphed is False, "the tensor-parallel step must run eagerly")
+        layout = shd.train_layout(cfg, mesh)
+        local = shd.local_config(cfg, mesh)
+        p = trainer.state.params
+        names = (("enc_blocks/attn/wq", "blocks/cross/wk", "blocks/mlp/w_down", "embed")
+                 if cfg.family == "encdec" else
+                 ("blocks/attn/wk", "blocks/mlp/w_down", "projector", "unembed"))
+        shapes = {}
+        for name in names:
+            leaf = p
+            for part in name.split("/"):
+                leaf = leaf[part]
+            shapes[name] = tuple(leaf.shape)
+        inner, per_call, secs, collectives, deltas, digests, bad = (
+            trainer.step_fn, [], [], [], [], [], [])
+
+        def counted(state, batch):
+            # records only: a raise inside the step is a node failure to
+            # the Trainer, which would restore this rank alone
+            before = counts(tm, pm)
+            C.reset_counts()
+            sync()
+            t = time.perf_counter()
+            res = inner(state, batch)
+            sync()
+            secs.append(time.perf_counter() - t)
+            step = len(secs) - 1
+            per_call.append({k: v - before[k] for k, v in counts(tm, pm).items()})
+            collectives.append(dict(C.COUNTS))
+            mine = tree_digest(torch, replicated_leaves(state.params, layout))
+            every = [None] * mesh.size
+            dist.all_gather_object(every, mine, group=mesh.group)
+            digests.append(all(d == mine for d in every))
+            if step == 0:
+                whole = shd.gather_tree(state.params, layout)
+                if mesh.rank == 0:
+                    gap = param_gap(torch, whole, torch.load(single[arch]["params"][0]),
+                                    opt.lr)
+                    if gap["beyond_lr10_ulp"]:
+                        bad.append(f"step 0: {int(gap['beyond_lr10_ulp'])} weights past "
+                                   f"lr/10 plus one bf16 step of the single device's")
+                    deltas.append(gap)
+                del whole
+            return res
+
+        trainer.step_fn = counted
+        reset_counts(tm, pm)
+        log_ = trainer.run()
+        got = counts(tm, pm)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        check(trainer.restarts == 0 and len(secs) == DP_STEPS,
+              f"{trainer.restarts} restarts, {len(secs)} step calls")
+        check(all(digests), f"the replicated leaves differ between the model ranks after "
+              f"steps {[i for i, ok in enumerate(digests) if not ok]}")
+        check(not bad, "; ".join(bad[:4]))
+        want = dict.fromkeys(got, 0)
+        want["ternary_cim_matmul"] = per_step
+        check(len(per_call) == DP_STEPS and all(c == want for c in per_call),
+              f"launches per step call {per_call}, expected {want}")
+        check(got["ternary_cim_matmul"] == per_step * DP_STEPS, f"launches {got}")
+        final = None
+        if save is not None:
+            final = tree_digest(torch, state_leaves(
+                torch, shd.gather_state(trainer.state, cfg, mesh)))
+        out[arch] = {
+            "log": [(m["step"], m["loss"], m["grad_norm"]) for m in log_], "secs": secs,
+            "collectives": collectives, "launches": got["ternary_cim_matmul"],
+            "per_step": per_step, "deltas": deltas, "peak_bytes": peak,
+            "final_digest": final, "init_s": init_s, "shapes": shapes,
+            "local": {k: getattr(local, k) for k in ("n_heads", "n_kv_heads")},
+            "wall_s": time.perf_counter() - t0}
+        del trainer, inner, counted, p, layout
+        if dev.type == "cuda":
+            import gc
+
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_train_phase(torch, tm, pm, card, dev, tmp) -> dict:
+    """Phase 27: whisper-large-v3 (4 of 32 encoder and decoder layers)
+    and llava-next-34b (1 of 60 layers) at full width (bf16, remat, CiM,
+    blocked/cuda: their configs') trained over a (1,
+    TP_FAMILY_TRAIN_MODEL) mesh, TP_FAMILY_TRAIN_MODEL gloo ranks on
+    cuda:0 (``tp_family_train_rank``, one spawn for both), held against
+    DP_STEPS eager single-device steps of each run first in this process
+    (``tp_family_train_single``, its files in ``tmp``): step 0's loss bit
+    for bit, step 0's grad norm within DP_NORM_RTOL, after step 0 every
+    weight within lr/10 plus one bf16 step (checked in rank 0; step 1's
+    loss is printed beside the single device's, unbounded: from step 0's
+    bf16 rounding on, CiM codes flip apart: 1.0% on llava on an NVIDIA
+    H100 80GB HBM3 at 700 W), the replicated leaves bit-equal on the
+    ranks after every step, #1 launched family_train_launches times a
+    step in every rank and no other kernel; whisper's gathered checkpoint
+    at step DP_STEPS restored by a single-device Trainer on cuda:0 bit
+    for bit. A rank's failure or a run past TP_FAMILY_TRAIN_TIMEOUT_S
+    fails the script."""
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    single = tp_family_train_single(torch, dev, tmp)
+    single_s = time.perf_counter() - t0
+    ckpt_dir = os.path.join(tmp, "tp_family_ckpt")
+    t0 = time.perf_counter()
+    try:
+        out = spawn_mesh(tp_family_train_rank, 1, TP_FAMILY_TRAIN_MODEL,
+                         {a: {"params": r["params"]} for a, r in single.items()},
+                         ckpt_dir, dev.type, timeout=TP_FAMILY_TRAIN_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tensor-parallel training of the encdec and vlm families: {e}")
+    spawn_s = time.perf_counter() - t0
+    result = {}
+    for arch, run in out.items():
+        one = single[arch]
+        cfg, pipe, opt = tp_family_train_setup(arch)
+        if [st for st, _, _ in run["log"]] != list(range(DP_STEPS)):
+            fail(f"{arch} tensor-parallel training: steps {run['log']}")
+        losses = [loss for _, loss, _ in run["log"]]
+        norms = [n for _, _, n in run["log"]]
+        tp_ms = statistics.median(run["secs"][1:]) * 1e3
+        coll = run["collectives"][0]
+        rows, seq = TP_FAMILY_TRAIN[arch][2:]
+        gap = run["deltas"][0]
+        extra = (f"{rows} x {cfg.encoder_seq} frames, {cfg.n_encoder_layers} of 32 encoder "
+                 f"and {cfg.n_layers} of 32 decoder layers" if cfg.family == "encdec" else
+                 f"{rows} x {cfg.n_image_tokens} patches before the tokens, {cfg.n_layers} "
+                 f"of 60 layers")
+        log(f"tensor parallel training, {arch} (full width, bf16, remat, CiM, blocked/cuda; "
+            f"global batch {rows} x {seq} tokens, {extra}; {one['n_params'] / 1e9:.3f} G "
+            f"params) over a (1, {TP_FAMILY_TRAIN_MODEL}) mesh, {TP_FAMILY_TRAIN_MODEL} gloo "
+            f"ranks on {card} (a rank's heads {run['local']}, shards {run['shapes']}), "
+            f"{DP_STEPS} steps through Trainer(mesh=, batch_transform=): losses "
+            + " ".join(f"{v:.6f}" for v in losses) + ", grad norms "
+            + " ".join(f"{v:.6f}" for v in norms) + " against the single device's "
+            + " ".join(f"{v:.6f}" for v in one["losses"]) + ", "
+            + " ".join(f"{v:.6f}" for v in one["grad_norms"]) + "; after step 0 |delta "
+            f"param| (gathered whole) max {gap['max']:.3g}, mean {gap['mean']:.3g}, weights "
+            f"past lr/10 {int(gap['beyond_lr10'])}, past lr/10 + one bf16 step "
+            f"{int(gap['beyond_lr10_ulp'])} of {gap['n']} (held at 0); replicated leaves "
+            f"bit-equal on every rank after every step; #1 launched {run['per_step']} in "
+            f"every step in every rank ({run['launches']} in rank 0), no other kernel")
+        log(f"tensor parallel training, {arch}: eager TP step {tp_ms:.2f} ms after step 0 "
+            f"(all: " + " ".join(f"{v * 1e3:.1f}" for v in run["secs"])
+            + f" ms) against the eager single-device step {one['step_ms']:.2f} ms (all: "
+            + " ".join(f"{v * 1e3:.1f}" for v in one["secs"]) + f" ms); collectives a step "
+            f"{coll}; peak memory a rank (rank 0) {run['peak_bytes'] / 1e9:.2f} GB, the "
+            f"single device's {one['peak_bytes'] / 1e9:.2f} GB; a rank's Trainer made in "
+            f"{run['init_s']:.1f} s; on {card}")
+        if losses[0] != one["losses"][0]:
+            fail(f"{arch} tensor-parallel training: step 0's loss {losses[0]!r} != the "
+                 f"single device's {one['losses'][0]!r}")
+        if not abs(norms[0] - one["grad_norms"][0]) <= DP_NORM_RTOL * one["grad_norms"][0]:
+            fail(f"{arch} tensor-parallel training: step 0's grad norm {norms[0]} against "
+                 f"the single device's {one['grad_norms'][0]} (rtol {DP_NORM_RTOL})")
+        result[arch] = {
+            "losses": losses, "grad_norms": norms, "single_losses": one["losses"],
+            "single_grad_norms": one["grad_norms"], "deltas": run["deltas"],
+            "tp_step_ms": tp_ms, "tp_secs": run["secs"], "single_step_ms": one["step_ms"],
+            "single_secs": one["secs"], "collectives_per_step": coll,
+            "peak_bytes_rank": run["peak_bytes"], "single_peak_bytes": one["peak_bytes"],
+            "launches": run["launches"], "launches_per_step": run["per_step"]}
+        if run["final_digest"] is None:
+            continue
+        # the gathered checkpoint on one device, restored once through
+        # restore(device=) by a Trainer made without the directory
+        trainer = Trainer(cfg, opt, TrainConfig(num_steps=DP_STEPS + 1), pipe, seed=0,
+                          batch_transform=family_inputs(cfg), device=dev)
+        t0 = time.perf_counter()
+        trainer.train_cfg.ckpt_dir = ckpt_dir
+        start = trainer.restore(device=dev)
+        restored = tree_digest(torch, state_leaves(torch, trainer.state))
+        restore_s = time.perf_counter() - t0
+        if start != DP_STEPS or restored != run["final_digest"]:
+            fail(f"{arch} tensor-parallel elastic restore: step {start}, the restored "
+                 f"state's digest {'==' if restored == run['final_digest'] else '!='} the "
+                 f"ranks' gathered one")
+        del trainer
+        _free(torch)
+        result[arch]["restore_s"] = restore_s
+        log(f"tensor parallel training, {arch}: the checkpoint at step {DP_STEPS} (gathered "
+            f"whole at model {TP_FAMILY_TRAIN_MODEL}) restored by a single-device Trainer on "
+            f"{dev} bit for bit in {restore_s:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"tensor parallel training of the encdec and vlm families: single-device steps "
+        f"{single_s:.1f} s, the ranks {spawn_s:.1f} s (a rank: whisper "
+        f"{out['whisper-large-v3']['wall_s']:.1f} s, llava {out['llava-next-34b']['wall_s']:.1f}"
+        f" s); phase 27 wall time {wall:.1f} s")
+    result["wall_s"] = wall
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the per-kernel numbers to this JSON file")
+    ap.add_argument("--phase", choices=["27"], default=None,
+                    help="build the kernels, then run this one phase alone and exit "
+                         "without the result lines (a rehearsal of a self-contained "
+                         "phase; the full check is the run without it)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4998,6 +5414,13 @@ def main(argv=None) -> int:
         log(f"{kernel} SASS: " + "; ".join(
             f"{short_name(name)}: {ops}" for name, ops in sorted(instances.items())))
 
+    if args.phase == "27":
+        with tempfile.TemporaryDirectory() as family_tmp:
+            timed("27", tp_family_train_phase, torch, tm, pm, card, torch.device("cuda"),
+                  family_tmp)
+        log(f"phase seconds: {json.dumps(phase_s)}; the script "
+            f"{time.perf_counter() - t_script:.1f} s on {card}")
+        return 0
     per_kernel, errs, extra = timed("2", kernel_phase, torch, tm, pm, tern_mod, DECODE_M_MAX,
                                     torch.device("cuda"))
     launches, serving = timed("3-10", serving_phases, torch, tm, pm, card,
@@ -5053,6 +5476,10 @@ def main(argv=None) -> int:
                                               torch.device("cuda"), dp_tmp)
         serving["tp_training"] = tpt = timed("26", tp_train_phase, torch, tm, pm, card,
                                              torch.device("cuda"), dp.pop("single"), dp_tmp)
+    with tempfile.TemporaryDirectory() as family_tmp:
+        serving["tp_family_training"] = tpf = timed(
+            "27", tp_family_train_phase, torch, tm, pm, card, torch.device("cuda"),
+            family_tmp)
     serving["frontdoor_tp"] = timed("24", frontdoor_tp_phase, torch, card,
                                     torch.device("cuda"), serving["frontdoor"])
 
@@ -5071,7 +5498,9 @@ def main(argv=None) -> int:
                                     for arch in TP_FAMILY_ARCHS}
                                    if name == "ternary_cim_matmul" else None),
             "dp_launches": (dp["launches"] if name == "ternary_cim_matmul" else None),
-            "tp_train_launches": (tpt["launches"] if name == "ternary_cim_matmul" else None),
+            "tp_train_launches": ({"smollm-135m": tpt["launches"],
+                                   **{arch: tpf[arch]["launches"] for arch in TP_FAMILY_TRAIN}}
+                                  if name == "ternary_cim_matmul" else None),
             **{tag: pk.get(tag) for tag in MODEL_TAGS},
         })
     result = {"kernels": kernels}

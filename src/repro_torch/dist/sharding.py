@@ -67,16 +67,22 @@ The other families' rules, where the port differs from GSPMD's:
     dense MLP. The reference's grouped dispatch (one routing group per
     data shard) runs inside each group (:func:`routing_groups`).
 
-encdec and vlm split as the dense family does: the batcher serves
-their decoders (self-attention and an MLP; it takes no encoder output and
-no image patches). The leaves it never reads are placed by the same
-rule: whisper's cross attention (``blocks/cross``: q/k/v
-column-parallel, o row-parallel, on whole heads with the self-attention)
-and its encoder (``enc_blocks``: attention and MLP as a decoder layer's;
-``blocks/ln_x``, ``enc_norm`` and ``enc_pos`` replicated), and llava's
-``projector`` column-parallel (``transformer.embed_inputs`` gathers its
-output over the ranks), so a rank's ``forward(frames=)`` or
-``forward(patches=)`` runs on its shards too.
+encdec and vlm split as the dense family does, in serving and in
+training. whisper's cross attention (``blocks/cross``: q/k/v
+column-parallel, o row-parallel; multi-head, so on whole heads exactly
+where the self-attention splits) and its encoder (``enc_blocks``:
+attention and MLP as a decoder layer's; ``blocks/ln_x``, ``enc_norm``
+and ``enc_pos`` replicated), and llava's ``projector`` column-parallel
+(``transformer.embed_inputs`` gathers its output over the ranks). Where
+the heads do not divide, the encoder's and the cross attention stay
+replicated with the decoder's while the MLPs and the vocabulary split.
+The batcher serves their decoders (it takes no encoder output and no
+image patches); ``forward(frames=)`` and ``forward(patches=)`` run on a
+rank's serving shards, and a train step's forward on its training
+shards: the replicated encoder output enters every decoder layer's k/v
+through one ``collectives.copy`` and an encoder layer's normed input one
+copy for its q, k and v, and the projector's columns are gathered by
+``collectives.gather``.
 
 Mode "off" splits the same weights as float slices (no codes): a column
 shard is ``x @ w``, a row shard computes its partial in float32, sums

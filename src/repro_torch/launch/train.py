@@ -12,8 +12,9 @@ which the token pipeline does not make (nor the reference's): train them
 through ``Trainer(batch_transform=...)``. The launcher trains on one
 device, and takes no mesh flag, as the reference's has none: a ``(data,
 model)`` grid trains through ``Trainer(mesh=)`` in the processes of
-``launch.mesh.spawn_mesh`` (the dense, ssm, hybrid and moe families over
-a model axis).
+``launch.mesh.spawn_mesh``: all six families (dense, ssm, hybrid, moe,
+encdec and vlm, the last two with a ``batch_transform``) over a model
+axis.
 """
 from __future__ import annotations
 

@@ -524,11 +524,20 @@ def cross_attention(params, x: torch.Tensor, enc: torch.Tensor,
     projection is a dense layer (kernel #1 on the card under mode cim);
     the contractions are :func:`_sdpa`'s, in float64. On a rank of a TP
     mesh, as :func:`gqa_attention`: the rank's heads, q/k/v
-    column-parallel, o row-parallel."""
+    column-parallel, o row-parallel. In a train step (``dist.sharding.
+    TrainShard`` weights) ``x`` enters ``wq`` through ``collectives.copy``
+    (``layers.tp_input``); ``enc`` has entered already (``transformer.
+    forward`` copies the encoder output once for every decoder layer's
+    k/v), and where ``enc is x`` (the encoder's self-attention) the one
+    copy of ``x`` feeds q, k and v."""
     b, s, _ = x.shape
     se = enc.shape[1]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     qc = cfg.quant
+    same = enc is x
+    x = L.tp_input(x, params["wq"])
+    if same:
+        enc = x
     q = L.dense(x, params["wq"], qc, tp="col").reshape(b, s, h, hd)
     k = L.dense(enc, params["wk"], qc, tp="col").reshape(b, se, h, hd)
     v = L.dense(enc, params["wv"], qc, tp="col").reshape(b, se, h, hd)

@@ -101,24 +101,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     dtype = dtype_of(cfg.dtype)
     # the meta device gives the shapes and dtypes alone: no draws
     g = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    n, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
     embed = torch.randn((cfg.vocab, d), generator=g, device=dev) * 0.02
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
-    params = {"embed": embed.to(dtype), "final_norm": ones(d)}
-    if cfg.family in DECODER_FAMILIES:
-        params["blocks"] = {"ln1": ones(n, d), "ln2": ones(n, d),
-                            "attn": (attn.init_mla if cfg.mla else attn.init_gqa)(
-                                g, cfg, dtype, dev, n)}
-        if cfg.n_experts:
-            params["blocks"]["moe"] = moe.init_moe(g, cfg, dtype, dev, n)
-        else:
-            params["blocks"]["mlp"] = L.init_mlp(g, d, cfg.d_ff, dtype, dev, (n,))
-        if cfg.family == "encdec":
-            params["blocks"]["ln_x"] = ones(n, d)
-            params["blocks"]["cross"] = attn.init_cross(g, cfg, dtype, dev, n)
-    else:
-        params["blocks"] = {"ln1": ones(n, d),
-                            "mamba": ssm.init_mamba2(g, cfg, dtype, dev, n)}
+    params = {"embed": embed.to(dtype), "final_norm": ones(d),
+              "blocks": _init_blocks(g, cfg, dtype, dev, cfg.n_layers)}
     if cfg.family == "hybrid":
         params["shared_attn"] = {"ln1": ones(d), "ln2": ones(d),
                                  "attn": attn.init_gqa(g, cfg, dtype, dev),
@@ -136,6 +123,36 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_dense_weight(g, (d, cfg.vocab), dtype, dev)
     return params
+
+
+def _init_blocks(g: Optional[torch.Generator], cfg: ArchConfig, dtype, dev,
+                 n: int) -> Dict:
+    """``n`` stacked layers by family: ``{ln1, ln2, attn, mlp | moe}``
+    (encdec adds ``ln_x`` and ``cross``) or ``{ln1, mamba}``."""
+    d = cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
+    if cfg.family not in DECODER_FAMILIES:
+        return {"ln1": ones(n, d), "mamba": ssm.init_mamba2(g, cfg, dtype, dev, n)}
+    blocks = {"ln1": ones(n, d), "ln2": ones(n, d),
+              "attn": (attn.init_mla if cfg.mla else attn.init_gqa)(g, cfg, dtype, dev, n)}
+    if cfg.n_experts:
+        blocks["moe"] = moe.init_moe(g, cfg, dtype, dev, n)
+    else:
+        blocks["mlp"] = L.init_mlp(g, d, cfg.d_ff, dtype, dev, (n,))
+    if cfg.family == "encdec":
+        blocks["ln_x"] = ones(n, d)
+        blocks["cross"] = attn.init_cross(g, cfg, dtype, dev, n)
+    return blocks
+
+
+def init_block(generator: torch.Generator, cfg: ArchConfig, dtype,
+               device: DeviceLike = None) -> Dict:
+    """One decoder (or mamba) layer's params by family, the reference's
+    ``init_block``: layer 0 of a one-layer stack of :func:`init_params`'s
+    blocks, drawn from ``generator``."""
+    _check_family(cfg)
+    one = _init_blocks(generator, cfg, dtype, resolve_device(device), 1)
+    return layer_params(one, 0)
 
 
 def layer_params(blocks: Dict, i: int) -> Dict:
@@ -173,7 +190,8 @@ def apply_block(p: Dict, x: torch.Tensor, cfg: ArchConfig,
 
 def _encoder_block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """One encoder layer: unmasked self-attention (cross attention of x
-    to itself), then the MLP."""
+    to itself: in a train step its one input enters q, k and v through
+    one copy), then the MLP."""
     h = L.rms_norm(x, p["ln1"])
     x = x + attn.cross_attention(p["attn"], h, h, cfg)
     h = L.rms_norm(x, p["ln2"])
@@ -188,6 +206,14 @@ def run_encoder(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     for i in range(cfg.n_encoder_layers):
         x = _encoder_block_apply(layer_params(params["enc_blocks"], i), x, cfg)
     return L.rms_norm(x, params["enc_norm"])
+
+
+def _enc_entry(params, enc: torch.Tensor) -> torch.Tensor:
+    """The encoder output as it enters the decoder's cross attention:
+    through one ``collectives.copy`` for every layer's k/v where they
+    are a train step's column shards (``layers.tp_input``), else
+    itself."""
+    return L.tp_input(enc, params["blocks"]["cross"]["wk"])
 
 
 def _run_stack(params, x, cfg, positions, caches, index, start, enc=None):
@@ -263,14 +289,19 @@ def embed_inputs(params, tokens: torch.Tensor, cfg: ArchConfig,
     """Token embeddings (B, S, D); for vlm the projected ``patches`` (B,
     n_img, d_vision), a dense layer, go in front: (B, n_img + S, D). On a
     rank of a TP mesh the projector is column-parallel and its output is
-    gathered over the ranks (a copy)."""
+    gathered over the ranks (a copy); in a train step through
+    ``collectives.gather``, whose backward is the rank's columns of the
+    whole (replicated) gradient. The patches take no gradient, so they
+    enter the projector without a copy."""
     x = L.embed(tokens, params["embed"])
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("the vlm family's forward needs patches")
         proj = params["projector"]
         img = L.dense(patches.to(x.dtype), proj, cfg.quant, tp="col")
-        if isinstance(proj, WeightShard):
+        if isinstance(proj, TrainShard):
+            img = collectives.gather(img, proj.mesh.group, dim=-1)
+        elif isinstance(proj, WeightShard):
             img = collectives.all_gather(img, proj.mesh.group, dim=-1)
         x = torch.cat([img, x], dim=1)
     return x
@@ -282,7 +313,10 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     """Teacher-forced logits (B, S_total, V) for tokens (B, S). encdec
     needs ``frames`` (B, S_enc, D) and runs the encoder first; vlm needs
     ``patches`` (B, n_img, d_vision), whose rows lead the sequence
-    (S_total = n_img + S)."""
+    (S_total = n_img + S). In a train step over a model axis the encoder
+    output, replicated, enters every decoder layer's rank-partial k/v
+    through one ``collectives.copy`` (one sum of its gradient, not one a
+    layer; remat's recompute reads the copy as the block's input)."""
     _check_family(cfg)
     x = embed_inputs(params, tokens, cfg, patches).to(dtype_of(cfg.dtype))
     b, s = x.shape[:2]
@@ -291,7 +325,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     if cfg.family == "encdec":
         if frames is None:
             raise ValueError("the encdec family's forward needs frames")
-        enc = run_encoder(params, frames.to(x.dtype), cfg)
+        enc = _enc_entry(params, run_encoder(params, frames.to(x.dtype), cfg))
     x = _run_stack(params, x, cfg, positions, None, None, None, enc)
     return _logits(params, x, cfg, cfg.quant if cfg.quantize_unembed else UNEMBED_OFF)
 

@@ -57,6 +57,20 @@ def decode_int8(enc: Int8Encoded, dtype=torch.float32) -> torch.Tensor:
     return (enc.values.to(torch.float32) * enc.scale).to(dtype)
 
 
+def tree_encode_int8(grads: PyTree, generator: torch.Generator) -> PyTree:
+    """:func:`encode_int8` of every leaf of ``grads``, in the tree's
+    structure. The leaves draw their noise from the one ``generator`` in
+    sorted-key order (``adamw.tree_leaves``), each at its own shape, one
+    after another; the reference splits its key into one key a leaf
+    instead, so the two packages' codes agree only up to the rounding."""
+    return tree_map(lambda g: encode_int8(g, generator), grads)
+
+
+def tree_decode_int8(enc_tree: PyTree, dtype=torch.float32) -> PyTree:
+    """:func:`decode_int8` of every :class:`Int8Encoded` leaf."""
+    return tree_map(lambda e: decode_int8(e, dtype), enc_tree)
+
+
 def compress_grads(grads: PyTree, method: Optional[str],
                    generator: Optional[torch.Generator] = None,
                    residual: Optional[PyTree] = None, split: Optional[PyTree] = None,
@@ -79,7 +93,7 @@ def compress_grads(grads: PyTree, method: Optional[str],
         if generator is None:
             raise ValueError("int8 compression needs a torch.Generator")
         if split is None:
-            dec = tree_map(lambda g: decode_int8(encode_int8(g, generator)), grads)
+            dec = tree_decode_int8(tree_encode_int8(grads, generator))
         else:
             dec = tree_map(lambda g, sp: decode_int8(encode_int8(g, generator, sp, group)),
                            grads, split)

@@ -31,9 +31,11 @@ clipped by the whole tree's norm (a sum over the model group) and
 elementwise on the shards. This is the reference's order: its reduction
 sits inside ``value_and_grad`` and compression straddles it. A batch
 that does not divide the data size runs whole on every data rank
-(replicated) with no collective of the data axis. The encdec and vlm
-families do not split over a model axis: a mesh whose model axis is
-above 1 raises for them before any work.
+(replicated) with no collective of the data axis. Every family trains
+over a model axis: encdec's encoder and cross attention and vlm's
+projector split as the decoder does (``dist.sharding.train_layout``),
+and the encoder output enters the decoder's k/v through one copy
+(``transformer.forward``).
 """
 from __future__ import annotations
 
@@ -76,7 +78,6 @@ def init_train_state(cfg: ArchConfig, seed: int = 0,
     params (``dist.sharding.shard_tree``) and of the rest; the generator
     is the same on every rank."""
     dev = resolve_device(device)
-    _check_mesh(mesh, cfg)
     params = T.init_params(cfg, seed=seed, device=dev)
     if mesh is not None:
         params = shd.shard_tree(params, shd.train_layout(cfg, mesh))
@@ -111,20 +112,6 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, mesh=None
     return loss, {"loss": loss.detach(), "accuracy": acc}
 
 
-#: the families that train over a model axis
-TP_TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-
-
-def _check_mesh(mesh, cfg: ArchConfig) -> None:
-    """A model axis above 1 trains the families of
-    :data:`TP_TRAIN_FAMILIES`; for the others it raises."""
-    if (mesh is not None and shd.model_axis_size(mesh) > 1
-            and cfg.family not in TP_TRAIN_FAMILIES):
-        raise NotImplementedError(
-            f"a train step of the {cfg.family} family over a mesh {mesh.shape}: its "
-            f"model axis is not ported (the families {TP_TRAIN_FAMILIES} split)")
-
-
 def _split(batch: Dict[str, torch.Tensor], mesh) -> bool:
     """Whether the step runs ``batch`` split over ``mesh``'s data axis."""
     if mesh is None:
@@ -146,7 +133,6 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     rows, the gradients' mean over the data group, and the loss and
     accuracy averaged over it; under a model axis, the rank's shards'
     gradients (see the module docstring)."""
-    _check_mesh(mesh, cfg)
     split = _split(batch, mesh)
     group, layout = _model_axis(cfg, mesh)
     params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
@@ -211,6 +197,13 @@ def train_step_(state: TrainState, batch: Dict[str, torch.Tensor],
     return dict(metrics, grad_norm=gnorm)
 
 
+def bare_train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+                    opt_cfg: adamw.AdamWConfig) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The reference's single-argument form of :func:`train_step` (no
+    compression, no mesh), which its dry run jits under shardings."""
+    return train_step(state, batch, cfg, opt_cfg)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     grad_compression: Optional[str] = None, mesh=None):
     """The eager, functional counterpart of the reference's
@@ -258,7 +251,6 @@ def make_jit_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     rank's shards under a model axis), the batch moved to the state's
     device."""
     if mesh is not None:
-        _check_mesh(mesh, cfg)
 
         def eager(state: TrainState, batch: Dict[str, torch.Tensor]):
             dev = state.opt.step.device

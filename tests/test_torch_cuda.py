@@ -1481,6 +1481,32 @@ def test_cuda_tp_step_matches_single_device(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_tp_encdec_step_matches_single_device(cuda_device):
+    """The model-axis step of whisper (smoke, f32, per_row, with seeded
+    frames) on 2 gloo ranks sharing cuda:0, its encoder, cross attention
+    and decoder on each rank's shards through #1: step 0's loss bit for
+    bit, its gradients at rtol 1e-5 / atol 1e-6, three steps' losses at
+    rtol 1e-6 and every weight within lr/10 of one device's on the card;
+    the replicated leaves and their gradients bit-equal on both ranks
+    (checked there); #1 launched 7 a encoder layer and 11 a decoder layer
+    (q/k/v/o, cross q/k/v/o, gate/up/down) in the rank for step 0's
+    gradients and for each of the 3 steps (no remat at smoke size)."""
+    cfg = TPT.case_cfg("whisper-large-v3", "per_row")
+    tree = DP.numpy_tree(cfg)
+    run = spawn_mesh(TPT.cuda_tp, 1, 2, tree, "whisper-large-v3", timeout=600.0)
+    one = TPT.tp_record(tree, cfg, None, device=cuda_device)
+    assert run["loss0"] == one["loss0"]
+    for k in one["grads0"]:
+        torch.testing.assert_close(torch.from_numpy(run["grads0"][k]),
+                                   torch.from_numpy(one["grads0"][k]), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(run["losses"], one["losses"], rtol=1e-6, atol=0)
+    for k in one["params"]:
+        assert abs(run["params"][k] - one["params"][k]).max() <= DP.LR / 10, k
+    per_forward = 7 * cfg.n_encoder_layers + 11 * cfg.n_layers
+    assert run["launches"] == per_forward * (1 + DP.STEPS)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("divisor", [2, 4])
 def test_cuda_grouped_moe_equals_row_blocks(cuda_device, divisor):
     """deepseek-v2 smoke (bf16, per_row) on the card: moe_block and the

@@ -333,18 +333,19 @@ def test_activation_sharding_batch_divisor_guard():
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
-def test_train_step_under_a_model_axis_raises(arch):
-    """The encdec and vlm families do not train over a model axis: a mesh
-    with model > 1 raises before any work (the dense, ssm, hybrid and
-    moe families train there: test_torch_tp_train.py)."""
+def test_train_step_under_a_model_axis_is_eager(arch):
+    """The encdec and vlm families train over a model axis as every
+    family does (their steps: test_torch_tp_train.py): under a mesh with
+    model > 1, as under a data mesh, the jit step is made eagerly, and
+    the state holds the rank's shards (fewer elements than the whole)."""
     cfg = R.smoke_cfg(arch)
     opt = adamw.AdamWConfig(lr=R.LR)
-    tp = M.TPMesh(None, 0, 2, (0, 1))
-    with pytest.raises(NotImplementedError, match="model axis"):
-        ts.make_jit_train_step(cfg, opt, mesh=tp)
-    state = ts.init_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
-        ts.make_train_step(cfg, opt, mesh=tp)(state, R.batches(cfg.vocab, 1)[0])
+    for mesh in (M.TPMesh(None, 0, 2, (0, 1)), M.TPMesh(None, 0, 2, (0, 1), data=2)):
+        step = ts.make_jit_train_step(cfg, opt, mesh=mesh)
+        assert step.graphed is False and step.captured is None
+    size = lambda st: sum(t.numel() for t in adamw.tree_leaves(st.params))
+    state = ts.init_train_state(cfg, device="cpu", mesh=M.TPMesh(None, 0, 2, (0, 1)))
+    assert size(state) < size(ts.init_train_state(cfg, device="cpu"))
 
 
 def test_jit_train_step_under_a_data_mesh_is_eager():

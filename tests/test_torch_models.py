@@ -148,3 +148,25 @@ def test_bridge_rejects_non_f32():
     cfg = get_config("smollm-135m", smoke=True)
     with pytest.raises(TypeError):
         params_from_numpy({"embed": np.zeros((2, 2), np.float16)}, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "zamba2-2.7b",
+                                  "deepseek-v2-236b", "whisper-large-v3", "llava-next-34b"])
+def test_init_block_matches_jax(arch):
+    """``init_block``, one layer's params by family, against the
+    reference's ``init_block``: the same leaves, each of the same shape
+    and dtype (the draws differ: a torch generator, not a JAX key)."""
+    jcfg, tcfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    jblock = jT.init_block(jax.random.PRNGKey(0), jcfg, jnp.bfloat16)
+    tblock = tT.init_block(torch.Generator().manual_seed(0), tcfg, torch.bfloat16,
+                           device="cpu")
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, tuple(v.shape), str(v.dtype).replace("torch.", "")
+
+    assert list(leaves(tblock)) == list(leaves(jblock))

@@ -3,7 +3,8 @@ and a ``(data, model)`` grid: ``dist.sharding``'s training shards,
 ``dist.collectives``' copy / gather / reduce, ``layers.dense`` on a
 ``TrainShard``, AdamW's norm over the model group, compression on
 shards, the Trainer's gathered checkpoints and elastic restore) against
-the port on one device and against the JAX package's sharded jitted step.
+the port on one device and against the JAX package's sharded jitted step, for all six families (encdec and
+vlm with their frames or patches, ``torch_tp_train_ranks.add_inputs``).
 
 The port's ranks are processes of a gloo group on the CPU, spawned once
 per mesh for the whole module, (1, 2), (1, 4) and (2, 2), in a background
@@ -13,10 +14,12 @@ their gradients bit-equal over its model group). Smoke size, f32. The
 contract and its tolerances:
 
   * against the port's single device (dense, ssm, hybrid, moe with MLA,
-    grok-1; (1, 2) splits smoke smollm's 4 heads and 2 kv heads, (1, 4)
-    keeps its attention replicated while the MLP and the vocabulary
-    split; (2, 2) splits both axes, moe at the data size's routing
-    groups): step 0's loss bit for bit under CiM (rtol 1e-6 in mode
+    grok-1, encdec (whisper, with and without remat) and vlm (llava);
+    (1, 2) splits smoke smollm's 4 heads and 2 kv heads, (1, 4) keeps its
+    attention replicated while the MLP and the vocabulary split, as it
+    keeps llava's (2 kv heads), and splits whisper's 4 heads, its
+    encoder and cross attention with them; (2, 2) splits both axes, moe
+    at the data size's routing groups): step 0's loss bit for bit under CiM (rtol 1e-6 in mode
     "off", and over a data axis, whose ranks' losses are averaged), its
     gradients at rtol 1e-5 / atol 1e-6, three losses at rtol
     1e-6 and every weight within lr/10 after them. The ssm and hybrid
@@ -25,19 +28,27 @@ contract and its tolerances:
     sums the partial gradients of the shared B and C (one group: every
     rank's heads read them) and of the replicated inputs in another
     order than one device's head sum, and an element where those f32
-    sums cancel moves by a few 1e-6;
+    sums cancel moves by a few 1e-6. encdec's gradients hold elementwise:
+    the encoder output's partial gradients are summed once over the
+    ranks, after every decoder layer's k/v added its part on each rank;
   * against the reference's ``jax.jit(train_step, in_shardings=...)``
     under ``param_specs`` with ``enable_activation_sharding(model_size=
     2)`` over (1, 2) and (2, 2) host meshes: step 0's loss at rtol 1e-5,
     three losses at rtol 1e-3;
-  * a negative control: ``copy``'s backward as the identity (the ranks'
-    partial gradients not summed) fails the gradient check;
+  * negative controls: ``copy``'s backward as the identity (the ranks'
+    partial gradients not summed) fails the gradient check, and so does
+    the encoder output's one copy into the decoder's k/v made the
+    identity (every encoder leaf's gradient);
   * a step's collectives are the same at tp 2 and tp 4;
   * elastic restore: a checkpoint written at model 2 restores on one
-    device bit for bit, and one written on one device restores at (2, 2);
+    device bit for bit (smollm's, and whisper's, whose Trainer takes its
+    frames through ``batch_transform`` and replays a failure), and one
+    written on one device restores at (2, 2);
   * compression: int8 and bf16 on the shards equal the single device's
-    bit for bit; an int8-compressed step as the uncompressed one;
-  * encdec and vlm raise under a model axis.
+    bit for bit (smollm, whisper, llava); an int8-compressed step as the
+    uncompressed one;
+  * the step, the state and the jit step build for encdec and vlm under
+    a model axis, the state holding the rank's shards.
 """
 import concurrent.futures
 import dataclasses
@@ -61,6 +72,7 @@ from repro.optim.schedules import warmup_cosine as jwarmup_cosine
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_config
 from repro_torch.optim import adamw
 from torch_threads import one_thread  # noqa: F401
 
@@ -68,7 +80,8 @@ jts = importlib.import_module("repro.train.train_step")
 ts = importlib.import_module("repro_torch.train.train_step")
 
 SPAWN_TIMEOUT = 240.0
-ARCHS = ("smollm-135m", "mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b", "grok-1-314b")
+ARCHS = ("smollm-135m", "mamba2-780m", "zamba2-2.7b", "deepseek-v2-236b", "grok-1-314b",
+         "whisper-large-v3", "llava-next-34b")
 # {case: (arch, act_scale, remat, mode, other config fields)}
 CASES = {"dense": ("smollm-135m", "per_tensor", False, "cim", None),
          "per_row": ("smollm-135m", "per_row", False, "cim", None),
@@ -79,18 +92,26 @@ CASES = {"dense": ("smollm-135m", "per_tensor", False, "cim", None),
          "ssm": ("mamba2-780m", "per_tensor", False, "cim", None),
          "hybrid": ("zamba2-2.7b", "per_tensor", False, "cim", None),
          "mla": ("deepseek-v2-236b", "per_tensor", False, "cim", None),
-         "grok": ("grok-1-314b", "per_tensor", False, "cim", None)}
-# the cases each mesh runs: (1, 2) all; (1, 4) the dense family with
-# attention replicated, the hybrid with everything split; (2, 2) both
-# axes, moe at two routing groups
-MESHES = {(1, 2): tuple(CASES), (1, 4): ("dense", "hybrid"), (2, 2): ("dense", "mla")}
-EXTRAS = {(1, 2): ("counts", "control", "compress", "trainer"), (1, 4): ("counts",),
-          (2, 2): ("restore",)}
+         "grok": ("grok-1-314b", "per_tensor", False, "cim", None),
+         "encdec": ("whisper-large-v3", "per_tensor", False, "cim", None),
+         # the decoder under remat: the encoder output's one copy is each
+         # checkpointed block's input
+         "encdec_remat": ("whisper-large-v3", "per_tensor", True, "cim", None),
+         "vlm": ("llava-next-34b", "per_tensor", False, "cim", None)}
+# the cases each mesh runs: (1, 2) all; (1, 4) the dense family and llava
+# with attention replicated, the hybrid and whisper with everything split;
+# (2, 2) both axes, moe at two routing groups
+MESHES = {(1, 2): tuple(CASES), (1, 4): ("dense", "hybrid", "encdec", "vlm"),
+          (2, 2): ("dense", "mla", "encdec", "vlm")}
+EXTRAS = {(1, 2): ("counts", "control", "control_enc", "compress", "compress_families",
+                   "trainer", "trainer_encdec"),
+          (1, 4): ("counts",), (2, 2): ("restore",)}
 # the families whose gradients are held normwise (see the docstring)
 NORMWISE = ("ssm", "hybrid")
 # the reference's sharded step: (case, mesh)
 # (in the order the rank groups finish)
-REFERENCE = [("dense", (1, 2)), ("mla", (1, 2)), ("ssm", (1, 2)), ("dense", (2, 2))]
+REFERENCE = [("dense", (1, 2)), ("mla", (1, 2)), ("ssm", (1, 2)), ("encdec", (1, 2)),
+             ("vlm", (1, 2)), ("dense", (2, 2)), ("encdec", (2, 2)), ("vlm", (2, 2))]
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +124,7 @@ def trees():
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     return {name: str(tmp_path_factory.mktemp(f"tp_{name}"))
-            for name in ("trainer", "one", "scratch")}
+            for name in ("trainer", "trainer_encdec", "one", "scratch")}
 
 
 def _spawn(trees, dirs, data, model):
@@ -115,7 +136,8 @@ def _spawn(trees, dirs, data, model):
         shutil.copytree(dirs["one"], restore)
     return M.spawn_mesh(R.tp_rank, data, model, trees,
                         {n: CASES[n] for n in MESHES[(data, model)]}, EXTRAS[(data, model)],
-                        {"trainer": dirs["trainer"], "restore": restore},
+                        {"trainer": dirs["trainer"], "trainer_encdec": dirs["trainer_encdec"],
+                         "restore": restore},
                         timeout=SPAWN_TIMEOUT, threads=1)
 
 
@@ -215,7 +237,7 @@ def _reference_tp(arch, tree, batches, data, model):
 def test_tp_step_matches_reference_sharded_step(trees, ranks, name, mesh):
     arch = CASES[name][0]
     # the reference first: the ranks run on meanwhile
-    want = _reference_tp(arch, trees[arch], DP.batches(256), *mesh)
+    want = _reference_tp(arch, trees[arch], R.case_batches(R.case_cfg(arch)), *mesh)
     run = ranks[mesh].result(timeout=6 * SPAWN_TIMEOUT)[name]
     np.testing.assert_allclose(run["losses"][0], want[0], rtol=1e-5)
     np.testing.assert_allclose(run["losses"], want, rtol=1e-3)
@@ -256,6 +278,18 @@ def test_negative_control_copy_backward_as_identity(runs, single):
     assert "embed" in bad and "blocks/ln1" in bad and "blocks/ln2" in bad, bad
 
 
+def test_negative_control_encoder_output_copy_as_identity(runs, single):
+    """Without the one copy of the encoder output into the decoder's k/v
+    (its backward the identity) every encoder leaf's gradient is one
+    rank's part of the single device's, and the gradient check fails
+    there; the decoder's leaves hold."""
+    want = single[("encdec", 1)]["grads0"]
+    bad = [k for k, w in want.items()
+           if not np.allclose(runs[(1, 2)]["control_enc"][k], w, rtol=1e-5, atol=1e-6)]
+    enc = [k for k in want if k.startswith("enc")]
+    assert enc and set(bad) == set(enc), bad
+
+
 def test_collectives_a_step_equal_at_tp2_and_tp4(runs):
     """zamba2 splits every head count at 2 and at 4 ranks, and so runs the
     same collectives: per layer the copies into w_in, q/k/v and gate/up,
@@ -290,6 +324,36 @@ def test_elastic_restore_model2_to_one_device(runs, dirs):
     run = runs[(1, 2)]["trainer"]
     trainer = R._trainer(None, None, DP.TRAINER_STEPS + 1)
     trainer.train_cfg.ckpt_dir = dirs["trainer"]
+    assert trainer.restore(device="cpu") == DP.TRAINER_STEPS
+    for name in ("params", "mu", "nu"):
+        got = DP._flat(trainer.state.params if name == "params"
+                       else getattr(trainer.state.opt, name))
+        assert got.keys() == run[name].keys()
+        for k in got:
+            np.testing.assert_array_equal(got[k], run[name][k], err_msg=f"{name} {k}")
+    assert int(trainer.state.opt.step) == run["opt_step"]
+    trainer.train_cfg.ckpt_dir = None
+    log = trainer.run()
+    assert [m["step"] for m in log] == [DP.TRAINER_STEPS] and np.isfinite(log[0]["loss"])
+
+
+def test_encdec_trainer_replays_a_failure_on_every_rank(runs):
+    """whisper's Trainer over (1, 2), its frames made by
+    ``batch_transform`` in every rank: a failure at step 3 restores the
+    gathered checkpoint at 2 and replays step 2 with its first pass's
+    metrics."""
+    run = runs[(1, 2)]["trainer_encdec"]
+    assert run["restarts"] == 1 and [m[0] for m in run["log"]] == [0, 1, 2, 2, 3]
+    assert run["log"][2] == run["log"][3]
+    assert run["steps"] == ["LATEST", "step_00000002", "step_00000004"]
+
+
+def test_elastic_restore_encdec_model2_to_one_device(runs, dirs):
+    """whisper's model-2 checkpoint at step 4 restores on one device bit
+    for bit, and the single-device Trainer steps on."""
+    run = runs[(1, 2)]["trainer_encdec"]
+    trainer = R._trainer(None, None, DP.TRAINER_STEPS + 1, arch="whisper-large-v3")
+    trainer.train_cfg.ckpt_dir = dirs["trainer_encdec"]
     assert trainer.restore(device="cpu") == DP.TRAINER_STEPS
     for name in ("params", "mu", "nu"):
         got = DP._flat(trainer.state.params if name == "params"
@@ -341,25 +405,44 @@ def test_compression_on_shards_equals_single_device(runs, trees):
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
-def test_encdec_and_vlm_raise_under_a_model_axis(arch):
-    """No model axis for encdec and vlm: the step, the state and the
-    Trainer raise before any work; a model axis of 1 builds the step."""
+def test_compression_on_encdec_and_vlm_shards_equals_single_device(runs, arch):
+    """int8 and bf16 on whisper's encoder and cross-attention shards and
+    llava's projector shards == one device's on the whole gradients, bit
+    for bit (values and residuals)."""
+    assert runs[(1, 2)]["compress_families"][arch] == {"int8": 0.0, "bf16": 0.0}
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
+def test_encdec_and_vlm_build_under_a_model_axis(arch):
+    """encdec and vlm take a model axis: the state is the rank's shards
+    of the seeded one (whisper's encoder and cross attention, llava's
+    projector cut on their columns or rows, the encoder's norms and
+    positions whole), and the jit step is eager under it."""
     cfg = DP.smoke_cfg(arch)
     opt = adamw.AdamWConfig(lr=DP.LR)
-    tp = M.TPMesh(None, 0, 2, (0, 1))
-    with pytest.raises(NotImplementedError, match="model axis"):
-        ts.make_jit_train_step(cfg, opt, mesh=tp)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        ts.init_train_state(cfg, device="cpu", mesh=tp)
-    state = ts.init_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
-        ts.make_train_step(cfg, opt, mesh=tp)(state, DP.batches(cfg.vocab, 1)[0])
-    assert ts.make_jit_train_step(cfg, opt, mesh=M.TPMesh(None, 0, 1, data=2)).graphed is False
+    tp = M.TPMesh(None, 1, 2, (0, 1))
+    state = ts.init_train_state(cfg, device="cpu", mesh=tp)
+    whole = ts.init_train_state(cfg, device="cpu")
+    layout = shd.train_layout(cfg, tp)
+    assert ts.make_jit_train_step(cfg, opt, mesh=tp).graphed is False
+    got, want, splits = (dict(DP._paths(t)) for t in (state.params, whole.params, layout))
+    assert got.keys() == want.keys()
+    for k, sp in splits.items():
+        assert torch.equal(got[k], want[k] if sp is None else sp.cut(want[k])), k
+    d = cfg.d_model
+    if arch == "whisper-large-v3":
+        assert got["enc_blocks/attn/wq"].shape == (cfg.n_encoder_layers, d, d // 2)
+        assert got["enc_blocks/attn/wo"].shape == (cfg.n_encoder_layers, d // 2, d)
+        assert got["blocks/cross/wk"].shape == (cfg.n_layers, d, d // 2)
+        assert all(splits[k] is None for k in ("enc_pos", "enc_norm", "blocks/ln_x"))
+    else:
+        assert got["projector"].shape == (cfg.d_vision, d // 2)
 
 
 @pytest.mark.parametrize("tp", [2, 3, 4])
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "zamba2-2.7b",
-                                  "deepseek-v2-236b", "grok-1-314b"])
+                                  "deepseek-v2-236b", "grok-1-314b", "whisper-large-v3",
+                                  "llava-next-34b"])
 def test_layout_cuts_and_joins_exactly(arch, tp):
     """Every leaf's shards (one per rank, cut from the whole) join back to
     the whole bit for bit; row splits on whole 16-row blocks of K padded
@@ -384,3 +467,30 @@ def test_layout_cuts_and_joins_exactly(arch, tp):
             for sp, part in zip(splits, parts):
                 assert torch.equal(part.index_select(sp.dim, sp.shared),
                                    parts[0].index_select(sp.dim, shared)), path
+
+
+@pytest.mark.parametrize("arch,tp", [("whisper-large-v3", tp) for tp in (2, 3, 4, 5, 8)]
+                         + [("llava-next-34b", tp) for tp in (2, 3, 4, 7, 8)])
+def test_full_config_splits_on_whole_heads(arch, tp):
+    """At the full configs (shapes from the meta device), the encoder's
+    and the cross attention's q/k/v/o split exactly where the decoder's
+    attention does, on whole heads (whisper's 20 at tp 2, 4 and 5;
+    llava's 56 heads and 8 kv heads at 2, 4 and 8), with the rank's heads
+    in ``local_config``; else they stay replicated while the MLP, the
+    vocabulary and llava's projector split where their widths divide
+    (whisper's vocabulary of 51866 at tp 2 alone)."""
+    cfg = get_config(arch)
+    mesh = M.TPMesh(None, 0, tp, tuple(range(tp)))
+    splits = dict(DP._paths(shd.train_layout(cfg, mesh)))
+    heads = cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+    attn = [k for k in splits if k.split("/")[-1] in ("wq", "wk", "wv", "wo")]
+    assert attn and all((splits[k] is not None) == heads for k in attn), (heads, attn)
+    local = shd.local_config(cfg, mesh)
+    assert local.n_heads == (cfg.n_heads // tp if heads else cfg.n_heads)
+    assert (splits["embed"] is not None) == (cfg.vocab % tp == 0)
+    assert (splits["blocks/mlp/w_up"] is not None) == (cfg.d_ff % tp == 0)
+    if arch == "whisper-large-v3":
+        assert all(splits[k] is None for k in ("enc_pos", "enc_norm", "blocks/ln_x"))
+        assert (splits["enc_blocks/mlp/w_gate"] is not None) == (cfg.d_ff % tp == 0)
+    else:
+        assert (splits["projector"] is not None) == (cfg.d_model % tp == 0)

@@ -465,6 +465,38 @@ class TestGradCompression:
         np.testing.assert_array_equal(res["w"].numpy(), np.asarray(jres["w"]))
         assert float((dec["w"] - torch.from_numpy(x + r)).abs().max()) < 0.01
 
+    def test_tree_encode_int8_matches_jax(self):
+        """``tree_encode_int8`` / ``tree_decode_int8`` against the
+        reference's on one tree: the same structure, int8 payloads and
+        every leaf's scale (its amax / 127) bit for bit; each code within
+        one of the reference's (both round stochastically, from different
+        streams) and each decoded value within one scale of the gradient.
+        The port's stream: one generator, the leaves in sorted-key order,
+        each drawing at its own shape, as ``encode_int8`` leaf after leaf."""
+        rng = np.random.default_rng(6)
+        tree = {"b": {"w": rng.standard_normal((8, 16)).astype(np.float32)},
+                "a": rng.standard_normal(32).astype(np.float32) * 3.0,
+                "c": np.zeros(4, np.float32)}
+        tgrads = {"b": {"w": torch.from_numpy(tree["b"]["w"])},
+                  "a": torch.from_numpy(tree["a"]), "c": torch.from_numpy(tree["c"])}
+        enc = gcomp.tree_encode_int8(tgrads, torch.Generator().manual_seed(7))
+        jenc = jcomp.tree_encode_int8(jax.tree_util.tree_map(jnp.asarray, tree),
+                                      jax.random.PRNGKey(7))
+        dec, jdec = gcomp.tree_decode_int8(enc), jcomp.tree_decode_int8(jenc)
+        gen = torch.Generator().manual_seed(7)
+        for path in (("a",), ("b", "w"), ("c",)):
+            pick = lambda t: t[path[0]] if len(path) == 1 else t[path[0]][path[1]]
+            e, je, g = pick(enc), pick(jenc), pick(tgrads)
+            assert e.values.dtype == torch.int8 and e.values.shape == g.shape
+            np.testing.assert_array_equal(e.scale.numpy(), np.asarray(je.scale))
+            gap = np.abs(e.values.numpy().astype(np.int32)
+                         - np.asarray(je.values).astype(np.int32))
+            assert gap.max() <= 1, path
+            assert float((pick(dec) - g).abs().max()) <= float(e.scale) * (1 + 1e-5)
+            assert np.abs(np.asarray(pick(jdec)) - g.numpy()).max() <= float(e.scale) * (1 + 1e-5)
+            again = gcomp.encode_int8(g, gen)
+            assert torch.equal(again.values, e.values) and torch.equal(again.scale, e.scale)
+
     def test_trainer_with_compression_trains(self):
         cfg = small_cfg()
         pipe = make_pipe(cfg)

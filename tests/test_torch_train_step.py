@@ -21,6 +21,7 @@ from repro.models.registry import get_config as jget_config
 from repro.optim import adamw as jadamw
 from repro.optim.schedules import warmup_cosine as jwarmup_cosine
 from repro.train.train_step import TrainState as JTrainState
+from repro.train.train_step import bare_train_step as jbare_train_step
 from repro.train.train_step import loss_fn as jloss_fn
 from repro.train.train_step import make_jit_train_step
 from repro_torch.bridge import params_from_numpy
@@ -34,7 +35,7 @@ from repro_torch.models.registry import get_config
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.train.train_step import TrainState, loss_fn, make_train_step
+from repro_torch.train.train_step import TrainState, bare_train_step, loss_fn, make_train_step
 from repro_torch.train.train_step import make_jit_train_step as make_captured_step
 from torch_threads import one_thread  # noqa: F401
 
@@ -275,6 +276,32 @@ def test_train_steps_match_jax(reference_runs, mode):
     else:
         np.testing.assert_allclose(losses, run["losses"], rtol=1e-3)
     assert int(state.opt.step) == STEPS
+
+
+def test_bare_train_step_matches_jax(reference_runs):
+    """``bare_train_step``, the reference's single-argument form (no
+    compression, no mesh), one step in mode "off" against the
+    reference's ``bare_train_step`` jitted on the same params and batch:
+    the loss at rtol 1e-5, the params after at test_train_steps_match_jax's
+    "off" bound (rtol 1e-5, atol 1e-5)."""
+    run = reference_runs["off"]
+    jcfg, tcfg = _cfgs("off")
+    jb, tb = run["batches"][0]
+    jparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), run["tparams"])
+    jopt = jadamw.AdamWConfig(lr=1e-3, schedule=jwarmup_cosine(2, STEPS))
+    jstate = JTrainState(jparams, jadamw.init(jparams), jax.random.PRNGKey(1), None)
+    jstate, jmetrics = jax.jit(lambda st, b: jbare_train_step(st, b, jcfg, jopt))(
+        jstate, {k: jnp.asarray(v) for k, v in jb.items()})
+    params = tree_map(torch.clone, run["tparams"])
+    state = TrainState(params, adamw.init(params), torch.Generator().manual_seed(1), None)
+    state, metrics = bare_train_step(state, tb, tcfg, adamw.AdamWConfig(
+        lr=1e-3, schedule=warmup_cosine(2, STEPS)))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
+    got, want = _flat(state.params), _flat(jstate.params)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+    assert int(state.opt.step) == 1
 
 
 def test_jit_train_steps_match_jax(reference_runs):

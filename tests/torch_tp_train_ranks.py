@@ -22,6 +22,7 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ternary_mac as tm
+from repro_torch.models import transformer as T
 from repro_torch.optim import compress as gcomp
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train.trainer import TrainConfig, Trainer
@@ -36,6 +37,37 @@ def case_cfg(arch, act_scale="per_tensor", remat=False, mode="cim", fields=None,
     if mode != "cim":
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, mode=mode))
     return cfg
+
+
+def add_inputs(cfg):
+    """The batch transform of ``cfg``'s family: encdec batches take
+    ``frames`` (B, encoder_seq, d_model), vlm batches ``patches`` (B,
+    n_image_tokens, d_vision), f32 normals from a generator seeded by the
+    batch's token sum, so every rank (and a replay) makes the same ones;
+    other families' batches pass as they are. Numpy in, numpy out; torch
+    in, torch out."""
+    shapes = {"encdec": ("frames", (cfg.encoder_seq, cfg.d_model)),
+              "vlm": ("patches", (cfg.n_image_tokens, cfg.d_vision))}
+
+    def add(batch):
+        if cfg.family not in shapes:
+            return batch
+        key, shape = shapes[cfg.family]
+        tokens = np.asarray(batch["tokens"], dtype=np.int64)
+        rng = np.random.default_rng(int(tokens.sum()))
+        extra = rng.standard_normal((tokens.shape[0],) + shape).astype(np.float32)
+        if torch.is_tensor(batch["tokens"]):
+            extra = torch.from_numpy(extra)
+        return dict(batch, **{key: extra})
+
+    return add
+
+
+def case_batches(cfg, n=DP.STEPS):
+    """Pipeline batches 0..n-1 as host tensors, with ``cfg``'s frames or
+    patches (:func:`add_inputs`)."""
+    add = add_inputs(cfg)
+    return [add(b) for b in DP.batches(cfg.vocab, n)]
 
 
 def _replicated(tree, layout):
@@ -67,8 +99,7 @@ def tp_record(tree, cfg, mesh, device="cpu", steps=DP.STEPS, compression=None):
     state = shd.shard_state(DP.state_from(tree, cfg, device), cfg, mesh)
     if compression:
         state = state._replace(residual=gcomp.init_residual(state.params))
-    batch_list = [{k: v.to(dev) for k, v in b.items()}
-                  for b in DP.batches(cfg.vocab)[:steps]]
+    batch_list = [{k: v.to(dev) for k, v in b.items()} for b in case_batches(cfg, steps)]
     metrics, grads, _ = ts._grads(state, batch_list[0], cfg, None, mesh)
     if mesh is not None:
         check_model_replicas(grads, layout, mesh, "gradients")
@@ -89,7 +120,7 @@ def tp_record(tree, cfg, mesh, device="cpu", steps=DP.STEPS, compression=None):
 def one_step_counts(tree, cfg, mesh, device="cpu"):
     """One step's collectives (``collectives.COUNTS``) and #1's launches."""
     state = shd.shard_state(DP.state_from(tree, cfg, device), cfg, mesh)
-    batch = {k: v.to(device) for k, v in DP.batches(cfg.vocab, 1)[0].items()}
+    batch = {k: v.to(device) for k, v in case_batches(cfg, 1)[0].items()}
     step = ts.make_train_step(cfg, DP.opt_cfg(), mesh=mesh)
     before = tm.ternary_cim_matmul.launches
     C.reset_counts()
@@ -97,17 +128,25 @@ def one_step_counts(tree, cfg, mesh, device="cpu"):
     return {"collectives": dict(C.COUNTS), "launches": tm.ternary_cim_matmul.launches - before}
 
 
-def copy_backward_as_identity(tree, cfg, mesh):
+def copy_backward_as_identity(tree, cfg, mesh, only_enc=False):
     """The negative control: step 0's whole gradients with ``copy``'s
-    backward replaced by the identity (no sum of the partial gradients)."""
-    real = C._Copy.backward
-    C._Copy.backward = staticmethod(lambda ctx, g: (g, None))
+    backward replaced by the identity (no sum of the partial gradients);
+    ``only_enc``: only the encoder output's copy into the decoder's k/v
+    (``transformer._enc_entry``: the identity both ways)."""
+    if only_enc:
+        real, owner, name = T._enc_entry, T, "_enc_entry"
+        patched = lambda params, enc: enc
+    else:
+        real, owner, name = C._Copy.backward, C._Copy, "backward"
+        patched = staticmethod(lambda ctx, g: (g, None))
+    setattr(owner, name, patched)
     try:
         state = shd.shard_state(DP.state_from(tree, cfg), cfg, mesh)
-        _, grads, _ = ts._grads(state, DP.batches(cfg.vocab, 1)[0], cfg, None, mesh)
+        _, grads, _ = ts._grads(state, case_batches(cfg, 1)[0], cfg, None, mesh)
     finally:
-        C._Copy.backward = real
+        setattr(owner, name, real)
     return DP._flat(shd.gather_tree(grads, shd.train_layout(cfg, mesh)))
+
 
 
 def compression_round_trip(tree, cfg, mesh):
@@ -117,7 +156,7 @@ def compression_round_trip(tree, cfg, mesh):
     bit for bit (checked here); returns the max |difference| per method."""
     layout = shd.train_layout(cfg, mesh)
     state = shd.shard_state(DP.state_from(tree, cfg), cfg, mesh)
-    _, grads, _ = ts._grads(state, DP.batches(cfg.vocab, 1)[0], cfg, None, mesh)
+    _, grads, _ = ts._grads(state, case_batches(cfg, 1)[0], cfg, None, mesh)
     whole = shd.gather_tree(grads, layout)
     out = {}
     for method in ("int8", "bf16"):
@@ -136,13 +175,14 @@ def compression_round_trip(tree, cfg, mesh):
     return out
 
 
-def _trainer(mesh, ckpt_dir, num_steps, device="cpu", fail_at=()):
-    cfg = case_cfg("smollm-135m")
+def _trainer(mesh, ckpt_dir, num_steps, device="cpu", fail_at=(), arch="smollm-135m"):
+    cfg = case_cfg(arch)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=DP.SEQ, global_batch=DP.BATCH))
     return Trainer(cfg, DP.opt_cfg(), TrainConfig(
         num_steps=num_steps, ckpt_dir=ckpt_dir, ckpt_every=DP.TRAINER_CKPT_EVERY,
         keep_last_n=5, async_ckpt=True, log_every=0), pipe, seed=0,
-        failure_injector=DP.FailureInjector(list(fail_at)), device=device, mesh=mesh)
+        failure_injector=DP.FailureInjector(list(fail_at)),
+        batch_transform=add_inputs(cfg), device=device, mesh=mesh)
 
 
 def _whole_state(trainer):
@@ -151,11 +191,12 @@ def _whole_state(trainer):
             "nu": DP._flat(st.opt.nu), "opt_step": int(st.opt.step)}
 
 
-def trainer_run(mesh, ckpt_dir):
-    """A Trainer under ``mesh`` with a failure injected at
+def trainer_run(mesh, ckpt_dir, arch="smollm-135m"):
+    """A Trainer of ``arch`` under ``mesh`` with a failure injected at
     TRAINER_FAIL_AT: its log, restarts, the checkpoints on disk and the
     whole state after (gathered from the shards)."""
-    trainer = _trainer(mesh, ckpt_dir, DP.TRAINER_STEPS, fail_at=[DP.TRAINER_FAIL_AT])
+    trainer = _trainer(mesh, ckpt_dir, DP.TRAINER_STEPS, fail_at=[DP.TRAINER_FAIL_AT],
+                       arch=arch)
     trainer.run()
     layout = shd.train_layout(trainer.cfg, mesh)
     check_model_replicas(trainer.state.params, layout, mesh, "params")
@@ -177,9 +218,12 @@ def tp_rank(mesh, trees, cases, extras, dirs):
     """One rank of the test module's ``mesh``: :func:`tp_record` for every
     case of ``cases`` ({name: (arch, act_scale, remat, mode, fields)}, moe at the
     data size's routing groups); then the ``extras`` named: "counts"
-    (zamba2's one step), "control" (the negative control), "compress"
-    (the round trip and an int8 step), "trainer" (a Trainer run into
-    ``dirs["trainer"]``), "restore" (a Trainer restoring
+    (zamba2's one step), "control" (the negative control), "control_enc"
+    (whisper's with only the encoder output's copy made the identity),
+    "compress" (the round trip and an int8 step), "compress_families"
+    (the round trip for whisper and llava), "trainer" (a Trainer run
+    into ``dirs["trainer"]``), "trainer_encdec" (whisper's, into
+    ``dirs["trainer_encdec"]``), "restore" (a Trainer restoring
     ``dirs["restore"]``). Rank 0's results."""
     out = {}
     for name, (arch, *case) in cases.items():
@@ -190,11 +234,21 @@ def tp_rank(mesh, trees, cases, extras, dirs):
         out["counts"] = one_step_counts(trees["zamba2-2.7b"], case_cfg("zamba2-2.7b"), mesh)
     if "control" in extras:
         out["control"] = copy_backward_as_identity(trees["smollm-135m"], smollm, mesh)
+    if "control_enc" in extras:
+        whisper = case_cfg("whisper-large-v3")
+        out["control_enc"] = copy_backward_as_identity(trees["whisper-large-v3"], whisper,
+                                                       mesh, only_enc=True)
+    if "compress_families" in extras:
+        out["compress_families"] = {
+            arch: compression_round_trip(trees[arch], case_cfg(arch), mesh)
+            for arch in ("whisper-large-v3", "llava-next-34b")}
     if "compress" in extras:
         out["compress"] = compression_round_trip(trees["smollm-135m"], smollm, mesh)
         out["int8"] = tp_record(trees["smollm-135m"], smollm, mesh, compression="int8")
     if "trainer" in extras:
         out["trainer"] = trainer_run(mesh, dirs["trainer"])
+    if "trainer_encdec" in extras:
+        out["trainer_encdec"] = trainer_run(mesh, dirs["trainer_encdec"], "whisper-large-v3")
     if "restore" in extras:
         out["restored"] = trainer_restore(mesh, dirs["restore"])
     return out
