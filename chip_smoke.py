@@ -148,13 +148,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      (K, N) of its layers and times one layer's 7 calls of #1 at M=1024
      ("smollm_135m_train" in the kernels line);
  18. training the ssm and hybrid families: mamba2-780m at full width
-     and 24 of 48 layers (bf16, remat, the CiM spec) through the Trainer
+     and 12 of 48 layers (bf16, remat, the CiM spec) through the Trainer
      as in phase 17 (20 steps, checkpoints every 10, a failure at 15), the
      phase leaving deterministic mode to Trainer.run(): losses and grad
      norms finite, the loss falling, steps 10-14 replayed bit-equal, #1
-     launched 96 times in every step (48 forward + 48 remat) and no
+     launched 48 times in every step (24 forward + 24 remat) and no
      other MAC kernel, steps 0-4 bit-equal to 5 eager steps; one
-     exact/cuda step (#5 96 times) and one under mode "off" (its grad
+     exact/cuda step (#5 48 times) and one under mode "off" (its grad
      norm), the captured and eager step medians, tokens/s, capture time,
      peak memory and a profiled replay; then full-size zamba2-2.7b: 3
      steps of make_jit_train_step, finite losses, #1 279 times a step
@@ -240,7 +240,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      deepseek-v2-236b at full width and 1 of 60 layers and llava-next-34b
      (28 of 56 heads, 4 of 8 kv heads a rank) at full width and 2 of 60
      layers, first served single-device
-     (eager) on phase 3's requests, then in every rank, each rank making
+     (eager) on phase 3's requests (request i at most 2, 3, 4 or 5 new
+     tokens by i % 4, TP_FAMILY_MAX_NEW, so a fill lands beside live
+     slots, which is checked), then in every rank, each rank making
      the seeded tree on the card in turn, holding it on the host and
      moving only its shard (whole SSM heads, MLA heads with the latent
      whole, whole experts, whisper's encoder and cross attention and
@@ -314,7 +316,7 @@ Phases, each fatal on failure (exit code 1, no result line):
  27. (run after 26, before 24) tensor-parallel training of the encdec
      and vlm families: launch.mesh.spawn_mesh starts one (1, 2) mesh, 2
      gloo ranks on cuda:0, which train in turn (the first freed before
-     the second) whisper-large-v3 (4 of 32 encoder and 4 of 32 decoder
+     the second) whisper-large-v3 (2 of 32 encoder and 2 of 32 decoder
      layers, full width: d 1280, 10 of 20 heads and 25933 of the 51866
      vocabulary a rank; 2 x 64 tokens with 2 x 1500 seeded frames) and
      llava-next-34b (1 of 60 layers, full width: 28 of 56 heads, 4 of 8
@@ -330,7 +332,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      whole) within lr/10 plus one bf16 step of the single device's; the
      replicated leaves (the encoder's norms
      and positions among them) bit-equal on both ranks after every step;
-     #1 launched 116 (whisper: 7 x 4 encoder layers + 2 x 11 x 4 remat
+     #1 launched 58 (whisper: 7 x 2 encoder layers + 2 x 11 x 2 remat
      decoder layers) or 15 (llava: 2 x 7 + the projector) times a step in
      every rank and no other kernel; whisper's gathered checkpoint
      restored bit for bit by a single-device Trainer on cuda:0. Printed:
@@ -351,8 +353,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      step), the cancel on its replica and in no rank's slot table; TTFT,
      per-token p50/p99 and goodput on lines of their own; the stop's time
      and no rank process alive after it.
+ 28. (run after 24) the launch/ twins (launch_phase): started first, in
+     processes of their own, three production-mesh cells through
+     lower_cell on the meta device (the dryrun CLI: smollm-135m train_4k,
+     deepseek-v2-236b decode_32k; the hillclimb CLI: that decode cell
+     with --fsdp and phase 20's table) and the four examples/torch
+     scripts on the card (train_ternary_lm.py --steps 3), each exit 0
+     with its key line; meanwhile one eager make_train_step step of
+     phase 17's smollm-135m under op_analysis.record on the card (#1's
+     420 launches with their (M, K, N)) and the same step dry on the meta
+     device: FLOPs by dtype and #1's calls equal; the predicted peak
+     beside torch.cuda.max_memory_allocated, the roofline's largest term
+     beside phase 17's captured-step median (the roofline fraction),
+     hillclimb.score_cell of a 4-row smollm-135m decode on phase 20's
+     table beside #1's measured time of a decode step; the FSDP cell's
+     resident bytes below and all-gather bytes above the plain cell's;
+     each cell's bottleneck and terms. One "launch" JSON line.
 It then prints a JSON line of phase 20's fits, replay error,
-projections and winners, the card line, a JSON line of per-kernel
+projections and winners, a JSON line of phase 28's findings, the card
+line, a JSON line of per-kernel
 numbers (``tp_launches``: rank 0's launches in phase 21, #1 on its
 served path, #2-#4 in its execute_packed_tp calls; ``tp_family_launches``:
 #1's in rank 0 per arch of phase 22; ``dp_launches``: #1's in rank 0 of
@@ -370,6 +389,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2525,9 +2545,9 @@ def train_phase(torch, tm, pm, card, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# phase 18's mamba2-780m depth: its full width at 24 of 48 layers (at 48
-# each checkpoint write and read moves ~8.5 GB)
-SSM_TRAIN_LAYERS = 24
+# phase 18's mamba2-780m depth: its full width at 12 of 48 layers (at 48
+# each checkpoint write and read moves ~8.5 GB; 24 before phase 28)
+SSM_TRAIN_LAYERS = 12
 
 
 def ssm_train_phase(torch, tm, pm, card, dev) -> dict:
@@ -3732,6 +3752,11 @@ TP_FAMILY_ARCHS = {"mamba2-780m": 6, "zamba2-2.7b": 6, "deepseek-v2-236b": 1,
 # tokens: 8 decode steps and a fill, where phase 3's 8 requests take 25
 # and 3), which keeps the script within its time limit
 TP_FAMILY_FOUR = ("whisper-large-v3", "llava-next-34b")
+# the new tokens request i of phase 3's takes at most in phase 22:
+# TP_FAMILY_MAX_NEW[i % 4] (uncapped before phase 28); staggered, so the
+# requests end on different steps and a fill lands in a slot beside live
+# ones (the TP per-slot state and cache reset of a refill)
+TP_FAMILY_MAX_NEW = (2, 3, 4, 5)
 TP_FAMILY_TIMEOUT_S = 600.0
 
 
@@ -3746,11 +3771,23 @@ def tp_family_cfg(arch, mode="cim"):
 
 
 def tp_family_requests(Request, arch, vocab):
-    """Phase 22's requests of ``arch``: phase 3's, or four_requests for
+    """Phase 22's requests of ``arch``: phase 3's, request i at most
+    TP_FAMILY_MAX_NEW[i % 4] new tokens, or four_requests for
     TP_FAMILY_FOUR."""
     if arch in TP_FAMILY_FOUR:
         return four_requests(Request, vocab)
-    return make_requests(Request, vocab, seed=0)
+    reqs = make_requests(Request, vocab, seed=0)
+    for i, r in enumerate(reqs):
+        r.max_new = min(r.max_new, TP_FAMILY_MAX_NEW[i % len(TP_FAMILY_MAX_NEW)])
+    return reqs
+
+
+def refilled_mid_stream(arch, reqs, stats, n_slots=4) -> bool:
+    """Whether a fill of phase 22's run landed beside live slots: fills
+    that each start from an empty batch number ceil(requests / slots),
+    so one more means a refill mid-stream (TP_FAMILY_FOUR's four requests
+    fill once)."""
+    return arch in TP_FAMILY_FOUR or stats["prefill_batches"] > -(-len(reqs) // n_slots)
 
 
 def first_fill_logits(torch, params, cfg, dev, mesh=None):
@@ -3826,6 +3863,9 @@ def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
         tokens = [r.generated for r in reqs]
         check(tokens == singles[arch]["tokens"],
               f"{arch}: TP tokens {tokens} != the single device's {singles[arch]['tokens']}")
+        check(refilled_mid_stream(arch, reqs, st),
+              f"{arch}: no fill beside live slots ({st['prefill_batches']} fills of "
+              f"{len(reqs)} requests)")
         check(got["ternary_cim_matmul"] == per_step * steps
               and all(n == per_step for _, _, n in fills)
               and not any(v for k, v in got.items() if k != "ternary_cim_matmul"),
@@ -3861,7 +3901,7 @@ def tp_family_rank(mesh, singles, dev_name="cuda") -> dict:
             off = tp_family_cfg(arch, "off")
             b = ContinuousBatcher(host, off, n_slots=4, s_max=256, seed=0, device=dev,
                                   mesh=mesh)
-            reqs = make_requests(Request, cfg.vocab, seed=0)
+            reqs = tp_family_requests(Request, arch, cfg.vocab)
             secs_off, step_ms_off = drive(torch, b, reqs)
             rec["off"] = {"tokens": [r.generated for r in reqs], "secs": secs_off,
                           "step_ms": step_ms_off,
@@ -5018,7 +5058,8 @@ TP_FAMILY_TRAIN_TIMEOUT_S = 600.0
 # arch: (decoder layers, encoder layers, global batch rows, tokens a row),
 # full width at cut depth; whisper's rows carry 1500 frames each, llava's
 # its 2880 patches before the tokens
-TP_FAMILY_TRAIN = {"whisper-large-v3": (4, 4, 2, 64), "llava-next-34b": (1, 0, 1, 16)}
+# (whisper at 4 + 4 layers before phase 28)
+TP_FAMILY_TRAIN = {"whisper-large-v3": (2, 2, 2, 64), "llava-next-34b": (1, 0, 1, 16)}
 
 
 def tp_family_train_setup(arch):
@@ -5243,7 +5284,7 @@ def tp_family_train_rank(mesh, single, ckpt_dir, dev_name="cuda") -> dict:
 
 
 def tp_family_train_phase(torch, tm, pm, card, dev, tmp) -> dict:
-    """Phase 27: whisper-large-v3 (4 of 32 encoder and decoder layers)
+    """Phase 27: whisper-large-v3 (2 of 32 encoder and decoder layers)
     and llava-next-34b (1 of 60 layers) at full width (bf16, remat, CiM,
     blocked/cuda: their configs') trained over a (1,
     TP_FAMILY_TRAIN_MODEL) mesh, TP_FAMILY_TRAIN_MODEL gloo ranks on
@@ -5354,6 +5395,218 @@ def tp_family_train_phase(torch, tm, pm, card, dev, tmp) -> dict:
         f" s); phase 27 wall time {wall:.1f} s")
     result["wall_s"] = wall
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the dry run, roofline, op accounting and hillclimb
+# ---------------------------------------------------------------------------
+
+# the examples/torch twins at their smallest settings: script, arguments,
+# the line each must print
+LAUNCH_EXAMPLES = (
+    ("quickstart.py", (), "kernel == functional model: True"),
+    ("cim_array_demo.py", (), "CiM output = min(a,8)-min(b,8) = 7"),
+    ("serve_ternary.py", (), "served 10 requests"),
+    ("train_ternary_lm.py", ("--steps", "3"), "final loss"),
+)
+# the production-mesh cells phase 28 costs, each in a process of its own:
+# (tag, module, arguments, the JSON file it writes)
+LAUNCH_CELLS = (
+    ("smollm_train", "repro_torch.launch.dryrun",
+     ("--arch", "smollm-135m", "--shape", "train_4k"), "smollm-135m__train_4k__16x16.json"),
+    ("deepseek_decode", "repro_torch.launch.dryrun",
+     ("--arch", "deepseek-v2-236b", "--shape", "decode_32k"),
+     "deepseek-v2-236b__decode_32k__16x16.json"),
+    ("deepseek_decode_fsdp", "repro_torch.launch.hillclimb",
+     ("--arch", "deepseek-v2-236b", "--shape", "decode_32k", "--name", "fsdp", "--fsdp",
+      "--calibration", "{table}"), "deepseek-v2-236b__decode_32k__fsdp.json"),
+)
+LAUNCH_TIMEOUT_S = 300
+
+
+def launch_phase(torch, tm, pm, card, dev, training, calibration, per_kernel) -> dict:
+    """Phase 28: the port's launch/ twins. Started first, in processes of
+    their own beside the rest: (c) three production-mesh cells through
+    lower_cell (the dryrun CLI: smollm-135m train_4k and deepseek-v2-236b
+    decode_32k; the hillclimb CLI: that decode cell with --fsdp and phase
+    20's table as --calibration), and (d) the four examples/torch scripts
+    on the card (train_ternary_lm.py --steps 3), each exit 0 with its key
+    line. Here: (a) one eager make_train_step step of phase 17's
+    smollm-135m (8 x 128, remat, CiM) on the card under op_analysis.record
+    (#1 launched 420 times, each launch recorded with its (M, K, N)), and
+    the same step through lower_cell on the meta device at mesh (1, 1):
+    FLOPs by dtype equal, #1's calls equal (420); the predicted peak
+    beside torch.cuda.max_memory_allocated of the eager step (and that
+    less what the process held beside the step's arguments before it:
+    earlier phases' tensors), and the
+    roofline's largest term beside phase 17's captured-step median (their
+    ratio the step's roofline fraction); (b) hillclimb.score_cell of a
+    4-row smollm-135m decode on phase 20's table (from its to_json())
+    beside the measured #1 time of a decode step (the kernel phase's
+    layer time x layers). Checked after (c): every cell ok, the FSDP
+    cell's resident bytes below and its all-gather bytes above the
+    cell without FSDP. One "launch" JSON line."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import hillclimb, op_analysis
+    from repro_torch.launch.dryrun import lower_cell, tree_bytes
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.registry import ShapeCell, get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.profile.calibrate import CalibrationTable
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    tmp = tempfile.mkdtemp(prefix="launch-phase-")
+    table_path = os.path.join(tmp, "table.json")
+    with open(table_path, "w") as f:
+        json.dump(calibration["table"], f)
+    procs = {}
+    try:
+        for tag, module, args, _ in LAUNCH_CELLS:
+            argv = [a.format(table=table_path) for a in args] + ["--out", tmp]
+            procs[tag] = subprocess.Popen(
+                [sys.executable, "-m", module, *argv], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for script, args, _ in LAUNCH_EXAMPLES:
+            procs[script] = subprocess.Popen(
+                [sys.executable, os.path.join(root, "examples", "torch", script), *args],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+
+        # (a) one eager step counted on the card, and again on the meta device
+        cfg = get_config("smollm-135m")
+        opt = AdamWConfig(lr=3e-4, schedule=warmup_cosine(20, TRAIN_STEPS))
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+        state = init_train_state(cfg, seed=0, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(0).items()}
+        step = make_train_step(cfg, opt)
+        step(state, batch)      # warm: the first call's one-time work is not the step's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what the process holds beside the step's arguments (earlier phases')
+        held = torch.cuda.memory_allocated() - tree_bytes((state.params, state.opt, batch))
+        reset_counts(tm, pm)
+        rec = op_analysis.record(step, state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = counts(tm, pm)
+        cost = op_analysis.analyze(rec.trace)
+        shapes = sorted({r.info[:3] for r in rec.trace if r.is_kernel})
+        per_step = 2 * macs_per_step(cfg)
+        want = dict.fromkeys(got, 0)
+        want["ternary_cim_matmul"] = per_step
+        if got != want or dict(cost.kernel_calls) != {"ternary_cim_mac": per_step}:
+            fail(f"launch: the eager step launched {got}, recorded {dict(cost.kernel_calls)}")
+        if not shapes or any(len(s) != 3 for s in shapes):
+            fail(f"launch: kernel launches recorded without their shapes: {shapes}")
+        del rec, state, batch
+        torch.cuda.empty_cache()
+        dry = lower_cell("smollm-135m", ShapeCell("phase17", "train", TRAIN_SEQ, TRAIN_BATCH),
+                         mesh=AbstractMesh((1, 1), ("data", "model")), verbose=False)
+        if not dry.ok:
+            fail(f"launch: the dry run of phase 17's step failed: {dry.error}")
+        cuda_flops = {k: v for k, v in sorted(cost.flops_by_dtype.items())}
+        meta_flops = {k: v for k, v in sorted(dry.op_cost["flops_by_dtype"].items())}
+        if cuda_flops != meta_flops or dry.op_cost["kernel_calls"] != dict(cost.kernel_calls):
+            fail(f"launch: FLOPs by dtype on cuda {cuda_flops} != meta {meta_flops}, or "
+                 f"kernel calls {dict(cost.kernel_calls)} != {dry.op_cost['kernel_calls']}")
+        roof = dry.roofline
+        terms = {"compute": roof["t_compute_s"], "memory": roof["t_memory_s"],
+                 "collective": roof["t_collective_s"]}
+        largest = max(terms.values())
+        measured_s = training["step_ms"] / 1e3
+        predicted_peak = dry.memory["peak_bytes"]
+        log(f"launch: phase 17's step (smollm-135m, {TRAIN_BATCH} x {TRAIN_SEQ}, remat, "
+            f"CiM) eager on cuda and dry on meta: FLOPs by dtype equal {cuda_flops}; #1 "
+            f"{per_step} calls on both, launched at (M, K, N) {shapes}; HBM bytes "
+            f"{cost.hbm_bytes:.4g} (cuda) / {dry.op_cost['hbm_bytes']:.4g} (meta); "
+            f"predicted peak {predicted_peak / 1e9:.3f} GB (arguments "
+            f"{dry.memory['argument_bytes'] / 1e9:.3f} + step "
+            f"{dry.memory['step_peak_bytes'] / 1e9:.3f}) against "
+            f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB of the eager step, "
+            f"of which {held / 1e9:.3f} GB the process held beside the step's arguments "
+            f"before it: the step's own {(peak - held) / 1e9:.3f} GB "
+            f"({predicted_peak / (peak - held):.3f}x); roofline terms {terms} (f64 "
+            f"{roof['t_compute_f64_s']:.4g} s), the largest ({roof['bottleneck']}) "
+            f"{largest * 1e3:.3f} ms against phase 17's captured-step median "
+            f"{training['step_ms']:.2f} ms: roofline fraction {largest / measured_s:.4f}; "
+            f"the dry step took {dry.seconds:.1f} s on the host; {card}")
+
+        # (b) the calibrated score beside the measured #1 time of a decode step
+        table = CalibrationTable.from_json(calibration["table"])
+        decode = ShapeCell("decode_4", "decode", 256, 4)
+        score = hillclimb.score_cell("smollm-135m", decode, table, spec="blocked/cuda/none")
+        layer_ms = per_kernel["ternary_cim_matmul"]["ms"]
+        measured_us = layer_ms * cfg.n_layers * 1e3
+        log(f"launch: score_cell(smollm-135m, 4-row decode) on phase 20's table: "
+            f"{score['predicted_us']:.1f} us ({score['layers']} layer kinds, "
+            f"{'trusted' if score['trusted'] else 'UNTRUSTED'}, worst residual "
+            f"{score['worst_residual_pct']:.1f}%) against the measured #1 time of a decode "
+            f"step {measured_us:.1f} us ({layer_ms:.4f} ms a layer x {cfg.n_layers} "
+            f"layers): {score['predicted_us'] / measured_us:.3f}x; {card}")
+
+        # (c) and (d): the processes started first
+        outs = {}
+        for tag, proc in procs.items():
+            try:
+                outs[tag] = proc.communicate(timeout=LAUNCH_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                fail(f"launch: {tag} ran past {LAUNCH_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                fail(f"launch: {tag} exited {proc.returncode}:\n{outs[tag][-3000:]}")
+        for script, _, line in LAUNCH_EXAMPLES:
+            if line not in outs[script]:
+                fail(f"launch: {script} did not print {line!r}:\n{outs[script][-2000:]}")
+        cells = {}
+        for tag, _, _, name in LAUNCH_CELLS:
+            with open(os.path.join(tmp, name)) as f:
+                cells[tag] = json.load(f)
+            if not cells[tag]["ok"] or not cells[tag]["roofline"]:
+                fail(f"launch: cell {tag} failed: {cells[tag]['error']}")
+        plain, fsdp = cells["deepseek_decode"], cells["deepseek_decode_fsdp"]
+        gathered = lambda c: c["roofline"]["coll_breakdown"].get("all-gather", 0.0)
+        if not (fsdp["memory"]["argument_bytes"] < plain["memory"]["argument_bytes"]
+                and fsdp["memory"]["param_bytes"] < plain["memory"]["param_bytes"]
+                and gathered(fsdp) > gathered(plain)):
+            fail(f"launch: FSDP did not lower the resident bytes ({fsdp['memory']} against "
+                 f"{plain['memory']}) or raise the all-gather bytes ({gathered(fsdp)} "
+                 f"against {gathered(plain)})")
+        for tag, c in cells.items():
+            r = c["roofline"]
+            log(f"launch: {tag} ({c['mesh_name']}, dry, {c['seconds']:.1f} s on the host): "
+                f"bottleneck {r['bottleneck']}, Tc {r['t_compute_s']:.4g} s (f64 "
+                f"{r['t_compute_f64_s']:.4g}), Tm {r['t_memory_s']:.4g} s, Tx "
+                f"{r['t_collective_s']:.4g} s; coll {r['coll_breakdown']}; memory "
+                f"{c['memory']}" + (f"; calibrated {c['calibrated']}" if c.get("calibrated")
+                                    else ""))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    found = {
+        "phase17_step": {"flops_by_dtype": cuda_flops, "kernel_calls": per_step,
+                         "hbm_bytes_cuda": cost.hbm_bytes,
+                         "hbm_bytes_meta": dry.op_cost["hbm_bytes"],
+                         "predicted_peak_bytes": predicted_peak, "measured_peak_bytes": peak,
+                         "held_beside_arguments_bytes": held,
+                         "roofline_terms_s": terms, "measured_step_s": measured_s,
+                         "roofline_fraction": largest / measured_s,
+                         "dry_seconds": dry.seconds},
+        "calibrated": {"score": score, "measured_decode_mac_us": measured_us},
+        "cells": {tag: {"roofline": c["roofline"], "memory": c["memory"],
+                        "seconds": c["seconds"], "calibrated": c.get("calibrated")}
+                  for tag, c in cells.items()},
+        "examples": sorted(s for s, _, _ in LAUNCH_EXAMPLES), "wall_s": wall}
+    log(f"launch: phase 28 wall time {wall:.1f} s on {card}")
+    return found
 
 
 def main(argv=None) -> int:
@@ -5482,6 +5735,8 @@ def main(argv=None) -> int:
             family_tmp)
     serving["frontdoor_tp"] = timed("24", frontdoor_tp_phase, torch, card,
                                     torch.device("cuda"), serving["frontdoor"])
+    launch = timed("28", launch_phase, torch, tm, pm, card, torch.device("cuda"),
+                   training, calibration, per_kernel)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5515,6 +5770,7 @@ def main(argv=None) -> int:
                 **extra), f, indent=1)
     print(json.dumps({"calibration": {k: calibration[k] for k in (
         "fits", "engine", "replay", "projections", "winners")}}), flush=True)
+    print(json.dumps({"launch": launch}), flush=True)
     log(f"phase seconds: {json.dumps(phase_s)}; the script "
         f"{time.perf_counter() - t_script:.1f} s to here on {card}")
     print(card, flush=True)

@@ -299,13 +299,40 @@ def current_scope() -> Tuple[str, ...]:
 def kernel_scope(entry: str) -> Iterator[None]:
     """Mark the ops run inside as kernel ``entry``'s plain version (scope
     ``kernel:<entry>``). The wrappers enter it where a CPU tensor takes
-    the plain version; a launch on the card is one pseudo-op instead."""
+    the plain version (through :func:`plain_call`); a launch on the card
+    is one pseudo-op instead."""
     prev = current_scope()
     _LOCAL.scope = prev + (f"{KERNEL_SCOPE}:{entry}",)
     try:
         yield
     finally:
         _LOCAL.scope = prev
+
+
+#: the recorders of kernel calls (``op_audit``'s recorder with
+#: ``work=True`` adds one while it runs): ``sink(entry, call, out, launched)``
+_CALL_SINKS: list = []
+
+
+def report_call(entry: str, call: Tuple[int, ...], out, launched: bool) -> None:
+    """Report one call of kernel ``entry`` to every installed sink:
+    ``call`` is its logical work (M, K, N, products, bytes;
+    ``kernels.mac_call``), ``out`` its result, ``launched`` whether it was
+    a launch on the card (counted in the wrapper's ``launches`` just
+    before) or the plain version (:func:`plain_call`)."""
+    for sink in tuple(_CALL_SINKS):
+        sink(entry, call, out, launched)
+
+
+def plain_call(entry: str, call: Tuple[int, ...], fn: Callable, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)``, kernel ``entry``'s plain version, in
+    its :func:`kernel_scope`, and report the call (:func:`report_call`)
+    with ``call``, the work its launch on the card would do. Returns
+    ``fn``'s result."""
+    with kernel_scope(entry):
+        out = fn(*args, **kwargs)
+    report_call(entry, call, out, launched=False)
+    return out
 
 
 _RANK_MESH: Optional[Any] = None

@@ -14,6 +14,17 @@ before every op and at the end, and records each launch as a pseudo-op
 ``kernel:<C entry>``, so a kernel call counts in the program size and a
 rule can name it.
 
+The op analysis (``launch/op_analysis.py``) reads the same recorder with
+``work=True``: every kernel call, a launch or its plain version, then
+adds its pseudo-op with the call's logical work (``info``: M, K, N,
+products, bytes; reported by the wrapper, ``contracts.report_call``), a
+launch no wrapper reported (a CUDA graph's replay) adds one without work,
+which the op analysis refuses, and every collective adds a
+``collective:<op>`` pseudo-op with (result bytes, group size)
+(``dist.collectives``); the recorder also follows the storages the ops
+make (each counted once, however many views share it) and keeps the
+peak of their live bytes.
+
 Findings are plain data (rule id, severity, stable message), so the
 CLI's report is byte-reproducible: messages embed only op names, dtypes,
 shapes and counts, never object ids or tensor addresses.
@@ -52,6 +63,8 @@ PAD_OPS = frozenset({"constant_pad_nd", "pad"})
 TP_AXIS = "tp"
 #: how long a spawned rank group may take for its traces
 RANK_TIMEOUT_S = 600.0
+#: the pseudo-op prefix of a collective (``collective:all-reduce``)
+COLLECTIVE = "collective"
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -92,6 +105,9 @@ class OpRecord:
     inputs: Tuple[TensorMeta, ...] = ()
     outputs: Tuple[TensorMeta, ...] = ()
     scope: Tuple[str, ...] = ()
+    #: a kernel call's logical work (M, K, N, products, bytes) or a
+    #: collective's (result bytes, group size); recorded with work=True
+    info: Tuple[int, ...] = ()
 
     @property
     def name(self) -> str:
@@ -104,6 +120,10 @@ class OpRecord:
     @property
     def is_kernel(self) -> bool:
         return self.op.startswith(KERNEL_SCOPE + ":")
+
+    @property
+    def is_collective(self) -> bool:
+        return self.op.startswith(COLLECTIVE + ":")
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -134,15 +154,87 @@ def _metas(obj) -> Tuple[TensorMeta, ...]:
 
 class _Recorder(TorchDispatchMode):
     """Records every op dispatched inside, and the kernel launches between
-    them (read from the wrappers' launch counters)."""
+    them (read from the wrappers' launch counters). ``work``: also the
+    work of every kernel call and collective, and the peak of the live
+    bytes of the storages the ops make (see the module docstring)."""
 
-    def __init__(self):
+    def __init__(self, work: bool = False):
         super().__init__()
         from repro_torch.serve.graph import launch_counted
 
         self.records: List[OpRecord] = []
         self._wrappers = [(fn, fn.entry) for fn in launch_counted()]
         self._seen = [fn.launches for fn, _ in self._wrappers]
+        self.work = work
+        # storage key -> (weak reference, bytes) of the storages made inside
+        self._live: Dict[int, Tuple[Any, int]] = {}
+        self._held = 0
+        self.peak_bytes = 0
+
+    def __enter__(self):
+        if self.work:
+            from repro_torch.analysis import contracts
+            from repro_torch.dist import collectives
+
+            contracts._CALL_SINKS.append(self._on_call)
+            collectives._SINKS.append(self._on_collective)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self.work:
+            from repro_torch.analysis import contracts
+            from repro_torch.dist import collectives
+
+            contracts._CALL_SINKS.remove(self._on_call)
+            collectives._SINKS.remove(self._on_collective)
+        return super().__exit__(*exc)
+
+    def _on_call(self, entry: str, call: Tuple[int, ...], out, launched: bool) -> None:
+        if launched:
+            # this launch is counted already: claim it here, with its work,
+            # after the launches no wrapper reported
+            i = [e for _, e in self._wrappers].index(entry)
+            self._seen[i] += 1
+            self.poll_launches()
+        self.records.append(OpRecord(f"{KERNEL_SCOPE}:{entry}", (), _metas(out),
+                                     current_scope(), tuple(call)))
+        self._track(_tensors(out, []), ())
+
+    def _on_collective(self, op: str, nbytes: int, n: int) -> None:
+        self.records.append(OpRecord(f"{COLLECTIVE}:{op}", scope=current_scope(),
+                                     info=(int(nbytes), int(n))))
+
+    def _track(self, outs: List[torch.Tensor], ins: List[torch.Tensor]) -> None:
+        """Count the storages of ``outs`` that no input shares and that are
+        not counted yet; the peak is exact (expired storages are swept
+        before a new peak is taken)."""
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        seen = {t.untyped_storage()._cdata for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in seen:
+                continue
+            seen.add(key)
+            held = self._live.get(key)
+            if held is not None and not held[0].expired():
+                continue
+            nbytes = st.nbytes()
+            if self._held + nbytes > self.peak_bytes:
+                self._sweep()
+            self._live[key] = (StorageWeakRef(st), nbytes)
+            self._held += nbytes
+            self.peak_bytes = max(self.peak_bytes, self._held)
+
+    def _sweep(self) -> None:
+        for key in [k for k, (ref, _) in self._live.items() if ref.expired()]:
+            self._held -= self._live.pop(key)[1]
+
+    def live_bytes(self) -> int:
+        """The bytes of the storages made inside that are still alive."""
+        self._sweep()
+        return self._held
 
     @classmethod
     def _should_skip_dynamo(cls) -> bool:
@@ -155,6 +247,7 @@ class _Recorder(TorchDispatchMode):
             moved = fn.launches - self._seen[i]
             if moved:
                 self._seen[i] = fn.launches
+                # launches no wrapper reported (a graph's replay): no work
                 self.records.extend([OpRecord(f"{KERNEL_SCOPE}:{entry}",
                                               scope=current_scope())] * moved)
 
@@ -162,8 +255,11 @@ class _Recorder(TorchDispatchMode):
         kwargs = kwargs or {}
         self.poll_launches()
         out = func(*args, **kwargs)
+        scope = current_scope()
         self.records.append(OpRecord(str(func), _metas((args, kwargs)), _metas(out),
-                                     current_scope()))
+                                     scope))
+        if self.work and not _in_kernel(scope):
+            self._track(_tensors(out, []), _tensors((args, kwargs), []))
         return out
 
 
@@ -175,6 +271,28 @@ def trace_ops(fn, args: Sequence[Any]) -> Tuple[OpRecord, ...]:
         fn(*args)
     rec.poll_launches()
     return tuple(rec.records)
+
+
+@dataclasses.dataclass
+class Recording:
+    """One call recorded with its work (``_Recorder(work=True)``): the trace, the peak of the live bytes of the storages
+    made inside it, the bytes of those still alive at its end (its
+    results) and what it returned."""
+
+    trace: Tuple[OpRecord, ...]
+    peak_bytes: int
+    end_bytes: int
+    out: Any
+
+
+def record_call(fn, *args) -> Recording:
+    """Run ``fn(*args)`` once under the recorder with kernel calls,
+    collectives and live bytes (the op analysis's input)."""
+    rec = _Recorder(work=True)
+    with rec:
+        out = fn(*args)
+    rec.poll_launches()
+    return Recording(tuple(rec.records), rec.peak_bytes, rec.live_bytes(), out)
 
 
 def total_ops(trace: Sequence[OpRecord]) -> int:

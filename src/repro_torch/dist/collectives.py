@@ -41,10 +41,23 @@ its values lie on the int8 grid, its bytes are f32's.
 
 :data:`COUNTS` counts the collectives this process ran, by name: a test
 reads how many a step takes.
+
+**The dry seam.** A :class:`DryGroup` stands for one axis of a grid that
+no process backs (``launch.mesh.dry_mesh``, rank 0 of the production
+mesh in the dry run, ``launch/dryrun.py``). Given one, every function
+here returns tensors of the right shape (an all-reduce the rank's own
+values, an all-gather the rank's part repeated), counts in
+:data:`COUNTS` as a real call does and moves nothing. Only a
+``DryGroup`` takes it: a real mesh's groups are gloo groups, which
+always run the collective. Real and dry calls alike report (op, result
+bytes, group size) to the installed sinks (the op analysis's recorder,
+``analysis.op_audit``), under the reference's HLO names
+(``"all-reduce"``, ``"all-gather"``).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Optional
 
 import torch
@@ -60,14 +73,51 @@ def reset_counts() -> None:
     COUNTS.clear()
 
 
+#: the recorders of collective calls (``op_audit``'s recorder with
+#: ``calls=True`` adds one while it runs): ``sink(op, result_bytes, n)``
+_SINKS: list = []
+
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """One axis of a grid that no process backs: ``size`` ranks, this
+    process rank 0 of them (see the module docstring)."""
+
+    size: int
+    axis: str = "model"
+
+
+def _dry(group) -> bool:
+    return isinstance(group, DryGroup)
+
+
+def group_size(group) -> int:
+    """The number of ranks in ``group`` (a gloo group or a DryGroup)."""
+    return group.size if _dry(group) else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (0 in a DryGroup)."""
+    return 0 if _dry(group) else dist.get_rank(group)
+
+
+def _note(op: str, out: torch.Tensor, group) -> None:
+    if _SINKS:
+        nbytes, n = out.numel() * out.element_size(), group_size(group)
+        for sink in tuple(_SINKS):
+            sink(op, nbytes, n)
+
+
 def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     """``x`` reduced over ``group`` ("sum" | "max"), out of place. The
     sum is exact where the rank partials add exactly (integer counts, or
     one nonzero contributor per element)."""
     out = x.clone(memory_format=torch.contiguous_format)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    dist.all_reduce(out, op=red, group=group)
+    if not _dry(group):
+        dist.all_reduce(out, op=red, group=group)
     COUNTS["all_reduce"] += 1
+    _note("all-reduce", out, group)
     return out
 
 
@@ -75,10 +125,15 @@ def all_gather(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (each
     rank's ``x`` of one shape). A copy: bit-exact for every dtype."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    if _dry(group):
+        parts = [x] * group.size
+    else:
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
     COUNTS["all_gather"] += 1
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _note("all-gather", out, group)
+    return out
 
 
 def compressed_psum_int8(x: torch.Tensor, group,
@@ -124,7 +179,7 @@ def mean_grads_int8(grad: torch.Tensor, group,
     returns the f32 mean on every rank. The reference's
     ``mean_grads_int8(mesh, grads, keys)`` takes the stacked shards of
     one program instead."""
-    return compressed_psum_int8(grad, group, generator) / dist.get_world_size(group)
+    return compressed_psum_int8(grad, group, generator) / group_size(group)
 
 
 def bucket_mean(tensors, group):
@@ -134,9 +189,11 @@ def bucket_mean(tensors, group):
     back to each tensor's dtype. Returns new tensors in order."""
     tensors = list(tensors)
     bucket = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+    if not _dry(group):
+        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
     COUNTS["all_reduce"] += 1
-    bucket /= dist.get_world_size(group)
+    _note("all-reduce", bucket, group)
+    bucket /= group_size(group)
     out, start = [], 0
     for t in tensors:
         n = t.numel()
@@ -152,8 +209,8 @@ def bucket_mean(tensors, group):
 
 def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` (the size over the group)."""
-    n = x.shape[dim] // dist.get_world_size(group)
-    return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+    n = x.shape[dim] // group_size(group)
+    return x.narrow(dim, group_rank(group) * n, n).contiguous()
 
 
 class _Copy(torch.autograd.Function):

@@ -17,9 +17,11 @@ K row 8r+j (layout 1: byte-row 2r pos, 2r+1 neg), and the weight is
 pos - neg (0 where both bits are set); x is (M, K) int8 codes with
 K <= 8*rows (missing columns are zero, which is inert). ``n_out`` keeps
 only the first logical columns of canonically padded planes. For a CUDA
-tensor each wrapper launches its kernel (or raises); for a CPU tensor it
-runs the plain version. Each wrapper's ``launches`` attribute counts its
-kernel launches, and ``last_plan`` holds the grid of its last launch. All
+tensor each wrapper launches its kernel (or raises); for a CPU or meta
+tensor it runs the plain version. Each wrapper's ``launches`` attribute
+counts its kernel launches and ``last_plan`` holds the grid of its last
+launch; every call, launched or plain, reports its logical work
+(``kernels.mac_call``) through ``contracts.report_call``. All
 three kernels are instances of the tile template of
 ``csrc/ternary_tile.cuh`` and take their grid from
 :func:`repro_torch.kernels.plan.launch_plan` at x's K and the logical
@@ -32,9 +34,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.analysis.contracts import kernel_scope
+from repro_torch.analysis.contracts import plain_call, report_call
 from repro_torch.core.ternary import deinterleave_planes
-from repro_torch.kernels import DECODE_M_MAX, _build
+from repro_torch.kernels import DECODE_M_MAX, PLAIN_DEVICES, _build, mac_call
 from repro_torch.kernels.plan import LaunchPlan, device_plan
 from repro_torch.kernels.ref import pad_axis, ref_packed_matmul, ref_packed_matmul_int
 
@@ -172,15 +174,18 @@ def packed_cim_matmul_decode(x: torch.Tensor, w_pos: torch.Tensor,
     if x.shape[0] > DECODE_M_MAX:
         raise ValueError(f"decode kernel takes M <= {DECODE_M_MAX}, "
                          f"got {x.shape[0]}")
-    if x.device.type == "cpu":
-        with kernel_scope(packed_cim_matmul_decode.entry):
-            return packed_decode_plain(x, w_pos, w_neg, n_out=n_out, block=block,
-                                       adc_max=adc_max, cim=cim)
+    call = mac_call(x.shape[0], x.shape[1], n_out, 2 if cim else 1,
+                    w_pos.numel() + w_neg.numel())
+    if x.device.type in PLAIN_DEVICES:
+        return plain_call(packed_cim_matmul_decode.entry, call, packed_decode_plain, x,
+                          w_pos, w_neg, n_out=n_out, block=block, adc_max=adc_max,
+                          cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_decode(x, w_pos, w_neg, n_out, adc_max, cim, plan)
     if used is not None:
         packed_cim_matmul_decode.launches += 1
         packed_cim_matmul_decode.last_plan = used
+        report_call(packed_cim_matmul_decode.entry, call, out, launched=True)
     return out
 
 
@@ -193,15 +198,18 @@ def packed_cim_matmul(x: torch.Tensor, w_pos: torch.Tensor,
     """Prefill-class packed MAC: x (M, K) int8 -> f32 (M, n_out).
     ``plan``: the grid on the card (default :func:`device_plan`)."""
     n_out = _check(x, w_pos, w_neg, n_out)
-    if x.device.type == "cpu":
-        with kernel_scope(packed_cim_matmul.entry):
-            return packed_matmul_plain(x, w_pos, w_neg, n_out=n_out, block=block,
-                                       adc_max=adc_max, cim=cim)
+    call = mac_call(x.shape[0], x.shape[1], n_out, 2 if cim else 1,
+                    w_pos.numel() + w_neg.numel())
+    if x.device.type in PLAIN_DEVICES:
+        return plain_call(packed_cim_matmul.entry, call, packed_matmul_plain, x,
+                          w_pos, w_neg, n_out=n_out, block=block, adc_max=adc_max,
+                          cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_prefill(x, w_pos, w_neg, n_out, adc_max, cim, plan)
     if used is not None:
         packed_cim_matmul.launches += 1
         packed_cim_matmul.last_plan = used
+        report_call(packed_cim_matmul.entry, call, out, launched=True)
     return out
 
 
@@ -271,15 +279,17 @@ def packed_cim_matmul_decode_stream(x: torch.Tensor, w_int: torch.Tensor, *,
     if x.shape[0] > DECODE_M_MAX:
         raise ValueError(f"stream decode kernel takes M <= {DECODE_M_MAX}, "
                          f"got {x.shape[0]}")
-    if x.device.type == "cpu":
-        with kernel_scope(packed_cim_matmul_decode_stream.entry):
-            return packed_decode_plain(x, w_pos, w_neg, n_out=n_out, block=block,
-                                       adc_max=adc_max, cim=cim)
+    call = mac_call(x.shape[0], x.shape[1], n_out, 2 if cim else 1, w_int.numel())
+    if x.device.type in PLAIN_DEVICES:
+        return plain_call(packed_cim_matmul_decode_stream.entry, call, packed_decode_plain, x,
+                          w_pos, w_neg, n_out=n_out, block=block, adc_max=adc_max,
+                          cim=cim)
     _cuda_ok(x, block)
     out, used = _launch_stream(x, w_int, n_out, adc_max, cim, nbuf, plan)
     if used is not None:
         packed_cim_matmul_decode_stream.launches += 1
         packed_cim_matmul_decode_stream.last_plan = used
+        report_call(packed_cim_matmul_decode_stream.entry, call, out, launched=True)
     return out
 
 

@@ -8,9 +8,11 @@ and their plain PyTorch versions.
     ``ternary_exact_matmul`` — the exact dot of the near-memory baseline.
 
 For a CUDA tensor each wrapper launches its kernel (or raises); for a CPU
-tensor it runs the plain version. Each wrapper's ``launches`` attribute
-counts its kernel launches and nothing else, and ``last_plan`` holds the
-grid of its last launch. Both kernels take their grid from
+or meta tensor it runs the plain version. Each wrapper's ``launches``
+attribute counts its kernel launches and nothing else and ``last_plan``
+holds the grid of its last launch; every call, launched or plain, reports
+its logical work (``kernels.mac_call``) through
+``contracts.report_call``. Both kernels take their grid from
 :func:`repro_torch.kernels.plan.launch_plan` (16-column tiles, and K
 split at 16-row block boundaries across a thread-block cluster of up to 8
 blocks, enough for the grid to fill the card's SMs) unless the caller
@@ -22,7 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.analysis.contracts import kernel_scope
+from repro_torch.analysis.contracts import plain_call, report_call
+from repro_torch.kernels import PLAIN_DEVICES, mac_call
 from repro_torch.kernels import _build
 from repro_torch.kernels.plan import LaunchPlan, device_plan
 from repro_torch.kernels.ref import pad_axis, ref_cim_matmul, ref_exact_matmul
@@ -51,10 +54,10 @@ def ternary_cim_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     """The kernel's function in plain PyTorch: x (M, K), w (K, N) ternary
     codes of any dtype (K zero-extended to whole blocks) -> f32 (M, N),
     over slices of x's rows of at most :data:`PLAIN_SLICE_BYTES` of
-    intermediates each."""
+    intermediates each (one call on the meta device, which holds none)."""
     x, w = pad_axis(x, block, 1), pad_axis(w, block, 0)
     rows = max(1, PLAIN_SLICE_BYTES // (6 * 4 * (x.shape[1] // block) * w.shape[1] or 1))
-    if x.shape[0] <= rows:
+    if x.shape[0] <= rows or x.is_meta:
         return ref_cim_matmul(x, w, block=block, adc_max=adc_max)
     return torch.cat([ref_cim_matmul(x[i:i + rows], w, block=block, adc_max=adc_max)
                       for i in range(0, x.shape[0], rows)])
@@ -112,15 +115,17 @@ def ternary_cim_matmul(x: torch.Tensor, w: torch.Tensor, *,
     contiguous, on one device; any M, K, N. Returns f32 (M, N). ``plan``:
     the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
-    if x.device.type == "cpu":
-        with kernel_scope(ternary_cim_matmul.entry):
-            return ternary_cim_matmul_plain(x, w, block=block, adc_max=adc_max)
+    call = mac_call(x.shape[0], x.shape[1], w.shape[1], 2, w.numel())
+    if x.device.type in PLAIN_DEVICES:
+        return plain_call(ternary_cim_matmul.entry, call, ternary_cim_matmul_plain,
+                          x, w, block=block, adc_max=adc_max)
     if block != DEFAULT_BLOCK:
         raise ValueError(f"the CUDA kernel implements block=16, got {block}")
     out, used = _launch_codes(ternary_cim_matmul.entry, x, w, int(adc_max), plan=plan)
     if used is not None:
         ternary_cim_matmul.launches += 1
         ternary_cim_matmul.last_plan = used
+        report_call(ternary_cim_matmul.entry, call, out, launched=True)
     return out
 
 
@@ -130,13 +135,14 @@ def ternary_exact_matmul(x: torch.Tensor, w: torch.Tensor, *,
     {-1, 0, 1}, contiguous, on one device; any M, K, N. Returns f32
     (M, N). ``plan``: the grid on the card (default :func:`device_plan`)."""
     _check_codes(x, w)
-    if x.device.type == "cpu":
-        with kernel_scope(ternary_exact_matmul.entry):
-            return exact_matmul_plain(x, w)
+    call = mac_call(x.shape[0], x.shape[1], w.shape[1], 1, w.numel())
+    if x.device.type in PLAIN_DEVICES:
+        return plain_call(ternary_exact_matmul.entry, call, exact_matmul_plain, x, w)
     out, used = _launch_codes(ternary_exact_matmul.entry, x, w, plan=plan)
     if used is not None:
         ternary_exact_matmul.launches += 1
         ternary_exact_matmul.last_plan = used
+        report_call(ternary_exact_matmul.entry, call, out, launched=True)
     return out
 
 

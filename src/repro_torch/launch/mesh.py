@@ -16,6 +16,9 @@ from inside one.
 sizes only (:class:`AbstractMesh`: no process behind it), for the
 sharding rules and :func:`mesh_batch_divisor`; :func:`make_smoke_mesh`
 is the reference's test mesh over the ranks this process can see.
+:func:`dry_mesh` makes rank 0 of an abstract grid, a :class:`TPMesh`
+whose groups are ``dist.collectives.DryGroup`` s, under which the
+collectives move nothing (the dry run, ``launch/dryrun.py``).
 
 The backend is gloo on the CPU and on the card alike: NCCL refuses two
 ranks on one GPU, and on one H100 the ranks share ``cuda:0``. Nothing
@@ -37,6 +40,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.dist.collectives import DryGroup
 # the reference's launch.mesh exports it; the data axis's rules own it
 from repro_torch.dist.sharding import mesh_batch_divisor  # noqa: F401
 
@@ -87,6 +91,20 @@ class AbstractMesh:
     @property
     def size(self) -> int:
         return math.prod(self.sizes)
+
+
+def dry_mesh(mesh: AbstractMesh) -> TPMesh:
+    """Rank 0 of ``mesh`` (an :class:`AbstractMesh`) as a :class:`TPMesh`
+    whose groups are ``DryGroup`` s, one for each axis (the data axis's
+    spans "pod" and "data"). The model runs on it as on a real rank's
+    mesh; its collectives return tensors of the right shape, are counted
+    and move nothing (``dist.collectives``)."""
+    sizes = mesh.shape
+    model = int(sizes.get("model", 1))
+    data = int(sizes.get("pod", 1)) * int(sizes.get("data", 1))
+    return TPMesh(DryGroup(model, "model"), 0, model, tuple(range(model)),
+                  AXIS_NAMES, data, 0, DryGroup(data, "data") if data > 1 else None,
+                  tuple(range(0, data * model, model)))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

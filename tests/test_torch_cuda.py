@@ -1533,3 +1533,37 @@ def test_cuda_grouped_moe_equals_row_blocks(cuda_device, divisor):
                             for i in range(divisor)])
     assert torch.equal(whole, blocks)
 
+
+
+@pytest.mark.cuda
+def test_cuda_op_analysis_counts_launches_and_meta_flops_equal(cuda_device):
+    """One eager train step of smoke smollm-135m (remat, CiM: #1 on every
+    dense layer) recorded on the card: every launch carries its (M, K, N),
+    and the dry run of the same step on the meta device counts the same
+    FLOPs by dtype and the same calls of #1."""
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.registry import ShapeCell
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_config("smollm-135m", smoke=True).replace(remat=True)
+    state = init_train_state(cfg, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=g, device=cuda_device)
+    batch = {"tokens": tokens, "labels": tokens}
+    before = tm.ternary_cim_matmul.launches
+    rec = op_analysis.record(make_train_step(cfg, AdamWConfig()), state, batch)
+    calls = 2 * 7 * cfg.n_layers
+    assert tm.ternary_cim_matmul.launches - before == calls
+    launched = [r for r in rec.trace if r.is_kernel]
+    assert len(launched) == calls
+    assert all(r.op == "kernel:ternary_cim_mac" and r.info[0] == 4 * 32 and r.info[3] == 2
+               for r in launched)
+    cost = op_analysis.analyze(rec.trace)
+    dry = lower_cell(cfg, ShapeCell("x", "train", 32, 4),
+                     mesh=AbstractMesh((1, 1), ("data", "model")), verbose=False)
+    assert dry.ok, dry.error
+    assert dry.op_cost["flops_by_dtype"] == dict(cost.flops_by_dtype)
+    assert dry.op_cost["kernel_calls"] == dict(cost.kernel_calls) == {"ternary_cim_mac": calls}

@@ -10,7 +10,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the card-only tests run where JAX is not installed, so they are held to
 # the same rule
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "torch_tp_ranks.py", ROOT / "tests" / "torch_threads.py",
     ROOT / "tests" / "torch_dp_ranks.py"]
@@ -45,10 +46,13 @@ def test_scan_sees_the_package():
             "dnn_suite.py", "workload.py", "cost_model.py", "accelerator.py",
             "site_cim.py", "calibrate.py", "replay.py", "sharding.py",
             "collectives.py", "mesh.py", "torch_tp_ranks.py", "contracts.py",
-            "op_audit.py", "lint.py", "report.py", "ops.py", "tp_replica.py"} <= names
+            "op_audit.py", "lint.py", "report.py", "ops.py", "tp_replica.py",
+            "op_analysis.py", "roofline.py", "dryrun.py", "hillclimb.py",
+            "quickstart.py", "cim_array_demo.py", "serve_ternary.py",
+            "train_ternary_lm.py"} <= names
     assert ROOT / "src" / "repro_torch" / "hw" / "registry.py" in PORT_FILES
     dirs = {p.parent.name for p in PORT_FILES}
-    assert {"profile", "frontdoor", "hw", "dist", "analysis"} <= dirs
+    assert {"profile", "frontdoor", "hw", "dist", "analysis", "launch", "torch"} <= dirs
 
 
 @pytest.fixture
@@ -86,6 +90,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
     # the front door's TP route raises before any rank process starts
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke", "--serve-http", "--tp", "2", "--selftest"])
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("quickstart", []), ("cim_array_demo", []), ("serve_ternary", []),
+    ("train_ternary_lm", ["--smoke", "--steps", "1"])])
+def test_examples_default_to_the_card(no_cuda, script, argv):
+    """The examples/torch twins run on cuda unless asked for the CPU."""
+    import importlib.util
+
+    path = ROOT / "examples" / "torch" / f"{script}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{script}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
 
 
 def test_serve_cli_runs_on_cpu_when_asked(no_cuda, capsys):

@@ -39,7 +39,8 @@ contract and its tolerances:
     partial gradients not summed) fails the gradient check, and so does
     the encoder output's one copy into the decoder's k/v made the
     identity (every encoder leaf's gradient);
-  * a step's collectives are the same at tp 2 and tp 4;
+  * a step's collectives are the same at tp 2 and tp 4, and the dry
+    run's (``launch.dryrun``, meta device) are the real rank step's;
   * elastic restore: a checkpoint written at model 2 restores on one
     device bit for bit (smollm's, and whisper's, whose Trainer takes its
     frames through ``batch_transform`` and replays a failure), and one
@@ -301,6 +302,23 @@ def test_collectives_a_step_equal_at_tp2_and_tp4(runs):
     assert two["launches"] == four["launches"]
     c = two["collectives"]
     assert c["gather"] == c["all_gather"] and c["copy"] > 0 and c["reduce"] > 0
+
+
+def test_dry_run_collectives_equal_the_rank_step(runs):
+    """The dry run (``launch.dryrun.lower_cell`` on the meta device, rank
+    0 of a (1, 2) grid that no process backs) calls the collectives of
+    zamba2's real rank step, by name and count
+    (``collectives.COUNTS`` of the (1, 2) group's one step)."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.registry import ShapeCell
+
+    cfg = R.case_cfg("zamba2-2.7b")
+    rows, seq = R.case_batches(cfg, 1)[0]["tokens"].shape
+    res = lower_cell(cfg, ShapeCell("counts", "train", seq, rows),
+                     mesh=AbstractMesh((1, 2), ("data", "model")), verbose=False)
+    assert res.ok, res.error
+    assert res.op_cost["collective_counts"] == runs[(1, 2)]["counts"]["collectives"]
 
 
 # ---------------------------------------------------------------------------
